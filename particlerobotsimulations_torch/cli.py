@@ -66,9 +66,12 @@ def cmd_simulate(args) -> int:
     sim.run(csv_path=params.csv_filename, echo=not args.quiet)
     wall = time.time() - t0
     steps = params.n_steps()
+    path = sim.backend.name
+    if getattr(sim._run_chunk, "path_info", {}).get("use_mega"):
+        path += " span path"
     print(
         f"simulated {steps * params.timestep:g} sim-s ({steps} steps, "
-        f"{params.n_cells} bots, {sim.backend.name} on {sim.device}) in "
+        f"{params.n_cells} bots, {path} on {sim.device}) in "
         f"{wall:.1f} s wall "
         f"({steps * params.n_cells / max(wall, 1e-9) / 1e6:.2f} M particle-steps/s)",
         file=sys.stderr,

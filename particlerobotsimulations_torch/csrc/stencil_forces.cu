@@ -24,23 +24,20 @@
 // need atomics or a second pass, so each thread gathers its full 3x3
 // neighbourhood instead (the non-Newton form the JAX package's
 // _make_kernel_ext computes).  There are no atomics, so the result is
-// deterministic.  The pair math follows _pair_block term for term, with
-// 1.0f / sqrtf(d2) where the TPU used rsqrt, and kernels.py builds with
-// -fmad=false: every product and sum rounds as PyTorch's separate
-// elementwise ops round it, so this kernel and its plain twin agree to the
-// order of summation.  (The magnet ramp multiplies the rounding error of
+// deterministic.  The pair math (pair_math.cuh, shared with kernel 3)
+// follows _pair_block term for term, with 1.0f / sqrtf(d2) where the TPU
+// used rsqrt, and kernels.py builds with -fmad=false: every product and sum
+// rounds as PyTorch's separate elementwise ops round it, so this kernel and
+// its plain twin agree to the order of summation.  (The magnet ramp multiplies the rounding error of
 // the gap dist - cd by ~1e4; with contracted FMAs a ramp pair's force moved
 // by ~3e-4 against the twin.)  Shared-memory cell tiles and Newton halving
 // are left for later.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "pair_math.cuh"
 
-struct PairConsts {
-  float cutoff, spring, damping, shear, attraction;
-  float int1, int2, min_attr, inv_int2_sq, inv_int_span;
-};
+namespace {
 
 __global__ void stencil_forces_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
@@ -62,7 +59,6 @@ __global__ void stencil_forces_kernel(
     const float pxt = px[row], pyt = py[row];
     const float vxt = vx[row], vyt = vy[row];
     const float aft = afac ? afac[row] : 1.f;
-    const float eps2 = 1.0e-12f * 1.0e-12f;
 
     for (int oy = -1; oy <= 1; ++oy) {
       const int ny = (y + oy + g) % g;
@@ -74,43 +70,8 @@ __global__ void stencil_forces_kernel(
           const float rc = rad[j];
           if (!(rc > 0.f)) continue;
 
-          const float dx = px[j] - pxt;
-          const float dy = py[j] - pyt;
-          const float d2 = dx * dx + dy * dy + eps2;
-          const float inv = 1.0f / sqrtf(d2);
-          const float dist = d2 * inv;
-          const float nx = dx * inv;
-          const float ny_ = dy * inv;
-          const float cd = rt + rc;
-
-          if (dist < cd) {
-            // DEM spring + dashpot + shear (particlebot_kernel_impl.cuh:560-573)
-            const float rvx = vx[j] - vxt;
-            const float rvy = vy[j] - vyt;
-            const float vn = rvx * nx + rvy * ny_;
-            const float tx = rvx - vn * nx;
-            const float ty = rvy - vn * ny_;
-            const float fcx = -k.spring * (cd - dist) * nx + k.damping * rvx + k.shear * tx;
-            const float fcy = -k.spring * (cd - dist) * ny_ + k.damping * rvy + k.shear * ty;
-            sx += fcx;
-            sy += fcy;
-            sr += sqrtf(fcx * fcx + fcy * fcy);
-          } else if (dist < k.cutoff) {
-            // three-piece magnet law (particlebot_kernel_impl.cuh:576-593)
-            const float gap = dist - cd;
-            const float attr = afac ? k.attraction * aft * afac[j] : k.attraction;
-            float mag;
-            if (gap < k.int1) {
-              mag = k.min_attr;
-            } else if (gap < k.int2) {
-              mag = k.min_attr + (attr * k.inv_int2_sq - k.min_attr) * k.inv_int_span * (gap - k.int1);
-            } else {
-              mag = attr / (gap * gap);
-            }
-            sx += mag * nx;
-            sy += mag * ny_;
-            sa += mag;
-          }
+          pair_accumulate(k, px, py, vx, vy, afac, j, rc, pxt, pyt, vxt, vyt,
+                          rt, aft, sx, sy, sa, sr);
         }
       }
     }

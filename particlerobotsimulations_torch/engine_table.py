@@ -21,11 +21,15 @@ Op order per step matches ``engine.make_step`` and the reference
 positions), phase, radius (one-step-lag force feedback), integrate, then
 (on rebuild steps) the slot rebuild, then collide, obstacles and friction.
 
-What is not carried over from the JAX loop is its schedule machinery for
-the TPU: gate segments scanned with traced conds, deferred fallback groups,
-block unrolling, the megakernel span path and the ``PBOT_*`` switches.  A
-Python loop over steps, with every gate decided from the host-side step
-counter, fires the same gates and rebuilds on the same steps.
+A Python loop over steps, with every gate decided from the host-side step
+counter, fires the same gates and rebuilds on the same steps as the JAX
+loop's segment scan.  Small tables (``ops/megakernel.mega_eligible``) run
+the ungated part of each gate segment through the megakernel span path:
+one launch of kernel 3 per rebuild block, with the slot rebuild between
+spans, and the whole segment redone on the regular path when a rebuild's
+preconditions fail.  Not carried over from the JAX loop: its TPU schedule
+machinery (traced conds, deferred fallback groups, block unrolling) and
+the ``PBOT_*`` switches.
 """
 
 from __future__ import annotations
@@ -285,6 +289,63 @@ def gate_seg(params: SimParams) -> int:
     return seg
 
 
+def _make_mega_glue(params: SimParams):
+    """(mega_pack, mega_unpack, incremental_packed) — the glue around the
+    megakernel span (``ops/megakernel.py``) for one scene."""
+    total, _, n_pad = _geometry(params)
+    g = params.resolved_grid_dim()
+    cs = params.storage_capacity()
+    s_sub = n_pad // 128
+
+    # MOVE_FIELDS are TABLE_FIELDS rows [0:6] + [7:9] + [12], so the packed
+    # rebuild slices and concatenates whole plane groups
+    assert TABLE_FIELDS[:6] + TABLE_FIELDS[7:9] + TABLE_FIELDS[12:13] == MOVE_FIELDS
+
+    def mega_pack(fields: dict):
+        tbl = torch.stack(
+            [fields[kf][:total].reshape(cs, g * g) for kf in TABLE_FIELDS]
+        )
+        strip = torch.stack(
+            [fields[kf][total:].reshape(s_sub, 128) for kf in TABLE_FIELDS]
+        )
+        return tbl, strip
+
+    def mega_unpack(tbl, strip) -> dict:
+        return {
+            kf: torch.cat([tbl[j].reshape(total), strip[j].reshape(n_pad)])
+            for j, kf in enumerate(TABLE_FIELDS)
+        }
+
+    def incremental_packed(tbl, origin):
+        """Unconditional incremental rebuild on the stacked (N_TF, C, G*G)
+        planes: MOVE_FIELDS move through the compaction (kernel 2), pay and
+        afac are re-derived from the moved bid plane, aa and ar (rows 9:11)
+        stay unmoved (dead values between integrate and collide).  Returns
+        (tbl', ok); when ``ok`` is False the planes are garbage that the
+        caller discards.  The parking strip is not touched."""
+        from .ops.table_rebuild import incremental_rebuild_planes
+
+        planes = torch.cat([tbl[0:6], tbl[7:9], tbl[12:13]], dim=0)
+        new_planes, ok = incremental_rebuild_planes(
+            params, planes, MOVE_FIELDS, origin
+        )
+        pay, afac = _payload_afac(params, new_planes[5] > 0.5, new_planes[8])
+        new_tbl = torch.cat(
+            [
+                new_planes[0:6],
+                afac[None],
+                new_planes[6:8],
+                tbl[9:11],
+                pay[None],
+                new_planes[8:9],
+            ],
+            dim=0,
+        )
+        return new_tbl, ok
+
+    return mega_pack, mega_unpack, incremental_packed
+
+
 def make_table_step_parts(params: SimParams, phase_fn=None):
     """(step_pre, step_post): the physics step split around the rebuild.
 
@@ -394,25 +455,85 @@ def make_run_chunk_table(params: SimParams, phase_fn=None):
     rebuilds iff ``j % K == K - 1`` (chunk entry re-anchors and reassigns
     anyway); for K > 8 the absolute rule ``step % K == K - 1``.  Every
     step's interval gates are decided from the host step counter, which
-    fires the same gates as the JAX loop's segment scan, so ``seg_aligned``
-    is accepted for the signature and ignored here (the adaptive runner
-    reads it)."""
+    fires the same gates as the JAX loop's segment scan.
+
+    On a mega-eligible table (``path_info["use_mega"]``) a ``seg_aligned``
+    chunk (entry step a multiple of ``gate_seg``) runs each whole gate
+    segment with ``seg // K > 1`` as: the gated first block minus its last
+    post, ``seg // K - 1`` megakernel spans each followed by the
+    unconditional incremental rebuild, and the last post.  The rebuilds'
+    ``ok`` flags are ANDed on the device and read once per segment; when
+    one failed, the segment is redone on the regular per-step path from its
+    entry state (fields, origin, centroid ring and generator state), which
+    then takes the exact fallback where it is due.  ``run_chunk.redos``
+    counts those redos.  The span path rebuilds on the same steps as the
+    regular schedule; unaligned chunks and remainder steps run the regular
+    path, so ``seg_aligned=False`` is the A/B of the regular schedule."""
     params = params.validate()
     step = make_table_step(params, phase_fn)
+    step_pre, step_post = make_table_step_parts(params, phase_fn)
     k = max(1, params.resolved_slot_rebuild_steps())
     seg = gate_seg(params)
 
-    def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
-        ts = enter_table(params, state)
-        for j in range(n_steps):
+    from .ops.megakernel import make_mega_span, mega_eligible
+
+    use_mega = mega_eligible(params)
+    bps = seg // k if seg > 0 else 0
+    if use_mega:
+        mega = make_mega_span(params, _geometry(params)[2])
+        mega_pack, mega_unpack, incremental_packed = _make_mega_glue(params)
+
+    def regular_steps(ts: TableState, n: int) -> TableState:
+        for j in range(n):
             rebuild = ts.step % k == k - 1 if k > 8 else j % k == k - 1
             ts = step(ts, *_gates(params, ts.step), rebuild)
+        return ts
+
+    def mega_seg(ts: TableState) -> TableState:
+        """One gate segment through the span path, or the regular path
+        from the same entry state when a rebuild's preconditions failed."""
+        entry = (
+            dict(ts.fields), ts.origin, ts.step, ts.centroid_ring.clone(),
+            ts.generator.get_state(),
+        )
+        # the gated first block minus its last post: that post belongs to
+        # an ungated step and opens the first span
+        for _ in range(k - 1):
+            ts = step(ts, *_gates(params, ts.step), False)
+        ts = _smart_rebuild(params, step_pre(ts, *_gates(params, ts.step)))
+        tbl, strip = mega_pack(ts.fields)
+        ok_all = torch.ones((), dtype=torch.bool, device=tbl.device)
+        first = ts.step + 1
+        for b in range(bps - 1):
+            tbl, strip = mega(tbl, strip, first + b * k)
+            tbl, ok = incremental_packed(tbl, ts.origin)
+            ok_all = ok_all & ok
+        if bool(ok_all.item()):
+            # the last span ended mid-step first + (bps-1)*k - 1, after
+            # pre + rebuild: its post completes the segment
+            mid = ts.replace(
+                fields=mega_unpack(tbl, strip), step=first + (bps - 1) * k - 1
+            )
+            return step_post(mid)
+        run_chunk.redos += 1
+        fields, origin, step0, ring, rng = entry
+        ts.generator.set_state(rng)
+        ts = ts.replace(fields=fields, origin=origin, step=step0, centroid_ring=ring)
+        return regular_steps(ts, seg)
+
+    def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
+        ts = enter_table(params, state)
+        n_segs = 0
+        if use_mega and seg_aligned and bps > 1:
+            n_segs = n_steps // seg
+            for _ in range(n_segs):
+                ts = mega_seg(ts)
+        ts = regular_steps(ts, n_steps - n_segs * seg)
         return exit_table(params, ts)
 
-    # the JAX runner's megakernel span path is not ported: the regular
-    # table loop runs in its band (ROADMAP queue 2 item 3)
+    run_chunk.redos = 0
     run_chunk.path_info = {
-        "use_mega": False,
+        "use_mega": use_mega,
         "gate_seg": seg,
         "slot_rebuild_steps": k,
     }

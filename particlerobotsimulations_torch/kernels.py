@@ -1,9 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-The sources in ``csrc/*.cu`` have a plain C interface (no PyTorch headers).
-On first use they are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library under ``_build/``, named by a hash of the sources and flags,
-and loaded with ``ctypes``.  Nothing is built when this module is imported.
+The sources in ``csrc/*.cu`` have a plain C interface (no PyTorch headers)
+and share ``csrc/*.cuh``.  On first use each ``.cu`` is compiled by its own
+``nvcc`` for Hopper (``sm_90a``), all at once, and the objects are linked
+into one shared library under ``_build/``, named by a hash of the sources,
+headers and flags, and loaded with ``ctypes``.  Nothing is built when this
+module is imported.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -11,7 +13,7 @@ if ``cudaGetLastError`` reports a failed launch, and adds one to its entry
 in :data:`LAUNCHES`.  There is no fallback: a missing ``nvcc``, a failed
 build or a failed launch raises.  The plain PyTorch twins that CPU tensors
 use live beside their callers (``ops/pallas_stencil.py``,
-``ops/table_rebuild.py``).
+``ops/table_rebuild.py``, ``ops/megakernel.py``).
 """
 
 from __future__ import annotations
@@ -23,19 +25,20 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from .config import SimParams
+from .config import SimParams, padded_n
 
 # launches per kernel; the main path's callers read these to show that a
 # run went through the kernels
-LAUNCHES = {"stencil_forces": 0, "compact": 0}
+LAUNCHES = {"stencil_forces": 0, "compact": 0, "mega_span": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -59,12 +62,28 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
+    """The library's path, named by a hash of every source and header in
+    ``CSRC`` and of the flags."""
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpbot_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list) -> str:
+    """Run the commands at once; their joined output, or raise on the
+    first that failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> ctypes.CDLL:
@@ -74,17 +93,20 @@ def build() -> ctypes.CDLL:
         return _lib
     so = library_path()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        objdir = BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
+        objdir.mkdir(parents=True, exist_ok=True)
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [str(objdir / f"{src.stem}.o") for src in srcs]
+        log = _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for src, obj in zip(srcs, objs)
+        ])
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
-        BUILD_LOG = res.stdout + res.stderr
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]])
+        BUILD_LOG = log
         os.replace(tmp, so)
+        shutil.rmtree(objdir, ignore_errors=True)
     lib = ctypes.CDLL(str(so))
     lib.pbot_stencil_forces.argtypes = (
         [_vp] * 10 + [_i, _i] + [_f] * 10 + [_vp]
@@ -92,6 +114,10 @@ def build() -> ctypes.CDLL:
     lib.pbot_stencil_forces.restype = _i
     lib.pbot_compact.argtypes = [_vp, _vp, _vp, _i, _i, _i, _vp]
     lib.pbot_compact.restype = _i
+    lib.pbot_mega_span.argtypes = (
+        [_vp] * 4 + [_i] * 5 + [_vp, _i, _vp, _i, _vp, _i, _i, _vp]
+    )
+    lib.pbot_mega_span.restype = _i
     _lib = lib
     return lib
 
@@ -160,3 +186,71 @@ def compact_cuda(params: SimParams, planes: torch.Tensor):
     _raise_on(err, "compact")
     LAUNCHES["compact"] += 1
     return out, incoming
+
+
+def mega_constants(params: SimParams) -> tuple:
+    """Kernel 3's float32 parameters, in the order of ``MegaConsts`` in
+    ``csrc/mega_span.cu``: the pair law, dt, the radius controller, the
+    world box and the obstacle / friction constants.  The kernel folds
+    them with the twin's expressions, in the twin's order."""
+    from .ops.actuation import MAX_SPEED, PHASE_FROZEN
+    from .ops.pallas_stencil import pair_constants
+
+    p = params
+    f = np.float32
+    return pair_constants(p) + tuple(float(f(v)) for v in (
+        p.timestep,
+        p.wave_period(), p.rise_period, p.min_radius, p.max_radius,
+        p.constraint, MAX_SPEED, PHASE_FROZEN,
+        1.0 if p.constrained_contraction else 0.0, p.constraint_contraction,
+        p.world_half, p.boundary_damping,
+        p.spring, p.damping, p.shear, p.friction, p.friction_factor,
+        p.gravity, p.mass_factor, 1.0 / p.mass_factor,
+    ))
+
+
+def obstacle_buffers(params: SimParams, device) -> tuple:
+    """(rects (n, 4), circles (n, 3)) float32 tensors on ``device`` for
+    kernel 3: (x1, x2, y1, y2) and (x, y, r) per obstacle."""
+    def buf(rows, width):
+        return torch.tensor(
+            [float(np.float32(v)) for row in rows for v in row],
+            dtype=torch.float32, device=device,
+        ).reshape(len(rows), width)
+
+    return buf(params.rect_obstacles, 4), buf(params.circle_obstacles, 3)
+
+
+def mega_span_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
+                   step: int, rects: torch.Tensor, circles: torch.Tensor):
+    """Kernel 3 on CUDA tensors: one ungated span from mid-step ``step - 1``
+    -> (tbl', strip').  ``tbl`` is (13, C, G*G), ``strip`` (13, n_pad//128,
+    128); ``rects`` and ``circles`` come from :func:`obstacle_buffers`."""
+    from .engine_table import N_TF
+
+    g, cs = params.resolved_grid_dim(), params.storage_capacity()
+    n_pad = padded_n(params)
+    _check("tbl", tbl, (N_TF, cs, g * g))
+    _check("strip", strip, (N_TF, n_pad // 128, 128))
+    _check("rects", rects, (len(params.rect_obstacles), 4))
+    _check("circles", circles, (len(params.circle_obstacles), 3))
+    for name, t in (("strip", strip), ("rects", rects), ("circles", circles)):
+        if t.device != tbl.device:
+            raise ValueError(f"{name}: on {t.device}, tbl on {tbl.device}")
+    lib = build()
+    consts = mega_constants(params)
+    carr = (ctypes.c_float * len(consts))(*consts)
+    tbl_out = torch.empty_like(tbl)
+    strip_out = torch.empty_like(strip)
+    k = max(1, params.resolved_slot_rebuild_steps())
+    err = lib.pbot_mega_span(
+        tbl.data_ptr(), strip.data_ptr(), tbl_out.data_ptr(), strip_out.data_ptr(),
+        cs, g, n_pad, k, int(step),
+        ctypes.cast(carr, _vp), len(consts),
+        rects.data_ptr() if rects.numel() else None, rects.shape[0],
+        circles.data_ptr() if circles.numel() else None, circles.shape[0],
+        int(params.has_payload), _stream(tbl_out),
+    )
+    _raise_on(err, "mega_span")
+    LAUNCHES["mega_span"] += 1
+    return tbl_out, strip_out

@@ -13,8 +13,21 @@ import torch
 
 import particlerobotsimulations_torch as pt
 from particlerobotsimulations_torch import kernels
-from particlerobotsimulations_torch.engine_table import make_run_chunk_table
-from particlerobotsimulations_torch.ops.pallas_stencil import stencil_forces_plain
+from particlerobotsimulations_torch.engine_table import (
+    N_TF,
+    TABLE_FIELDS,
+    _gates,
+    _geometry,
+    _make_mega_glue,
+    enter_table,
+    make_run_chunk_table,
+    make_table_step_parts,
+)
+from particlerobotsimulations_torch.ops.megakernel import make_mega_span, mega_span_plain
+from particlerobotsimulations_torch.ops.pallas_stencil import (
+    pair_constants,
+    stencil_forces_plain,
+)
 from particlerobotsimulations_torch.ops.table_rebuild import compact_plain
 from particlerobotsimulations_torch.state import state_from_arrays, state_to_arrays
 
@@ -106,3 +119,76 @@ def test_table_loop_on_card_matches_cpu(card):
     b = state_to_arrays(run(state_from_arrays(p, arrays, "cpu"), 12))
     np.testing.assert_allclose(a["pos"], b["pos"], atol=1e-5)
     np.testing.assert_allclose(a["vel"], b["vel"], atol=1e-4)
+
+
+def test_mega_span_kernel_matches_twin(card):
+    """Kernel 3 against its twin on one span of a 1000-bot HEX swarm after
+    200 steps, with chip_smoke.py's tolerances: 1e-5 for px, py, rad;
+    kernel 1's form for aa, ar and vx, vy, plus the force that the span's
+    position differences cost through the magnet ramp (6 pairs x slope x
+    2 dpos, times dt for the velocities); the other fields equal."""
+    p = pt.SimParams(
+        n_cells=1000, n_dead=0, seed=3, config=pt.Config.HEX, light_x=-5.0,
+    ).validate()
+    sim = pt.Simulation(p, device=card)
+    assert sim._run_chunk.path_info["use_mega"]
+    sim.step_chunk(200, start_step=0)
+    ts = enter_table(p, sim.state)
+    ts = make_table_step_parts(p)[0](ts, *_gates(p, ts.step))
+    tbl, strip = _make_mega_glue(p)[0](ts.fields)
+    n0 = kernels.LAUNCHES["mega_span"]
+    got = make_mega_span(p, _geometry(p)[2])(tbl, strip, ts.step + 1)
+    assert kernels.LAUNCHES["mega_span"] == n0 + 1
+    want = mega_span_plain(p, tbl, strip, ts.step + 1)
+    ix = {f: j for j, f in enumerate(TABLE_FIELDS)}
+    dpos = max(
+        float((a[ix[f]] - b[ix[f]]).abs().max())
+        for a, b in zip(got, want) for f in ("px", "py")
+    )
+    (_, _, _, _, attr, _, _, mina, inv_i2_sq, inv_span) = pair_constants(p)
+    slack = 6 * abs(attr * inv_i2_sq - mina) * inv_span * 2 * dpos
+    for a, b in zip(got, want):
+        summed = b[ix["aa"]] + b[ix["ar"]]
+        for field, j in ix.items():
+            d = (a[j] - b[j]).abs()
+            if field in ("aa", "ar"):
+                tol = 1e-4 + 1e-5 * b[j].abs() + slack
+            elif field in ("vx", "vy"):
+                tol = 1e-4 + 1e-5 * b[j].abs() + 1e-5 * summed + slack * p.timestep
+            elif field in ("px", "py", "rad"):
+                tol = torch.full_like(d, 1e-5)
+            else:
+                tol = torch.zeros_like(d)
+            assert bool((d <= tol).all()), (field, float(d.max()), dpos)
+
+
+def test_forced_redo_on_card_equals_regular_run(card):
+    """A 60 u/s kick makes the spans' rebuilds refuse: the segment is redone
+    on the regular path, and the result is the regular run's, bit for bit
+    (the card's kernels are deterministic)."""
+    p = pt.SimParams(
+        n_cells=128, n_dead=0, seed=3, config=pt.Config.HEX,
+        force_backend=pt.ForceBackend.PALLAS, light_x=-5.0, phase_std=0.5,
+        centroid_int=0.08, phase_update_interval=0.16,
+    )
+    arrays = state_to_arrays(pt.Simulation(p, device="cpu").state)
+    arrays["vel"][7, 0] += 60.0
+    run = make_run_chunk_table(p)
+    n0 = kernels.LAUNCHES["mega_span"]
+    a = run(state_from_arrays(p, arrays, card), 8, True)
+    b = run(state_from_arrays(p, arrays, card), 8, False)
+    assert kernels.LAUNCHES["mega_span"] > n0 and run.redos >= 1
+    sa, sb = state_to_arrays(a), state_to_arrays(b)
+    for k in sa:
+        assert np.array_equal(sa[k], sb[k]), k
+
+
+def test_mega_span_wrapper_refuses_cpu_tensors():
+    p = pt.SimParams(n_cells=300, n_dead=0, grid_dim=16).validate()
+    g, cs = p.resolved_grid_dim(), p.storage_capacity()
+    n_pad = _geometry(p)[2]
+    tbl = torch.zeros((N_TF, cs, g * g))
+    strip = torch.zeros((N_TF, n_pad // 128, 128))
+    rects, circles = kernels.obstacle_buffers(p, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.mega_span_cuda(p, tbl, strip, 1, rects, circles)

@@ -22,6 +22,10 @@ from particlerobotsimulations_torch.models import placement as pt_place
 from particlerobotsimulations_torch.state import state_from_arrays, state_to_arrays
 from particlerobotsimulations_tpu.models import placement as pj_place
 
+# The port's CPU tests run small tables: one intra-op thread is faster than
+# a pool, and pools oversubscribe the cores when test workers share them.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(ROOT, "examples", "*.cfg")))
 STATE_KEYS = (

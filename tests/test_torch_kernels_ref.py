@@ -23,12 +23,17 @@ import particlerobotsimulations_torch as pt
 import particlerobotsimulations_tpu as pj
 from particlerobotsimulations_torch import kernels
 from particlerobotsimulations_torch import engine_table as t_et
+from particlerobotsimulations_torch.ops import megakernel as t_mk
 from particlerobotsimulations_torch.ops import pallas_stencil as t_ps
 from particlerobotsimulations_torch.ops import table_rebuild as t_tr
 from particlerobotsimulations_torch.state import state_from_arrays
 from particlerobotsimulations_tpu import engine_table as j_et
 from particlerobotsimulations_tpu.ops import pallas_stencil as j_ps
 from particlerobotsimulations_tpu.ops import table_rebuild as j_tr
+
+# The port's CPU tests run small tables: one intra-op thread is faster than
+# a pool, and pools oversubscribe the cores when test workers share them.
+torch.set_num_threads(1)
 
 STATE_KEYS = (
     "pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r",
@@ -223,3 +228,46 @@ def test_wrappers_refuse_cpu_tensors():
         kernels.compact_cuda(tp, torch.zeros((11, cap, g * g)))
     with pytest.raises(ValueError, match="unsupported device"):
         t_ps.stencil_forces(tp, {k: v.to("meta") for k, v in tables.items()})
+    n_pad = t_et._geometry(tp)[2]
+    tbl = torch.zeros((t_et.N_TF, cap, g * g))
+    strip = torch.zeros((t_et.N_TF, n_pad // 128, 128))
+    with pytest.raises(ValueError, match="unsupported device"):
+        t_mk.make_mega_span(tp, n_pad)(tbl.to("meta"), strip.to("meta"), 1)
+
+
+def test_library_hash_covers_headers(tmp_path, monkeypatch):
+    """An edit to a shared header must name a new library, or a stale one
+    would be reused."""
+    for src in kernels.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = kernels.library_path()
+    header = tmp_path / "pair_math.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = kernels.library_path()
+    assert after != before and after.parent == before.parent
+    (tmp_path / "notes.txt").write_text("not a source")
+    assert kernels.library_path() == after
+
+
+def test_mega_constants_order():
+    """kernel 3's constants: the pair law first, then dt — as MegaConsts in
+    csrc/mega_span.cu lays them out."""
+    _, tp = params_pair(constrained_contraction=1)
+    c = kernels.mega_constants(tp)
+    src = (kernels.CSRC / "mega_span.cu").read_text()
+    body = src[src.index("struct MegaConsts {"):src.index("};", src.index("struct MegaConsts {"))]
+    decl = body.split("PairConsts pair;")[1]
+    names = [
+        n.strip() for line in decl.splitlines()
+        for n in line.split("//")[0].replace("float", "").replace(";", "").split(",")
+        if n.strip()
+    ]
+    assert len(c) == len(t_ps.pair_constants(tp)) + len(names)
+    assert c[: len(t_ps.pair_constants(tp))] == t_ps.pair_constants(tp)
+    got = dict(zip(names, c[len(t_ps.pair_constants(tp)):]))
+    assert got["dt"] == float(np.float32(tp.timestep))
+    assert got["constrained"] == 1.0 and got["cc"] == float(np.float32(tp.constraint_contraction))
+    assert got["inv_mass_factor"] == float(np.float32(1.0 / tp.mass_factor))
+    assert got["half"] == float(np.float32(tp.world_half))

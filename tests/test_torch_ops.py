@@ -34,6 +34,10 @@ from particlerobotsimulations_tpu.ops import grid as j_grid
 from particlerobotsimulations_tpu.ops import pallas_stencil as j_ps
 from particlerobotsimulations_tpu.ops import phase as j_phase
 
+# The port's CPU tests run small tables: one intra-op thread is faster than
+# a pool, and pools oversubscribe the cores when test workers share them.
+torch.set_num_threads(1)
+
 # the JAX ops package re-exports the integrate FUNCTION under the module's name
 j_int = importlib.import_module("particlerobotsimulations_tpu.ops.integrate")
 

@@ -27,6 +27,10 @@ from particlerobotsimulations_torch.state import state_from_arrays, state_to_arr
 from particlerobotsimulations_tpu import engine_table as j_et
 from particlerobotsimulations_tpu.engine import make_step as j_make_step
 
+# The port's CPU tests run small tables: one intra-op thread is faster than
+# a pool, and pools oversubscribe the cores when test workers share them.
+torch.set_num_threads(1)
+
 STATE_KEYS = (
     "pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r",
     "centroid_ring", "step",
@@ -244,6 +248,7 @@ def test_simulation_pallas_health_and_grid_guard():
     sim.step_chunk(4, start_step=0)
     h = sim.health()
     assert h["finite"] and h["cell_overflow"] == 0
-    assert sim._run_chunk.path_info["use_mega"] is False
+    # G=16: a mega-eligible table, so seg-aligned chunks take the span path
+    assert sim._run_chunk.path_info["use_mega"] is True
     with pytest.raises(ValueError, match="grid_dim"):
         pt.Simulation(tp.replace(n_cells=2000, grid_dim=16), device="cpu")
