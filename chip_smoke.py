@@ -34,7 +34,27 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    regular path from one state, the span path's device busy share under
    ``torch.profiler``; DENSE against the span path on
    ``examples/example_obstacle.cfg`` (500 bots); and the gap scene on the
-   regular loop at the table its layout needs.
+   regular loop at the table its layout needs;
+9. the sharded table loop (``parallel/spatial_table.py``) on a
+   ``LocalRing(4)`` on the card, at bench.py's workload resolved to G=64
+   (4 shards of 1,024 lanes, 256-lane halos): kernel 4 and kernel 2's
+   padded form against their twins after 200 steps, and the padded form on
+   a synthetic stack whose rows cross both shard boundaries and overflow
+   one lane; 10k sharded against the single-table loop (16 steps per bot,
+   112 steps macrostate, a 6 u/s drift across the boundaries); the forced
+   global fallback (64 bots at 50 u/s) and the overflow spill rows (600
+   bots, 8 + 8 slots) against the single-table loop; 1,000 steps of the
+   10k sharded path (the counters reset just before) against 1,000 of the
+   single-table loop, with the launch counts checked and the sharded
+   path's busy share under ``torch.profiler``; 200 steps at 100,000 bots
+   (G=160) under the auto config through both loops (parked bots and
+   fallbacks printed) and with 8 spill rows (none may be parked); and
+   ``DistRing`` over NCCL when the machine has two cards.
+
+Kernels 1, 2 and 4 are timed per launch from replays of a CUDA graph of
+20 launches, so their wrappers' host-side checks stay out of the time;
+kernel 3 (one launch per span, ~0.7 ms) and the plain twins are timed
+per call with CUDA events.
 
 Any failure raises and exits non-zero.  The last two lines are the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -67,14 +87,27 @@ from particlerobotsimulations_torch.engine_table import (
 )
 from particlerobotsimulations_torch.ops.megakernel import mega_span_plain
 from particlerobotsimulations_torch.ops.pallas_stencil import (
+    FIELDS as KERNEL_FIELDS,
+    assign_slots_slotmajor,
     pair_constants,
+    stencil_forces_ext_plain,
     stencil_forces_plain,
 )
 from particlerobotsimulations_torch.ops.table_rebuild import (
+    compact_padded_plain,
     compact_plain,
     rebuild_move_planes,
 )
-from particlerobotsimulations_torch.state import state_from_arrays, state_to_arrays
+from particlerobotsimulations_torch.parallel.ring import LocalRing
+from particlerobotsimulations_torch.parallel.spatial_table import (
+    HALO_ROWS,
+    make_sharded_table_run,
+)
+from particlerobotsimulations_torch.state import (
+    active_mask,
+    state_from_arrays,
+    state_to_arrays,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -97,6 +130,15 @@ SMALL_POS_ATOL, SMALL_VEL_ATOL = 1e-5, 1e-4
 K3_POS_ATOL = 1e-5
 K3_NEIGHBOURS = 6
 
+# the sharded loop's checks (the JAX package's, tests/test_parallel.py and
+# __graft_entry__.dryrun_multichip): per bot after 16 steps, positions and
+# velocities (the non-Newton summation order seeds ulp differences that the
+# contacts amplify, velocities ~1/dt faster); the macrostate after 112:
+# centroid (absolute), mean radius and mean speed (relative)
+N_SHARDS = 4
+TP_POS_ATOL, TP_VEL_ATOL = 1e-5, 1e-3
+TP_CENTROID_ATOL, TP_RAD_RTOL, TP_SPEED_RTOL = 2e-4, 1e-3, 2e-3
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): float32
 # outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -113,9 +155,10 @@ def fail(msg: str) -> None:
 
 
 def median_ms(fn, launches: int = 20, reps: int = 5) -> float:
-    """Device time of one call of ``fn`` in ms: CUDA events around
-    ``launches`` back-to-back calls, divided by the count; the median of
-    ``reps`` such runs, after a warm-up."""
+    """Time of one call of ``fn`` in ms as a caller sees it: CUDA events
+    around ``launches`` back-to-back calls, divided by the count; the
+    median of ``reps`` such runs, after a warm-up.  Where the calls' host
+    work outlasts their device work, this is the host's time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -126,6 +169,33 @@ def median_ms(fn, launches: int = 20, reps: int = 5) -> float:
         start.record()
         for _ in range(launches):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time of one launch of the kernel that ``fn`` wraps, in ms:
+    ``launches`` calls captured in one CUDA graph, CUDA events around each
+    replay, divided by the count; the median of ``reps`` replays, after a
+    warm-up.  The replay runs no Python, so the wrapper's host-side checks
+    do not enter the time as they do in :func:`median_ms`."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
@@ -195,11 +265,17 @@ def compare_stencil(p, tables):
     got = kernels.stencil_forces_cuda(p, tables)
     want = stencil_forces_plain(p, tables)
     torch.cuda.synchronize()
+    return check_forces("stencil_forces", got, want)
+
+
+def check_forces(name, got, want):
+    """max |diff| of a force kernel's (fx, fy, fa, fr) against its twin's;
+    fails beyond kernel 1's tolerance form (K1_* above)."""
     summed = want[2] + want[3]  # fa + fr: the magnitudes fx, fy sum
     err = 0.0
-    for i, (name, a, b) in enumerate(zip(("fx", "fy", "fa", "fr"), got, want)):
+    for i, (field, a, b) in enumerate(zip(("fx", "fy", "fa", "fr"), got, want)):
         if not torch.isfinite(a).all():
-            fail(f"stencil_forces: non-finite {name}")
+            fail(f"{name}: non-finite {field}")
         d = (a - b).abs()
         err = max(err, float(d.max()))
         tol = K1_ATOL + K1_RTOL * b.abs()
@@ -209,7 +285,7 @@ def compare_stencil(p, tables):
         if bad.any():
             j = int(torch.argmax(d / tol))
             fail(
-                f"stencil_forces {name}: {int(bad.sum())} entries beyond "
+                f"{name} {field}: {int(bad.sum())} entries beyond "
                 f"tolerance; worst |diff| {float(d.view(-1)[j])} at "
                 f"|ref| {float(b.view(-1)[j])}, fa+fr {float(summed.view(-1)[j])}"
             )
@@ -457,18 +533,34 @@ def band_main_path():
     # the prefix rebuild and bps-1 span rebuilds through kernel 2, bps-1
     # spans; a redone segment drops its last post and adds seg regular
     # steps with seg/k rebuilds
-    want = {
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update({
         "mega_span": n_segs * (bps - 1),
         "compact": n_segs * bps + r * bps,
         "stencil_forces": n_segs * k + r * (seg - 1),
-    }
+    })
     if launches != want:
         fail(f"1000-bot scene launches {launches}, want {want} ({r} redos)")
     return sim, launches, r, wall * 1e6 / n_steps, sim.params.n_cells * n_steps / wall
 
 
-def busy_share(sim, n_steps):
-    """Device activity of ``n_steps`` seg-aligned steps under
+def seg_steps(sim, n_steps):
+    """A callable that runs ``n_steps`` seg-aligned steps of ``sim``."""
+    def run():
+        sim.state = sim._run_chunk(sim.state, n_steps, True)
+    return run
+
+
+# the __global__ function of each kernel, as the profiler names it (both
+# forms of kernel 2 are one function)
+KERNEL_SYMBOLS = {
+    "stencil_forces": "stencil_forces_kernel", "compact": "compact_kernel",
+    "mega_span": "mega_span_kernel", "stencil_forces_ext": "stencil_forces_ext_kernel",
+}
+
+
+def busy_share(run_steps, n_steps):
+    """Device activity of ``run_steps()``, ``n_steps`` steps, under
     torch.profiler, as text: the busy share (kernel and copy time over wall
     time, "not measured" when the profiler saw no device activity), device
     us/step, each hand-written kernel's us/step and the device activities
@@ -479,7 +571,7 @@ def busy_share(sim, n_steps):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.state = sim._run_chunk(sim.state, n_steps, True)
+        run_steps()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -488,9 +580,9 @@ def busy_share(sim, n_steps):
     dev_us = sum(e.time_range.elapsed_us() for e in dev)
     per_kernel = ", ".join(
         f"{name} %.1f" % (sum(
-            e.time_range.elapsed_us() for e in dev if f"{name}_kernel" in e.name
+            e.time_range.elapsed_us() for e in dev if sym in e.name
         ) / n_steps)
-        for name in kernels.LAUNCHES
+        for name, sym in KERNEL_SYMBOLS.items()
     )
     return (
         f"{dev_us / wall_us:.4f} ({dev_us / n_steps:.1f} device us/step: "
@@ -517,7 +609,7 @@ def ab_band(sim):
         if not h["finite"] or h["cell_overflow"] != 0:
             fail(f"A/B {name}: health {h}")
         out[name] = (us, light_distance(s))
-    return out, busy_share(sim, 1000)
+    return out, busy_share(seg_steps(sim, 1000), 1000)
 
 
 def timed_steps(sim, start: int, n: int) -> float:
@@ -584,6 +676,457 @@ def run_cli() -> tuple:
     return len(rows), wall, tail
 
 
+def shard_halo(x, shards, g):
+    """(..., G*G) global lanes -> (S, ..., L0 + 2H): each shard's lane block
+    between its ring neighbours' boundary grid rows and zero rows, the
+    layout the sharded loop's halo exchange builds."""
+    l0 = x.shape[-1] // shards
+    blocks = x.reshape(x.shape[:-1] + (shards, l0)).movedim(-2, 0)
+    z = torch.zeros(blocks.shape[:-1] + ((HALO_ROWS - 1) * g,), device=x.device)
+    return torch.cat(
+        [z, torch.roll(blocks, 1, 0)[..., -g:], blocks, torch.roll(blocks, -1, 0)[..., :g], z],
+        dim=-1,
+    ).contiguous()
+
+
+def sharded_tables(p, state):
+    """Kernel 4's and kernel 2 padded's inputs on the sharded 10k scene at
+    ``state``: (halo-extended tables, kernel 1's tables of the same whole
+    table, padded move-plane stack after 7 steps without a rebuild so that
+    the compaction sees real movers)."""
+    g, cap, cs = p.resolved_grid_dim(), p.cell_capacity, p.storage_capacity()
+    gg = g * g
+    ts = enter_table(p, state)
+    whole = {k: ts.fields[k][: cap * gg].view(cap, gg) for k in KERNEL_FIELDS}
+    ext = shard_halo(torch.stack([whole[k] for k in KERNEL_FIELDS]), N_SHARDS, g)
+    tables_ext = {k: ext[:, j] for j, k in enumerate(KERNEL_FIELDS)}
+    step = make_table_step(p)
+    for _ in range(7):
+        ts = step(ts, False, False, False, False)
+    planes = torch.stack([ts.fields[k][: cs * gg] for k in MOVE_FIELDS]).reshape(-1, cs, gg)
+    dxf, dyf, _, _ = rebuild_move_planes(p, planes, MOVE_FIELDS, ts.origin)
+    padded = shard_halo(torch.cat([planes, dxf[None], dyf[None]]), N_SHARDS, g)
+    return tables_ext, whole, padded
+
+
+def crossing_rows(padded, h, l0, g) -> int:
+    """Rows of a padded stack's two real halo rows that move into the
+    centre: the rows that cross a shard boundary in this compaction."""
+    dy = padded[:, -1]
+    lanes = torch.arange(padded.shape[-1], device=padded.device)
+    prev = (lanes >= h - g) & (lanes < h)
+    nxt = (lanes >= h + l0) & (lanes < h + l0 + g)
+    return int((((dy == 1) & prev) | ((dy == -1) & nxt)).sum())
+
+
+def synthetic_padded():
+    """A G=32 table over 4 shards with random moves at 60 % fill and every
+    row of the 3x3 lanes around a lane of shard 1's first grid row moving
+    into it (it overflows, fed across the boundary), cut into shards."""
+    p = pt.SimParams(n_cells=1000, n_dead=0, grid_dim=32).validate()
+    g, cs = p.resolved_grid_dim(), p.storage_capacity()
+    gg = g * g
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    data = torch.randn((9, cs, gg), generator=gen, device="cuda")
+    occ = torch.rand((cs, gg), generator=gen, device="cuda") < 0.6
+    move = torch.randint(-1, 2, (2, cs, gg), generator=gen, device="cuda").float()
+    target = gg // N_SHARDS + 8
+    for oy in (-1, 0, 1):
+        for ox in (-1, 0, 1):
+            src = target + oy * g + ox
+            occ[:, src] = True
+            move[0, :, src] = -ox
+            move[1, :, src] = -oy
+    far = torch.full_like(move[0], 99.0)
+    data[5] = occ.float()
+    stack = torch.cat([data, torch.where(occ, move[0], far)[None],
+                       torch.where(occ, move[1], far)[None]])
+    return p, shard_halo(stack, N_SHARDS, g)
+
+
+def compare_compact_padded(p, padded, h, l0):
+    """(overflow flag, max |diff|) of kernel 2's padded form against its
+    twin; any difference fails."""
+    out_k, inc_k = kernels.compact_padded_cuda(p, padded, h, l0)
+    out_p, inc_p = compact_padded_plain(p, padded, h, l0)
+    torch.cuda.synchronize()
+    err = max(float((out_k - out_p).abs().max()), float((inc_k - inc_p).abs().max()))
+    if not (torch.equal(inc_k, inc_p) and bool((out_k == out_p).all())):
+        fail(f"compact_padded differs from its twin (max |diff| {err})")
+    return bool((inc_k > p.storage_capacity()).any()), err
+
+
+def stencil_ext_bound(p, whole, tables_ext, l0) -> tuple:
+    """Kernel 4: the lanes it reads of each plane (px, py, vx, vy, rad,
+    val, and afac with a payload), once: the centre and one grid row each
+    side (the three zero halo rows beyond are never read); four outputs
+    written once; the pair operations of the occupied pairs (the same pair
+    set as kernel 1 on the whole table)."""
+    n_in = 7 if p.has_payload else 6
+    s, cap, _ = tables_ext["px"].shape
+    g = p.resolved_grid_dim()
+    ins, outs = s * cap * (l0 + 2 * g), s * cap * l0
+    return bound((n_in * ins + 4 * outs) * 4, PAIR_OPS * occupied_pairs(p, whole["rad"]))
+
+
+def compact_padded_bound(p, padded, l0) -> tuple:
+    """Kernel 2's padded form: per shard, the lanes its 3x3 sources reach
+    (the centre and G + 1 lanes each side) of every plane, read once; nf
+    planes and the per-lane count written once."""
+    s, nfp, cs, _ = padded.shape
+    reach = l0 + 2 * (p.resolved_grid_dim() + 1)
+    return bound(s * (nfp * cs * reach + (nfp - 2) * cs * l0 + l0) * 4, s * 9 * cs * l0)
+
+
+def jittered_arrays(p, vel=(0.0, 0.0), seed=99):
+    """Bot-order arrays of a fresh scene, positions jittered by 1e-4 and
+    every bot given velocity ``vel``, from numpy."""
+    arrays = state_to_arrays(pt.Simulation(p, device="cuda").state)
+    n = p.n_cells
+    rng = np.random.default_rng(seed)
+    arrays["pos"][:n] += (1e-4 * rng.standard_normal((n, 2))).astype(np.float32)
+    arrays["vel"][:n] = np.asarray(vel, np.float32)
+    return arrays
+
+
+def sharded_vs_single(base, vel, n_steps, vel_atol, label):
+    """(sharded final arrays, stats, max |dpos|, max |dvel|): ``n_steps`` of
+    the sharded loop on a LocalRing(4) against the single-table loop on the
+    card from one jittered state; fails beyond TP_POS_ATOL and ``vel_atol``."""
+    run, p = make_sharded_table_run(base, LocalRing(N_SHARDS, "cuda"), with_stats=True)
+    arrays = jittered_arrays(p, vel)
+    out, stats = run(state_from_arrays(p, arrays, "cuda"), n_steps)
+    ref = make_run_chunk_table(p)(state_from_arrays(p, arrays, "cuda"), n_steps)
+    a, b = state_to_arrays(out), state_to_arrays(ref)
+    n = p.n_cells
+    dpos = float(np.abs(a["pos"][:n] - b["pos"][:n]).max())
+    dvel = float(np.abs(a["vel"][:n] - b["vel"][:n]).max())
+    if not (np.isfinite(a["pos"]).all() and dpos <= TP_POS_ATOL and dvel <= vel_atol):
+        fail(f"{label}: sharded vs single-table dpos={dpos} dvel={dvel}")
+    return a, stats, dpos, dvel
+
+
+def shard_of(p, pos, origin):
+    """Each bot's shard under the table anchored at ``origin``."""
+    g, h = p.resolved_grid_dim(), p.cutoff()
+    iy = np.floor((pos[:, 1] - origin[1]) / np.float32(h)).astype(np.int64) % g
+    return iy // (g // N_SHARDS)
+
+
+def sharded_agreement(base):
+    """10k HEX bots, no phase noise, a 6 u/s y-drift: the sharded loop on
+    the card against the single-table loop per bot after 16 steps and by
+    macrostate after 112 (the JAX package's production-shape test).
+    Returns a line of text."""
+    run, p = make_sharded_table_run(base, LocalRing(N_SHARDS, "cuda"))
+    ref_run = make_run_chunk_table(p)
+    arrays = jittered_arrays(p, (0.0, 6.0))
+    n = p.n_cells
+    st0 = state_from_arrays(p, arrays, "cuda")
+    origin = enter_table(p, st0).origin.cpu().numpy()
+    out = run(st0, 16)
+    ref = ref_run(state_from_arrays(p, arrays, "cuda"), 16)
+    a, b = state_to_arrays(out), state_to_arrays(ref)
+    dpos = float(np.abs(a["pos"][:n] - b["pos"][:n]).max())
+    dvel = float(np.abs(a["vel"][:n] - b["vel"][:n]).max())
+    if not (dpos <= TP_POS_ATOL and dvel <= TP_VEL_ATOL):
+        fail(f"10k sharded vs single-table at 16 steps: dpos={dpos} dvel={dvel}")
+    out, ref = run(out, 96), ref_run(ref, 96)
+    a, b = state_to_arrays(out), state_to_arrays(ref)
+    pos, rpos, vel, rvel = a["pos"][:n], b["pos"][:n], a["vel"][:n], b["vel"][:n]
+    if not (np.isfinite(pos).all() and np.isfinite(vel).all()) or a["step"] != 112:
+        fail("10k sharded at 112 steps: non-finite state or wrong step")
+    drift = float(pos[:, 1].mean() - arrays["pos"][:n, 1].mean())
+    crossed = int((shard_of(p, pos, origin) != shard_of(p, arrays["pos"][:n], origin)).sum())
+    dcen = float(np.abs(pos.mean(0) - rpos.mean(0)).max())
+    rad, rrad = float(a["rad"][:n].mean()), float(b["rad"][:n].mean())
+    speed = float(np.hypot(vel[:, 0], vel[:, 1]).mean())
+    rspeed = float(np.hypot(rvel[:, 0], rvel[:, 1]).mean())
+    if drift <= 3.0 or crossed == 0:
+        fail(f"10k sharded: drift {drift}, {crossed} bots changed shard")
+    if not (dcen <= TP_CENTROID_ATOL and abs(rad - rrad) <= TP_RAD_RTOL * abs(rrad)
+            and abs(speed - rspeed) <= TP_SPEED_RTOL * abs(rspeed)):
+        fail(f"10k sharded macrostate at 112: centroid {dcen}, rad {rad} vs {rrad}, "
+             f"speed {speed} vs {rspeed}")
+    return (
+        f"16 steps dpos {dpos:.2e} (atol {TP_POS_ATOL}) dvel {dvel:.2e} (atol {TP_VEL_ATOL}); "
+        f"112 steps centroid |diff| {dcen:.2e} (atol {TP_CENTROID_ATOL}), mean rad "
+        f"{rad:.6f} vs {rrad:.6f} (rtol {TP_RAD_RTOL}), mean speed {speed:.5f} vs "
+        f"{rspeed:.5f} (rtol {TP_SPEED_RTOL}), y-drift {drift:.3f}, {crossed} bots "
+        f"changed shard"
+    )
+
+
+def cell_overflow(p, state, cap=None) -> int:
+    """Bots beyond ``cap`` (default: the force-visible cell_capacity, as
+    ``Simulation.health`` counts them) in their cell."""
+    mask = active_mask(p, state.n_pad, state.device)
+    return int(assign_slots_slotmajor(p, state.pos, mask, cap=cap)[1].item())
+
+
+def timed_sharded(run, p, n_steps):
+    """(final state, stats, us/step, launches) of ``n_steps`` of a sharded
+    run on a fresh scene after an 8-step warm-up, the counters reset just
+    before."""
+    st = run(pt.Simulation(p, device="cuda").state, 8)[0]
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    out, stats = run(st, n_steps)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) * 1e6 / n_steps
+    return out, stats, us, dict(kernels.LAUNCHES)
+
+
+def single_with_fallbacks(run, state, n_steps):
+    """(final state, exact global rebuilds) of ``n_steps`` of a single-table
+    loop, counted by wrapping ``engine_table._rebuild_fields``, which only
+    its incremental rebuild's fallback calls."""
+    from particlerobotsimulations_torch import engine_table
+
+    inner, calls = engine_table._rebuild_fields, [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return inner(*args)
+
+    engine_table._rebuild_fields = counted
+    try:
+        out = run(state, n_steps)
+    finally:
+        engine_table._rebuild_fields = inner
+    return out, calls[0]
+
+
+def auto_100k(base) -> str:
+    """200 steps of 100,000 HEX bots under the auto config in the sharded
+    and the single-table loop from one state: bots parked beyond the
+    storage capacity and exact global rebuilds of each, as text."""
+    run, p = make_sharded_table_run(base.replace(n_cells=100_000), LocalRing(N_SHARDS, "cuda"),
+                                    with_stats=True)
+    arrays = state_to_arrays(pt.Simulation(p, device="cuda").state)
+    sharded, stats = run(state_from_arrays(p, arrays, "cuda"), 200)
+    single, single_fb = single_with_fallbacks(
+        make_run_chunk_table(p), state_from_arrays(p, arrays, "cuda"), 200)
+    for name, out in (("sharded", sharded), ("single-table", single)):
+        if not np.isfinite(out.pos.cpu().numpy()).all():
+            fail(f"100k auto config, {name} loop: non-finite state")
+    cap = p.storage_capacity()
+    return (
+        f"G={p.resolved_grid_dim()}, C={p.cell_capacity}, Cs={cap}: sharded parked "
+        f"{cell_overflow(p, sharded, cap=cap)}, {stats}; single-table parked "
+        f"{cell_overflow(p, single, cap=cap)}, fallbacks {single_fb} of "
+        f"{200 // max(1, p.resolved_slot_rebuild_steps())} rebuilds"
+    )
+
+
+DIST_WORKER = """
+import pickle, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from particlerobotsimulations_torch.parallel.ring import DistRing
+from particlerobotsimulations_torch.parallel.spatial_table import make_sharded_table_run
+from particlerobotsimulations_torch.state import state_from_arrays, state_to_arrays
+init, rank, src, dst = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method=init, rank=rank, world_size=2)
+with open(src, "rb") as fh:
+    params, arrays, n_steps = pickle.load(fh)
+run, _ = make_sharded_table_run(params, DistRing())
+out = run(state_from_arrays(params, arrays, f"cuda:{rank}"), n_steps)
+np.savez(dst, **state_to_arrays(out))
+dist.destroy_process_group()
+"""
+
+
+def dist_ring_check() -> str:
+    """DistRing over NCCL, two ranks on two cards, against LocalRing(2) on
+    one card from the same state (elementwise equal: a two-shard sum
+    commutes exactly); with one card, NCCL cannot hold two ranks and this
+    does not run."""
+    import pickle
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        return f"not run ({n_cards} card; NCCL needs one card per rank)"
+    base = bench_params().replace(n_cells=1000, phase_std=0.5, light_x=-5.0)
+    run, p = make_sharded_table_run(base, LocalRing(2, "cuda"))
+    arrays = jittered_arrays(p)
+    want = state_to_arrays(run(state_from_arrays(p, arrays, "cuda"), 24))
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.pkl")
+        with open(src, "wb") as fh:
+            pickle.dump((p, arrays, 24), fh)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-c", DIST_WORKER, f"file://{tmp}/rdv", str(r), src,
+                 os.path.join(tmp, f"out{r}.npz")],
+                cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for r in range(2)
+        ]
+        try:
+            logs = [q.communicate(timeout=300)[0] for q in procs]
+        finally:
+            for q in procs:
+                q.kill()
+        if any(q.returncode != 0 for q in procs):
+            fail(f"DistRing workers failed: {[log[-2000:] for log in logs]}")
+        for r in range(2):
+            got = np.load(os.path.join(tmp, f"out{r}.npz"))
+            for k, v in want.items():
+                if not np.array_equal(got[k], v):
+                    fail(f"DistRing rank {r} differs from LocalRing(2) in {k}")
+    return "2 NCCL ranks equal LocalRing(2) elementwise after 24 steps (1000 bots)"
+
+
+def sharded_phase():
+    """Phase 9; returns (record entries, text lines)."""
+    lines = []
+    # kernels 4 and 2 (padded) against their twins at the 10k sharded shapes
+    base = bench_params()
+    run, p = make_sharded_table_run(base, LocalRing(N_SHARDS, "cuda"), with_stats=True)
+    g = p.resolved_grid_dim()
+    h, l0 = HALO_ROWS * g, g * g // N_SHARDS
+    st = run(pt.Simulation(p, device="cuda").state, 200)[0]
+    tables_ext, whole, padded = sharded_tables(p, st)
+    got = kernels.stencil_forces_ext_cuda(p, tables_ext, h, l0)
+    want = stencil_forces_ext_plain(p, tables_ext, h, l0)
+    torch.cuda.synchronize()
+    k4_err = check_forces("stencil_forces_ext", got, want)
+    k2p_ovf, k2p_err = compare_compact_padded(p, padded, h, l0)
+    psyn, syn = synthetic_padded()
+    gs = psyn.resolved_grid_dim()
+    syn_ovf, _ = compare_compact_padded(psyn, syn, HALO_ROWS * gs, gs * gs // N_SHARDS)
+    syn_cross = crossing_rows(syn, HALO_ROWS * gs, gs * gs // N_SHARDS, gs)
+    if not syn_ovf or syn_cross == 0:
+        fail(f"synthetic padded stack: overflow {syn_ovf}, {syn_cross} crossing rows")
+    cross = crossing_rows(padded, h, l0, g)
+    k4_ms = graph_ms(lambda: kernels.stencil_forces_ext_cuda(p, tables_ext, h, l0))
+    k4_plain_ms = median_ms(lambda: stencil_forces_ext_plain(p, tables_ext, h, l0))
+    k1_ms = graph_ms(lambda: kernels.stencil_forces_cuda(p, whole))
+    k2p_ms = graph_ms(lambda: kernels.compact_padded_cuda(p, padded, h, l0))
+    k2p_plain_ms = median_ms(lambda: compact_padded_plain(p, padded, h, l0))
+    k4_bound = stencil_ext_bound(p, whole, tables_ext, l0)
+    k2p_bound = compact_padded_bound(p, padded, l0)
+    k4_call_ms = median_ms(lambda: kernels.stencil_forces_ext_cuda(p, tables_ext, h, l0))
+    lines.append(
+        f"phase 9 kernels vs twins, 10k HEX sharded after 200 steps (G={g}, "
+        f"{N_SHARDS} shards, L0={l0}, H={h}): stencil_forces_ext max|diff| {k4_err:.3e} "
+        f"(atol {K1_ATOL}, rtol {K1_RTOL}, fx/fy + {K1_SUM_RTOL}*(fa+fr)) "
+        f"{k4_ms * 1e3:.1f} us per launch in a CUDA graph ({k4_call_ms * 1e3:.1f} us "
+        f"per wrapper call) vs plain {k4_plain_ms * 1e3:.1f} us (kernel 1 on the "
+        f"same table {k1_ms * 1e3:.1f} us) | compact_padded equal ({cross} rows "
+        f"crossing a boundary, overflow {k2p_ovf}; synthetic: {syn_cross} crossing, "
+        f"overflow {syn_ovf}) {k2p_ms * 1e3:.1f} us vs plain {k2p_plain_ms * 1e3:.1f} us "
+        f"| bounds (ms, by) {k4_bound}, {k2p_bound}"
+    )
+
+    # sharded against the single-table loop: 10k drift, fallback, spill
+    lines.append("phase 9 10k sharded vs single-table: " + sharded_agreement(
+        base.replace(phase_std=0.0)))
+    _, fb_stats, fb_dpos, fb_dvel = sharded_vs_single(
+        base.replace(n_cells=64, phase_std=0.0, light_x=-5.0), (50.0, 0.0), 16,
+        TP_VEL_ATOL, "forced fallback")
+    if fb_stats["fallbacks"] < 1:
+        fail(f"forced fallback: no fallback fired {fb_stats}")
+    _, sp_stats, sp_dpos, sp_dvel = sharded_vs_single(
+        base.replace(n_cells=600, phase_std=0.0, light_x=-10.0, cell_capacity=8,
+                     overflow_slots=8),
+        (0.0, 2.0), 12, SMALL_VEL_ATOL, "overflow spill")
+    if sp_stats["spill_rows_max"] <= 0:
+        fail(f"overflow spill: spill rows stayed empty {sp_stats}")
+    lines.append(
+        f"phase 9 forced fallback 64 bots 50 u/s 16 steps: {fb_stats}, dpos "
+        f"{fb_dpos:.2e} dvel {fb_dvel:.2e} (atol {TP_POS_ATOL}, {TP_VEL_ATOL}) | "
+        f"overflow spill 600 bots 8+8 slots 12 steps: {sp_stats}, dpos {sp_dpos:.2e} "
+        f"dvel {sp_dvel:.2e} (atol {TP_POS_ATOL}, {SMALL_VEL_ATOL})"
+    )
+
+    # the main path: 1,000 steps of the 10k sharded loop, counters reset
+    # just before; the single-table loop at the same G and K beside it
+    n_steps = 1000
+    k = max(1, p.resolved_slot_rebuild_steps())
+    out, stats, us_s, launches = timed_sharded(run, p, n_steps)
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update(stencil_forces_ext=n_steps, compact_padded=n_steps // k)
+    if launches != want:
+        fail(f"10k sharded launches {launches}, want {want}")
+    if not np.isfinite(out.pos.cpu().numpy()).all() or cell_overflow(p, out):
+        fail("10k sharded: non-finite state or cell overflow")
+    single = make_run_chunk_table(p)
+    st1 = single(pt.Simulation(p, device="cuda").state, 8)
+    torch.cuda.synchronize()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    st1 = single(st1, n_steps)
+    torch.cuda.synchronize()
+    us_1 = (time.perf_counter() - t0) * 1e6 / n_steps
+    launches_1 = dict(kernels.LAUNCHES)
+    held = {"sharded": out, "single": st1}
+
+    def more_sharded():
+        held["sharded"] = run(held["sharded"], 200)[0]
+
+    def more_single():
+        held["single"] = single(held["single"], 200)
+
+    lines.append(
+        f"phase 9 main path: 10k HEX sharded {n_steps} steps K={k}: {us_s:.1f} us/step, "
+        f"launches {launches}, {stats}; single-table loop at G={g}: {us_1:.1f} us/step, "
+        f"launches {launches_1} | 200 more steps each, device busy share: sharded "
+        f"{busy_share(more_sharded, 200)}; single-table {busy_share(more_single, 200)}"
+    )
+
+    # 100,000 bots.  The auto rule gives spill rows only from 100,001 bots,
+    # and at exactly 100,000 the HEX swarm parks bots beyond the 16 slots:
+    # the auto config's parked count and global rebuilds are printed for
+    # both loops.  The checked run adds the 8 spill rows the rule gives
+    # above 100,000: bots above cell_capacity ride them; none may be parked.
+    lines.append("phase 9 100k HEX auto config (no spill rows), 200 steps: " + auto_100k(base))
+    run_big, pb = make_sharded_table_run(
+        base.replace(n_cells=100_000, overflow_slots=8), LocalRing(N_SHARDS, "cuda"),
+        with_stats=True)
+    big, big_stats, us_big, big_launches = timed_sharded(run_big, pb, 200)
+    big_spill = cell_overflow(pb, big)
+    big_parked = cell_overflow(pb, big, cap=pb.storage_capacity())
+    kb = max(1, pb.resolved_slot_rebuild_steps())
+    if (not np.isfinite(big.pos.cpu().numpy()).all() or big_parked
+            or big_launches["stencil_forces_ext"] != 200
+            or big_launches["compact_padded"] != 200 // kb):
+        fail(f"100k sharded: {big_parked} bots parked, launches {big_launches}")
+    lines.append(
+        f"phase 9 100k HEX sharded (G={pb.resolved_grid_dim()}, L0="
+        f"{pb.resolved_grid_dim() ** 2 // N_SHARDS}, C={pb.cell_capacity}, Cs="
+        f"{pb.storage_capacity()}) 200 steps: {us_big:.1f} us/step, launches "
+        f"{big_launches}, {big_stats}, bots above cell_capacity {big_spill} (in "
+        f"spill rows), parked 0"
+    )
+    lines.append(f"phase 9 DistRing: {dist_ring_check()}")
+
+    record = [
+        {"name": "stencil_forces_ext", "route": "cuda",
+         "source": "particlerobotsimulations_torch/csrc/stencil_ext.cu",
+         "replaces": "particlerobotsimulations_tpu/ops/pallas_stencil.py:570",
+         "launches": launches["stencil_forces_ext"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
+        {"name": "compact_padded", "route": "cuda",
+         "source": "particlerobotsimulations_torch/csrc/compact.cu",
+         "replaces": "particlerobotsimulations_tpu/ops/table_rebuild.py:203",
+         "launches": launches["compact_padded"], "max_abs_err": k2p_err,
+         "ms": k2p_ms, "plain_ms": k2p_plain_ms,
+         "bound_ms": k2p_bound[0], "bound_by": k2p_bound[1], "library_ms": None},
+    ]
+    return record, lines
+
+
 def main() -> int:
     # 1. the card
     if not torch.cuda.is_available():
@@ -615,9 +1158,9 @@ def main() -> int:
         fail("synthetic compaction table did not overflow")
     dx, dy = planes[-2], planes[-1]
     movers = int((((dx != 0) | (dy != 0)) & (dx != 99)).sum())
-    k1_ms = median_ms(lambda: kernels.stencil_forces_cuda(p, tables))
+    k1_ms = graph_ms(lambda: kernels.stencil_forces_cuda(p, tables))
     k1_plain_ms = median_ms(lambda: stencil_forces_plain(p, tables))
-    k2_ms = median_ms(lambda: kernels.compact_cuda(p, planes))
+    k2_ms = graph_ms(lambda: kernels.compact_cuda(p, planes))
     k2_plain_ms = median_ms(lambda: compact_plain(p, planes))
     dpos, dvel = small_run_check()
     print(
@@ -663,7 +1206,10 @@ def main() -> int:
         f"chunk s {[round(s, 3) for s in chunk_s]}, "
         f"{rate:.4e} particle-steps/s (last chunk)"
     )
-    print(f"phase 4 profile: 10k HEX 200 steps, device busy share {busy_share(sim, 200)}")
+    print(
+        "phase 4 profile: 10k HEX 200 steps, device busy share "
+        f"{busy_share(seg_steps(sim, 200), 200)}"
+    )
 
     # 5. the CLI
     n_rows, cli_s, cli_tail = run_cli()
@@ -717,6 +1263,13 @@ def main() -> int:
         f"regular loop at G=32: {other['gap_regular_g32']:.1f} us/step"
     )
 
+    # 9. the sharded table loop on a LocalRing(4)
+    t9 = time.perf_counter()
+    record9, lines9 = sharded_phase()
+    for line in lines9:
+        print(line)
+    print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -743,7 +1296,7 @@ def main() -> int:
          "launches": b_launches["mega_span"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
-    ]}
+    ] + record9}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,10 +3,11 @@
 A second package beside ``particlerobotsimulations_tpu`` (the JAX
 reference): the same ``.cfg`` files, parameters, physics, op order and CSV
 schema.  Every entry point takes a ``device`` (default ``"cuda"``).  On a
-CUDA device the table-resident PALLAS loop runs two hand-written Hopper
-kernels (``csrc/``: the pair-force stencil and the slot compaction); on
-the CPU the same calls take their plain PyTorch twins.  The package never
-imports JAX.
+CUDA device the table-resident PALLAS loop runs hand-written Hopper
+kernels (``csrc/``: the pair-force stencil, the slot compaction, the
+small-table span kernel, and the halo stencil of the sharded loop in
+``parallel/``); on the CPU the same calls take their plain PyTorch twins.
+The package never imports JAX.
 """
 
 from .config import (

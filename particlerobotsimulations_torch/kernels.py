@@ -13,7 +13,8 @@ if ``cudaGetLastError`` reports a failed launch, and adds one to its entry
 in :data:`LAUNCHES`.  There is no fallback: a missing ``nvcc``, a failed
 build or a failed launch raises.  The plain PyTorch twins that CPU tensors
 use live beside their callers (``ops/pallas_stencil.py``,
-``ops/table_rebuild.py``, ``ops/megakernel.py``).
+``ops/table_rebuild.py``, ``ops/megakernel.py``).  Kernels 4 and 2's
+padded form take the shards one process holds in one launch.
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ from .config import SimParams, padded_n
 
 # launches per kernel; the main path's callers read these to show that a
 # run went through the kernels
-LAUNCHES = {"stencil_forces": 0, "compact": 0, "mega_span": 0}
+LAUNCHES = {
+    "stencil_forces": 0, "compact": 0, "mega_span": 0,
+    "stencil_forces_ext": 0, "compact_padded": 0,
+}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -48,6 +52,7 @@ BUILD_LOG = ""
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
+_ll = ctypes.c_longlong
 _f = ctypes.c_float
 
 
@@ -118,6 +123,12 @@ def build() -> ctypes.CDLL:
         [_vp] * 4 + [_i] * 5 + [_vp, _i, _vp, _i, _vp, _i, _i, _vp]
     )
     lib.pbot_mega_span.restype = _i
+    lib.pbot_compact_padded.argtypes = [_vp, _vp, _vp] + [_i] * 6 + [_vp]
+    lib.pbot_compact_padded.restype = _i
+    lib.pbot_stencil_forces_ext.argtypes = (
+        [_vp] * 11 + [_i] * 6 + [_ll] + [_f] * 10 + [_vp]
+    )
+    lib.pbot_stencil_forces_ext.restype = _i
     _lib = lib
     return lib
 
@@ -186,6 +197,80 @@ def compact_cuda(params: SimParams, planes: torch.Tensor):
     _raise_on(err, "compact")
     LAUNCHES["compact"] += 1
     return out, incoming
+
+
+def compact_padded_cuda(params: SimParams, planes_padded: torch.Tensor,
+                        pad_lanes: int, out_lanes: int):
+    """Kernel 2's padded form on a CUDA (S, nf + 2, Cs, pad + out + pad)
+    stack of S shards -> (compacted (S, nf, Cs, out) planes, per-lane
+    incoming count (S, out) float32)."""
+    g, cs = params.resolved_grid_dim(), params.storage_capacity()
+    if planes_padded.dim() != 4:
+        raise ValueError(f"planes_padded: expected (S, nf + 2, Cs, E), got {tuple(planes_padded.shape)}")
+    s, nfp = planes_padded.shape[:2]
+    if nfp < 3:
+        raise ValueError(f"planes_padded: need data fields plus dx, dy; got {nfp}")
+    if pad_lanes < g + 1 or out_lanes < 1:
+        raise ValueError(f"compact_padded: need pad >= {g + 1} and out >= 1, got {pad_lanes}, {out_lanes}")
+    _check("planes_padded", planes_padded, (s, nfp, cs, 2 * pad_lanes + out_lanes))
+    lib = build()
+    dev = planes_padded.device
+    out = torch.empty((s, nfp - 2, cs, out_lanes), dtype=torch.float32, device=dev)
+    incoming = torch.empty((s, out_lanes), dtype=torch.float32, device=dev)
+    err = lib.pbot_compact_padded(
+        planes_padded.data_ptr(), out.data_ptr(), incoming.data_ptr(),
+        s, nfp - 2, cs, g, pad_lanes, out_lanes, _stream(out),
+    )
+    _raise_on(err, "compact_padded")
+    LAUNCHES["compact_padded"] += 1
+    return out, incoming
+
+
+def stencil_forces_ext_cuda(params: SimParams, tables_ext: dict,
+                            center_start: int, center_lanes: int):
+    """Kernel 4 on CUDA halo-extended tables of S shards -> (fx, fy, fa,
+    fr), each (S, C, center_lanes).  ``tables_ext`` holds the seven planes
+    of ``ops.pallas_stencil.FIELDS``, each (S, C, E) with E = 2 *
+    center_start + center_lanes, a contiguous (C, E) block per shard and
+    one shard stride for all seven (views of one stacked tensor qualify)."""
+    from .ops.pallas_stencil import FIELDS, pair_constants
+
+    g, cap = params.resolved_grid_dim(), params.cell_capacity
+    h, center = center_start, center_lanes
+    if h < g or h % g or center < 1 or center % g:
+        raise ValueError(
+            f"stencil_forces_ext: center_start ({h}) and center_lanes "
+            f"({center}) must be positive multiples of G={g}"
+        )
+    px = tables_ext["px"]
+    if px.dim() != 3:
+        raise ValueError(f"tables_ext: expected (S, C, E) planes, got {tuple(px.shape)}")
+    s, ext = px.shape[0], 2 * h + center
+    for k in FIELDS:
+        t = tables_ext[k]
+        if t.device.type != "cuda":
+            raise ValueError(f"{k}: expected a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{k}: expected float32, got {t.dtype}")
+        if tuple(t.shape) != (s, cap, ext):
+            raise ValueError(f"{k}: expected shape {(s, cap, ext)}, got {tuple(t.shape)}")
+        if t.device != px.device or t.stride() != (px.stride(0), ext, 1):
+            raise ValueError(
+                f"{k}: each shard's (C, E) block must be contiguous, with one "
+                "shard stride and one device for all planes"
+            )
+    lib = build()
+    out = torch.empty((4, s, cap, center), dtype=torch.float32, device=px.device)
+    afac = tables_ext["afac"].data_ptr() if params.has_payload else None
+    err = lib.pbot_stencil_forces_ext(
+        *(tables_ext[k].data_ptr() for k in FIELDS[:6]), afac,
+        *(out[i].data_ptr() for i in range(4)),
+        s, cap, g, ext, h, center, px.stride(0),
+        *pair_constants(params), _stream(out),
+    )
+    _raise_on(err, "stencil_forces_ext")
+    LAUNCHES["stencil_forces_ext"] += 1
+    return out[0], out[1], out[2], out[3]
 
 
 def mega_constants(params: SimParams) -> tuple:

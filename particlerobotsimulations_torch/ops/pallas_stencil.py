@@ -7,6 +7,11 @@ is easy to find; the force pass is the hand-written CUDA kernel in
 ``csrc/stencil_forces.cu`` on a CUDA tensor and the plain PyTorch twin
 :func:`stencil_forces_plain` on a CPU tensor (:func:`stencil_forces`).
 
+The sharded table loop's force pass (kernel 4, ``csrc/stencil_ext.cu``,
+twin :func:`stencil_forces_ext_plain`, dispatch :func:`stencil_forces_ext`)
+is the same pair law on a halo-extended shard table: occupancy from the
+``val`` plane, the x-wrap per row and y read linearly into the halo rows.
+
 Tables are ``(C, G*G)``: capacity slots on the first axis, cells
 (row-major ``y*G + x``, wrapped, bbox-anchored) on the second.  A row is
 occupied iff its radius is positive.  Both versions compute, for every
@@ -30,6 +35,7 @@ f32 = np.float32
 
 # field order of the kernel's input planes (and the first 7 table fields)
 FIELDS = ("px", "py", "vx", "vy", "rad", "val", "afac")
+N_FIELDS = len(FIELDS)
 
 # the JAX kernel's candidate cells: center + the Newton half-set.  The
 # port's kernel gathers all of OFFSETS9 instead; kept for reference.
@@ -182,3 +188,41 @@ def stencil_forces(params: SimParams, tables: dict):
     if kind == "cpu":
         return stencil_forces_plain(params, tables)
     raise ValueError(f"stencil_forces: unsupported device {tables['px'].device}")
+
+
+def stencil_forces_ext_plain(params: SimParams, tables_ext: dict,
+                             center_start: int, center_lanes: int):
+    """Plain PyTorch twin of kernel 4 — the JAX ``_make_kernel_ext`` sum:
+    the 9 OFFSETS9 blocks preshifted over the extended lanes
+    (:func:`_preshift_flat`), the pair term with the center block's own
+    slot excluded and ``val`` taken from the val plane, summed over
+    candidate slots, for the CENTER lanes only.  ``tables_ext``: the
+    FIELDS planes, each (..., C, E); returns (fx, fy, fa, fr), each (...,
+    C, center_lanes)."""
+    g, cap = params.resolved_grid_dim(), params.cell_capacity
+    center = slice(center_start, center_start + center_lanes)
+    base = torch.stack([tables_ext[k] for k in FIELDS])  # (7, ..., C, E)
+    t = {k: base[j][..., :, None, center] for j, k in enumerate(FIELDS)}
+    acc = [0.0] * 4
+    for dx, dy in OFFSETS9:
+        blk = _preshift_flat(base, g, dx, dy)[..., center]
+        c = {k: blk[j][..., None, :, :] for j, k in enumerate(FIELDS)}
+        terms = _pair_terms(params, t, c, (dx, dy) == (0, 0), cap)
+        for i in range(4):
+            acc[i] = acc[i] + terms[i].sum(dim=-2)
+    return tuple(acc)
+
+
+def stencil_forces_ext(params: SimParams, tables_ext: dict,
+                       center_start: int, center_lanes: int):
+    """(fx, fy, fa, fr) for the CENTER lanes of halo-extended tables
+    (``[H pad | center | H pad]`` lanes, optionally with a leading shard
+    axis): kernel 4 on CUDA tensors, the plain twin on CPU tensors."""
+    kind = tables_ext["px"].device.type
+    if kind == "cuda":
+        from ..kernels import stencil_forces_ext_cuda
+
+        return stencil_forces_ext_cuda(params, tables_ext, center_start, center_lanes)
+    if kind == "cpu":
+        return stencil_forces_ext_plain(params, tables_ext, center_start, center_lanes)
+    raise ValueError(f"stencil_forces_ext: unsupported device {tables_ext['px'].device}")

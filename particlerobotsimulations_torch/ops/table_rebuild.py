@@ -7,8 +7,10 @@ dx, dy in {-1, 0, 1}, and every target lane takes the rows of its 9
 neighbour lanes (LINEAR lane offsets ``dy*G + dx``) whose move lands there,
 compacted into slots 0..k-1 in (OFFSETS9 order, slot) order.  The
 compaction is the hand-written CUDA kernel in ``csrc/compact.cu`` on a CUDA
-tensor and the plain twin :func:`compact_plain` on a CPU tensor
-(:func:`compact`).
+tensor and a plain twin on a CPU tensor, in two forms: :func:`compact`
+wraps the whole table's lanes (the single-table loop), and
+:func:`compact_padded` reads explicitly padded lanes (the sharded loop,
+``parallel/spatial_table.py``, pads with the neighbour shards' halo rows).
 
 Linear lane arithmetic equals the 2-D wrap for y exactly; for x it is
 wrong only when a read crosses a row boundary, which can only matter if
@@ -29,34 +31,70 @@ from .grid import OFFSETS9
 
 f32 = np.float32
 
+CHUNK = 128          # lane tile of the JAX kernel; the wrap pad is whole tiles
 EDGE_MARGIN = 2      # empty wrapped-edge columns the engine maintains
 _FAR = 99            # dx/dy sentinel for empty rows (never matches)
 
 
-def compact_plain(params: SimParams, planes: torch.Tensor):
-    """Plain PyTorch twin of kernel 2: (nf + 2, Cs, G*G) planes (data
-    fields, then dx, dy) -> (compacted (nf, Cs, G*G) planes, per-lane
-    incoming count (G*G,) float32).  Per offset: roll the source lanes into
-    place, rank the matching rows by an exclusive cumsum over slots on top
-    of the running count, and scatter those with a free slot."""
+def _n_halo(g: int) -> int:
+    """Pad tiles per side that cover lane offsets up to g+1."""
+    return -(-(g + 1) // CHUNK)
+
+
+def compact_padded_plain(params: SimParams, planes_padded: torch.Tensor,
+                         pad_lanes: int, out_lanes: int):
+    """Plain PyTorch twin of kernel 2's padded form: (..., nf + 2, Cs,
+    pad + out + pad) planes (data fields, then dx, dy) -> (compacted (...,
+    nf, Cs, out) planes, per-lane incoming count (..., out) float32) for the
+    CENTER lanes.  Target lane L reads source lane ``pad + L + oy*G + ox``
+    with no wrap: the pad carries the wrap or the neighbour shards' rows.
+    Leading axes (the sharded loop's shard axis) are independent.  Per
+    offset: slice the source lanes, rank the matching rows by an exclusive
+    cumsum over slots on top of the running count, and scatter those with a
+    free slot."""
     g = params.resolved_grid_dim()
-    nfp, cs, gg = planes.shape
+    if pad_lanes < g + 1 or planes_padded.shape[-1] != 2 * pad_lanes + out_lanes:
+        raise ValueError(
+            f"compact_padded: need pad >= {g + 1} and {2 * pad_lanes + out_lanes} "
+            f"lanes, got pad {pad_lanes} and {planes_padded.shape[-1]} lanes"
+        )
+    lead = planes_padded.shape[:-3]
+    nfp, cs, width = planes_padded.shape[-3:]
     nf = nfp - 2
-    out = torch.zeros((nf, cs, gg), dtype=torch.float32, device=planes.device)
-    count = torch.zeros((gg,), dtype=torch.int64, device=planes.device)
+    planes = planes_padded.reshape((-1, nfp, cs, width))
+    b = planes.shape[0]
+    dev = planes.device
+    out = torch.zeros((b, nf, cs, out_lanes), dtype=torch.float32, device=dev)
+    count = torch.zeros((b, out_lanes), dtype=torch.int64, device=dev)
     for ox, oy in OFFSETS9:
-        cand = torch.roll(planes, -(oy * g + ox), dims=-1)
-        m = (cand[nf] == f32(-ox)) & (cand[nf + 1] == f32(-oy))
+        lo = pad_lanes + oy * g + ox
+        cand = planes[..., lo : lo + out_lanes]
+        m = (cand[:, nf] == f32(-ox)) & (cand[:, nf + 1] == f32(-oy))
         mi = m.to(torch.int64)
-        rank = count[None, :] + torch.cumsum(mi, dim=0) - mi
-        c_idx, l_idx = torch.nonzero(m & (rank < cs), as_tuple=True)
-        out[:, rank[c_idx, l_idx], l_idx] = cand[:nf, c_idx, l_idx]
-        count = count + mi.sum(dim=0)
-    return out, count.to(torch.float32)
+        rank = count[:, None, :] + torch.cumsum(mi, dim=1) - mi
+        b_idx, c_idx, l_idx = torch.nonzero(m & (rank < cs), as_tuple=True)
+        out[b_idx, :, rank[b_idx, c_idx, l_idx], l_idx] = cand[b_idx, :nf, c_idx, l_idx]
+        count = count + mi.sum(dim=1)
+    return (
+        out.reshape(lead + (nf, cs, out_lanes)),
+        count.to(torch.float32).reshape(lead + (out_lanes,)),
+    )
+
+
+def compact_plain(params: SimParams, planes: torch.Tensor):
+    """Plain PyTorch twin of kernel 2's wrap form: (nf + 2, Cs, G*G) planes
+    -> (compacted (nf, Cs, G*G) planes, per-lane incoming count (G*G,)
+    float32).  The padded form on the table padded with its own wrapped
+    lanes, as the JAX ``_compact`` builds it."""
+    gg = planes.shape[-1]
+    halo = _n_halo(params.resolved_grid_dim()) * CHUNK
+    padded = torch.cat([planes[..., gg - halo :], planes, planes[..., :halo]], dim=-1)
+    return compact_padded_plain(params, padded, halo, gg)
 
 
 def compact(params: SimParams, planes: torch.Tensor):
-    """Kernel 2 on a CUDA tensor, the plain twin on a CPU tensor."""
+    """Kernel 2's wrap form on a CUDA tensor, the plain twin on a CPU
+    tensor."""
     kind = planes.device.type
     if kind == "cuda":
         from ..kernels import compact_cuda
@@ -67,14 +105,34 @@ def compact(params: SimParams, planes: torch.Tensor):
     raise ValueError(f"compact: unsupported device {planes.device}")
 
 
+def compact_padded(params: SimParams, planes_padded: torch.Tensor,
+                   pad_lanes: int, out_lanes: int):
+    """Kernel 2's padded form on a CUDA tensor, the plain twin
+    :func:`compact_padded_plain` on a CPU tensor.  ``planes_padded`` is
+    (nf + 2, Cs, pad + out + pad) or, with a leading shard axis, (S, nf + 2,
+    Cs, pad + out + pad)."""
+    kind = planes_padded.device.type
+    if kind == "cuda":
+        from ..kernels import compact_padded_cuda
+
+        return compact_padded_cuda(params, planes_padded, pad_lanes, out_lanes)
+    if kind == "cpu":
+        return compact_padded_plain(params, planes_padded, pad_lanes, out_lanes)
+    raise ValueError(f"compact_padded: unsupported device {planes_padded.device}")
+
+
 def _wrap_center(d: torch.Tensor, g: int) -> torch.Tensor:
     return ((d + g // 2) % g) - g // 2
 
 
-def rebuild_move_planes(params: SimParams, planes, field_names: tuple, origin):
+def rebuild_move_planes(params: SimParams, planes, field_names: tuple, origin,
+                        lane_offset=0):
     """(dxf, dyf, moved_far, edge): per-row wrapped cell displacements
     (``_FAR`` on empty rows) and the incremental-compaction preconditions
-    (as 0-dim bool tensors)."""
+    (as 0-dim bool tensors, over every row given).  ``planes`` is (nf, ...,
+    L); ``lane_offset`` is the global lane of the planes' first lane — an
+    int, or a tensor that broadcasts against ``planes.shape[1:]`` (one
+    offset per shard of the sharded loop's shard stack)."""
     g = params.resolved_grid_dim()
     h = f32(params.cutoff())
 
@@ -86,7 +144,7 @@ def rebuild_move_planes(params: SimParams, planes, field_names: tuple, origin):
     ixt = torch.floor((px - origin[0]) / h).to(torch.int32) % g
     iyt = torch.floor((py - origin[1]) / h).to(torch.int32) % g
     lane = torch.arange(planes.shape[-1], dtype=torch.int32, device=px.device)
-    lane = lane.expand(planes.shape[1:])
+    lane = lane.expand(planes.shape[1:]) + lane_offset
     ixc = lane % g
     dx = _wrap_center(ixt - ixc, g)
     dy = _wrap_center(iyt - torch.div(lane, g, rounding_mode="floor"), g)

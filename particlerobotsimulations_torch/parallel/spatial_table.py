@@ -1,0 +1,282 @@
+"""Single-scene spatial decomposition of the table-resident loop.
+
+Port of ``particlerobotsimulations_tpu.parallel.spatial_table``.  The
+slot-major cell table's grid ROWS are split over a ring of D shards
+(``ring.py``): shard d owns the contiguous lane block ``[d*L0, (d+1)*L0)``
+(``L0 = G*G/D``, whole grid rows) of every ``(Cs, G*G)`` plane, and all
+per-step work is local except:
+
+* **forces** — each shard receives its ring neighbours' boundary grid rows
+  and runs the non-Newton 9-block force pass (kernel 4,
+  ``ops/pallas_stencil.stencil_forces_ext``) on the halo-extended table:
+  with no reactions, nothing travels back across a boundary;
+* **slot rebuilds** — the incremental compaction (kernel 2's padded form,
+  ``ops/table_rebuild.compact_padded``) sees the neighbour halos, so a row
+  that drifts across a shard boundary is dropped by its owner and placed by
+  the neighbour in the same pass.  The preconditions are ANDed over the
+  ring (a ring-wide min, read on the host once per rebuild) and any
+  failure takes the exact global rebuild (all-gather, argsort) on every
+  shard — the single-table loop's fallback contract;
+* **reductions** — a ring-wide min for the phase law's light distance, a
+  ring-wide sum for the centroid, an all-gathered ``topk`` for dead-cell
+  injection.
+
+The parking strip (capacity-overflow bots) is replicated: every shard
+holds and integrates the same strip rows, which feel no pair force, and
+the reductions count the strip once, outside the ring sum.
+
+Layout: each field is ``(S, Cs*L0 + n_pad)`` for the S shards this process
+holds (S = D on a :class:`~.ring.LocalRing`, 1 on a
+:class:`~.ring.DistRing`): the shard's slot-major center rows, then the
+strip.  The halo is ``HALO_ROWS`` grid rows per side — 3 zero rows and the
+neighbour's boundary row — as in the JAX package, so both packages build
+byte-identical extended tables; it also covers the compaction's G+1-lane
+reach.
+
+Random draws: phase noise and dead-injection scores are drawn for the
+whole ``(total_ext,)`` table layout from the run's generator, as the
+single-table loop draws them, and each shard takes its own rows: centre
+draws differ per shard, strip draws are the same on every shard, every
+rank of a :class:`~.ring.DistRing` draws the same numbers, and a sharded
+run draws what the single-table run draws.  (The JAX sharded loop draws
+per-shard streams instead, so it matches its single-chip loop only in
+distribution; per-bot comparisons with it run at ``phase_std=0,
+n_dead=0``.)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import Control, SimParams
+from ..engine_table import (
+    MOVE_FIELDS,
+    TABLE_FIELDS,
+    _derived_rows,
+    _gates,
+    _geometry,
+    _rebuild_fields,
+    enter_table,
+    exit_table,
+)
+from ..ops.forces import friction_velocity_update_xy, obstacle_forces_xy
+from ..ops.integrate import radius_integrate_planes
+from ..ops.pallas_stencil import FIELDS as KERNEL_FIELDS
+from ..ops.pallas_stencil import stencil_forces_ext
+from ..ops.phase import light_distance, update_phase
+from ..ops.table_rebuild import compact_padded, rebuild_move_planes
+from ..state import SimState
+from .ring import LocalRing
+
+f32 = np.float32
+
+# halo grid rows per side: only the innermost row carries neighbour data;
+# the rest are zero pad, kept so that both packages lay the extended
+# tables out alike
+HALO_ROWS = 4
+# shards of the default ring
+DEFAULT_SHARDS = 4
+
+
+def resolve_tp_params(params: SimParams, n_shards: int) -> SimParams:
+    """Round the grid up until the shard geometry is tile-aligned (the JAX
+    package's rule, so both pick the same G)."""
+    params = params.validate()
+    g = params.resolved_grid_dim()
+    while g % 32 or g % n_shards or (g * g // n_shards) % 128:
+        g += 16
+    return params.replace(grid_dim=g)
+
+
+def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = False,
+                           device="cuda"):
+    """(run_chunk, resolved_params): the table-resident loop sharded over
+    ``ring`` (default ``LocalRing(DEFAULT_SHARDS, device)``).
+    ``run_chunk(state, n_steps)`` takes and returns a bot-order SimState on
+    the ring's device (the same state on every rank of a DistRing); the
+    sharded table lives only inside.
+
+    ``with_stats=True`` makes ``run_chunk`` return ``(state, stats)``:
+    ``fallbacks``, how many rebuilds took the exact global fallback, and
+    ``spill_rows_max``, the largest number of occupied overflow-spill rows
+    over all shards at the end of a step (0 without spill rows)."""
+    ring = ring if ring is not None else LocalRing(DEFAULT_SHARDS, device)
+    D = ring.n_shards
+    params = resolve_tp_params(params, D)
+    g, cap = params.resolved_grid_dim(), params.cell_capacity
+    cs = params.storage_capacity()
+    L0 = g * g // D                  # lanes (cells) per shard
+    H = HALO_ROWS * g                # halo lanes per side
+    C = cs * L0                      # local table rows (flat)
+    total, _, n_pad = _geometry(params)
+    nf = len(MOVE_FIELDS)
+    k_rb = max(1, params.resolved_slot_rebuild_steps())
+    dt = params.timestep
+    ids = ring.shard_ids()
+    S = ids.numel()
+    lane_offset = (ids * L0).to(torch.int32).view(S, 1, 1)
+    no_noise = params.replace(phase_std=0.0)
+
+    def local(v):
+        """A global (total_ext,) tensor -> this process's (S, C + n_pad)
+        rows: its shards' lane blocks of the table, then the strip."""
+        center = v[:total].view(cs, D, L0)[:, ids].transpose(0, 1)
+        return torch.cat([center.reshape(S, C), v[total:].expand(S, n_pad)], dim=1)
+
+    def halo_exchange(x):
+        """(S, ..., L0) -> (S, ..., L0 + 2H): the ring neighbours' boundary
+        grid rows between zero rows (shard 0's previous row is shard D-1's
+        last: the table's wrap rides the ring)."""
+        prev = ring.from_prev(x[..., -g:])
+        nxt = ring.from_next(x[..., :g])
+        z = torch.zeros(x.shape[:-1] + ((HALO_ROWS - 1) * g,), dtype=x.dtype,
+                        device=x.device)
+        return torch.cat([z, prev, x, nxt, z], dim=-1)
+
+    def split_local(fields):
+        return {k: local(fields[k]) for k in TABLE_FIELDS}
+
+    def join_global(f):
+        """All-gather the shard centers -> global (total_ext,) fields."""
+        c = torch.stack([f[k][:, :C] for k in TABLE_FIELDS], dim=1)
+        glob = ring.all_gather(c).view(D, len(TABLE_FIELDS), cs, L0)
+        glob = glob.permute(1, 2, 0, 3).reshape(len(TABLE_FIELDS), total)
+        return {
+            k: torch.cat([glob[j], f[k][0, C:]]) for j, k in enumerate(TABLE_FIELDS)
+        }
+
+    def sharded_rebuild(f, origin):
+        """(f, origin, ok): the incremental compaction with neighbour
+        halos, or the exact global rebuild when any shard's preconditions
+        fail."""
+        planes = torch.stack([f[k][:, :C] for k in MOVE_FIELDS], dim=1).view(S, nf, cs, L0)
+        dxf, dyf, moved_far, edge = rebuild_move_planes(
+            params, planes.transpose(0, 1), MOVE_FIELDS, origin, lane_offset=lane_offset
+        )
+        padded = halo_exchange(torch.cat([planes, dxf[:, None], dyf[:, None]], dim=1))
+        new_planes, incoming = compact_padded(params, padded, H, L0)
+        # the flags already cover every shard this process holds
+        ok_local = ~(moved_far | torch.any(incoming > cs) | edge)
+        ok = bool(ring.pmin(ok_local.to(torch.int32).expand(S)) > 0)
+        if ok:
+            for j, k in enumerate(MOVE_FIELDS):
+                f[k] = torch.cat([new_planes[:, j].reshape(S, C), f[k][:, C:]], dim=1)
+            return _derived_rows(params, f), origin, True
+        gf, origin = _rebuild_fields(params, join_global(f))
+        return split_local(gf), origin, False
+
+    def step_local(f, ts, rebuild):
+        """One physics step on the shard-local fields, in the single-table
+        loop's op order; returns (f, rebuild ok)."""
+        step, gen = ts.step, ts.generator
+        time = float(f32(step) * f32(dt))
+        dev = f["val"].device
+        val = f["val"] > 0.5
+        dead_g, cog_g, phase_g = _gates(params, step)
+
+        # 1. dead injection: a topk over the all-gathered centre scores and
+        #    the strip's
+        if params.n_dead > 0 and dead_g:
+            alive = val & (f["dead"] < 0.5)
+            scores = local(torch.rand((total + n_pad,), generator=gen, device=dev))
+            scores = torch.where(alive, scores, torch.full_like(scores, float("inf")))
+            gall = torch.cat([ring.all_gather(scores[:, :C]).reshape(-1), scores[0, C:]])
+            killed = torch.zeros(gall.shape, dtype=torch.bool, device=dev)
+            killed[torch.topk(-gall, params.n_dead).indices] = True
+            mine = torch.cat(
+                [killed[: D * C].view(D, C)[ids], killed[D * C:].expand(S, n_pad)], dim=1
+            )
+            f["dead"] = torch.where(mine, torch.ones_like(f["dead"]), f["dead"])
+
+        # 2. centroid ring (pre-integrate positions): the ring-wide sum of
+        #    the centres plus the replicated strip once
+        if cog_g:
+            cxy = [
+                ring.psum(torch.sum(f[k][:, :C] * f["val"][:, :C], dim=1))
+                + torch.sum(f[k][0, C:] * f["val"][0, C:])
+                for k in ("px", "py")
+            ]
+            idx = (step // params.centroid_steps_interval) % params.centroid_steps
+            ts.centroid_ring[idx] = torch.stack(cxy) / f32(params.n_cells)
+
+        # 3. phase law: the ring-wide min light distance of the centres and
+        #    the strip's own min
+        if params.control == Control.LIGHT_WAVE and phase_g:
+            pos = torch.stack([f["px"], f["py"]], dim=-1)
+            dist = light_distance(params, pos)
+            inf = torch.full_like(dist, float("inf"))
+            dmin = torch.minimum(
+                ring.pmin(torch.where(val[:, :C], dist[:, :C], inf[:, :C]).amin(dim=1)),
+                torch.where(val[0, C:], dist[0, C:], inf[0, C:]).amin(),
+            )
+            phase = update_phase(no_noise, pos, f["phase"], val, None, min_d=dmin)
+            if params.phase_std:
+                noise = local(torch.randn((total + n_pad,), generator=gen, device=dev))
+                phase = torch.where(val, phase + f32(params.phase_std) * noise, phase)
+            f["phase"] = phase
+
+        # 4+5. radius controller + integrate/boundary, elementwise
+        f = radius_integrate_planes(params, f, time)
+
+        # 6. slot rebuild (between integrate and collide)
+        ok = True
+        if rebuild:
+            f, ts.origin, ok = sharded_rebuild(f, ts.origin)
+
+        # 7. collide: halo exchange + the non-Newton extended force pass on
+        #    the force-visible slots
+        stk = torch.stack(
+            [f[k][:, :C].view(S, cs, L0)[:, :cap] for k in KERNEL_FIELDS], dim=1
+        )
+        ext = halo_exchange(stk)
+        tables_ext = {k: ext[:, j] for j, k in enumerate(KERNEL_FIELDS)}
+        fx, fy, fa, fr = stencil_forces_ext(params, tables_ext, H, L0)
+
+        def expand(a):
+            """(S, cap, L0) -> (S, C + n_pad): spill rows and the strip feel
+            no pair force."""
+            full = torch.cat([a, a.new_zeros((S, cs - cap, L0))], dim=1)
+            return torch.cat([full.reshape(S, C), a.new_zeros((S, n_pad))], dim=1)
+
+        fxf, fyf = expand(fx), expand(fy)
+        f["aa"], f["ar"] = expand(fa), expand(fr)
+        if params.circle_obstacles or params.rect_obstacles:
+            ofx, ofy, om = obstacle_forces_xy(
+                params, f["px"], f["py"], f["vx"], f["vy"], f["rad"]
+            )
+            fxf, fyf = fxf + ofx, fyf + ofy
+            f["ar"] = f["ar"] + om
+
+        nvx, nvy = friction_velocity_update_xy(
+            params, f["vx"], f["vy"], fxf, fyf, f["pay"] > 0.5, dt
+        )
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        val_r = f["val"] > 0.5
+        f["vx"] = torch.where(val_r, nvx, zero)
+        f["vy"] = torch.where(val_r, nvy, zero)
+        ts.step = step + 1
+        return f, ok
+
+    def run_chunk(state: SimState, n_steps: int):
+        if state.device != ring.device:
+            raise ValueError(f"state on {state.device}, ring on {ring.device}")
+        ts = enter_table(params, state)
+        f = split_local(ts.fields)
+        fallbacks = 0
+        spill_max = torch.zeros((), dtype=torch.int64, device=ring.device)
+        for j in range(n_steps):
+            # the single-table schedule: chunk-relative for K <= 8, absolute
+            # above (engine_table.make_run_chunk_table)
+            rebuild = ts.step % k_rb == k_rb - 1 if k_rb > 8 else j % k_rb == k_rb - 1
+            f, ok = step_local(f, ts, rebuild)
+            fallbacks += not ok
+            if with_stats and cs > cap:
+                spill = (f["val"][:, :C].view(S, cs, L0)[:, cap:] > 0.5).sum(dim=(1, 2))
+                spill_max = torch.maximum(spill_max, ring.psum(spill))
+        out = exit_table(params, ts.replace(fields=join_global(f)))
+        if with_stats:
+            return out, {"fallbacks": fallbacks, "spill_rows_max": int(spill_max)}
+        return out
+
+    return run_chunk, params

@@ -28,7 +28,15 @@ from particlerobotsimulations_torch.ops.pallas_stencil import (
     pair_constants,
     stencil_forces_plain,
 )
-from particlerobotsimulations_torch.ops.table_rebuild import compact_plain
+from particlerobotsimulations_torch.ops.table_rebuild import (
+    compact_padded_plain,
+    compact_plain,
+)
+from particlerobotsimulations_torch.parallel.ring import LocalRing
+from particlerobotsimulations_torch.parallel.spatial_table import (
+    HALO_ROWS,
+    make_sharded_table_run,
+)
 from particlerobotsimulations_torch.state import state_from_arrays, state_to_arrays
 
 pytestmark = pytest.mark.cuda
@@ -192,3 +200,110 @@ def test_mega_span_wrapper_refuses_cpu_tensors():
     rects, circles = kernels.obstacle_buffers(p, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.mega_span_cuda(p, tbl, strip, 1, rects, circles)
+
+
+def ext_tables(p, seed, shards=4, fill=0.3):
+    """Halo-extended (S, C, E) tables: random_tables over the whole G x G
+    grid, cut into shards with the neighbours' boundary rows and zero rows
+    as the halo, stacked as the sharded loop stacks them."""
+    g = p.resolved_grid_dim()
+    l0, h = g * g // shards, HALO_ROWS * g
+    base = random_tables(p, seed, fill)
+    base["val"] = (base["rad"] > 0).float()
+    planes = torch.stack([base[k] for k in ("px", "py", "vx", "vy", "rad", "val", "afac")])
+    blocks = planes.view(7, -1, shards, l0).permute(2, 0, 1, 3)      # (S, 7, C, L0)
+    z = torch.zeros(blocks.shape[:-1] + (h - g,))
+    ext = torch.cat(
+        [z, torch.roll(blocks, 1, 0)[..., -g:], blocks, torch.roll(blocks, -1, 0)[..., :g], z],
+        dim=-1,
+    ).contiguous()
+    names = ("px", "py", "vx", "vy", "rad", "val", "afac")
+    return ext, {k: ext[:, j] for j, k in enumerate(names)}, h, l0
+
+
+@pytest.mark.parametrize("payload", [False, True])
+def test_stencil_ext_kernel_matches_twin(card, payload):
+    from particlerobotsimulations_torch.ops.pallas_stencil import stencil_forces_ext_plain
+
+    p = pt.SimParams(n_dead=-1 if payload else 0, grid_dim=32).validate()
+    ext, _, h, l0 = ext_tables(p, 5)
+    ext = ext.to(card)
+    tables = {k: ext[:, j] for j, k in enumerate(("px", "py", "vx", "vy", "rad", "val", "afac"))}
+    n0 = kernels.LAUNCHES["stencil_forces_ext"]
+    got = kernels.stencil_forces_ext_cuda(p, tables, h, l0)
+    assert kernels.LAUNCHES["stencil_forces_ext"] == n0 + 1
+    want = stencil_forces_ext_plain(p, tables, h, l0)
+    summed = want[2] + want[3]
+    assert float(want[2].max()) > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = 1e-4 + 1e-5 * b.abs() + (1e-5 * summed if i < 2 else 0)
+        assert bool(((a - b).abs() <= tol).all())
+
+
+def test_compact_padded_kernel_equals_twin(card):
+    p = pt.SimParams(n_dead=0, grid_dim=32).validate()
+    g, cs = p.resolved_grid_dim(), p.storage_capacity()
+    gen = torch.Generator(device=card).manual_seed(6)
+    s, l0, h = 4, g * g // 4, HALO_ROWS * g
+    data = torch.randn((s, 9, cs, l0 + 2 * h), generator=gen, device=card)
+    occ = torch.rand((s, cs, l0 + 2 * h), generator=gen, device=card) < 0.7
+    mv = torch.randint(-1, 2, (2, s, cs, l0 + 2 * h), generator=gen, device=card).float()
+    far = torch.full_like(mv[0], 99.0)
+    planes = torch.cat(
+        [data, torch.where(occ, mv[0], far)[:, None], torch.where(occ, mv[1], far)[:, None]],
+        dim=1,
+    ).contiguous()
+    n0 = kernels.LAUNCHES["compact_padded"]
+    out_k, inc_k = kernels.compact_padded_cuda(p, planes, h, l0)
+    assert kernels.LAUNCHES["compact_padded"] == n0 + 1
+    out_p, inc_p = compact_padded_plain(p, planes, h, l0)
+    assert torch.equal(inc_k, inc_p)
+    assert bool((out_k == out_p).all())
+    assert bool((inc_k > cs).any())  # 70% fill overflows some cells
+    # the wrap form is unchanged: kernel 2 on one whole (G*G-lane) table,
+    # two shards' stacks side by side
+    whole = torch.cat([planes[0], planes[1]], dim=-1).contiguous()
+    assert whole.shape[-1] == g * g
+    out_w, inc_w = kernels.compact_cuda(p, whole)
+    ref_w = compact_plain(p, whole)
+    assert torch.equal(inc_w, ref_w[1]) and bool((out_w == ref_w[0]).all())
+
+
+def test_sharded_loop_on_card_matches_cpu(card):
+    """LocalRing(4) on the card (kernels 4 and 2 padded) against the same
+    run on the CPU twins: 300 jittered bots, 12 steps, 3 rebuilds."""
+    p = pt.SimParams(
+        n_cells=300, n_dead=0, seed=3, config=pt.Config.HEX,
+        force_backend=pt.ForceBackend.PALLAS, phase_std=0.0, light_x=-5.0,
+        slot_rebuild_steps=4,
+    )
+    run_c, p2 = make_sharded_table_run(p, LocalRing(4, card))
+    run_h, _ = make_sharded_table_run(p, LocalRing(4, "cpu"))
+    arrays = state_to_arrays(pt.Simulation(p2, device="cpu").state)
+    rng = np.random.default_rng(99)
+    arrays["pos"] = arrays["pos"] + (
+        1e-4 * rng.standard_normal(arrays["pos"].shape)
+    ).astype(np.float32)
+    n0 = dict(kernels.LAUNCHES)
+    a = state_to_arrays(run_c(state_from_arrays(p2, arrays, card), 12))
+    assert kernels.LAUNCHES["stencil_forces_ext"] - n0["stencil_forces_ext"] == 12
+    assert kernels.LAUNCHES["compact_padded"] - n0["compact_padded"] == 3
+    b = state_to_arrays(run_h(state_from_arrays(p2, arrays, "cpu"), 12))
+    np.testing.assert_allclose(a["pos"], b["pos"], atol=1e-5)
+    np.testing.assert_allclose(a["vel"], b["vel"], atol=1e-4)
+
+
+def test_sharded_wrappers_refuse_cpu_tensors():
+    p = pt.SimParams(n_dead=0, grid_dim=32).validate()
+    _, tables, h, l0 = ext_tables(p, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stencil_forces_ext_cuda(p, tables, h, l0)
+    cs = p.storage_capacity()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.compact_padded_cuda(p, torch.zeros((4, 11, cs, l0 + 2 * h)), h, l0)
+    with pytest.raises(ValueError, match="pad"):
+        kernels.compact_padded_cuda(p, torch.zeros((4, 11, cs, l0 + 64)), 32, l0)
+    with pytest.raises(ValueError, match="S, "):
+        kernels.compact_padded_cuda(p, torch.zeros((11, cs, l0 + 2 * h)), h, l0)
+    with pytest.raises(ValueError, match="S, C, E"):
+        kernels.stencil_forces_ext_cuda(p, {k: v[0] for k, v in tables.items()}, h, l0)

@@ -141,16 +141,19 @@ def test_cli_unported_subcommand_exits_2(capsys):
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, found by walking the package, imports with
+    JAX blocked and pulls in nothing of JAX or the JAX package."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "import particlerobotsimulations_torch as pt\n"
-        "import particlerobotsimulations_torch.cli\n"
-        "import particlerobotsimulations_torch.engine_table\n"
-        "import particlerobotsimulations_torch.kernels\n"
-        "import particlerobotsimulations_torch.ops.pallas_stencil\n"
-        "import particlerobotsimulations_torch.ops.table_rebuild\n"
-        "import particlerobotsimulations_torch.io.csvio\n"
+        "names = [m.name for m in pkgutil.walk_packages(pt.__path__, pt.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "want = {'cli', 'engine_table', 'kernels', 'ops.megakernel', "
+        "'parallel.ring', 'parallel.spatial_table', 'io.csvio'}\n"
+        "missing = {pt.__name__ + '.' + w for w in want} - set(names)\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', "
         "'particlerobotsimulations_tpu')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
