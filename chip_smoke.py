@@ -10,12 +10,16 @@ table-resident loop, and the same workload cut to 1000 bots (light at
 — and checks that they went through the hand-written kernels:
 
 1. require CUDA and print the card's name and power limit;
-2. build the kernels from ``particlerobotsimulations_torch/csrc``;
+2. build the kernels from ``particlerobotsimulations_torch/csrc``, print
+   ptxas's registers and spills, and hold the launch plans that
+   ``kernels.py`` computes (kernel 1's tiles, kernel 3's cluster) against
+   the library's, with ``cudaOccupancyMaxActiveClusters`` for the band;
 3. hold kernels 1 and 2 against their plain PyTorch twins on the card, at
-   the 10k path's shapes (after 200 steps, G=48) and on a synthetic table
-   whose rows move by every offset with one cell overflowing; also hold a
-   short 300-bot table-loop run on the card against the same run on the
-   CPU twins;
+   the 10k path's shapes (after 200 steps, G=48), kernel 1 also on a
+   synthetic table with holes in the slot order and on a payload table,
+   and kernel 2 on a synthetic table whose rows move by every offset with
+   one cell overflowing; also hold a short 300-bot table-loop run on the
+   card against the same run on the CPU twins;
 4. run the 10k path for 3 chunks of 1000 steps with the launch counters
    reset just before, and check finite state, health, the adaptive
    cadence, the counters and the particle-steps/s of the last chunk, then
@@ -38,7 +42,8 @@ table-resident loop, and the same workload cut to 1000 bots (light at
 9. the sharded table loop (``parallel/spatial_table.py``) on a
    ``LocalRing(4)`` on the card, at bench.py's workload resolved to G=64
    (4 shards of 1,024 lanes, 256-lane halos): kernel 4 and kernel 2's
-   padded form against their twins after 200 steps, and the padded form on
+   padded form against their twins after 200 steps, kernel 1 on the whole
+   table against kernel 4's centre lanes (bitwise), and the padded form on
    a synthetic stack whose rows cross both shard boundaries and overflow
    one lane; 10k sharded against the single-table loop (16 steps per bot,
    112 steps macrostate, a 6 u/s drift across the boundaries); the forced
@@ -51,10 +56,10 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    fallbacks printed) and with 8 spill rows (none may be parked); and
    ``DistRing`` over NCCL when the machine has two cards.
 
-Kernels 1, 2 and 4 are timed per launch from replays of a CUDA graph of
-20 launches, so their wrappers' host-side checks stay out of the time;
-kernel 3 (one launch per span, ~0.7 ms) and the plain twins are timed
-per call with CUDA events.
+The four kernels are timed per launch from replays of a CUDA graph of
+20 launches, so their wrappers' host-side checks stay out of the time
+(kernel 3 also per wrapper call); the plain twins are timed per call
+with CUDA events.
 
 Any failure raises and exits non-zero.  The last two lines are the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -259,6 +264,36 @@ def synthetic_planes():
     dy = torch.where(occ, move[1], far)
     data[5] = occ.float()  # the val plane
     return p, torch.cat([data, dx[None], dy[None]], dim=0).contiguous()
+
+
+def hole_tables(p, seed, fill=0.3):
+    """Kernel 1's tables at ``p``'s shape with each slot occupied at random
+    (``fill``), so that a cell's occupied slots have holes, bots jittered
+    around their cell centres, and afac in {1, 2}."""
+    g, cap = p.resolved_grid_dim(), p.cell_capacity
+    gg = g * g
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rand(lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand((cap, gg), generator=gen, device="cuda")
+
+    occ = rand() < fill
+    lane = torch.arange(gg, device="cuda")
+    h = p.cutoff()
+    t = {
+        "px": ((lane % g) + rand()) * h, "py": ((lane // g) + rand()) * h,
+        "vx": rand(-0.3, 0.3), "vy": rand(-0.3, 0.3),
+        "rad": rand(0.0775, 0.1175), "afac": 1.0 + (rand() < 0.5).float(),
+    }
+    return {k: torch.where(occ, v, torch.zeros_like(v)).contiguous() for k, v in t.items()}
+
+
+def holes_in_slot_order(tables) -> int:
+    """Cells whose occupied slots are not a prefix 0 .. n-1."""
+    occ = tables["rad"] > 0
+    prefix = torch.cumprod(occ.int(), dim=0).bool()
+    return int((occ & ~prefix).any(dim=0).sum())
 
 
 def compare_stencil(p, tables):
@@ -557,6 +592,22 @@ KERNEL_SYMBOLS = {
     "stencil_forces": "stencil_forces_kernel", "compact": "compact_kernel",
     "mega_span": "mega_span_kernel", "stencil_forces_ext": "stencil_forces_ext_kernel",
 }
+
+
+def ptxas_report(log: str) -> str:
+    """Registers and spills of each kernel from nvcc's ``-Xptxas -v``
+    output: "name: R registers, S B spill stores, L B spill loads"."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = next((k for k, sym in KERNEL_SYMBOLS.items() if sym in ln), ln.split("'")[1])
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            regs = ln.split("Used ")[1].split(" registers")[0]
+            out.append(f"{name}: {regs} registers, {spill}")
+            name = None
+    return "; ".join(out)
 
 
 def busy_share(run_steps, n_steps):
@@ -999,6 +1050,12 @@ def sharded_phase():
     want = stencil_forces_ext_plain(p, tables_ext, h, l0)
     torch.cuda.synchronize()
     k4_err = check_forces("stencil_forces_ext", got, want)
+    cap = p.cell_capacity
+    k1_whole = kernels.stencil_forces_cuda(p, whole)
+    torch.cuda.synchronize()
+    for field, a, b in zip(("fx", "fy", "fa", "fr"), k1_whole, got):
+        if not torch.equal(a, b.permute(1, 0, 2).reshape(cap, g * g)):
+            fail(f"kernel 1 and kernel 4's centre lanes differ in {field} on the G={g} table")
     k2p_ovf, k2p_err = compare_compact_padded(p, padded, h, l0)
     psyn, syn = synthetic_padded()
     gs = psyn.resolved_grid_dim()
@@ -1017,7 +1074,8 @@ def sharded_phase():
     k4_call_ms = median_ms(lambda: kernels.stencil_forces_ext_cuda(p, tables_ext, h, l0))
     lines.append(
         f"phase 9 kernels vs twins, 10k HEX sharded after 200 steps (G={g}, "
-        f"{N_SHARDS} shards, L0={l0}, H={h}): stencil_forces_ext max|diff| {k4_err:.3e} "
+        f"{N_SHARDS} shards, L0={l0}, H={h}): kernel 1 on the whole table equals kernel "
+        f"4's centre lanes bitwise | stencil_forces_ext max|diff| {k4_err:.3e} "
         f"(atol {K1_ATOL}, rtol {K1_RTOL}, fx/fy + {K1_SUM_RTOL}*(fa+fr)) "
         f"{k4_ms * 1e3:.1f} us per launch in a CUDA graph ({k4_call_ms * 1e3:.1f} us "
         f"per wrapper call) vs plain {k4_plain_ms * 1e3:.1f} us (kernel 1 on the "
@@ -1142,10 +1200,29 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     build_s = time.perf_counter() - t0
-    regs = " ".join(
-        ln.strip() for ln in kernels.BUILD_LOG.splitlines() if "registers" in ln
+    print(f"phase 2 build: {build_s:.2f} s {kernels.library_path().name} | "
+          f"{ptxas_report(kernels.BUILD_LOG)}")
+    p10 = bench_params().validate()
+    g10, c10 = p10.resolved_grid_dim(), p10.cell_capacity
+    k1_plan = kernels.stencil_plan(c10, g10, p10.has_payload)
+    lib1 = kernels.library_stencil_plan(c10, g10, p10.has_payload)
+    if lib1 != k1_plan:
+        fail(f"kernel 1 plan: library {lib1}, python {k1_plan}")
+    pb = band_params().validate()
+    k3_args = (pb.storage_capacity(), pb.resolved_grid_dim(), pt.config.padded_n(pb),
+               pb.has_payload)
+    k3_plan, lib3 = kernels.mega_plan(*k3_args), kernels.library_mega_plan(*k3_args)
+    if any(lib3[k] != k3_plan[k] for k in ("cluster", "rows", "smem")):
+        fail(f"kernel 3 plan: library {lib3}, python {k3_plan}")
+    if k3_plan["cluster"] < 2 or lib3["max_active_clusters"] < 1:
+        fail(f"kernel 3 plan: {lib3}")
+    print(
+        f"phase 2 plans: 10k G={g10} C={c10}: stencil_forces {k1_plan} | band "
+        f"G={k3_args[1]} C={k3_args[0]}: mega_span cluster of {k3_plan['cluster']} "
+        f"CTAs x {kernels.MEGA_THREADS} threads, {k3_plan['grid_rows']} grid rows = "
+        f"{k3_plan['rows']} table rows and {k3_plan['smem']} B of shared memory per "
+        f"CTA, cudaOccupancyMaxActiveClusters {lib3['max_active_clusters']}"
     )
-    print(f"phase 2 build: {build_s:.2f} s {kernels.library_path().name} | {regs}")
 
     # 3. kernels against their twins on the card
     params = bench_params()
@@ -1163,10 +1240,18 @@ def main() -> int:
     k2_ms = graph_ms(lambda: kernels.compact_cuda(p, planes))
     k2_plain_ms = median_ms(lambda: compact_plain(p, planes))
     dpos, dvel = small_run_check()
+    holes = hole_tables(p, 21)
+    n_holes = holes_in_slot_order(holes)
+    if n_holes == 0:
+        fail("synthetic kernel-1 table has no holes in its slot order")
+    k1_holes_err = compare_stencil(p, holes)
+    pay_p = p.replace(n_dead=-1, attraction_factor=2.0).validate()
+    k1_pay_err = compare_stencil(pay_p, hole_tables(pay_p, 22))
     print(
         f"phase 3 kernels vs twins: stencil_forces G={p.resolved_grid_dim()} "
         f"max|diff| {k1_err:.3e} (atol {K1_ATOL}, rtol {K1_RTOL}, "
-        f"fx/fy + {K1_SUM_RTOL}*(fa+fr)) "
+        f"fx/fy + {K1_SUM_RTOL}*(fa+fr)); slot holes in {n_holes} cells "
+        f"{k1_holes_err:.3e}; payload {k1_pay_err:.3e}; "
         f"{k1_ms * 1e3:.1f} us vs plain {k1_plain_ms * 1e3:.1f} us | compact "
         f"equal ({movers} movers, overflow {k2_ovf}; synthetic overflow "
         f"{syn_ovf}) {k2_ms * 1e3:.1f} us vs plain {k2_plain_ms * 1e3:.1f} us "
@@ -1221,13 +1306,15 @@ def main() -> int:
         sp, tbl, strip, first = span_inputs(sim)
         obs = kernels.obstacle_buffers(sp, tbl.device)
         err, dpos = compare_span(name, sp, tbl, strip, first)
-        ms = median_ms(lambda: kernels.mega_span_cuda(sp, tbl, strip, first, *obs))
-        k3[name] = (err, dpos, ms, (sp, tbl, strip, first))
+        ms = graph_ms(lambda: kernels.mega_span_cuda(sp, tbl, strip, first, *obs))
+        call_ms = median_ms(lambda: kernels.mega_span_cuda(sp, tbl, strip, first, *obs))
+        k3[name] = (err, dpos, ms, (sp, tbl, strip, first), call_ms)
     k3_err = max(v[0] for v in k3.values())
-    _, _, k3_ms, (bp, btbl, bstrip, bfirst) = k3["hex1000"]
+    _, _, k3_ms, (bp, btbl, bstrip, bfirst), _ = k3["hex1000"]
     k3_plain_ms = median_ms(lambda: mega_span_plain(bp, btbl, bstrip, bfirst))
     scenes = " ".join(
-        f"{name} max|diff| {v[0]:.2e} (dpos {v[1]:.2e}) {v[2] * 1e3:.1f} us;"
+        f"{name} max|diff| {v[0]:.2e} (dpos {v[1]:.2e}) {v[2] * 1e3:.1f} us in a "
+        f"CUDA graph ({v[4] * 1e3:.1f} us per wrapper call);"
         for name, v in k3.items()
     )
     print(

@@ -28,11 +28,14 @@
 // 144 candidates each; the planes are 7 x 4 x 16 x 1536 floats (2.75 MB)
 // and stay in L2 between the neighbouring threads that read them.
 //
-// Design: kernel 1's — one thread per target row, all four sums in
-// registers, no shared memory, no atomics, so the result is deterministic;
-// the S shards of a process in one launch (blockIdx.y = shard).  The pair
-// term is kernel 1's (pair_math.cuh), built with -fmad=false, so this
-// kernel and its plain twin differ only in summation order.
+// Design: one thread per target row, all four sums in registers, no
+// shared memory, no atomics, so the result is deterministic; the S shards
+// of a process in one launch (blockIdx.y = shard).  Each term is
+// pair_math.cuh's pair_term, added by pair_add in (oy, ox, slot) order —
+// the order in which kernel 1 adds the terms it evaluates in parallel — so
+// this kernel's centre lanes equal kernel 1's outputs on the same whole
+// table bit for bit, and it and its plain twin differ only in summation
+// order (-fmad=false).
 
 #include <cuda_runtime.h>
 
@@ -73,8 +76,9 @@ __global__ void stencil_forces_ext_kernel(
         for (int cc = 0; cc < cap; ++cc) {
           const int j = cc * ext + nl;
           if (j == row || val[j] == 0.f) continue;
-          pair_accumulate(k, px, py, vx, vy, afac, j, rad[j], pxt, pyt, vxt,
-                          vyt, rt, aft, sx, sy, sa, sr);
+          pair_add(pair_term(k, px, py, vx, vy, afac, j, rad[j], pxt, pyt,
+                             vxt, vyt, rt, aft),
+                   sx, sy, sa, sr);
         }
       }
     }

@@ -45,7 +45,21 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
+# Launch geometry, mirrored from the sources: kernel 1 (stencil_forces.cu)
+# runs one block per STENCIL_TILE x STENCIL_TILE tile of cells; kernel 3
+# (mega_span.cu) one cluster of up to MEGA_MAX_CLUSTER CTAs.  Both keep a
+# 32-bit occupancy mask per cell, so C <= MASK_BITS.
+STENCIL_TILE, STENCIL_THREADS, STENCIL_TERM_CAP = 2, 256, 4096
+MEGA_THREADS, MEGA_TERM_CAP, MEGA_MAX_CLUSTER = 512, 8192, 16
+MEGA_MAX_ROWS, MEGA_STATIC_SMEM = 4096, 4 * (4 * 10 + 3 * 10)
+MASK_BITS = 32
+# shared memory a block may opt into on Hopper: 227 KB
+SMEM_PER_BLOCK = 232_448
+
 _lib = None
+# the (C, G, n_strip, payload) shapes whose kernel-3 plan has been held
+# against the library's
+_MEGA_CHECKED: set = set()
 # nvcc's output from the build this process made or found ("" when the
 # library was already on disk): ptxas register / spill report per kernel
 BUILD_LOG = ""
@@ -91,6 +105,47 @@ def _run_all(cmds: list) -> str:
     return "".join(outs)
 
 
+# argument types of the C entry points; each returns a cudaError_t
+SIGNATURES = {
+    "pbot_stencil_forces": [_vp] * 10 + [_i, _i] + [_f] * 10 + [_vp],
+    "pbot_compact": [_vp, _vp, _vp, _i, _i, _i, _vp],
+    "pbot_mega_span": [_vp] * 4 + [_i] * 5 + [_vp, _i, _vp, _i, _vp, _i, _i, _vp],
+    "pbot_compact_padded": [_vp, _vp, _vp] + [_i] * 6 + [_vp],
+    "pbot_stencil_forces_ext": [_vp] * 11 + [_i] * 6 + [_ll] + [_f] * 10 + [_vp],
+    "pbot_stencil_forces_plan": [_i, _i, _i, _vp],
+    "pbot_mega_span_plan": [_i, _i, _i, _i, _vp],
+}
+
+
+def compile_library(csrc: Path, so: Path) -> str:
+    """Compile every ``.cu`` in ``csrc`` with its own ``nvcc``, all at
+    once, and link the objects into ``so``; returns nvcc's output."""
+    nvcc = _nvcc()
+    objdir = so.parent / f"{so.stem}.{os.getpid()}.obj"
+    objdir.mkdir(parents=True, exist_ok=True)
+    srcs = sorted(csrc.glob("*.cu"))
+    objs = [str(objdir / f"{src.stem}.o") for src in srcs]
+    log = _run_all([
+        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        for src, obj in zip(srcs, objs)
+    ])
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]])
+    os.replace(tmp, so)
+    shutil.rmtree(objdir, ignore_errors=True)
+    return log
+
+
+def load_library(so: Path, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Load ``so`` and declare the entry points ``names``."""
+    lib = ctypes.CDLL(str(so))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = _i
+    return lib
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib, BUILD_LOG
@@ -98,39 +153,98 @@ def build() -> ctypes.CDLL:
         return _lib
     so = library_path()
     if not so.exists():
-        nvcc = _nvcc()
-        objdir = BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
-        objdir.mkdir(parents=True, exist_ok=True)
-        srcs = sorted(CSRC.glob("*.cu"))
-        objs = [str(objdir / f"{src.stem}.o") for src in srcs]
-        log = _run_all([
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-            for src, obj in zip(srcs, objs)
-        ])
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]])
-        BUILD_LOG = log
-        os.replace(tmp, so)
-        shutil.rmtree(objdir, ignore_errors=True)
-    lib = ctypes.CDLL(str(so))
-    lib.pbot_stencil_forces.argtypes = (
-        [_vp] * 10 + [_i, _i] + [_f] * 10 + [_vp]
-    )
-    lib.pbot_stencil_forces.restype = _i
-    lib.pbot_compact.argtypes = [_vp, _vp, _vp, _i, _i, _i, _vp]
-    lib.pbot_compact.restype = _i
-    lib.pbot_mega_span.argtypes = (
-        [_vp] * 4 + [_i] * 5 + [_vp, _i, _vp, _i, _vp, _i, _i, _vp]
-    )
-    lib.pbot_mega_span.restype = _i
-    lib.pbot_compact_padded.argtypes = [_vp, _vp, _vp] + [_i] * 6 + [_vp]
-    lib.pbot_compact_padded.restype = _i
-    lib.pbot_stencil_forces_ext.argtypes = (
-        [_vp] * 11 + [_i] * 6 + [_ll] + [_f] * 10 + [_vp]
-    )
-    lib.pbot_stencil_forces_ext.restype = _i
-    _lib = lib
-    return lib
+        so.parent.mkdir(parents=True, exist_ok=True)
+        BUILD_LOG = compile_library(CSRC, so)
+    _lib = load_library(so)
+    return _lib
+
+
+def stencil_plan(cap: int, g: int, has_payload: bool) -> dict:
+    """Kernel 1's launch for C = ``cap`` slots on a G x G table: blocks
+    (one per 2x2 tile of cells) and dynamic shared memory per block in
+    bytes, as ``smem_bytes`` in ``csrc/stencil_forces.cu`` computes it.
+    Raises ValueError beyond a 32-bit mask's slots."""
+    if not 1 <= cap <= MASK_BITS or g < 1:
+        raise ValueError(
+            f"stencil_forces: cell_capacity {cap} outside 1..{MASK_BITS} "
+            f"(a 32-bit occupancy mask per cell), or grid side {g} < 1"
+        )
+    tiles = -(-g // STENCIL_TILE)
+    cells, tile_cells = (STENCIL_TILE + 2) ** 2, STENCIL_TILE ** 2
+    max_t = cap * tile_cells
+    words = ((6 if has_payload else 5) * cap * cells + 4 * max_t + 2 * cells
+             + tile_cells + 1 + 2 * max_t + max_t + 1 + 9 * max_t + 32)
+    return {"blocks": tiles * tiles, "smem": 16 * STENCIL_TERM_CAP + 4 * words}
+
+
+def mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> dict:
+    """Kernel 3's cluster for a (C, G) table and an ``n_strip``-row strip,
+    as ``mega_plan`` in ``csrc/mega_span.cu`` computes it: ``cluster`` CTAs
+    (the largest divisor of G up to 16), ``grid_rows`` grid rows and
+    ``rows`` table rows per CTA, ``smem`` bytes of dynamic shared memory
+    per CTA.  Raises ValueError for a shape the kernel refuses: more than
+    32 slots, more than 4096 table or strip rows, or more shared memory
+    than a CTA has."""
+    if not 1 <= cap <= MASK_BITS or g < 1:
+        raise ValueError(
+            f"mega_span: storage capacity {cap} outside 1..{MASK_BITS} or grid side {g} < 1"
+        )
+    if cap * g * g > MEGA_MAX_ROWS or not 0 <= n_strip <= MEGA_MAX_ROWS:
+        raise ValueError(
+            f"mega_span: {cap * g * g} table rows and {n_strip} strip rows; "
+            f"at most {MEGA_MAX_ROWS} each"
+        )
+    n = max(d for d in range(1, MEGA_MAX_CLUSTER + 1) if g % d == 0)
+    th = g // n
+    rows, ncell = cap * th * g, (th + 2) * (g + 2)
+    words = ((6 if has_payload else 5) * cap * ncell + 2 * 5 * rows + 6 * rows
+             + 4 * rows + 4 * ncell + th * g + 1 + 2 * rows + rows + 1 + 9 * rows + 32)
+    smem = 16 * MEGA_TERM_CAP + 4 * words
+    if smem + MEGA_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"mega_span: {smem} bytes of shared memory per CTA for C={cap}, "
+            f"G={g} (cluster of {n}); a CTA has {SMEM_PER_BLOCK - MEGA_STATIC_SMEM}"
+        )
+    return {"cluster": n, "grid_rows": th, "rows": rows, "smem": smem}
+
+
+def library_stencil_plan(cap: int, g: int, has_payload: bool) -> dict:
+    """Kernel 1's plan as the built library computes it: blocks and
+    dynamic shared memory.  Raises if the library refuses the shape."""
+    lib = build()
+    out = (ctypes.c_int * 2)()
+    _raise_on(lib.pbot_stencil_forces_plan(cap, g, int(has_payload), out), "stencil_forces plan")
+    return {"blocks": out[0], "smem": out[1]}
+
+
+def library_mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> dict:
+    """Kernel 3's plan as the built library computes it on this card:
+    cluster, table rows per CTA, dynamic shared memory per CTA and
+    ``cudaOccupancyMaxActiveClusters`` for that launch.  Raises if the
+    library refuses the shape."""
+    lib = build()
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib.pbot_mega_span_plan(cap, g, n_strip, int(has_payload), out), "mega_span plan")
+    return {"cluster": out[0], "rows": out[1], "smem": out[2], "max_active_clusters": out[3]}
+
+
+def _check_mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> None:
+    """Raises if :func:`mega_plan` refuses the shape, or (once per shape)
+    if the library's plan differs from it or no cluster of the plan fits
+    on the card."""
+    key = (cap, g, n_strip, bool(has_payload))
+    plan = mega_plan(*key)
+    if key in _MEGA_CHECKED:
+        return
+    got = library_mega_plan(*key)
+    if any(got[k] != plan[k] for k in ("cluster", "rows", "smem")):
+        raise RuntimeError(f"mega_span: library plan {got} differs from {plan}")
+    if got["max_active_clusters"] < 1:
+        raise RuntimeError(
+            f"mega_span: no cluster of {plan['cluster']} CTAs with {plan['smem']} "
+            "bytes of shared memory fits on this card (cudaOccupancyMaxActiveClusters 0)"
+        )
+    _MEGA_CHECKED.add(key)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -166,6 +280,7 @@ def stencil_forces_cuda(params: SimParams, tables: dict):
         names = names + ("afac",)
     for k in names:
         _check(k, tables[k], shape)
+    stencil_plan(cap, g, params.has_payload)
     lib = build()
     out = torch.empty((4,) + shape, dtype=torch.float32, device=tables["px"].device)
     afac = tables["afac"].data_ptr() if params.has_payload else None
@@ -322,6 +437,7 @@ def mega_span_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
     for name, t in (("strip", strip), ("rects", rects), ("circles", circles)):
         if t.device != tbl.device:
             raise ValueError(f"{name}: on {t.device}, tbl on {tbl.device}")
+    _check_mega_plan(cs, g, n_pad, params.has_payload)
     lib = build()
     consts = mega_constants(params)
     carr = (ctypes.c_float * len(consts))(*consts)

@@ -129,15 +129,13 @@ def test_table_loop_on_card_matches_cpu(card):
     np.testing.assert_allclose(a["vel"], b["vel"], atol=1e-4)
 
 
-def test_mega_span_kernel_matches_twin(card):
-    """Kernel 3 against its twin on one span of a 1000-bot HEX swarm after
-    200 steps, with chip_smoke.py's tolerances: 1e-5 for px, py, rad;
-    kernel 1's form for aa, ar and vx, vy, plus the force that the span's
-    position differences cost through the magnet ramp (6 pairs x slope x
-    2 dpos, times dt for the velocities); the other fields equal."""
-    p = pt.SimParams(
-        n_cells=1000, n_dead=0, seed=3, config=pt.Config.HEX, light_x=-5.0,
-    ).validate()
+def check_span_against_twin(p, card):
+    """One span of kernel 3 against its twin from the mid-step state after
+    200 steps of ``p`` on the span path, with chip_smoke.py's tolerances:
+    1e-5 for px, py, rad; kernel 1's form for aa, ar and vx, vy, plus the
+    force that the span's position differences cost through the magnet
+    ramp (6 pairs x slope x 2 dpos, times dt for the velocities); the other
+    fields equal."""
     sim = pt.Simulation(p, device=card)
     assert sim._run_chunk.path_info["use_mega"]
     sim.step_chunk(200, start_step=0)
@@ -154,6 +152,8 @@ def test_mega_span_kernel_matches_twin(card):
         for a, b in zip(got, want) for f in ("px", "py")
     )
     (_, _, _, _, attr, _, _, mina, inv_i2_sq, inv_span) = pair_constants(p)
+    if p.has_payload:
+        attr *= max(1.0, p.attraction_factor) ** 2
     slack = 6 * abs(attr * inv_i2_sq - mina) * inv_span * 2 * dpos
     for a, b in zip(got, want):
         summed = b[ix["aa"]] + b[ix["ar"]]
@@ -168,6 +168,76 @@ def test_mega_span_kernel_matches_twin(card):
             else:
                 tol = torch.zeros_like(d)
             assert bool((d <= tol).all()), (field, float(d.max()), dpos)
+
+
+def test_mega_span_kernel_matches_twin(card):
+    """Kernel 3 against its twin on one span of a 1000-bot HEX swarm after
+    200 steps (G=16, C=16: a cluster of 16 CTAs)."""
+    p = pt.SimParams(
+        n_cells=1000, n_dead=0, seed=3, config=pt.Config.HEX, light_x=-5.0,
+    ).validate()
+    assert kernels.mega_plan(16, 16, 1024, False)["cluster"] == 16
+    check_span_against_twin(p, card)
+
+
+@pytest.mark.parametrize("shape", ["g16_c8_payload", "g32_c4_obstacles"])
+def test_mega_span_kernel_other_shapes(card, shape):
+    """Kernel 3 against its twin at eligible shapes other than the band's:
+    8 slots with a payload at G=16, and 4 slots at G=32 (2 grid rows per
+    CTA) with circle and rectangle obstacles."""
+    if shape == "g16_c8_payload":
+        p = pt.SimParams(
+            n_cells=300, n_dead=-1, seed=5, config=pt.Config.HEX, light_x=-5.0,
+            grid_dim=16, cell_capacity=8, attraction_factor=2.0,
+            force_backend=pt.ForceBackend.PALLAS,
+        ).validate()
+    else:
+        p = pt.SimParams(
+            n_cells=300, n_dead=0, seed=5, config=pt.Config.HEX, light_x=-5.0,
+            grid_dim=32, cell_capacity=4, force_backend=pt.ForceBackend.PALLAS,
+            circle_obstacles=((1.0, 0.5, 0.5), (-1.5, 1.0, 0.3)),
+            rect_obstacles=((-0.5, 0.5, -2.5, -1.5),),
+        ).validate()
+    g, cap = p.resolved_grid_dim(), p.storage_capacity()
+    plan = kernels.mega_plan(cap, g, _geometry(p)[2], p.has_payload)
+    assert plan["cluster"] == 16 and plan["grid_rows"] == g // 16
+    check_span_against_twin(p, card)
+
+
+def test_wrappers_refuse_shapes_the_plans_refuse(card):
+    """No fallback: a table kernel 1's 32-bit masks cannot hold, and a
+    table too large for kernel 3's cluster, raise before any launch."""
+    p = pt.SimParams(n_dead=0, grid_dim=16, cell_capacity=33).validate()
+    tables = {k: torch.zeros((33, 256), device=card) for k in ("px", "py", "vx", "vy", "rad")}
+    n0 = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="cell_capacity 33"):
+        kernels.stencil_forces_cuda(p, tables)
+    p = pt.SimParams(n_cells=300, n_dead=0, grid_dim=32, cell_capacity=8).validate()
+    n_pad = _geometry(p)[2]
+    tbl = torch.zeros((N_TF, 8, 32 * 32), device=card)
+    strip = torch.zeros((N_TF, n_pad // 128, 128), device=card)
+    with pytest.raises(ValueError, match="4096"):
+        kernels.mega_span_cuda(p, tbl, strip, 1, *kernels.obstacle_buffers(p, card))
+    assert kernels.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("payload", [False, True])
+def test_stencil_kernel_equals_ext_kernel_bitwise(card, payload):
+    """Kernel 1 on a whole G=32 table and kernel 4 on the same table cut
+    into 4 halo-extended shards add the same terms in the same (oy, ox,
+    slot) order: the centre lanes are equal bit for bit."""
+    p = pt.SimParams(n_dead=-1 if payload else 0, grid_dim=32).validate()
+    g, cap = p.resolved_grid_dim(), p.cell_capacity
+    ext, _, h, l0 = ext_tables(p, 7)
+    ext = ext.to(card)
+    names = ("px", "py", "vx", "vy", "rad", "val", "afac")
+    tables_ext = {k: ext[:, j] for j, k in enumerate(names)}
+    whole = {k: v.to(card) for k, v in random_tables(p, 7, 0.3).items()}
+    got1 = kernels.stencil_forces_cuda(p, whole)
+    got4 = kernels.stencil_forces_ext_cuda(p, tables_ext, h, l0)
+    assert float(got1[2].max()) > 0 and float(got1[3].max()) > 0
+    for a, b in zip(got1, got4):
+        assert torch.equal(a, b.permute(1, 0, 2).reshape(cap, g * g))
 
 
 def test_forced_redo_on_card_equals_regular_run(card):

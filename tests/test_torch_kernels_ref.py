@@ -271,3 +271,98 @@ def test_mega_constants_order():
     assert got["constrained"] == 1.0 and got["cc"] == float(np.float32(tp.constraint_contraction))
     assert got["inv_mass_factor"] == float(np.float32(1.0 / tp.mass_factor))
     assert got["half"] == float(np.float32(tp.world_half))
+
+
+def _eligible_shapes():
+    """Every (G, C, payload, n_pad) that passes validation and
+    ``mega_eligible``: G a multiple of 16 with G*G*C <= 4096, no spill
+    rows, the largest swarm whose strip fits."""
+    shapes = []
+    for g in (16, 32, 48, 64, 80):
+        for cap in range(1, 33):
+            for payload in (False, True):
+                p = pt.SimParams(
+                    n_cells=1000, n_dead=-1 if payload else 0, grid_dim=g,
+                    cell_capacity=cap, force_backend=pt.ForceBackend.PALLAS,
+                ).validate()
+                if t_mk.mega_eligible(p):
+                    shapes.append((g, cap, payload, t_et._geometry(p)[2]))
+    return shapes
+
+
+def test_mega_plan_covers_every_eligible_shape():
+    """Kernel 3's cluster plan launches every shape the span path takes:
+    a cluster of N > 1 CTAs with N dividing G, the CTAs' rows adding up to
+    the table, and shared memory within a CTA's 227 KB."""
+    shapes = _eligible_shapes()
+    assert {(g, cap) for g, cap, _, _ in shapes} == (
+        {(16, c) for c in range(1, 17)} | {(32, c) for c in range(1, 5)}
+        | {(48, 1), (64, 1)}
+    )
+    for g, cap, payload, n_pad in shapes:
+        plan = kernels.mega_plan(cap, g, n_pad, payload)
+        n = plan["cluster"]
+        assert 1 < n <= kernels.MEGA_MAX_CLUSTER and g % n == 0, (g, cap)
+        assert plan["grid_rows"] * n == g
+        assert plan["rows"] * n == cap * g * g
+        assert plan["smem"] + kernels.MEGA_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
+    band = kernels.mega_plan(16, 16, 1024, False)
+    assert (band["cluster"], band["rows"]) == (16, 256)
+
+
+@pytest.mark.parametrize("g,cap,n", [(8, 32, 8), (12, 28, 12), (13, 4, 13), (17, 1, 1), (18, 12, 9)])
+def test_mega_plan_other_sides(g, cap, n):
+    """Sides the config does not produce (not multiples of 16) still plan:
+    N the largest divisor of G up to 16, a prime G above 16 on one CTA."""
+    plan = kernels.mega_plan(cap, g, 4096, True)
+    assert plan["cluster"] == n and plan["rows"] * n == cap * g * g
+    assert plan["smem"] + kernels.MEGA_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("cap,g,n_strip,why", [
+    (33, 8, 128, "outside"),        # more slots than a 32-bit mask
+    (17, 16, 128, "4096"),          # 4352 table rows
+    (16, 16, 4224, "4096"),         # a strip beyond 4096 rows
+    (14, 17, 128, "shared memory"), # one CTA for 4046 rows: too big
+])
+def test_mega_plan_refusals(cap, g, n_strip, why):
+    with pytest.raises(ValueError, match=why):
+        kernels.mega_plan(cap, g, n_strip, False)
+
+
+@pytest.mark.parametrize("n_cells,shards,g", [(10_000, 1, 48), (10_000, 4, 64), (100_000, 1, 160)])
+def test_stencil_plan_tables(n_cells, shards, g):
+    """Kernel 1's tiles on the 10k table, the sharded 10k table and the
+    100k table: one block per 2x2 tile, shared memory within 227 KB, at
+    the configs' own G and at up to 32 slots."""
+    p = pt.SimParams(n_cells=n_cells, n_dead=0).validate()
+    if shards == 1:
+        assert p.resolved_grid_dim() == g
+    for cap in (p.cell_capacity, 32):
+        for payload in (False, True):
+            plan = kernels.stencil_plan(cap, g, payload)
+            assert plan["blocks"] == (g // 2) ** 2
+            assert plan["smem"] <= kernels.SMEM_PER_BLOCK
+    assert kernels.stencil_plan(16, 48, False)["blocks"] == 576
+    with pytest.raises(ValueError, match="cell_capacity 33"):
+        kernels.stencil_plan(33, g, False)
+
+
+def test_plan_constants_match_sources():
+    """The Python plans use the geometry the CUDA sources compile in."""
+    import re
+
+    def consts(name):
+        src = (kernels.CSRC / name).read_text()
+        return {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+    k1, k3 = consts("stencil_forces.cu"), consts("mega_span.cu")
+    assert (k1["kTile"], k1["kThreads"], k1["kTermCap"], k1["kMaxCap"]) == (
+        kernels.STENCIL_TILE, kernels.STENCIL_THREADS, kernels.STENCIL_TERM_CAP,
+        kernels.MASK_BITS)
+    assert (k3["kThreads"], k3["kTermCap"], k3["kMaxCluster"], k3["kMaxCap"],
+            k3["kMaxRows"]) == (kernels.MEGA_THREADS, kernels.MEGA_TERM_CAP,
+                                kernels.MEGA_MAX_CLUSTER, kernels.MASK_BITS,
+                                kernels.MEGA_MAX_ROWS)
+    assert k3["kSmemPerBlock"] == kernels.SMEM_PER_BLOCK
+    assert kernels.MEGA_MAX_ROWS == t_mk.MAX_ROWS
