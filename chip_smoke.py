@@ -12,13 +12,16 @@ table-resident loop, and the same workload cut to 1000 bots (light at
 1. require CUDA and print the card's name and power limit;
 2. build the kernels from ``particlerobotsimulations_torch/csrc``, print
    ptxas's registers and spills, and hold the launch plans that
-   ``kernels.py`` computes (kernel 1's tiles, kernel 3's cluster) against
-   the library's, with ``cudaOccupancyMaxActiveClusters`` for the band;
+   ``kernels.py`` computes (kernel 1's and kernel 4's tiles, kernel 2's
+   lane blocks and slot windows on the 10k, band and sharded tables,
+   kernel 3's cluster) against the library's, with
+   ``cudaOccupancyMaxActiveClusters`` for the band;
 3. hold kernels 1 and 2 against their plain PyTorch twins on the card, at
    the 10k path's shapes (after 200 steps, G=48), kernel 1 also on a
    synthetic table with holes in the slot order and on a payload table,
-   and kernel 2 on a synthetic table whose rows move by every offset with
-   one cell overflowing; also hold a short 300-bot table-loop run on the
+   and kernel 2 on synthetic tables whose rows move by every offset with
+   one cell overflowing, at Cs=16 and at Cs=40 (32 slots + 8 spill rows,
+   two 32-slot windows); also hold a short 300-bot table-loop run on the
    card against the same run on the CPU twins;
 4. run the 10k path for 3 chunks of 1000 steps with the launch counters
    reset just before, and check finite state, health, the adaptive
@@ -33,7 +36,9 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    same run on the CPU twins;
 7. run the 1000-bot path for 120 sim-s (12,000 steps, 60 segments) with
    the counters reset just before, and check the span path, finite state,
-   health, the CSV and the launch counts against the reported redos;
+   health, the CSV and the launch counts against the reported redos; then
+   hold kernel 2 against its twin on that scene's G=16 table (after 200
+   steps, 7 more without a rebuild) and time it there;
 8. A/B on that scene: 6,000 steps on the span path and 6,000 on the
    regular path from one state, the span path's device busy share under
    ``torch.profiler``; DENSE against the span path on
@@ -43,10 +48,11 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    ``LocalRing(4)`` on the card, at bench.py's workload resolved to G=64
    (4 shards of 1,024 lanes, 256-lane halos): kernel 4 and kernel 2's
    padded form against their twins after 200 steps, kernel 1 on the whole
-   table against kernel 4's centre lanes (bitwise), and the padded form on
-   a synthetic stack whose rows cross both shard boundaries and overflow
-   one lane; 10k sharded against the single-table loop (16 steps per bot,
-   112 steps macrostate, a 6 u/s drift across the boundaries); the forced
+   table against kernel 4's centre lanes (bitwise; both timed, and their
+   ratio printed), and the padded form on synthetic stacks (Cs=16 and 40)
+   whose rows cross both shard boundaries and overflow one lane; 10k
+   sharded against the single-table loop (16 steps per bot, 112 steps
+   macrostate, a 6 u/s drift across the boundaries); the forced
    global fallback (64 bots at 50 u/s) and the overflow spill rows (600
    bots, 8 + 8 slots) against the single-table loop; 1,000 steps of the
    10k sharded path (the counters reset just before) against 1,000 of the
@@ -107,6 +113,7 @@ from particlerobotsimulations_torch.parallel.ring import LocalRing
 from particlerobotsimulations_torch.parallel.spatial_table import (
     HALO_ROWS,
     make_sharded_table_run,
+    resolve_tp_params,
 )
 from particlerobotsimulations_torch.state import (
     active_mask,
@@ -141,6 +148,8 @@ K3_NEIGHBOURS = 6
 # contacts amplify, velocities ~1/dt faster); the macrostate after 112:
 # centroid (absolute), mean radius and mean speed (relative)
 N_SHARDS = 4
+# a storage capacity past one 32-slot mask word: 32 slots + 8 spill rows
+SPILL_40 = {"cell_capacity": 32, "overflow_slots": 8}
 TP_POS_ATOL, TP_VEL_ATOL = 1e-5, 1e-3
 TP_CENTROID_ATOL, TP_RAD_RTOL, TP_SPEED_RTOL = 2e-4, 1e-3, 2e-3
 
@@ -239,11 +248,11 @@ def main_path_tables(params, n_steps: int = 200):
     return p, tables, stacked
 
 
-def synthetic_planes():
+def synthetic_planes(**over):
     """A G=16 table whose rows move by every one of the 8 offsets (and
     stay), with every row around lane (8, 8) moving into it so that one
-    cell overflows."""
-    p = pt.SimParams(n_cells=1000, n_dead=0, grid_dim=16).validate()
+    cell overflows; ``over`` sets other SimParams (the slot counts)."""
+    p = pt.SimParams(n_cells=1000, n_dead=0, grid_dim=16, **over).validate()
     g, cs = p.resolved_grid_dim(), p.storage_capacity()
     gg = g * g
     gen = torch.Generator(device="cuda")
@@ -663,6 +672,12 @@ def ab_band(sim):
     return out, busy_share(seg_steps(sim, 1000), 1000)
 
 
+def movers_of(planes) -> int:
+    """Occupied rows of a compaction stack whose move is not (0, 0)."""
+    dx, dy = planes[-2], planes[-1]
+    return int((((dx != 0) | (dy != 0)) & (dx != 99)).sum())
+
+
 def timed_steps(sim, start: int, n: int) -> float:
     """us/step of ``n`` steps from ``start`` after a 200-step warm-up."""
     sim.step_chunk(200, start_step=start)
@@ -770,11 +785,12 @@ def crossing_rows(padded, h, l0, g) -> int:
     return int((((dy == 1) & prev) | ((dy == -1) & nxt)).sum())
 
 
-def synthetic_padded():
+def synthetic_padded(**over):
     """A G=32 table over 4 shards with random moves at 60 % fill and every
     row of the 3x3 lanes around a lane of shard 1's first grid row moving
-    into it (it overflows, fed across the boundary), cut into shards."""
-    p = pt.SimParams(n_cells=1000, n_dead=0, grid_dim=32).validate()
+    into it (it overflows, fed across the boundary), cut into shards;
+    ``over`` sets other SimParams (the slot counts)."""
+    p = pt.SimParams(n_cells=1000, n_dead=0, grid_dim=32, **over).validate()
     g, cs = p.resolved_grid_dim(), p.storage_capacity()
     gg = g * g
     gen = torch.Generator(device="cuda")
@@ -1057,12 +1073,13 @@ def sharded_phase():
         if not torch.equal(a, b.permute(1, 0, 2).reshape(cap, g * g)):
             fail(f"kernel 1 and kernel 4's centre lanes differ in {field} on the G={g} table")
     k2p_ovf, k2p_err = compare_compact_padded(p, padded, h, l0)
-    psyn, syn = synthetic_padded()
-    gs = psyn.resolved_grid_dim()
-    syn_ovf, _ = compare_compact_padded(psyn, syn, HALO_ROWS * gs, gs * gs // N_SHARDS)
-    syn_cross = crossing_rows(syn, HALO_ROWS * gs, gs * gs // N_SHARDS, gs)
-    if not syn_ovf or syn_cross == 0:
-        fail(f"synthetic padded stack: overflow {syn_ovf}, {syn_cross} crossing rows")
+    for over in ({}, SPILL_40):
+        psyn, syn = synthetic_padded(**over)
+        gs = psyn.resolved_grid_dim()
+        syn_ovf, _ = compare_compact_padded(psyn, syn, HALO_ROWS * gs, gs * gs // N_SHARDS)
+        syn_cross = crossing_rows(syn, HALO_ROWS * gs, gs * gs // N_SHARDS, gs)
+        if not syn_ovf or syn_cross == 0:
+            fail(f"synthetic padded stack {over}: overflow {syn_ovf}, {syn_cross} crossing rows")
     cross = crossing_rows(padded, h, l0, g)
     k4_ms = graph_ms(lambda: kernels.stencil_forces_ext_cuda(p, tables_ext, h, l0))
     k4_plain_ms = median_ms(lambda: stencil_forces_ext_plain(p, tables_ext, h, l0))
@@ -1079,9 +1096,10 @@ def sharded_phase():
         f"(atol {K1_ATOL}, rtol {K1_RTOL}, fx/fy + {K1_SUM_RTOL}*(fa+fr)) "
         f"{k4_ms * 1e3:.1f} us per launch in a CUDA graph ({k4_call_ms * 1e3:.1f} us "
         f"per wrapper call) vs plain {k4_plain_ms * 1e3:.1f} us (kernel 1 on the "
-        f"same table {k1_ms * 1e3:.1f} us) | compact_padded equal ({cross} rows "
-        f"crossing a boundary, overflow {k2p_ovf}; synthetic: {syn_cross} crossing, "
-        f"overflow {syn_ovf}) {k2p_ms * 1e3:.1f} us vs plain {k2p_plain_ms * 1e3:.1f} us "
+        f"same table {k1_ms * 1e3:.1f} us: kernel 4 / kernel 1 {k4_ms / k1_ms:.3f}) "
+        f"| compact_padded equal ({cross} rows crossing a boundary, overflow "
+        f"{k2p_ovf}; synthetic Cs=16 and Cs=40: each overflows, {syn_cross} "
+        f"crossing at Cs=40) {k2p_ms * 1e3:.1f} us vs plain {k2p_plain_ms * 1e3:.1f} us "
         f"| bounds (ms, by) {k4_bound}, {k2p_bound}"
     )
 
@@ -1170,7 +1188,7 @@ def sharded_phase():
 
     record = [
         {"name": "stencil_forces_ext", "route": "cuda",
-         "source": "particlerobotsimulations_torch/csrc/stencil_ext.cu",
+         "source": "particlerobotsimulations_torch/csrc/stencil_forces.cu",
          "replaces": "particlerobotsimulations_tpu/ops/pallas_stencil.py:570",
          "launches": launches["stencil_forces_ext"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms,
@@ -1216,12 +1234,31 @@ def main() -> int:
         fail(f"kernel 3 plan: library {lib3}, python {k3_plan}")
     if k3_plan["cluster"] < 2 or lib3["max_active_clusters"] < 1:
         fail(f"kernel 3 plan: {lib3}")
+    p4 = resolve_tp_params(p10, N_SHARDS)
+    g4 = p4.resolved_grid_dim()
+    l4 = g4 * g4 // N_SHARDS
+    k4_args = (p4.cell_capacity, g4, p4.has_payload, l4 // g4, N_SHARDS)
+    k4_plan = kernels.stencil_plan(*k4_args)
+    lib4 = kernels.library_stencil_plan(*k4_args)
+    if lib4 != k4_plan:
+        fail(f"kernel 4 plan: library {lib4}, python {k4_plan}")
+    k2_plans = {}
+    for name, q, lanes, shards in (("10k", p10, g10 * g10, 1),
+                                   ("band", pb, pb.resolved_grid_dim() ** 2, 1),
+                                   ("sharded", p4, l4, N_SHARDS)):
+        k2_args = (q.storage_capacity(), lanes, shards)
+        k2_plans[name] = kernels.compact_plan(*k2_args)
+        if kernels.library_compact_plan(*k2_args) != k2_plans[name]:
+            fail(f"kernel 2 plan {name}: library {kernels.library_compact_plan(*k2_args)}, "
+                 f"python {k2_plans[name]}")
     print(
         f"phase 2 plans: 10k G={g10} C={c10}: stencil_forces {k1_plan} | band "
         f"G={k3_args[1]} C={k3_args[0]}: mega_span cluster of {k3_plan['cluster']} "
         f"CTAs x {kernels.MEGA_THREADS} threads, {k3_plan['grid_rows']} grid rows = "
         f"{k3_plan['rows']} table rows and {k3_plan['smem']} B of shared memory per "
-        f"CTA, cudaOccupancyMaxActiveClusters {lib3['max_active_clusters']}"
+        f"CTA, cudaOccupancyMaxActiveClusters {lib3['max_active_clusters']} | sharded "
+        f"G={g4} ({N_SHARDS} shards of {l4 // g4} rows): stencil_forces_ext {k4_plan} | "
+        f"compact ({kernels.COMPACT_LANES} lanes per block) {k2_plans}"
     )
 
     # 3. kernels against their twins on the card
@@ -1229,12 +1266,12 @@ def main() -> int:
     p, tables, planes = main_path_tables(params)
     k1_err = compare_stencil(p, tables)
     k2_ovf, k2_err = compare_compact(p, planes)
-    psyn, syn = synthetic_planes()
-    syn_ovf, _ = compare_compact(psyn, syn)
-    if not syn_ovf:
-        fail("synthetic compaction table did not overflow")
-    dx, dy = planes[-2], planes[-1]
-    movers = int((((dx != 0) | (dy != 0)) & (dx != 99)).sum())
+    for over in ({}, SPILL_40):
+        psyn, syn = synthetic_planes(**over)
+        syn_ovf, _ = compare_compact(psyn, syn)
+        if not syn_ovf:
+            fail(f"synthetic compaction table {over} did not overflow")
+    movers = movers_of(planes)
     k1_ms = graph_ms(lambda: kernels.stencil_forces_cuda(p, tables))
     k1_plain_ms = median_ms(lambda: stencil_forces_plain(p, tables))
     k2_ms = graph_ms(lambda: kernels.compact_cuda(p, planes))
@@ -1253,8 +1290,8 @@ def main() -> int:
         f"fx/fy + {K1_SUM_RTOL}*(fa+fr)); slot holes in {n_holes} cells "
         f"{k1_holes_err:.3e}; payload {k1_pay_err:.3e}; "
         f"{k1_ms * 1e3:.1f} us vs plain {k1_plain_ms * 1e3:.1f} us | compact "
-        f"equal ({movers} movers, overflow {k2_ovf}; synthetic overflow "
-        f"{syn_ovf}) {k2_ms * 1e3:.1f} us vs plain {k2_plain_ms * 1e3:.1f} us "
+        f"equal ({movers} movers, overflow {k2_ovf}; synthetic Cs=16 and Cs=40 "
+        f"overflow) {k2_ms * 1e3:.1f} us vs plain {k2_plain_ms * 1e3:.1f} us "
         f"| 300-bot loop card vs cpu dpos {dpos:.2e} dvel {dvel:.2e}"
     )
 
@@ -1336,6 +1373,14 @@ def main() -> int:
         f"phase 7 band main path: 1000 HEX bots, Simulation.run 120 sim-s "
         f"(12000 steps), launches {b_launches}, redos {redos}, {b_us:.1f} us/step, "
         f"{b_rate:.4e} particle-steps/s, light distance {light_distance(bsim):.4f}"
+    )
+    p7, _, band_planes = main_path_tables(band_params())
+    b2_ovf, _ = compare_compact(p7, band_planes)
+    b2_ms = graph_ms(lambda: kernels.compact_cuda(p7, band_planes))
+    print(
+        f"phase 7 compact on the band's G={p7.resolved_grid_dim()} table after 200 "
+        f"steps: equal ({movers_of(band_planes)} movers, overflow {b2_ovf}) "
+        f"{b2_ms * 1e3:.1f} us in a CUDA graph, bound (ms, by) {compact_bound(band_planes)}"
     )
 
     # 8. A/B on the main path's scene, and the paths around the band

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels 1, 3 and 4 of this checkout against another checkout's, on one card.
+"""Kernels 1-4 of this checkout against another checkout's, on one card.
 
     python3 kernel_ab.py OTHER_CHECKOUT/particlerobotsimulations_torch/csrc
 
@@ -8,13 +8,16 @@ checkout's and calls both through this checkout's wrappers (the C entry
 points keep their signatures) on the same inputs, at ``chip_smoke.py``'s
 shapes: kernel 1 on the 10k path's table after 200 steps (G=48), kernel 4
 on the sharded 10k table after 200 steps (G=64), kernel 3 on one K=4 span
-of the 1000-bot band after 200 steps.  Prints the card's name and power
-limit, then per kernel whether the two libraries' outputs are bitwise
-equal and each library's time per launch, measured in turns: other, this,
-this, other — kernels 1 and 4 in a CUDA graph (``graph_ms``), kernel 3 per
-wrapper call (``median_ms``), since a library may set kernel attributes
-inside its launch, which a graph capture need not allow.  Exits 1 without
-a card, 3 when a pair of outputs differs.
+of the 1000-bot band after 200 steps, and kernel 2 on the compaction stacks
+of those tables (7 steps on without a rebuild): the wrap form on the 10k
+table and on the band's G=16 table, the padded form on the sharded table.
+Each call's output memory is filled with NaN first.  Prints the card's
+name and power limit, then per kernel whether the two libraries' outputs
+are bitwise equal and each library's time per launch, measured in turns:
+other, this, this, other — kernels 1, 2 and 4 in a CUDA graph
+(``graph_ms``), kernel 3 per wrapper call (``median_ms``), since a library
+may set kernel attributes inside its launch, which a graph capture need
+not allow.  Exits 1 without a card, 3 when a pair of outputs differs.
 """
 
 from __future__ import annotations
@@ -35,16 +38,18 @@ from particlerobotsimulations_torch.parallel.spatial_table import (
     make_sharded_table_run,
 )
 
-# the entry points the three kernels' wrappers call
-ENTRY_POINTS = ("pbot_stencil_forces", "pbot_stencil_forces_ext", "pbot_mega_span")
+# the entry points the kernels' wrappers call
+ENTRY_POINTS = ("pbot_stencil_forces", "pbot_stencil_forces_ext", "pbot_mega_span",
+                "pbot_compact", "pbot_compact_padded")
 
 
 def cases() -> dict:
     """name -> a call of that kernel's wrapper on chip_smoke.py's inputs."""
     params = cs.bench_params()
-    p1, tables, _ = cs.main_path_tables(params)
+    p1, tables, planes = cs.main_path_tables(params)
+    pb, _, band_planes = cs.main_path_tables(cs.band_params())
     run, p4 = make_sharded_table_run(params, LocalRing(cs.N_SHARDS, "cuda"))
-    tables_ext, _, _ = cs.sharded_tables(p4, run(pt.Simulation(p4, device="cuda").state, 200))
+    tables_ext, _, padded = cs.sharded_tables(p4, run(pt.Simulation(p4, device="cuda").state, 200))
     g = p4.resolved_grid_dim()
     h, l0 = HALO_ROWS * g, g * g // cs.N_SHARDS
     band = pt.Simulation(cs.band_params(), device="cuda")
@@ -55,7 +60,19 @@ def cases() -> dict:
         "stencil_forces": lambda: kernels.stencil_forces_cuda(p1, tables),
         "stencil_forces_ext": lambda: kernels.stencil_forces_ext_cuda(p4, tables_ext, h, l0),
         "mega_span": lambda: kernels.mega_span_cuda(p3, tbl, strip, first, *obs),
+        "compact": lambda: kernels.compact_cuda(p1, planes),
+        "compact_padded": lambda: kernels.compact_padded_cuda(p4, padded, h, l0),
+        "compact_band": lambda: kernels.compact_cuda(pb, band_planes),
     }
+
+
+def poison_outputs(sizes) -> None:
+    """Fill with NaN the blocks that the caching allocator hands the next
+    call's outputs: blocks of these byte sizes, taken in this order and
+    freed again, are the blocks the same requests get next.  Without it a
+    kernel that writes nothing returns the last call's results."""
+    junk = [torch.full((n // 4,), float("nan"), device="cuda") for n in sizes]
+    del junk
 
 
 def main(argv) -> int:
@@ -78,20 +95,24 @@ def main(argv) -> int:
 
     differ = False
     for name, fn in cases().items():
-        fn()  # this library first, so that kernel 3's plan is checked against it
+        # this library first, so that kernel 3's plan is checked against it
+        sizes = list({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                      for t in fn()}.values())
         timer = cs.median_ms if name == "mega_span" else cs.graph_ms
         outs, times = {}, {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):
             kernels._lib = libs[side]
+            poison_outputs(sizes)
             outs[side] = [t.clone() for t in fn()]
             times[side].append(timer(fn))
         kernels._lib = libs["this"]
-        equal = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+        equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(outs["other"], outs["this"]))
         differ = differ or not equal
         print(
             f"{name}: bitwise equal {equal}; us per launch ({timer.__name__}) other "
-            f"{[round(t * 1e3, 1) for t in times['other']]} this "
-            f"{[round(t * 1e3, 1) for t in times['this']]}; median ratio this/other "
+            f"{[round(t * 1e3, 2) for t in times['other']]} this "
+            f"{[round(t * 1e3, 2) for t in times['this']]}; median ratio this/other "
             f"{statistics.median(times['this']) / statistics.median(times['other']):.3f}"
         )
     return 3 if differ else 0

@@ -20,91 +20,179 @@
 // A row whose move is (-ox, -oy) lands in lane L: it is copied to the next
 // free slot while one is left, and counted either way.  Unfilled slots are
 // zero.  incoming[L] is the count, as float.  The padded form takes S
-// independent stacks (the shards one process holds) in one launch,
-// blockIdx.y = shard.  The result is pure data movement, so it equals the
-// JAX kernel and the plain twins elementwise (the JAX one-hot sum turns
-// -0.0 into +0.0, which == still treats as equal).
+// independent stacks (the shards one process holds) in one launch.  The
+// result is pure data movement, so it equals the JAX kernel and the plain
+// twins elementwise (the JAX one-hot sum turns -0.0 into +0.0, which ==
+// still treats as equal).  Any Cs: the slots are taken in windows of 32.
 //
-// What bounds it on the card: memory traffic and latency, not arithmetic.
-// At 10k bots (G=48, Cs=16, nf=9) one call reads the two move planes for
-// 9 x 16 candidates per lane (~2.6 MB, mostly from L2) plus the nf fields
-// of the rows that land, and writes the 9 x 16 x 2304 output planes
-// (1.3 MB).  2304 lanes is only 18 blocks of 128 threads, so the card is
-// far from full; the call runs once every K steps.  The sharded 10k table
-// (G=64, 4 shards of 1024 lanes) is 32 blocks.
+// What bounds it on the card: latency, not bytes or arithmetic.  At 10k
+// bots (G=48, Cs=16, nf=9) one call needs the 11 input planes once and
+// writes 9 output planes and the count (~2.9 MB: 0.88 us at 3.35 TB/s,
+// NVIDIA H100 80GB HBM3, 700 W).  The first design, one thread per target
+// lane with a serial scan of the 9 x Cs candidates and a running count,
+// put 2,304 lanes on 18 blocks (2 on the band's G=16 table): each thread a
+// chain of ~300 loads whose branches depend on the last, ~42 us a call.
 //
-// Design: one thread per target lane, a serial scan over the 9 x Cs
-// candidates with a running count — the rank-and-place the TPU kernel
-// expresses as a triangular matmul plus a one-hot contraction becomes a
-// plain counter here.  Threads of a warp read neighbouring lanes, so every
-// plane access is coalesced.  No shared memory, no atomics, deterministic.
+// Design: a block takes kLanes consecutive target lanes of one shard.
+//   1. One thread per (offset, lane) reads the dx, dy of the source lane's
+//      slots — the threads of a warp read neighbouring lanes of one slot
+//      plane, all loads independent — into a 32-bit word per window whose
+//      bit j says that slot j of the window moves into the lane, and counts
+//      them over every window.
+//   2. One thread per lane scans the nine counts in OFFSETS9 order: the
+//      rank of each offset's first mover, and the lane's count.
+//   3. One thread per (slot of the window, lane) tests that slot's bit in
+//      the nine words; a mover's rank is its offset's first rank plus the
+//      movers below it in its word, exactly the serial counter's order
+//      (OFFSETS9, then slot).  Movers of rank < Cs copy their nf fields,
+//      and a slot at or past min(count, Cs) is zeroed, by that thread.
+// A window after the first is re-read and its offsets' first ranks moved
+// past the previous window's movers.  No atomics: deterministic.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// pad < 0: the wrap form (in_w == out_w == G*G); else the padded form
-__global__ void compact_kernel(const float* __restrict__ planes,
-                               float* __restrict__ out,
-                               float* __restrict__ incoming,
-                               int nf, int cs, int g, int in_w, int pad,
-                               int out_w) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= out_w) return;
-  const size_t shard = blockIdx.y;
+constexpr int kLanes = 16;     // target lanes per block
+constexpr int kWindow = 32;    // slots per mask word
+constexpr int kThreads = kWindow * kLanes;  // one per (window slot, lane)
+
+// OFFSETS9 (ops/grid.py): center, then the 8 neighbours in that order
+__constant__ int kOffX[9] = {0, 1, -1, 0, 0, 1, 1, -1, -1};
+__constant__ int kOffY[9] = {0, 0, 0, 1, -1, 1, -1, 1, -1};
+
+// source lane of target lane `lane` at offset o; pad < 0: the wrap form
+__device__ __forceinline__ int source(int lane, int o, int g, int in_w, int pad) {
+  const int d = kOffY[o] * g + kOffX[o];
+  if (pad >= 0) return pad + lane + d;
+  const int s = (lane + d) % in_w;
+  return s < 0 ? s + in_w : s;
+}
+
+// bit j: slot c0 + j (j < n <= 32) of source lane `src` moves by (-ox, -oy)
+__device__ __forceinline__ unsigned movers(const float* __restrict__ dxp,
+                                           const float* __restrict__ dyp,
+                                           int src, int in_w, int c0, int n, int o) {
+  const float want_x = static_cast<float>(-kOffX[o]);
+  const float want_y = static_cast<float>(-kOffY[o]);
+  unsigned w = 0;
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+    const size_t s = static_cast<size_t>(c0 + j) * in_w + src;
+    const float a = dxp[s], b = dyp[s];
+    if ((a == want_x) & (b == want_y)) w |= 1u << j;
+  }
+  return w;
+}
+
+__global__ void __launch_bounds__(kThreads) compact_kernel(
+    const float* __restrict__ planes, float* __restrict__ out,
+    float* __restrict__ incoming, int nf, int cs, int g, int in_w, int pad,
+    int out_w, int lane_blocks) {
+  __shared__ unsigned word[9 * kLanes];  // (offset, lane): the window's movers
+  __shared__ int first[9 * kLanes];      // (offset, lane): rank of the window's first mover
+  __shared__ int total[kLanes];          // movers into each lane
+  const int tid = threadIdx.x;
+  const size_t shard = blockIdx.x / lane_blocks;
+  const int lane0 = (blockIdx.x - static_cast<int>(shard) * lane_blocks) * kLanes;
   planes += shard * (nf + 2) * cs * static_cast<size_t>(in_w);
   out += shard * nf * cs * static_cast<size_t>(out_w);
   incoming += shard * out_w;
-  // OFFSETS9 (ops/grid.py): center, then the 8 neighbours in that order
-  const int off_x[9] = {0, 1, -1, 0, 0, 1, 1, -1, -1};
-  const int off_y[9] = {0, 0, 0, 1, -1, 1, -1, 1, -1};
   const float* dxp = planes + static_cast<size_t>(nf) * cs * in_w;
   const float* dyp = dxp + static_cast<size_t>(cs) * in_w;
+  const int n_win = (cs + kWindow - 1) / kWindow;
 
-  int count = 0;
-#pragma unroll
-  for (int o = 0; o < 9; ++o) {
-    const int ox = off_x[o], oy = off_y[o];
-    int src;
-    if (pad < 0) {
-      src = (lane + oy * g + ox) % in_w;
-      if (src < 0) src += in_w;
-    } else {
-      src = pad + lane + oy * g + ox;
-    }
-    const float want_x = static_cast<float>(-ox);
-    const float want_y = static_cast<float>(-oy);
-    for (int c = 0; c < cs; ++c) {
-      const int s = c * in_w + src;
-      if (dxp[s] == want_x && dyp[s] == want_y) {
-        if (count < cs) {
-          for (int f = 0; f < nf; ++f) {
-            out[(static_cast<size_t>(f) * cs + count) * out_w + lane] =
-                planes[(static_cast<size_t>(f) * cs + c) * in_w + src];
-          }
-        }
-        ++count;
+  // 1. per (offset, lane): window 0's movers kept, every window's counted
+  if (tid < 9 * kLanes) {
+    const int o = tid / kLanes, lane = lane0 + tid % kLanes;
+    unsigned w0 = 0;
+    int n = 0;
+    if (lane < out_w) {
+      const int src = source(lane, o, g, in_w, pad);
+      for (int k = 0; k < n_win; ++k) {
+        const unsigned w = movers(dxp, dyp, src, in_w, k * kWindow,
+                                  min(kWindow, cs - k * kWindow), o);
+        if (k == 0) w0 = w;
+        n += __popc(w);
       }
     }
+    word[tid] = w0;
+    first[tid] = n;
   }
-  for (int c = count < cs ? count : cs; c < cs; ++c) {
-    for (int f = 0; f < nf; ++f) {
-      out[(static_cast<size_t>(f) * cs + c) * out_w + lane] = 0.f;
+  __syncthreads();
+
+  // 2. per lane: the counts scanned in OFFSETS9 order
+  if (tid < kLanes) {
+    int s = 0;
+    for (int o = 0; o < 9; ++o) {
+      const int n = first[o * kLanes + tid];
+      first[o * kLanes + tid] = s;
+      s += n;
+    }
+    total[tid] = s;
+    if (lane0 + tid < out_w) incoming[lane0 + tid] = static_cast<float>(s);
+  }
+  __syncthreads();
+
+  // 3. per window, per (slot, lane): its movers copied to their ranks, or
+  //    the slot zeroed past the count
+  for (int k = 0; k < n_win; ++k) {
+    if (k > 0) {
+      __syncthreads();
+      if (tid < 9 * kLanes) {
+        const int o = tid / kLanes, lane = lane0 + tid % kLanes;
+        first[tid] += __popc(word[tid]);
+        word[tid] = lane < out_w
+            ? movers(dxp, dyp, source(lane, o, g, in_w, pad), in_w, k * kWindow,
+                     min(kWindow, cs - k * kWindow), o)
+            : 0u;
+      }
+      __syncthreads();
+    }
+    const int j = tid / kLanes, i = tid % kLanes;
+    const int c = k * kWindow + j, lane = lane0 + i;
+    if (c >= cs || lane >= out_w) continue;
+    const unsigned below = (1u << j) - 1u;
+    for (int o = 0; o < 9; ++o) {
+      const unsigned w = word[o * kLanes + i];
+      if (!((w >> j) & 1u)) continue;
+      const int r = first[o * kLanes + i] + __popc(w & below);
+      if (r >= cs) continue;
+      const int src = source(lane, o, g, in_w, pad);
+      for (int f = 0; f < nf; ++f) {
+        out[(static_cast<size_t>(f) * cs + r) * out_w + lane] =
+            planes[(static_cast<size_t>(f) * cs + c) * in_w + src];
+      }
+    }
+    if (c >= min(total[i], cs)) {
+      for (int f = 0; f < nf; ++f) out[(static_cast<size_t>(f) * cs + c) * out_w + lane] = 0.f;
     }
   }
-  incoming[lane] = static_cast<float>(count);
 }
 
 }  // namespace
 
+// The launch plan for Cs slots, out_w target lanes and `shards` stacks:
+// out[0] = blocks (kLanes lanes of one shard each), out[1] = threads per
+// block, out[2] = slot windows.  Returns cudaErrorInvalidValue for Cs,
+// out_w or shards below 1.
+extern "C" int pbot_compact_plan(int cs, int out_w, int shards, int* out) {
+  if (cs < 1 || out_w < 1 || shards < 1) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = (out_w + kLanes - 1) / kLanes * shards;
+  out[1] = kThreads;
+  out[2] = (cs + kWindow - 1) / kWindow;
+  return 0;
+}
+
 static int launch(const void* planes, void* out, void* incoming, int shards,
                   int nf, int cs, int g, int in_w, int pad, int out_w,
                   void* stream) {
-  const int threads = 128;
-  const dim3 blocks((out_w + threads - 1) / threads, shards);
-  compact_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int plan[3];
+  const int bad = pbot_compact_plan(cs, out_w, shards, plan);
+  if (bad) return bad;
+  compact_kernel<<<plan[0], plan[1], 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(planes), static_cast<float*>(out),
-      static_cast<float*>(incoming), nf, cs, g, in_w, pad, out_w);
+      static_cast<float*>(incoming), nf, cs, g, in_w, pad, out_w, plan[0] / shards);
   return static_cast<int>(cudaGetLastError());
 }
 

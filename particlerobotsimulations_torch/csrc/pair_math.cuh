@@ -1,6 +1,5 @@
-// The pair term of the table kernels, shared by kernel 1
-// (stencil_forces.cu), kernel 3 (mega_span.cu) and kernel 4
-// (stencil_ext.cu).
+// The pair term of the table kernels, shared by kernels 1 and 4
+// (stencil_forces.cu) and kernel 3 (mega_span.cu).
 //
 // Replaces, term for term: particlerobotsimulations_tpu/ops/
 // pallas_stencil.py _pair_block (l.171), with 1.0f / sqrtf(d2) where the

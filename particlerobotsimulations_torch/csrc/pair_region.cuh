@@ -1,15 +1,16 @@
 // Term-parallel pair sums over a region of cells held in shared memory —
-// the pair stencil of kernel 1 (stencil_forces.cu) and kernel 3
+// the pair stencil of kernels 1 and 4 (stencil_forces.cu) and kernel 3
 // (mega_span.cu).
 //
 // A region is rh x rw cells: the target cells are its interior (rows 1 ..
 // rh - 2, columns 1 .. rw - 2) and its border is their one-cell halo, each
-// cell a copy of the whole table's cell that the exact 2-D wrap puts
-// there.  The planes px, py, vx, vy, rad (and afac with a payload) hold
-// the region's C slots, slot-major: value (c, cell) at c * rh * rw + cell.
-// mask[cell] has bit c set iff rad > 0 there; lane[cell] is the cell's
-// lane in the whole table, so that a cell visited twice (a table narrower
-// than 3 cells) is recognised as the target's own.
+// cell a copy of the table's cell that the kernel's wrap puts there.  The
+// planes px, py, vx, vy, rad (and afac with a payload) hold the region's C
+// slots, slot-major: value (c, cell) at c * rh * rw + cell.  mask[cell]
+// has bit c set iff that row is occupied (rad > 0; kernel 4: val != 0);
+// lane[cell] is the cell's lane in the table it came from, so that a cell
+// visited twice (a table narrower than 3 cells) is recognised as the
+// target's own.
 //
 // region_pair_sums gives every occupied target row the four sums of
 // stencil_forces.cu's contract, in the order of the serial loop

@@ -14,7 +14,8 @@ in :data:`LAUNCHES`.  There is no fallback: a missing ``nvcc``, a failed
 build or a failed launch raises.  The plain PyTorch twins that CPU tensors
 use live beside their callers (``ops/pallas_stencil.py``,
 ``ops/table_rebuild.py``, ``ops/megakernel.py``).  Kernels 4 and 2's
-padded form take the shards one process holds in one launch.
+padded form take the shards one process holds in one launch; kernels 1 and
+4 are one tiled body in ``csrc/stencil_forces.cu``.
 """
 
 from __future__ import annotations
@@ -45,11 +46,15 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
-# Launch geometry, mirrored from the sources: kernel 1 (stencil_forces.cu)
-# runs one block per STENCIL_TILE x STENCIL_TILE tile of cells; kernel 3
-# (mega_span.cu) one cluster of up to MEGA_MAX_CLUSTER CTAs.  Both keep a
-# 32-bit occupancy mask per cell, so C <= MASK_BITS.
+# Launch geometry, mirrored from the sources: kernels 1 and 4
+# (stencil_forces.cu) run one block per STENCIL_TILE x STENCIL_TILE tile of
+# cells; kernel 3 (mega_span.cu) one cluster of up to MEGA_MAX_CLUSTER CTAs.
+# All three keep a 32-bit occupancy mask per cell, so C <= MASK_BITS.
+# Kernel 2 (compact.cu) runs one block per COMPACT_LANES target lanes, one
+# thread per (slot of a COMPACT_WINDOW-slot window, lane), for any Cs.
 STENCIL_TILE, STENCIL_THREADS, STENCIL_TERM_CAP = 2, 256, 4096
+COMPACT_LANES, COMPACT_WINDOW = 16, 32
+COMPACT_THREADS = COMPACT_LANES * COMPACT_WINDOW
 MEGA_THREADS, MEGA_TERM_CAP, MEGA_MAX_CLUSTER = 512, 8192, 16
 MEGA_MAX_ROWS, MEGA_STATIC_SMEM = 4096, 4 * (4 * 10 + 3 * 10)
 MASK_BITS = 32
@@ -112,7 +117,8 @@ SIGNATURES = {
     "pbot_mega_span": [_vp] * 4 + [_i] * 5 + [_vp, _i, _vp, _i, _vp, _i, _i, _vp],
     "pbot_compact_padded": [_vp, _vp, _vp] + [_i] * 6 + [_vp],
     "pbot_stencil_forces_ext": [_vp] * 11 + [_i] * 6 + [_ll] + [_f] * 10 + [_vp],
-    "pbot_stencil_forces_plan": [_i, _i, _i, _vp],
+    "pbot_stencil_forces_plan": [_i] * 5 + [_vp],
+    "pbot_compact_plan": [_i] * 3 + [_vp],
     "pbot_mega_span_plan": [_i, _i, _i, _i, _vp],
 }
 
@@ -159,22 +165,44 @@ def build() -> ctypes.CDLL:
     return _lib
 
 
-def stencil_plan(cap: int, g: int, has_payload: bool) -> dict:
-    """Kernel 1's launch for C = ``cap`` slots on a G x G table: blocks
-    (one per 2x2 tile of cells) and dynamic shared memory per block in
-    bytes, as ``smem_bytes`` in ``csrc/stencil_forces.cu`` computes it.
-    Raises ValueError beyond a 32-bit mask's slots."""
-    if not 1 <= cap <= MASK_BITS or g < 1:
+def stencil_plan(cap: int, g: int, has_payload: bool, rows: int | None = None,
+                 shards: int = 1) -> dict:
+    """Kernel 1's or kernel 4's launch for C = ``cap`` slots, side G and
+    ``rows`` grid rows of targets (default G: kernel 1's whole table) in
+    each of ``shards`` shards: blocks (one per 2x2 tile of cells of every
+    shard) and dynamic shared memory per block in bytes, as
+    ``pbot_stencil_forces_plan`` in ``csrc/stencil_forces.cu`` computes
+    them.  Raises ValueError beyond a 32-bit mask's slots."""
+    rows = g if rows is None else rows
+    if not 1 <= cap <= MASK_BITS or min(g, rows, shards) < 1:
         raise ValueError(
             f"stencil_forces: cell_capacity {cap} outside 1..{MASK_BITS} "
-            f"(a 32-bit occupancy mask per cell), or grid side {g} < 1"
+            f"(a 32-bit occupancy mask per cell), or grid side {g}, rows {rows} "
+            f"or shards {shards} < 1"
         )
-    tiles = -(-g // STENCIL_TILE)
+    tiles = -(-g // STENCIL_TILE) * -(-rows // STENCIL_TILE)
     cells, tile_cells = (STENCIL_TILE + 2) ** 2, STENCIL_TILE ** 2
     max_t = cap * tile_cells
     words = ((6 if has_payload else 5) * cap * cells + 4 * max_t + 2 * cells
              + tile_cells + 1 + 2 * max_t + max_t + 1 + 9 * max_t + 32)
-    return {"blocks": tiles * tiles, "smem": 16 * STENCIL_TERM_CAP + 4 * words}
+    return {"blocks": tiles * shards, "smem": 16 * STENCIL_TERM_CAP + 4 * words}
+
+
+def compact_plan(cs: int, out_lanes: int, shards: int = 1) -> dict:
+    """Kernel 2's launch for Cs = ``cs`` slots, ``out_lanes`` target lanes
+    and ``shards`` stacks, as ``pbot_compact_plan`` in ``csrc/compact.cu``
+    computes it: blocks, threads per block and slot windows.  Any Cs >= 1;
+    raises ValueError below 1 slot, lane or shard."""
+    if min(cs, out_lanes, shards) < 1:
+        raise ValueError(
+            f"compact: storage capacity {cs}, {out_lanes} lanes and {shards} "
+            "shards must each be >= 1"
+        )
+    return {
+        "blocks": -(-out_lanes // COMPACT_LANES) * shards,
+        "threads": COMPACT_THREADS,
+        "windows": -(-cs // COMPACT_WINDOW),
+    }
 
 
 def mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> dict:
@@ -208,13 +236,26 @@ def mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> dict:
     return {"cluster": n, "grid_rows": th, "rows": rows, "smem": smem}
 
 
-def library_stencil_plan(cap: int, g: int, has_payload: bool) -> dict:
-    """Kernel 1's plan as the built library computes it: blocks and
-    dynamic shared memory.  Raises if the library refuses the shape."""
+def library_stencil_plan(cap: int, g: int, has_payload: bool, rows: int | None = None,
+                         shards: int = 1) -> dict:
+    """Kernel 1's or kernel 4's plan as the built library computes it:
+    blocks and dynamic shared memory.  Raises if the library refuses the
+    shape."""
     lib = build()
     out = (ctypes.c_int * 2)()
-    _raise_on(lib.pbot_stencil_forces_plan(cap, g, int(has_payload), out), "stencil_forces plan")
+    rows = g if rows is None else rows
+    _raise_on(lib.pbot_stencil_forces_plan(cap, g, rows, shards, int(has_payload), out),
+              "stencil_forces plan")
     return {"blocks": out[0], "smem": out[1]}
+
+
+def library_compact_plan(cs: int, out_lanes: int, shards: int = 1) -> dict:
+    """Kernel 2's plan as the built library computes it: blocks, threads
+    and slot windows.  Raises if the library refuses the shape."""
+    lib = build()
+    out = (ctypes.c_int * 3)()
+    _raise_on(lib.pbot_compact_plan(cs, out_lanes, shards, out), "compact plan")
+    return {"blocks": out[0], "threads": out[1], "windows": out[2]}
 
 
 def library_mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> dict:
@@ -374,6 +415,7 @@ def stencil_forces_ext_cuda(params: SimParams, tables_ext: dict,
                 f"{k}: each shard's (C, E) block must be contiguous, with one "
                 "shard stride and one device for all planes"
             )
+    stencil_plan(cap, g, params.has_payload, center // g, s)
     lib = build()
     out = torch.empty((4, s, cap, center), dtype=torch.float32, device=px.device)
     afac = tables_ext["afac"].data_ptr() if params.has_payload else None

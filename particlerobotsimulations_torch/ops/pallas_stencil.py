@@ -7,10 +7,11 @@ is easy to find; the force pass is the hand-written CUDA kernel in
 ``csrc/stencil_forces.cu`` on a CUDA tensor and the plain PyTorch twin
 :func:`stencil_forces_plain` on a CPU tensor (:func:`stencil_forces`).
 
-The sharded table loop's force pass (kernel 4, ``csrc/stencil_ext.cu``,
-twin :func:`stencil_forces_ext_plain`, dispatch :func:`stencil_forces_ext`)
-is the same pair law on a halo-extended shard table: occupancy from the
-``val`` plane, the x-wrap per row and y read linearly into the halo rows.
+The sharded table loop's force pass (kernel 4: kernel 1's tiled body in
+``csrc/stencil_forces.cu``, twin :func:`stencil_forces_ext_plain`,
+dispatch :func:`stencil_forces_ext`) is the same pair law on a
+halo-extended shard table: occupancy from the ``val`` plane, the x-wrap
+per row and y read linearly into the halo rows.
 
 Tables are ``(C, G*G)``: capacity slots on the first axis, cells
 (row-major ``y*G + x``, wrapped, bbox-anchored) on the second.  A row is

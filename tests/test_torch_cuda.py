@@ -377,3 +377,85 @@ def test_sharded_wrappers_refuse_cpu_tensors():
         kernels.compact_padded_cuda(p, torch.zeros((11, cs, l0 + 2 * h)), h, l0)
     with pytest.raises(ValueError, match="S, C, E"):
         kernels.stencil_forces_ext_cuda(p, {k: v[0] for k, v in tables.items()}, h, l0)
+
+
+@pytest.mark.parametrize("g,shards,payload", [
+    (32, 1, False),   # one shard: the whole table with its own wrap as halo
+    (32, 4, True),    # four shards of 8 rows, a payload
+    (48, 16, False),  # 3 centre rows per shard: a partial tile in each
+    (16, 16, True),   # one centre row per shard, a payload
+])
+def test_stencil_ext_kernel_shapes(card, g, shards, payload):
+    """Kernel 4 against its twin, and bitwise against kernel 1 on the same
+    whole table, at other shard counts and with an odd number of centre
+    rows (kernel 1's tolerance form against the twin)."""
+    from particlerobotsimulations_torch.ops.pallas_stencil import stencil_forces_ext_plain
+
+    p = pt.SimParams(n_dead=-1 if payload else 0, grid_dim=g).validate()
+    cap = p.cell_capacity
+    ext, _, h, l0 = ext_tables(p, 8, shards)
+    ext = ext.to(card)
+    tables = {k: ext[:, j] for j, k in enumerate(("px", "py", "vx", "vy", "rad", "val", "afac"))}
+    got = kernels.stencil_forces_ext_cuda(p, tables, h, l0)
+    want = stencil_forces_ext_plain(p, tables, h, l0)
+    summed = want[2] + want[3]
+    assert float(want[2].max()) > 0 and float(want[3].max()) > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = 1e-4 + 1e-5 * b.abs() + (1e-5 * summed if i < 2 else 0)
+        assert bool(((a - b).abs() <= tol).all())
+    whole = {k: v.to(card) for k, v in random_tables(p, 8, 0.3).items()}
+    for a, b in zip(kernels.stencil_forces_cuda(p, whole), got):
+        assert torch.equal(a, b.permute(1, 0, 2).reshape(cap, g * g))
+
+
+def test_stencil_ext_wrapper_refuses_cap_33(card):
+    """Kernel 4 keeps kernel 1's 32-slot masks: 33 slots raise before any
+    launch."""
+    p = pt.SimParams(n_dead=0, grid_dim=32, cell_capacity=33).validate()
+    h, l0 = HALO_ROWS * 32, 256
+    ext = torch.zeros((4, 7, 33, 2 * h + l0), device=card)
+    tables = {k: ext[:, j] for j, k in enumerate(("px", "py", "vx", "vy", "rad", "val", "afac"))}
+    n0 = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="cell_capacity 33"):
+        kernels.stencil_forces_ext_cuda(p, tables, h, l0)
+    assert kernels.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("g,cap,spill", [(16, 16, 0), (48, 16, 0), (16, 32, 8), (48, 32, 8)])
+def test_compact_kernels_equal_twins_other_shapes(card, g, cap, spill):
+    """Both forms of kernel 2 elementwise equal to their twins on the
+    band's G=16, the 10k path's G=48, and Cs = 32 + 8 spill slots = 40 (two
+    32-slot windows), on a stack with random moves at 70 % fill in which
+    every row of the 3x3 lanes around one lane moves into it (overflow)."""
+    p = pt.SimParams(n_dead=0, grid_dim=g, cell_capacity=cap, overflow_slots=spill).validate()
+    cs, gg = p.storage_capacity(), g * g
+    assert cs == cap + spill
+    gen = torch.Generator(device=card).manual_seed(g + cs)
+    data = torch.randn((9, cs, gg), generator=gen, device=card)
+    occ = torch.rand((cs, gg), generator=gen, device=card) < 0.7
+    mv = torch.randint(-1, 2, (2, cs, gg), generator=gen, device=card).float()
+    target = (g // 4 + 1) * g + g // 2   # a lane of shard 1's first grid row
+    for oy in (-1, 0, 1):
+        for ox in (-1, 0, 1):
+            occ[:, target + oy * g + ox] = True
+            mv[:, :, target + oy * g + ox] = torch.tensor([-ox, -oy], device=card)[:, None].float()
+    far = torch.full_like(mv[0], 99.0)
+    stack = torch.cat(
+        [data, torch.where(occ, mv[0], far)[None], torch.where(occ, mv[1], far)[None]]
+    ).contiguous()
+    out_k, inc_k = kernels.compact_cuda(p, stack)
+    out_p, inc_p = compact_plain(p, stack)
+    assert torch.equal(inc_k, inc_p) and bool((out_k == out_p).all())
+    assert float(inc_k[target]) == 9 * cs > cs
+    # the padded form on the same stack cut into 4 shards with their halos
+    h, l0 = HALO_ROWS * g, gg // 4
+    blocks = stack.view(11, cs, 4, l0).permute(2, 0, 1, 3)
+    z = torch.zeros(blocks.shape[:-1] + (h - g,), device=card)
+    padded = torch.cat(
+        [z, torch.roll(blocks, 1, 0)[..., -g:], blocks, torch.roll(blocks, -1, 0)[..., :g], z],
+        dim=-1,
+    ).contiguous()
+    out_k, inc_k = kernels.compact_padded_cuda(p, padded, h, l0)
+    out_p, inc_p = compact_padded_plain(p, padded, h, l0)
+    assert torch.equal(inc_k, inc_p) and bool((out_k == out_p).all())
+    assert bool((inc_k > cs).any())

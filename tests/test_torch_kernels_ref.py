@@ -360,9 +360,80 @@ def test_plan_constants_match_sources():
     assert (k1["kTile"], k1["kThreads"], k1["kTermCap"], k1["kMaxCap"]) == (
         kernels.STENCIL_TILE, kernels.STENCIL_THREADS, kernels.STENCIL_TERM_CAP,
         kernels.MASK_BITS)
+    k2 = consts("compact.cu")
+    assert (k2["kLanes"], k2["kWindow"]) == (kernels.COMPACT_LANES, kernels.COMPACT_WINDOW)
+    assert "constexpr int kThreads = kWindow * kLanes;" in (kernels.CSRC / "compact.cu").read_text()
+    assert kernels.COMPACT_THREADS == kernels.COMPACT_WINDOW * kernels.COMPACT_LANES
     assert (k3["kThreads"], k3["kTermCap"], k3["kMaxCluster"], k3["kMaxCap"],
             k3["kMaxRows"]) == (kernels.MEGA_THREADS, kernels.MEGA_TERM_CAP,
                                 kernels.MEGA_MAX_CLUSTER, kernels.MASK_BITS,
                                 kernels.MEGA_MAX_ROWS)
     assert k3["kSmemPerBlock"] == kernels.SMEM_PER_BLOCK
     assert kernels.MEGA_MAX_ROWS == t_mk.MAX_ROWS
+
+
+@pytest.mark.parametrize("n_cells,g,spill", [
+    (1_000, 32, 0), (10_000, 64, 0), (100_000, 160, 0), (100_000, 160, 8),
+])
+def test_sharded_plans(n_cells, g, spill):
+    """Kernels 4 and 2 (padded) on every sharded shape resolve_tp_params
+    makes over 4 shards: one 2x2 tile per block across the shards' centre
+    rows, the same tiles and shared memory as kernel 1 on the whole table,
+    and one block per 16 centre lanes of every shard with Cs in 32-slot
+    windows."""
+    from particlerobotsimulations_torch.parallel.spatial_table import resolve_tp_params
+
+    p = resolve_tp_params(pt.SimParams(n_cells=n_cells, n_dead=0, overflow_slots=spill), 4)
+    assert p.resolved_grid_dim() == g
+    cap, cs, l0 = p.cell_capacity, p.storage_capacity(), g * g // 4
+    rows = l0 // g
+    for payload in (False, True):
+        plan = kernels.stencil_plan(cap, g, payload, rows, 4)
+        whole = kernels.stencil_plan(cap, g, payload)
+        assert plan == {"blocks": (g // 2) * (rows // 2) * 4, "smem": whole["smem"]}
+        assert plan["blocks"] == whole["blocks"]  # rows even: the same tiles
+        assert plan["smem"] <= kernels.SMEM_PER_BLOCK
+    assert kernels.compact_plan(cs, l0, 4) == {
+        "blocks": l0 // kernels.COMPACT_LANES * 4, "threads": kernels.COMPACT_THREADS,
+        "windows": 1}
+    assert cs == 16 + spill
+
+
+@pytest.mark.parametrize("g,rows,shards,blocks", [
+    (32, 3, 4, 16 * 2 * 4),   # an odd number of rows per shard: a partial tile each
+    (33, 5, 2, 17 * 3 * 2),   # an odd side and odd rows
+    (30, 15, 1, 15 * 8),      # one shard of odd rows
+    (1, 1, 3, 3),             # one cell per shard
+])
+def test_stencil_plan_partial_tiles(g, rows, shards, blocks):
+    """Kernel 4's tiles cover a shard's centre rows with partial tiles
+    where rows or G are odd, as kernel 1 covers an odd G."""
+    assert kernels.stencil_plan(16, g, False, rows, shards)["blocks"] == blocks
+    assert kernels.stencil_plan(16, g, False, rows, shards)["smem"] == (
+        kernels.stencil_plan(16, g, False)["smem"])
+
+
+def test_stencil_ext_plan_refuses_cap_33():
+    """Kernel 4 inherits kernel 1's 32-slot limit, with kernel 1's message."""
+    with pytest.raises(ValueError, match="cell_capacity 33"):
+        kernels.stencil_plan(33, 64, False, 16, 4)
+    with pytest.raises(ValueError, match="shards 0"):
+        kernels.stencil_plan(16, 64, False, 16, 0)
+
+
+@pytest.mark.parametrize("out_lanes,shards", [(48 * 48, 1), (16 * 16, 1), (1024, 4), (100, 3)])
+def test_compact_plan_takes_any_storage_capacity(out_lanes, shards):
+    """Kernel 2 refuses no Cs up to 64: cell_capacity plus spill slots may
+    pass 32 (32 + 8 = 40); the slots go in ceil(Cs / 32) windows of one
+    mask word."""
+    for cs in range(1, 65):
+        plan = kernels.compact_plan(cs, out_lanes, shards)
+        assert plan["windows"] == -(-cs // 32)
+        assert plan["blocks"] == -(-out_lanes // kernels.COMPACT_LANES) * shards
+        assert plan["threads"] == kernels.COMPACT_THREADS
+
+
+def test_compact_plan_refusals():
+    for args in ((0, 256, 1), (16, 0, 1), (16, 256, 0)):
+        with pytest.raises(ValueError, match=">= 1"):
+            kernels.compact_plan(*args)
