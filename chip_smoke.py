@@ -77,7 +77,23 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    and C=64 against their twins and each other (bitwise), with and without
    a payload, on synthetic tables (half of each cell's slots occupied) and
    on the 10k scene's real positions after phase 10; both timed at C=64
-   in a CUDA graph, beside their bounds.
+   in a CUDA graph, beside their bounds;
+12. the seed sweep, eight seeds (``run_sweep``) batched against the same
+   seeds run one after another: bench.py's 10k workload (AUTO batched, 200
+   steps), ``examples/example.cfg`` (300 bots, DENSE, AUTO batched) and
+   the 1,000-bot band forced ``batched`` (the batched span), each with the
+   counters reset just before (kernel 1 once per batched step, kernel 2
+   once per rebuild, kernel 3 once per span, whatever the number of
+   scenes), each scene held bit for bit (its centroid ring within a
+   reordered sum's bound) to its lockstep replay (the scene alone through
+   the single-scene loop, taking the batch's rebuild and redo decisions)
+   and to its sequential run where neither fell back or redid a segment,
+   the centroid distance printed where one did; the timings put beside
+   the sequential runs'; kernels 1, 2 and 3 on
+   those sweeps' eight tables in one launch against eight single launches
+   (bit for bit) and their twins, each timed in a CUDA graph beside the
+   eight launches; ``cli experiment robustness`` and ``cli sweep``; and
+   ``gap_transit`` on ``examples/example_gap.cfg`` at ``grid_dim 32``.
 
 The four kernels are timed per launch from replays of a CUDA graph of
 20 launches, so their wrappers' host-side checks stay out of the time
@@ -91,6 +107,7 @@ kernels' JSON record and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -105,20 +122,28 @@ import particlerobotsimulations_torch as pt
 from particlerobotsimulations_torch import kernels
 from particlerobotsimulations_torch.engine_table import (
     MOVE_FIELDS,
+    REBUILDS,
     TABLE_FIELDS,
     _gates,
     _make_mega_glue,
     enter_table,
+    exit_table,
+    gate_seg,
     make_run_chunk_table,
     make_table_step,
     make_table_step_parts,
 )
-from particlerobotsimulations_torch.ops.megakernel import mega_span_plain
+from particlerobotsimulations_torch.models.placement import resolve_params
+from particlerobotsimulations_torch.ops.megakernel import (
+    mega_span_batched_plain,
+    mega_span_plain,
+)
 from particlerobotsimulations_torch.ops.pallas_stencil import (
     FIELDS as KERNEL_FIELDS,
     assign_slots_slotmajor,
     pair_constants,
     scatter_bot_tables,
+    stencil_forces_batched_plain,
     stencil_forces_ext_plain,
     stencil_forces_plain,
 )
@@ -134,9 +159,11 @@ from particlerobotsimulations_torch.parallel.spatial_table import (
     make_sharded_table_run,
     resolve_tp_params,
 )
+from particlerobotsimulations_torch.parallel.sweep import choose_sweep_strategy, run_sweep
 from particlerobotsimulations_torch.state import (
     active_mask,
     payload_mask,
+    scene_state,
     state_from_arrays,
     state_to_arrays,
 )
@@ -474,10 +501,13 @@ def ramp_slope(p) -> float:
     return abs(attr * inv_i2_sq - mina) * inv_span
 
 
-def compare_span(name, p, tbl, strip, first):
-    """max |diff| of kernel 3 against its twin on one span; fails beyond
-    the tolerance (K3_* above)."""
-    got = kernels.mega_span_cuda(p, tbl, strip, first, *kernels.obstacle_buffers(p, tbl.device))
+def compare_span(name, p, tbl, strip, first, got=None):
+    """max |diff| of kernel 3 (one launch, or ``got`` when given) against
+    its twin on one span; fails beyond the tolerance (K3_* above)."""
+    if got is None:
+        got = kernels.mega_span_cuda(
+            p, tbl, strip, first, *kernels.obstacle_buffers(p, tbl.device)
+        )
     want = mega_span_plain(p, tbl, strip, first)
     torch.cuda.synchronize()
     ix = {f: j for j, f in enumerate(TABLE_FIELDS)}
@@ -1443,6 +1473,476 @@ def wide_slot_phase(real_params, real_state):
     return lines
 
 
+# ------------------------------------------------------ phase 12: the sweep
+
+SWEEP_SEEDS = tuple(range(8))
+# a batched sweep is held bit for bit, every scene, against the lockstep
+# replay: each scene run alone through the single-scene table loop's parts
+# and kernels, taking the batch's decisions (see lockstep_replay).  Each
+# seed's free sequential run, whose rebuilds decide on that scene alone, is
+# held bit for bit where neither run fell back or redid a segment; else its
+# centroid distance is printed.  A centroid bound cannot stand in for that:
+# from the placed lattice a fallback in one run and not the other parts
+# them by up to the one-ulp envelope, which scripts/sweep_ulp_envelope.py
+# measures on the card over these windows beside the centroid's movement
+SCENE_FIELDS = ("pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r")
+
+
+def scene_diff(a, b, n) -> tuple:
+    """(dynamics bit for bit, ring max |diff| over its reorder bound) of two
+    single-scene states.  The centroid ring, a record the dynamics never
+    read, is the one field a batch reduces in another order: CUDA splits a
+    sum over (B, rows) across blocks by the batch's size, so a scene's
+    entry may differ from its solo run's in the last bits.  Its bound is
+    that of a tree sum of the n centres reordered, over n: ceil(log2 n)
+    float32 epsilons of the largest |coordinate|."""
+    same = a.step == b.step and all(torch.equal(getattr(a, k), getattr(b, k))
+                                    for k in SCENE_FIELDS)
+    atol = math.ceil(math.log2(n)) * float(np.finfo(np.float32).eps) * float(
+        a.pos[:n].abs().max())
+    return same, float((a.centroid_ring - b.centroid_ring).abs().max()) / atol
+
+
+def reset_counts() -> None:
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    for k in REBUILDS:
+        REBUILDS[k] = 0
+
+
+def sweep_seg(params) -> int:
+    """The gate segment ``run_sweep`` aligns its chunks to (0 off PALLAS)."""
+    return gate_seg(params) if params.resolved_backend("cuda") == pt.ForceBackend.PALLAS else 0
+
+
+def centroids_of(positions, n) -> torch.Tensor:
+    """(B, 2) bot-mean centroids of single scenes' (n_pad, 2) positions,
+    reduced on one (B, n, 2) stack as ``run_sweep`` reduces a batched state
+    (a reduction's order depends on its shape)."""
+    return torch.stack(positions)[..., :n, :].mean(dim=-2)
+
+
+def sequential_runs(params, seeds, n_steps, record_every):
+    """Each seed alone through ``engine.make_run_chunk``, chunked and
+    aligned as ``run_sweep(strategy="sequential")`` runs it: (final states,
+    centroids (n_records, B, 2), wall s, exact fallbacks and redos per
+    scene)."""
+    from particlerobotsimulations_torch.engine import make_run_chunk
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    params = resolve_params(params.validate())
+    n, seg = params.n_cells, sweep_seg(params)
+    finals, recs, wall, falls = [], [], 0.0, []  # recs: each scene's record positions
+    for seed in seeds:
+        reset_counts()
+        t0 = time.perf_counter()
+        run = make_run_chunk(params, "cuda")
+        state = scene_state(make_batch_state(params, [seed], "cuda"), 0)
+        r, done = [state.pos], 0
+        while done < n_steps:
+            chunk = min(record_every, n_steps - done)
+            state = run(state, chunk, seg > 0 and done % seg == 0)
+            done += chunk
+            r.append(state.pos)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        finals.append(state)
+        recs.append(r)
+        falls.append((REBUILDS["exact"], getattr(run, "redos", 0)))
+    cents = torch.stack([centroids_of(list(at), n) for at in zip(*recs)])
+    return finals, cents.cpu().numpy(), wall, falls
+
+
+def lockstep_replay(params, seeds, n_steps, record_every):
+    """The batched table loop's decisions, replayed on single scenes: every
+    scene runs alone through the single-scene step parts and kernels, in
+    lockstep with the others, chunked and aligned as ``run_sweep`` runs a
+    batch.  A slot rebuild takes the incremental result for every scene
+    only when every scene's preconditions held, else the exact rebuild for
+    every scene; a span segment is redone on the regular path for every
+    scene, from its entry state and draw state, when any scene's span
+    rebuild failed.  Returns (final states, centroids (n_records, B, 2),
+    counts of lockstep steps, rebuilds, exact rebuilds, spans and redos),
+    each count once for all scenes, as the batched kernels launch."""
+    from particlerobotsimulations_torch import rng
+    from particlerobotsimulations_torch.engine_table import _derived_rows, _rebuild_fields
+    from particlerobotsimulations_torch.ops.megakernel import make_mega_span, mega_eligible
+    from particlerobotsimulations_torch.ops.table_rebuild import incremental_rebuild
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    params = resolve_params(params.validate())
+    n, seg = params.n_cells, sweep_seg(params)
+    k = max(1, params.resolved_slot_rebuild_steps())
+    bps = seg // k if seg > 0 else 0
+    use_mega = mega_eligible(params) and bps > 1
+    step_pre, step_post = make_table_step_parts(params)
+    if use_mega:
+        mega = make_mega_span(params, pt.config.padded_n(params))
+        pack, unpack, incremental_packed = _make_mega_glue(params)
+    counts = {"steps": 0, "rebuilds": 0, "exact": 0, "spans": 0, "redos": 0}
+
+    def rebuild(tss):
+        counts["rebuilds"] += 1
+        outs = [incremental_rebuild(params, ts.fields, MOVE_FIELDS, ts.origin) for ts in tss]
+        if all(bool(ok) for _, ok in outs):
+            return [ts.replace(fields=_derived_rows(params, {**ts.fields, **moved}))
+                    for ts, (moved, _) in zip(tss, outs)]
+        counts["exact"] += 1
+        out = []
+        for ts in tss:
+            fields, origin = _rebuild_fields(params, ts.fields)
+            out.append(ts.replace(fields=fields, origin=origin))
+        return out
+
+    def one_step(tss, do_rebuild, post=True):
+        gates = _gates(params, tss[0].step)
+        tss = [step_pre(ts, *gates) for ts in tss]
+        if do_rebuild:
+            tss = rebuild(tss)
+        if post:
+            counts["steps"] += 1
+            tss = [step_post(ts) for ts in tss]
+        return tss
+
+    def regular(tss, n_steps):
+        for j in range(n_steps):
+            tss = one_step(tss, tss[0].step % k == k - 1 if k > 8 else j % k == k - 1)
+        return tss
+
+    def mega_seg(tss):
+        entry = [(dict(ts.fields), ts.origin, ts.step, ts.centroid_ring,
+                  rng.snapshot(ts.generator)) for ts in tss]
+        for _ in range(k - 1):
+            tss = one_step(tss, False)
+        tss = one_step(tss, True, post=False)
+        packed = [pack(ts.fields) for ts in tss]
+        first, ok_all = tss[0].step + 1, True
+        for b in range(bps - 1):
+            counts["spans"] += 1
+            counts["rebuilds"] += 1
+            nxt = []
+            for ts, (tbl, strip) in zip(tss, packed):
+                tbl, strip = mega(tbl, strip, first + b * k)
+                tbl, ok = incremental_packed(tbl, ts.origin)
+                ok_all = ok_all and bool(ok)
+                nxt.append((tbl, strip))
+            packed = nxt
+        if ok_all:
+            counts["steps"] += 1
+            return [step_post(ts.replace(fields=unpack(*tp), step=first + (bps - 1) * k - 1))
+                    for ts, tp in zip(tss, packed)]
+        counts["redos"] += 1
+        out = []
+        for ts, (fields, origin, step0, ring, snap) in zip(tss, entry):
+            rng.restore(ts.generator, snap)
+            out.append(ts.replace(fields=fields, origin=origin, step=step0, centroid_ring=ring))
+        return regular(out, seg)
+
+    states = [scene_state(make_batch_state(params, [s], "cuda"), 0) for s in seeds]
+    recs, done = [centroids_of([st.pos for st in states], n)], 0
+    while done < n_steps:
+        chunk = min(record_every, n_steps - done)
+        tss = [enter_table(params, st) for st in states]
+        n_segs = chunk // seg if use_mega and done % seg == 0 else 0
+        for _ in range(n_segs):
+            tss = mega_seg(tss)
+        tss = regular(tss, chunk - n_segs * seg)
+        states = [exit_table(params, ts) for ts in tss]
+        done += chunk
+        recs.append(centroids_of([st.pos for st in states], n))
+    return states, torch.stack(recs).cpu().numpy(), counts
+
+
+def sweep_vs_sequential(name, params, n_steps, record_every, strategy):
+    """One sweep of SWEEP_SEEDS through ``run_sweep`` by ``strategy`` (None:
+    AUTO) on the card, held per scene bit for bit against its reference:
+    the lockstep replay on a PALLAS table loop, else (DENSE, no rebuild
+    decisions) each seed's sequential run.  Each seed's free sequential
+    run is timed beside it.  Returns (batched state, launches, the
+    replay's counts or None, text)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    b_state, b_cents = run_sweep(params, list(SWEEP_SEEDS), n_steps, record_every=record_every,
+                                 strategy=strategy, device="cuda")
+    torch.cuda.synchronize()
+    b_wall, b_launch, b_exact = time.perf_counter() - t0, dict(kernels.LAUNCHES), REBUILDS["exact"]
+    s_states, s_cents, s_wall, s_fall = sequential_runs(params, SWEEP_SEEDS, n_steps, record_every)
+    table = params.resolved_backend("cuda") == pt.ForceBackend.PALLAS
+    counts = None
+    if table:
+        t0 = time.perf_counter()
+        r_states, r_cents, counts = lockstep_replay(params, SWEEP_SEEDS, n_steps, record_every)
+        r_wall = time.perf_counter() - t0
+        if counts["exact"] != b_exact:
+            fail(f"{name}: the batch took {b_exact} exact rebuilds, its replay {counts['exact']}")
+    else:
+        r_states, r_cents, r_wall = s_states, s_cents, 0.0
+    n = params.n_cells
+    to_ref, to_seq, dcent, dring, problems = [], [], 0.0, 0.0, []
+    for b in range(len(SWEEP_SEEDS)):
+        scene = scene_state(b_state, b)
+        if not np.isfinite(b_cents[:, b]).all():
+            problems.append(f"scene {b} not finite")
+        (same_r, ring_r), (same_s, ring_s) = (scene_diff(scene, ref, n)
+                                              for ref in (r_states[b], s_states[b]))
+        dring = max(dring, ring_r)
+        to_ref.append(same_r and ring_r <= 1.0 and np.array_equal(b_cents[:, b], r_cents[:, b]))
+        to_seq.append(same_s and ring_s <= 1.0 and np.array_equal(b_cents[:, b], s_cents[:, b]))
+        d = float(np.abs(b_cents[:, b] - s_cents[:, b]).max())
+        dcent = max(dcent, d)
+        if not to_ref[-1]:
+            problems.append(f"scene {b} differs from its {'replay' if table else 'sequential run'}")
+        if b_exact == 0 and (counts is None or counts["redos"] == 0) and s_fall[b] == (0, 0) \
+                and not to_seq[-1]:
+            problems.append(f"scene {b}: neither run fell back, yet it differs from its "
+                            f"sequential run (centroid {d:.3e})")
+    steps = n_steps * len(SWEEP_SEEDS)
+    text = (
+        f"{name}: {len(SWEEP_SEEDS)} seeds x {n_steps} steps of {n} bots, "
+        f"{strategy or 'AUTO'} {b_wall * 1e6 / n_steps:.1f} us per batched step "
+        f"({n * steps / b_wall:.4e} particle-steps/s, exact fallbacks {b_exact}, redos "
+        f"{counts['redos'] if counts else 0}) vs sequential {s_wall * 1e6 / steps:.1f} us per "
+        f"scene-step ({n * steps / s_wall:.4e} particle-steps/s, (fallbacks, redos) per scene "
+        f"{s_fall}); batched == {'lockstep replay' if table else 'sequential'} bit for bit "
+        f"in {sum(to_ref)}/{len(to_ref)} scenes (the centroid ring at up to {dring:.3f} of "
+        f"its reorder bound)"
+        + (f" (replay {r_wall:.1f} s, {counts})" if table else "")
+        + f"; vs the free sequential runs: bit for bit in {sum(to_seq)}/{len(to_seq)} "
+        f"scenes, centroid max |diff| {dcent:.3e}"
+    )
+    if problems:
+        print(f"phase 12 sweep {text}")
+        fail(f"{name}: " + "; ".join(problems))
+    return b_state, b_launch, counts, text
+
+
+def check_sweep_launches(name, launches, want) -> None:
+    full = {k: 0 for k in kernels.LAUNCHES}
+    full.update(want)
+    if launches != full:
+        fail(f"{name}: launches {launches}, want {full}")
+
+
+def batched_kernel_checks(p10, state10, pb, state_b):
+    """Kernels 1 and 2 on the 10k sweep's eight tables and kernel 3 on the
+    band sweep's eight, one launch each: bit for bit the eight single-scene
+    launches, within tolerance of the twins, and timed in a CUDA graph
+    beside the eight single launches."""
+    out = {}
+    b = len(SWEEP_SEEDS)
+    g, cap, cs = p10.resolved_grid_dim(), p10.cell_capacity, p10.storage_capacity()
+    gg = g * g
+    ts = enter_table(p10, state10)
+    tables = {k: ts.fields[k][:, : cap * gg].unflatten(-1, (cap, gg))
+              for k in ("px", "py", "vx", "vy", "rad", "afac")}
+    singles = [{k: v[i].contiguous() for k, v in tables.items()} for i in range(b)]
+    got = kernels.stencil_forces_batched_cuda(p10, tables)
+    err = 0.0
+    for i in range(b):
+        one = kernels.stencil_forces_cuda(p10, singles[i])
+        if not all(torch.equal(x[i], y) for x, y in zip(got, one)):
+            fail(f"batched stencil_forces: scene {i} differs from its single launch")
+        err = max(err, check_forces(f"batched stencil_forces scene {i}",
+                                    [x[i] for x in got], stencil_forces_plain(p10, singles[i])))
+    n_bytes, n_ops = 0.0, 0.0
+    for one in singles:
+        n_bytes += (5 + 4) * one["px"].numel() * 4
+        n_ops += PAIR_OPS * occupied_pairs(p10, one["rad"])
+    out["stencil_forces_batched"] = {
+        "err": err,
+        "ms": graph_ms(lambda: kernels.stencil_forces_batched_cuda(p10, tables)),
+        "singles_ms": graph_ms(lambda: [kernels.stencil_forces_cuda(p10, t) for t in singles]),
+        "plain_ms": median_ms(lambda: stencil_forces_batched_plain(p10, tables), 5, 3),
+        "bound": bound(n_bytes, n_ops),
+    }
+
+    step = make_table_step(p10)
+    for _ in range(7):
+        ts = step(ts, False, False, False, False)
+    planes = torch.stack([ts.fields[k][:, : cs * gg] for k in MOVE_FIELDS], dim=1)
+    planes = planes.unflatten(-1, (cs, gg))
+    dxf, dyf, _, _ = torch.func.vmap(
+        lambda pl, o: rebuild_move_planes(p10, pl, MOVE_FIELDS, o)
+    )(planes, ts.origin)
+    stacked = torch.cat([planes, dxf[:, None], dyf[:, None]], dim=1).contiguous()
+    c_out, c_inc = kernels.compact_batched_cuda(p10, stacked)
+    for i in range(b):
+        o1, i1 = kernels.compact_cuda(p10, stacked[i].contiguous())
+        op, ip = compact_plain(p10, stacked[i])
+        if not (torch.equal(c_out[i], o1) and torch.equal(c_inc[i], i1)):
+            fail(f"batched compact: scene {i} differs from its single launch")
+        if not (torch.equal(c_inc[i], ip) and bool((c_out[i] == op).all())):
+            fail(f"batched compact: scene {i} differs from the twin")
+    bounds2 = [compact_bound(stacked[i]) for i in range(b)]
+    out["compact_batched"] = {
+        "err": 0.0,
+        "ms": graph_ms(lambda: kernels.compact_batched_cuda(p10, stacked)),
+        "singles_ms": graph_ms(
+            lambda: [kernels.compact_cuda(p10, stacked[i]) for i in range(b)]
+        ),
+        "plain_ms": median_ms(lambda: compact_plain(p10, stacked), 5, 3),
+        # the eight stacks' bounds add: one launch does all their work
+        "bound": (sum(x[0] for x in bounds2), bounds2[0][1]),
+    }
+
+    tsb = enter_table(pb, state_b)
+    tsb = make_table_step_parts(pb)[0](tsb, *_gates(pb, tsb.step))
+    tbl, strip = _make_mega_glue(pb)[0](tsb.fields)
+    tbl, strip, first = tbl.contiguous(), strip.contiguous(), tsb.step + 1
+    obs = kernels.obstacle_buffers(pb, tbl.device)
+    s_tbl = [tbl[i].contiguous() for i in range(b)]
+    s_strip = [strip[i].contiguous() for i in range(b)]
+    got3 = kernels.mega_span_batched_cuda(pb, tbl, strip, first, *obs)
+    err3 = 0.0
+    for i in range(b):
+        one = kernels.mega_span_cuda(pb, s_tbl[i], s_strip[i], first, *obs)
+        if not (torch.equal(got3[0][i], one[0]) and torch.equal(got3[1][i], one[1])):
+            fail(f"batched mega_span: scene {i} differs from its single launch")
+        e, _ = compare_span(f"batched scene {i}", pb, s_tbl[i], s_strip[i], first,
+                            got=(got3[0][i], got3[1][i]))
+        err3 = max(err3, e)
+    spans = [span_bound(pb, s_tbl[i], s_strip[i]) for i in range(b)]
+    lib = kernels.library_mega_plan(pb.storage_capacity(), pb.resolved_grid_dim(),
+                                    pt.config.padded_n(pb), pb.has_payload, scenes=b)
+    out["mega_span_batched"] = {
+        "err": err3,
+        "ms": graph_ms(lambda: kernels.mega_span_batched_cuda(pb, tbl, strip, first, *obs)),
+        "singles_ms": graph_ms(lambda: [
+            kernels.mega_span_cuda(pb, s_tbl[i], s_strip[i], first, *obs) for i in range(b)
+        ]),
+        "plain_ms": median_ms(lambda: mega_span_batched_plain(pb, tbl, strip, first), 2, 3),
+        # the eight spans' bounds add: one launch does all their work
+        "bound": (sum(x[0] for x in spans), spans[0][1]),
+        "ctas": lib["ctas"], "resident": lib["max_active_clusters"],
+    }
+    return out
+
+
+def run_cli_inprocess(argv) -> tuple:
+    """(exit code, stdout lines, seconds) of the port's CLI in this
+    process, on the card."""
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    from particlerobotsimulations_torch.cli import main as cli_main
+
+    buf = StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = cli_main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    return rc, buf.getvalue().strip().splitlines(), time.perf_counter() - t0
+
+
+def sweep_phase():
+    """Phase 12: the seed sweep on the card.  Three sweeps of eight seeds
+    against their sequential runs, with the launch counts checked (kernel 1
+    once per batched step, kernel 2 once per rebuild, kernel 3 once per
+    span, whatever the number of scenes); the batched kernels against eight
+    single launches and their twins; the CLI's sweep and experiment."""
+    counts = {"stencil_forces_batched": 0, "compact_batched": 0, "mega_span_batched": 0}
+    b = len(SWEEP_SEEDS)
+
+    # the 10k sweep: bench.py's workload, AUTO batched at the K the params
+    # resolve (4; the batched loop takes no adaptive cadence)
+    p10 = resolve_params(bench_params().validate())
+    if choose_sweep_strategy(p10, b) != "batched":
+        fail("10k sweep: AUTO did not choose batched")
+    n10, rec10 = 200, 100
+    t0 = time.perf_counter()
+    s10, launch, rep, text = sweep_vs_sequential("10k HEX", p10, n10, rec10, None)
+    k = p10.resolved_slot_rebuild_steps()
+    rebuilds = (n10 // rec10) * (rec10 // k)
+    if (rep["steps"], rep["rebuilds"], rep["spans"]) != (n10, rebuilds, 0):
+        fail(f"10k sweep: the replay took {rep}, want {n10} steps and {rebuilds} rebuilds")
+    check_sweep_launches("10k sweep", launch, {
+        "stencil_forces_batched": n10, "compact_batched": rebuilds,
+    })
+    for key in counts:
+        counts[key] += launch[key]
+    print(f"phase 12 sweep {text}; launches {launch}; {time.perf_counter() - t0:.1f} s")
+
+    # example.cfg: 300 bots, AUTO: DENSE, batched
+    pe = resolve_params(pt.load_cfg(os.path.join(ROOT, "examples", "example.cfg")).validate())
+    if choose_sweep_strategy(pe, b) != "batched" or pe.resolved_backend("cuda") != pt.ForceBackend.DENSE:
+        fail("example.cfg sweep: not DENSE batched under AUTO")
+    t0 = time.perf_counter()
+    _, launch, _, text = sweep_vs_sequential("dense", pe, 200, 100, None)
+    check_sweep_launches("example.cfg sweep", launch, {})
+    print(f"phase 12 sweep example.cfg {text}; {time.perf_counter() - t0:.1f} s")
+
+    # the band scene forced batched: the batched span path
+    pb = resolve_params(band_params().validate())
+    if choose_sweep_strategy(pb, b) != "sequential":
+        fail("band sweep: AUTO did not choose sequential")
+    seg = gate_seg(pb)
+    kb = pb.resolved_slot_rebuild_steps()
+    nb = 2 * seg
+    t0 = time.perf_counter()
+    sb, launch, rep, text = sweep_vs_sequential("band", pb, nb, nb, "batched")
+    # a redone segment adds its regular steps and rebuilds to the k - 1
+    # steps and the rebuild before its first span
+    n_segs, bps, r = nb // seg, seg // kb, rep["redos"]
+    want = {
+        "mega_span_batched": n_segs * (bps - 1),
+        "compact_batched": n_segs * bps + r * bps,
+        "stencil_forces_batched": n_segs * kb + r * (seg - 1),
+    }
+    if (rep["spans"], rep["rebuilds"], rep["steps"]) != tuple(want.values()):
+        fail(f"band sweep: the replay took {rep}, want {want}")
+    check_sweep_launches("band sweep", launch, want)
+    for key in counts:
+        counts[key] += launch[key]
+    print(f"phase 12 sweep {text}; launches {launch}; {time.perf_counter() - t0:.1f} s")
+
+    kc = batched_kernel_checks(p10, s10, pb, sb)
+    for name, v in kc.items():
+        extra = (f", {v['ctas']} CTAs, {v['resident']} clusters resident at once"
+                 if "ctas" in v else "")
+        print(
+            f"phase 12 {name} B={b}: bit for bit {b} single launches, max|diff| vs "
+            f"twin {v['err']:.3e}; {v['ms'] * 1e3:.1f} us per launch in a CUDA graph vs "
+            f"{v['singles_ms'] * 1e3:.1f} us for {b} single launches, plain "
+            f"{v['plain_ms'] * 1e3:.1f} us, bound (ms, by) "
+            f"({v['bound'][0]:.4g}, {v['bound'][1]}){extra}"
+        )
+
+    for argv in (
+        ["experiment", "robustness", os.path.join(ROOT, "examples", "example_dead_cells.cfg"),
+         "--seeds", "0:4", "--sim-seconds", "10"],
+        ["sweep", os.path.join(ROOT, "examples", "example.cfg"), "--seeds", "0:4",
+         "--steps", "600"],
+    ):
+        rc, out, secs = run_cli_inprocess(argv)
+        if rc != 0 or len(out) < 2 or not all(
+            np.isfinite(float(x)) for ln in out[1:] if not ln.startswith("#")
+            for x in ln.split(",")
+        ):
+            fail(f"cli {' '.join(argv[:2])}: rc {rc}, output {out}")
+        what = argv[1] if argv[0] == "experiment" else os.path.basename(argv[1])
+        print(f"phase 12 cli {argv[0]} {what} in {secs:.1f} s: {out[0]} | "
+              + " | ".join(out[1:]))
+
+    # the gap scene's RANDOM layout needs G=32 (ROADMAP queue 3): the
+    # regular batched loop, two seeds
+    from particlerobotsimulations_torch.models.experiments import gap_transit
+
+    pg = pt.load_cfg(os.path.join(ROOT, "examples", "example_gap.cfg")).replace(grid_dim=32)
+    reset_counts()
+    t0 = time.perf_counter()
+    gap = gap_transit(pg, [0, 1], 1.0, device="cuda")
+    torch.cuda.synchronize()
+    if not (np.isfinite(gap["centroids"]).all() and kernels.LAUNCHES["stencil_forces_batched"] == 100
+            and kernels.LAUNCHES["mega_span_batched"] == 0):
+        fail(f"gap_transit at G=32: {gap}, launches {kernels.LAUNCHES}")
+    print(f"phase 12 gap_transit example_gap.cfg at grid_dim 32, 2 seeds x 100 steps "
+          f"({choose_sweep_strategy(resolve_params(pg.validate()), 2)}) in "
+          f"{time.perf_counter() - t0:.1f} s: fraction past the wall "
+          f"{gap['frac_past_wall'].tolist()}, launches {dict(kernels.LAUNCHES)}")
+    return kc, counts
+
+
 def main() -> int:
     # 1. the card
     if not torch.cuda.is_available():
@@ -1655,6 +2155,11 @@ def main() -> int:
         print(line)
     print(f"phases 10-11 took {time.perf_counter() - t10:.1f} s")
 
+    # 12. the sweep: batched runs of eight seeds against sequential ones
+    t12 = time.perf_counter()
+    kc, sweep_counts = sweep_phase()
+    print(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -1681,7 +2186,21 @@ def main() -> int:
          "launches": b_launches["mega_span"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
-    ] + record9}
+    ] + record9 + [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep_,
+         "launches": sweep_counts[name], "max_abs_err": kc[name]["err"],
+         "ms": kc[name]["ms"], "plain_ms": kc[name]["plain_ms"],
+         "bound_ms": kc[name]["bound"][0], "bound_by": kc[name]["bound"][1],
+         "library_ms": None}
+        for name, src, rep_ in (
+            ("stencil_forces_batched", "particlerobotsimulations_torch/csrc/stencil_forces.cu",
+             "particlerobotsimulations_tpu/ops/pallas_stencil.py:458"),
+            ("compact_batched", "particlerobotsimulations_torch/csrc/compact.cu",
+             "particlerobotsimulations_tpu/ops/table_rebuild.py:203"),
+            ("mega_span_batched", "particlerobotsimulations_torch/csrc/mega_span.cu",
+             "particlerobotsimulations_tpu/ops/megakernel.py:272"),
+        )
+    ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,7 +7,9 @@ CUDA device the table-resident PALLAS loop runs hand-written Hopper
 kernels (``csrc/``: the pair-force stencil, the slot compaction, the
 small-table span kernel, and the halo stencil of the sharded loop in
 ``parallel/``); on the CPU the same calls take their plain PyTorch twins.
-The package never imports JAX.
+Seed sweeps (``parallel/sweep.run_sweep``, ``models/experiments.py``) run
+many scenes at once through the batched loops, whose kernels take every
+scene in one launch.  The package never imports JAX.
 """
 
 from .config import (
@@ -18,7 +20,7 @@ from .config import (
     load_cfg,
     parse_cfg_text,
 )
-from .engine import make_run_chunk, make_step
+from .engine import make_run_chunk, make_run_chunk_batched, make_step
 from .sim import Simulation
 from .state import SimState, active_mask, make_state, payload_mask
 
@@ -34,6 +36,7 @@ __all__ = [
     "active_mask",
     "load_cfg",
     "make_run_chunk",
+    "make_run_chunk_batched",
     "make_state",
     "make_step",
     "parse_cfg_text",

@@ -1,11 +1,13 @@
 """Command-line entry point of the PyTorch port.
 
     python -m particlerobotsimulations_torch.cli simulate examples/example.cfg --device cuda
+    python -m particlerobotsimulations_torch.cli sweep examples/example.cfg --seeds 0:8 --steps 6000
+    python -m particlerobotsimulations_torch.cli experiment robustness examples/example_dead_cells.cfg
 
-Only ``simulate`` is ported; the JAX package's other subcommands (sweep,
-experiment, bench) print that they are not ported yet and exit 2.  Outputs
-land under the cfg's csv_filename, like the reference binary
-(main.cpp:913-917).
+``simulate`` writes under the cfg's csv_filename, like the reference
+binary (main.cpp:913-917); ``sweep`` and ``experiment`` print the JAX
+package's CSV to stdout.  ``bench`` prints that it is not ported yet and
+exits 2 (ROADMAP.md queue 1 item 5), as does ``--mesh`` (item 14).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import argparse
 import sys
 import time
 
-NOT_PORTED = ("sweep", "experiment", "bench")
+NOT_PORTED = ("bench",)
 
 
 def _add_overrides(p: argparse.ArgumentParser):
@@ -79,6 +81,83 @@ def cmd_simulate(args) -> int:
     return 0
 
 
+def _seeds(text: str) -> list:
+    lo, hi = (int(x) for x in text.split(":"))
+    return list(range(lo, hi))
+
+
+def _mesh_not_ported() -> int:
+    print(
+        "error: --mesh is not yet ported to PyTorch (see ROADMAP.md, queue 1 item 14)",
+        file=sys.stderr,
+    )
+    return 2
+
+
+def cmd_sweep(args) -> int:
+    from .config import load_cfg
+    from .parallel.sweep import run_sweep, sweep_summary
+
+    if args.mesh:
+        return _mesh_not_ported()
+    params = _apply_overrides(load_cfg(args.cfg), args)
+    n_steps = args.steps or params.n_steps()
+    _, cents = run_sweep(params, _seeds(args.seeds), n_steps, device=args.device)
+    summary = sweep_summary(cents, params)
+    print("time_s,distance_mean,distance_std,centroid_x,centroid_y")
+    dump_dt = params.dump_steps * params.timestep
+    for i in range(len(summary["distance_mean"])):
+        print(
+            f"{i * dump_dt:g},{summary['distance_mean'][i]:f},"
+            f"{summary['distance_std'][i]:f},"
+            f"{summary['centroid_mean'][i, 0]:f},{summary['centroid_mean'][i, 1]:f}"
+        )
+    return 0
+
+
+def cmd_experiment(args) -> int:
+    from .config import load_cfg
+    from .models.experiments import (
+        dead_cell_robustness,
+        gap_transit,
+        payload_transport,
+        phototaxis_speed,
+    )
+
+    if args.mesh:
+        return _mesh_not_ported()
+    params = _apply_overrides(load_cfg(args.cfg), args)
+    seeds = _seeds(args.seeds)
+    dev = args.device
+
+    if args.kind == "robustness":
+        fracs = [float(f) for f in args.fractions.split(",")]
+        out = dead_cell_robustness(params, fracs, seeds, args.sim_seconds, device=dev)
+        print("dead_fraction,approach_speed_units_per_s")
+        for f, v in zip(out["fractions"], out["approach_speed"]):
+            print(f"{f:g},{v:.6f}")
+    elif args.kind == "gap":
+        out = gap_transit(params, seeds, args.sim_seconds, device=dev)
+        print("seed,frac_past_wall")
+        for s, v in zip(seeds, out["frac_past_wall"]):
+            print(f"{s},{v:.4f}")
+        print(f"# mean fraction past wall x={out['wall_x']:g}: "
+              f"{out['frac_past_wall_mean']:.4f}")
+    elif args.kind == "transport":
+        out = payload_transport(params, seeds, args.sim_seconds, device=dev)
+        print("seed,payload_dx,payload_dy")
+        for s, d in zip(seeds, out["payload_displacement"]):
+            print(f"{s},{d[0]:.6f},{d[1]:.6f}")
+        print(f"# mean payload dx: {out['payload_mean_dx']:.6f}")
+    else:
+        out = phototaxis_speed(params, seeds, args.sim_seconds, device=dev)
+        print("time_s,distance_mean,distance_std")
+        for t, m, s in zip(out["time_s"], out["distance_mean"], out["distance_std"]):
+            print(f"{t:g},{m:.6f},{s:.6f}")
+        print(f"# approach speed: {out['approach_speed']:.6f} units/s")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="particlerobotsimulations_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -89,6 +168,29 @@ def main(argv=None) -> int:
     _add_overrides(sim_p)
     sim_p.set_defaults(fn=cmd_simulate)
 
+    sw_p = sub.add_parser("sweep", help="Monte-Carlo seed sweep")
+    sw_p.add_argument("cfg")
+    sw_p.add_argument("--seeds", type=str, default="0:8", help="lo:hi seed range")
+    sw_p.add_argument("--steps", type=int, default=0)
+    sw_p.add_argument("--mesh", action="store_true",
+                      help="shard over all devices (not ported: exits 2)")
+    _add_overrides(sw_p)
+    sw_p.set_defaults(fn=cmd_sweep)
+
+    ex_p = sub.add_parser(
+        "experiment", help="canned paper experiments (robustness, transport)"
+    )
+    ex_p.add_argument("kind", choices=["robustness", "transport", "speed", "gap"])
+    ex_p.add_argument("cfg")
+    ex_p.add_argument("--seeds", type=str, default="0:8")
+    ex_p.add_argument("--sim-seconds", type=float, default=600.0)
+    ex_p.add_argument("--fractions", type=str, default="0,0.1,0.2,0.3",
+                      help="dead-cell fractions (robustness)")
+    ex_p.add_argument("--mesh", action="store_true",
+                      help="shard over all devices (not ported: exits 2)")
+    _add_overrides(ex_p)
+    ex_p.set_defaults(fn=cmd_experiment)
+
     for name in NOT_PORTED:
         p = sub.add_parser(name, help="not ported yet")
         p.add_argument("rest", nargs=argparse.REMAINDER)
@@ -98,7 +200,7 @@ def main(argv=None) -> int:
     if args.fn is None:
         print(
             f"error: '{args.cmd}' is not yet ported to PyTorch "
-            "(see ROADMAP.md, queue 1)",
+            "(see ROADMAP.md, queue 1 item 5)",
             file=sys.stderr,
         )
         return 2

@@ -20,7 +20,10 @@
 // A row whose move is (-ox, -oy) lands in lane L: it is copied to the next
 // free slot while one is left, and counted either way.  Unfilled slots are
 // zero.  incoming[L] is the count, as float.  The padded form takes S
-// independent stacks (the shards one process holds) in one launch.  The
+// independent stacks (the shards one process holds) in one launch, and the
+// wrap form B (the scenes of a batched table loop, where the JAX package
+// vmaps the pallas_call); each stack is compacted as a one-stack launch
+// would compact it.  The
 // result is pure data movement, so it equals the JAX kernel and the plain
 // twins elementwise (the JAX one-hot sum turns -0.0 into +0.0, which ==
 // still treats as equal).  Any Cs: the slots are taken in windows of 32.
@@ -196,10 +199,12 @@ static int launch(const void* planes, void* out, void* incoming, int shards,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the wrap form: one (nf + 2, Cs, G*G) stack
+// the wrap form: `scenes` contiguous (nf + 2, Cs, G*G) stacks, one per
+// scene of a batch (1 for the single-table loop), each compacted as the
+// padded form compacts a shard
 extern "C" int pbot_compact(const void* planes, void* out, void* incoming,
-                            int nf, int cs, int g, void* stream) {
-  return launch(planes, out, incoming, 1, nf, cs, g, g * g, -1, g * g, stream);
+                            int scenes, int nf, int cs, int g, void* stream) {
+  return launch(planes, out, incoming, scenes, nf, cs, g, g * g, -1, g * g, stream);
 }
 
 // the padded form: `shards` stacks of (nf + 2, Cs, pad + out_w + pad),

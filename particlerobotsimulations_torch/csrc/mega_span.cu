@@ -66,7 +66,13 @@
 // remote read, so no CTA exits while another can still read its shared
 // memory.  Strip rows see no pair force and read only their own row: each
 // thread runs all k steps of its strip rows in registers after the table
-// loop, with no barrier.  Nothing falls back: a plan that does not fit
+// loop, with no barrier.  A seed sweep's batched span path launches B
+// scenes at once, one cluster each (the JAX package vmaps the pallas_call,
+// which gives its grid a scene axis): cluster b offsets the tables by scene
+// b.  At the band's plan the card holds 7 clusters of 16 CTAs at a time
+// (cudaOccupancyMaxActiveClusters), so 8 scenes run in two waves; nothing
+// assumes that clusters of different scenes are resident together.
+// Nothing falls back: a plan that does not fit
 // (more than 32 slots, or more shared memory than a CTA has) is refused,
 // and kernels.py raises when no cluster of the plan fits on the card.
 
@@ -364,9 +370,15 @@ __global__ void __launch_bounds__(kThreads, 1) mega_span_kernel(
   __shared__ float s_rect[4 * kMaxRect];
   __shared__ float s_circ[3 * kMaxCirc];
   const int tid = threadIdx.x;
-  const int n = static_cast<int>(gridDim.x);  // the grid is one cluster
+  // one cluster per scene: cluster b holds CTAs [b * n, (b + 1) * n)
+  const int n = static_cast<int>(cluster.num_blocks());
   const int me = static_cast<int>(cluster.block_rank());
   const int gg = g * g, rows_all = cap * gg;
+  const size_t scene = blockIdx.x / n;
+  tbl += scene * kFields * rows_all;
+  tbl_out += scene * kFields * rows_all;
+  strip += scene * kFields * n_strip;
+  strip_out += scene * kFields * n_strip;
   const int th = g / n, y0 = me * th;
   const int own = th * g;        // owned cells: lanes y0*G .. y0*G + own - 1
   const int rows = cap * own;    // owned table rows
@@ -552,14 +564,14 @@ cudaError_t prepare(int cap, int g, int n_strip, int has_payload, MegaPlan* plan
   return cudaSuccess;
 }
 
-void launch_config(const MegaPlan& plan, cudaStream_t stream,
+void launch_config(const MegaPlan& plan, int scenes, cudaStream_t stream,
                    cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = plan.n;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(plan.n, 1, 1);
+  cfg->gridDim = dim3(plan.n * scenes, 1, 1);
   cfg->blockDim = dim3(kThreads, 1, 1);
   cfg->dynamicSmemBytes = plan.smem;
   cfg->stream = stream;
@@ -569,18 +581,22 @@ void launch_config(const MegaPlan& plan, cudaStream_t stream,
 
 }  // namespace
 
-// The cluster plan of a (C, G) table with an n_strip-row strip: out[0] =
-// CTAs per cluster, out[1] = table rows per CTA, out[2] = dynamic shared
-// memory per CTA in bytes, out[3] = cudaOccupancyMaxActiveClusters for
-// that launch.  Returns cudaErrorInvalidValue for a shape the plan
-// refuses, else the occupancy query's status.
-extern "C" int pbot_mega_span_plan(int cap, int g, int n_strip, int has_payload, int* out) {
+// The cluster plan of a (C, G) table with an n_strip-row strip, for
+// `scenes` scenes in one launch: out[0] = CTAs per cluster, out[1] = table
+// rows per CTA, out[2] = dynamic shared memory per CTA in bytes, out[3] =
+// cudaOccupancyMaxActiveClusters for that launch (how many of the scenes'
+// clusters can be resident at once), out[4] = CTAs in the launch.  Returns
+// cudaErrorInvalidValue for a shape the plan refuses, else the occupancy
+// query's status.
+extern "C" int pbot_mega_span_plan(int cap, int g, int n_strip, int has_payload,
+                                   int scenes, int* out) {
   MegaPlan plan;
+  if (scenes < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = prepare(cap, g, n_strip, has_payload, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  launch_config(plan, nullptr, &attr, &cfg);
+  launch_config(plan, scenes, nullptr, &attr, &cfg);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(
       &clusters, reinterpret_cast<const void*>(mega_span_kernel), &cfg);
@@ -588,21 +604,29 @@ extern "C" int pbot_mega_span_plan(int cap, int g, int n_strip, int has_payload,
   out[1] = plan.rows;
   out[2] = plan.smem;
   out[3] = clusters;
+  out[4] = plan.n * scenes;
   return static_cast<int>(err);
 }
 
+// One span of `scenes` scenes in one launch, one cluster each: scene b's
+// table and strip are the b-th contiguous (13, C, G*G) and (13, S, 128)
+// blocks of tbl and strip (and of the outputs); the obstacles, constants
+// and step0 are shared, the scenes running in lockstep.  A cluster reads
+// and syncs only within itself, so each scene's outputs equal a one-scene
+// launch on its planes bit for bit, whether or not the clusters of other
+// scenes are resident at the same time (the card may run them in waves).
 // Returns a cudaError_t: cudaErrorInvalidValue for a shape the plan
 // refuses (see prepare), an obstacle list larger than the kernel's fixed
-// layout or a constants array of the wrong length, else the launch's own
-// status.
+// layout, a constants array of the wrong length or fewer than one scene,
+// else the launch's own status.
 extern "C" int pbot_mega_span(
     const void* tbl, const void* strip, void* tbl_out, void* strip_out,
-    int cap, int g, int n_strip, int k_steps, int step0,
+    int scenes, int cap, int g, int n_strip, int k_steps, int step0,
     const float* consts, int n_consts,
     const void* rects, int n_rect, const void* circs, int n_circ,
     int has_payload, void* stream) {
   if (n_consts != kNumConsts || n_rect > kMaxRect || n_circ > kMaxCirc ||
-      k_steps < 1) {
+      k_steps < 1 || scenes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MegaPlan plan;
@@ -613,7 +637,7 @@ extern "C" int pbot_mega_span(
   for (int i = 0; i < kNumConsts; ++i) dst[i] = consts[i];
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  launch_config(plan, static_cast<cudaStream_t>(stream), &attr, &cfg);
+  launch_config(plan, scenes, static_cast<cudaStream_t>(stream), &attr, &cfg);
   err = cudaLaunchKernelEx(
       &cfg, mega_span_kernel,
       static_cast<const float*>(tbl), static_cast<const float*>(strip),

@@ -17,7 +17,11 @@
 // candidate row in the 3x3 cells around it (exact 2-D wrap, the target
 // itself excluded), the DEM contact force and the three-piece magnet law,
 // and writes fx, fy, the attraction magnitude sum fa and the contact
-// magnitude sum fr.  Empty rows get zeros.
+// magnitude sum fr.  Empty rows get zeros.  One launch may take B such
+// tables (the batched table loop of a seed sweep, where the JAX package
+// vmaps the pallas_call and so gives its grid a scene axis): scene b's
+// planes sit b * sstride floats on and its tiles are blocks b * tiles ..,
+// the way kernel 4 takes its shards.
 //
 // Kernel 4's contract: seven float32 planes px, py, vx, vy, rad, val, afac
 // of shape (S, C, E) — S shards, C force-visible slots (as kernel 1), E =
@@ -275,16 +279,22 @@ extern "C" int pbot_stencil_forces_plan(int cap, int g, int rows, int shards,
   return 0;
 }
 
+// Kernel 1 on `scenes` whole tables in one launch: scene b's planes start
+// b * sstride floats after the pointers given (a (C, G*G) block each, rows
+// G*G apart), its outputs are the b-th contiguous (C, G*G) block.  Scene b
+// takes blocks [b * tiles, (b + 1) * tiles) and runs the single table's
+// body on them, so its outputs equal a one-scene launch on its planes bit
+// for bit.  The table loop's single scene is scenes = 1.
 extern "C" int pbot_stencil_forces(
     const void* px, const void* py, const void* vx, const void* vy,
     const void* rad, const void* afac,
     void* fx, void* fy, void* fa, void* fr,
-    int cap, int g,
+    int scenes, int cap, int g, long long sstride,
     float cutoff, float spring, float damping, float shear, float attraction,
     float int1, float int2, float min_attr, float inv_int2_sq, float inv_int_span,
     void* stream) {
   int plan[2];
-  int err = pbot_stencil_forces_plan(cap, g, g, 1, afac != nullptr, plan);
+  int err = pbot_stencil_forces_plan(cap, g, g, scenes, afac != nullptr, plan);
   if (err) return err;
   const bool wide = cap > kMaskBits;
   auto* kernel = wide ? stencil_forces_kernel<0> : stencil_forces_kernel<1>;
@@ -292,7 +302,7 @@ extern "C" int pbot_stencil_forces(
   if (err) return err;
   const PairConsts k{cutoff, spring, damping, shear, attraction,
                      int1, int2, min_attr, inv_int2_sq, inv_int_span};
-  const TableMap<false> t{g, g, 0, g * g, 0};
+  const TableMap<false> t{g, g, 0, g * g, sstride};
   kernel<<<plan[0], kThreads, plan[1], static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(px), static_cast<const float*>(py),
       static_cast<const float*>(vx), static_cast<const float*>(vy),

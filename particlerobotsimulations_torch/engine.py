@@ -21,13 +21,16 @@ Port of ``particlerobotsimulations_tpu.engine`` — ``Particlebot::update``
 an optional reused slot assignment).  :func:`make_run_chunk` sends the
 PALLAS backend to the table-resident loop (``engine_table.py``) and the
 others to a loop of :func:`make_step`.  The random draws go through
-``rng.py`` with the step they are drawn for.  Not ported yet, and raising:
-the differentiable step (ROADMAP queue 1 item 13) and batched scene runs
-(item 11).
+``rng.py`` with the step they are drawn for.  :func:`make_run_chunk_batched`
+runs a batch of scenes in lockstep (the seed sweep): PALLAS through the
+batched table loop, the other backends through :func:`make_step_batched`,
+the per-scene step vmapped over the scene axis.  Not ported yet, and
+raising: the differentiable step (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -42,7 +45,13 @@ from .ops.integrate import integrate
 from .ops.pallas_stencil import pallas_stencil_collide
 from .ops.phase import update_phase
 from .ops.stencil import stencil_collide
-from .state import SimState, active_mask, payload_mask
+from .engine_table import (
+    _gates,
+    make_adaptive_run_chunk,
+    make_run_chunk_table,
+    make_run_chunk_table_batched,
+)
+from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
 
 f32 = np.float32
 
@@ -61,18 +70,101 @@ _COLLIDES = {
 }
 
 
-def _inject_dead(params: SimParams, state: SimState) -> torch.Tensor:
-    """Kill ``n_dead`` distinct live bots (particlebot.cpp:178-194): a
-    uniform score per bot, the ``n_dead`` smallest die."""
-    mask = active_mask(params, state.n_pad, state.device)
-    scores = rng.uniform(state.generator, state.step, (state.n_pad,), state.device)
+def _inject_dead(params: SimParams, dead, mask, scores) -> torch.Tensor:
+    """Kill ``n_dead`` distinct live bots (particlebot.cpp:178-194): the
+    ``n_dead`` smallest of a uniform score per bot die."""
     scores = torch.where(
-        mask & ~state.dead, scores, torch.full_like(scores, float("inf"))
+        mask & ~dead, scores, torch.full_like(scores, float("inf"))
     )
     kill = torch.topk(-scores, params.n_dead).indices
-    dead = state.dead.clone()
-    dead[kill] = True
-    return dead
+    return dead.index_fill(0, kill, True)
+
+
+def _step_gates(params: SimParams, step: int) -> tuple:
+    """(dead, cog, phase) gate decisions for a step counter, the phase gate
+    only under the light-wave controller (FIXED_PHASE keeps scripted
+    offsets)."""
+    dead_gate, cog_gate, phase_gate = _gates(params, step)
+    return dead_gate, cog_gate, phase_gate and params.control == Control.LIGHT_WAVE
+
+
+def _draws(params: SimParams, source, step: int, gates: tuple, shape: tuple,
+           device) -> dict:
+    """The step's random draws, in the order the step consumes them: dead
+    scores, then phase noise."""
+    dead_gate, _, phase_gate = gates
+    out = {}
+    if dead_gate:
+        out["scores"] = rng.uniform(source, step, shape, device)
+    if phase_gate and params.phase_std:
+        out["noise"] = rng.normal(source, step, shape, device)
+    return out
+
+
+def _make_body(params: SimParams, backend: ForceBackend):
+    """The step on one scene's arrays, with its draws taken beforehand
+    (``_draws``) and its gates decided on the host: pure, so the batched
+    step can ``torch.func.vmap`` it over a scene axis."""
+    collide = _COLLIDES[backend]
+    dt = params.timestep
+    cog_steps = params.centroid_steps_interval
+
+    def body(arrays: dict, draws: dict, step: int, gates: tuple, slot=None) -> dict:
+        pos, vel, rad, phase, dead, ring = (
+            arrays[k] for k in ("pos", "vel", "rad", "phase", "dead", "centroid_ring")
+        )
+        dev = pos.device
+        n_pad = pos.shape[-2]
+        mask = active_mask(params, n_pad, dev)
+        payload = payload_mask(params, n_pad, dev)
+        time = float(f32(step) * f32(dt))
+        dead_gate, cog_gate, phase_gate = gates
+
+        # 1. dead-cell injection (one-shot)
+        if dead_gate:
+            dead = _inject_dead(params, dead, mask, draws["scores"])
+
+        # 2. centroid ring buffer (reference ring index:
+        #    (int)(time / centroid_int) % centroid_steps), written out of
+        #    place
+        if cog_gate:
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            centroid = torch.sum(
+                torch.where(mask[:, None], pos, zero), dim=0
+            ) / f32(params.n_cells)
+            row = torch.arange(ring.shape[-2], device=dev)[:, None]
+            idx = (step // cog_steps) % params.centroid_steps
+            ring = torch.where(row == idx, centroid[None, :], ring)
+
+        # 3. phase controller
+        if phase_gate:
+            phase = update_phase(
+                params, pos, phase, mask, rng.Drawn(normal=draws.get("noise")),
+                step=step,
+            )
+
+        # 4. radius controller — consumes previous collide's magnitudes
+        rad = update_radius(
+            params, rad, phase, arrays["abs_force_a"], arrays["abs_force_r"],
+            dead, mask, time, dt,
+        )
+
+        # 5. integrate + boundary
+        pos, vel = integrate(params, pos, vel, rad, dt)
+
+        # 6. collide -> next-step velocity + force magnitudes
+        if slot is not None:
+            new_vel, abs_a, abs_r = collide(
+                params, pos, vel, rad, mask, payload, dt, slot=slot
+            )
+        else:
+            new_vel, abs_a, abs_r = collide(params, pos, vel, rad, mask, payload, dt)
+        return {
+            "pos": pos, "vel": new_vel, "rad": rad, "phase": phase, "dead": dead,
+            "abs_force_a": abs_a, "abs_force_r": abs_r, "centroid_ring": ring,
+        }
+
+    return body
 
 
 def make_step(params: SimParams, device="cuda",
@@ -87,63 +179,47 @@ def make_step(params: SimParams, device="cuda",
         raise _not_ported("the differentiable step (make_step(differentiable=True))", 13)
     params = params.validate()
     backend = params.resolved_backend(device)
-    collide = _COLLIDES[backend]
-    dt = params.timestep
-    cog_steps = params.centroid_steps_interval
+    body = _make_body(params, backend)
 
     def step(state: SimState, slot: torch.Tensor | None = None) -> SimState:
-        dev = state.device
-        mask = active_mask(params, state.n_pad, dev)
-        payload = payload_mask(params, state.n_pad, dev)
-        time = state.time(dt)
+        gates = _step_gates(params, state.step)
+        draws = _draws(params, state.generator, state.step, gates,
+                       (state.n_pad,), state.device)
+        if backend != ForceBackend.PALLAS:
+            slot = None
+        out = body({k: getattr(state, k) for k in ARRAY_FIELDS}, draws,
+                   state.step, gates, slot)
+        return state.replace(step=state.step + 1, **out)
 
-        # 1. dead-cell injection (one-shot)
-        dead = state.dead
-        if params.n_dead > 0 and state.step == params.dead_step:
-            dead = _inject_dead(params, state)
+    return step
 
-        # 2. centroid ring buffer (reference ring index:
-        #    (int)(time / centroid_int) % centroid_steps)
-        ring = state.centroid_ring
-        if state.step % cog_steps == 0:
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
-            centroid = torch.sum(
-                torch.where(mask[:, None], state.pos, zero), dim=0
-            ) / f32(params.n_cells)
-            ring = ring.clone()
-            ring[(state.step // cog_steps) % params.centroid_steps] = centroid
 
-        # 3. phase controller (FIXED_PHASE keeps scripted offsets)
-        phase = state.phase
-        if (
-            params.control == Control.LIGHT_WAVE
-            and state.step % params.phase_update_steps == 0
-        ):
-            phase = update_phase(
-                params, state.pos, phase, mask, state.generator, step=state.step
-            )
-
-        # 4. radius controller — consumes previous collide's magnitudes
-        rad = update_radius(
-            params, state.rad, phase, state.abs_force_a, state.abs_force_r,
-            dead, mask, time, dt,
+def make_step_batched(params: SimParams, device="cuda") -> Callable[[SimState], SimState]:
+    """The one-step transition of a batch of scenes in lockstep (a
+    ``SimState`` with a leading scene axis, ``state.stack_states``) on the
+    DENSE, STENCIL or CELLGRID backend: the gates are decided once from
+    the shared step counter, every scene's draws are taken from its own
+    source (``rng.SceneDraws``), and the per-scene step is
+    ``torch.func.vmap`` ped over the scene axis, so one sequence of
+    launches serves every scene.  The PALLAS backend's batched run is the
+    table loop (``engine_table.make_run_chunk_table_batched``)."""
+    params = params.validate()
+    backend = params.resolved_backend(device)
+    if backend == ForceBackend.PALLAS:
+        raise ValueError(
+            "the batched per-bot step takes DENSE, STENCIL or CELLGRID; PALLAS "
+            "batches run the table loop (make_run_chunk_batched)"
         )
+    body = _make_body(params, backend)
 
-        # 5. integrate + boundary
-        pos, vel = integrate(params, state.pos, state.vel, rad, dt)
-
-        # 6. collide -> next-step velocity + force magnitudes
-        if backend == ForceBackend.PALLAS and slot is not None:
-            new_vel, abs_a, abs_r = collide(
-                params, pos, vel, rad, mask, payload, dt, slot=slot
-            )
-        else:
-            new_vel, abs_a, abs_r = collide(params, pos, vel, rad, mask, payload, dt)
-        return state.replace(
-            pos=pos, vel=new_vel, rad=rad, phase=phase, dead=dead,
-            abs_force_a=abs_a, abs_force_r=abs_r,
-            step=state.step + 1, centroid_ring=ring,
-        )
+    def step(state: SimState) -> SimState:
+        gates = _step_gates(params, state.step)
+        shape = (state.pos.shape[0], state.n_pad)
+        draws = _draws(params, state.generator, state.step, gates, shape, state.device)
+        out = torch.func.vmap(
+            functools.partial(body, step=state.step, gates=gates)
+        )({k: getattr(state, k) for k in ARRAY_FIELDS}, draws)
+        return state.replace(step=state.step + 1, **out)
 
     return step
 
@@ -157,11 +233,7 @@ def make_run_chunk(params: SimParams, device="cuda"):
     backend = params.resolved_backend(device)
     if backend == ForceBackend.PALLAS:
         if params.adaptive_rebuild():
-            from .engine_table import make_adaptive_run_chunk
-
             return make_adaptive_run_chunk(params)
-        from .engine_table import make_run_chunk_table
-
         return make_run_chunk_table(params)
     step = make_step(params, device)
 
@@ -175,4 +247,22 @@ def make_run_chunk(params: SimParams, device="cuda"):
 
 
 def make_run_chunk_batched(params: SimParams, device="cuda"):
-    raise _not_ported("batched scene runs (make_run_chunk_batched)", 11)
+    """``run_chunk(state, n_steps, seg_aligned=False) -> state`` for a batch
+    of scenes in lockstep (a ``SimState`` with a leading scene axis; every
+    batch builder of the package starts its scenes at one step).  PALLAS
+    goes to the batched table loop
+    (``engine_table.make_run_chunk_table_batched``: kernels 1 to 3 each
+    take every scene in one launch), DENSE, STENCIL and CELLGRID to a loop
+    of :func:`make_step_batched`."""
+    params = params.validate()
+    if params.resolved_backend(device) == ForceBackend.PALLAS:
+        return make_run_chunk_table_batched(params)
+    step = make_step_batched(params, device)
+
+    def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
+        # seg_aligned: signature parity with the table loop; no-op here
+        for _ in range(n_steps):
+            state = step(state)
+        return state
+
+    return run_chunk

@@ -30,6 +30,16 @@ spans, and the whole segment redone on the regular path when a rebuild's
 preconditions fail.  Not carried over from the JAX loop: its TPU schedule
 machinery (traced conds, deferred fallback groups, block unrolling) and
 the ``PBOT_*`` switches.
+
+:func:`make_run_chunk_table_batched` runs a batch of scenes in lockstep
+(the seed sweep) with the same step on ``(B, rows)`` field planes: the
+gates come from the shared step counter, kernels 1 to 3 each take every
+scene in one launch, the chunk entry, exit and exact rebuild are the
+single-scene functions ``torch.func.vmap`` ped over the scene axis, and a
+rebuild takes the incremental result for every scene only when every
+scene's preconditions held, else the exact rebuild for every scene (the
+JAX package's ``_smart_rebuild_batched``).  The span path redoes a whole
+segment on the regular batched path when any scene's span rebuild failed.
 """
 
 from __future__ import annotations
@@ -39,16 +49,16 @@ import math
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from . import rng
 from .config import Control, SimParams, padded_n
-from .ops.forces import attraction_scale, friction_velocity_update_xy, obstacle_forces
+from .ops.forces import attraction_scale, friction_velocity_update_xy, obstacle_forces_xy
 from .ops.integrate import radius_integrate_planes
 from .ops.pallas_stencil import FIELDS as KERNEL_FIELDS
 from .ops.pallas_stencil import assign_slots_slotmajor, stencil_forces
 from .ops.phase import update_phase
-from .engine import _not_ported
-from .state import SimState, active_mask, payload_mask
+from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
 
 f32 = np.float32
 
@@ -70,13 +80,22 @@ MOVE_FIELDS = (
     "px", "py", "vx", "vy", "rad", "val", "phase", "dead", "bid",
 )
 
+# what the loops' rebuild schedule took, for callers that check a run: one
+# count per slot rebuild (a batched rebuild counts once for all its
+# scenes), the incremental compaction or the exact argsort rebuild its
+# failed preconditions fell back to.  The span path's unconditional
+# rebuilds between spans are not counted; their failures show as the
+# runner's ``redos``.
+REBUILDS = {"incremental": 0, "exact": 0}
+
 
 @dataclasses.dataclass
 class TableState:
-    """Carry of the table-resident loop."""
+    """Carry of the table-resident loop; the batched loop's carries a
+    leading scene axis on every tensor."""
 
-    fields: dict                 # str -> (total_ext,) float32
-    origin: torch.Tensor         # (2,) float32 — grid anchor, fixed per chunk
+    fields: dict                 # str -> ([B,] total_ext) float32
+    origin: torch.Tensor         # ([B,] 2) float32 — grid anchor, fixed per chunk
     step: int
     generator: object            # draw source (rng.py)
     centroid_ring: torch.Tensor
@@ -101,22 +120,23 @@ def _extend_slot(params: SimParams, slot: torch.Tensor) -> torch.Tensor:
     return torch.where(slot < total, slot, park)
 
 
-def _bot_rows(params: SimParams, state: SimState) -> torch.Tensor:
-    """(n_pad, N_TF) per-bot field rows from a bot-order SimState."""
-    n_pad, dev = state.n_pad, state.device
+def _bot_rows(params: SimParams, a: dict) -> torch.Tensor:
+    """(n_pad, N_TF) per-bot field rows from a bot-order state's arrays."""
+    pos = a["pos"]
+    n_pad, dev = pos.shape[0], pos.device
     mask = active_mask(params, n_pad, dev)
     payload = payload_mask(params, n_pad, dev)
     return torch.stack(
         [
-            state.pos[:, 0], state.pos[:, 1],
-            state.vel[:, 0], state.vel[:, 1],
-            state.rad,
+            pos[:, 0], pos[:, 1],
+            a["vel"][:, 0], a["vel"][:, 1],
+            a["rad"],
             mask.to(torch.float32),
             attraction_scale(params, payload),
-            state.phase,
-            state.dead.to(torch.float32),
-            state.abs_force_a,
-            state.abs_force_r,
+            a["phase"],
+            a["dead"].to(torch.float32),
+            a["abs_force_a"],
+            a["abs_force_r"],
             payload.to(torch.float32),
             torch.arange(n_pad, dtype=torch.float32, device=dev),
         ],
@@ -143,38 +163,48 @@ def _scatter_rows(params: SimParams, pos, mask, rows):
     )
     se = _extend_slot(params, slot).long()
     flat = torch.zeros((total_ext, N_TF), dtype=torch.float32, device=pos.device)
-    flat[se] = rows
+    flat = flat.index_put((se,), rows)
     return {k: flat[:, j].contiguous() for j, k in enumerate(TABLE_FIELDS)}, origin
 
 
+def _enter_arrays(params: SimParams, a: dict):
+    """(fields, origin) of one scene's bot-order arrays."""
+    mask = active_mask(params, a["pos"].shape[0], a["pos"].device)
+    return _scatter_rows(params, a["pos"], mask, _bot_rows(params, a))
+
+
+def _arrays(state: SimState) -> dict:
+    return {k: getattr(state, k) for k in ARRAY_FIELDS}
+
+
 def enter_table(params: SimParams, state: SimState) -> TableState:
-    """Scatter a bot-order SimState into table residency (chunk entry)."""
-    mask = active_mask(params, state.n_pad, state.device)
-    fields, origin = _scatter_rows(
-        params, state.pos, mask, _bot_rows(params, state)
-    )
-    return TableState(
-        fields=fields,
-        origin=origin,
-        step=state.step,
-        generator=state.generator,
-        centroid_ring=state.centroid_ring.clone(),
-    )
+    """Scatter a bot-order SimState into table residency (chunk entry); a
+    batched state (a leading scene axis) scatters every scene, vmapped,
+    each anchored on its own."""
+    if state.pos.dim() == 2:
+        fields, origin = _enter_arrays(params, _arrays(state))
+    else:
+        fields, origin = vmap(lambda a: _enter_arrays(params, a))(_arrays(state))
+    # the sharded loop writes the ring in place: never the caller's
+    return TableState(fields, origin, state.step, state.generator,
+                      state.centroid_ring.clone())
 
 
 def _slot_of_bot(params: SimParams, fields: dict) -> torch.Tensor:
     """(n_pad,) row index per bot, reconstructed from the bid plane.
     Occupied rows map their bot id to their row; everything else (parked
-    bots, padding) defaults to its parking-strip row."""
+    bots, padding) defaults to its parking-strip row.  Written without
+    data-dependent shapes, so that the batched loop can vmap it: rows that
+    map no bot write a spare entry."""
     total, _, n_pad = _geometry(params)
     dev = fields["val"].device
     occupied = fields["val"][:total] > 0.5
-    bid = fields["bid"][:total][occupied].long()
-    rows = torch.arange(total, dtype=torch.int64, device=dev)[occupied]
-    slot = total + torch.arange(n_pad, dtype=torch.int64, device=dev)
-    keep = bid < n_pad
-    slot[bid[keep]] = rows[keep]
-    return slot
+    bid = fields["bid"][:total].long()
+    keep = occupied & (bid < n_pad)
+    target = torch.where(keep, bid, torch.full_like(bid, n_pad))
+    rows = torch.arange(total, dtype=torch.int64, device=dev)
+    slot = total + torch.arange(n_pad + 1, dtype=torch.int64, device=dev)
+    return slot.index_put((target,), rows)[:n_pad]
 
 
 def _gather_rows(params: SimParams, fields: dict) -> torch.Tensor:
@@ -184,21 +214,28 @@ def _gather_rows(params: SimParams, fields: dict) -> torch.Tensor:
     return flat[slot]
 
 
-def exit_table(params: SimParams, ts: TableState) -> SimState:
-    """Gather table residency back to a bot-order SimState (chunk exit)."""
-    rows = _gather_rows(params, ts.fields)
+def _state_of_rows(rows: torch.Tensor, ts: TableState) -> SimState:
+    """The bot-order SimState of ([B,] n_pad, N_TF) rows."""
     return SimState(
-        pos=rows[:, 0:2].contiguous(),
-        vel=rows[:, 2:4].contiguous(),
-        rad=rows[:, 4].contiguous(),
-        phase=rows[:, 7].contiguous(),
-        dead=rows[:, 8] > 0.5,
-        abs_force_a=rows[:, 9].contiguous(),
-        abs_force_r=rows[:, 10].contiguous(),
+        pos=rows[..., 0:2].contiguous(),
+        vel=rows[..., 2:4].contiguous(),
+        rad=rows[..., 4].contiguous(),
+        phase=rows[..., 7].contiguous(),
+        dead=rows[..., 8] > 0.5,
+        abs_force_a=rows[..., 9].contiguous(),
+        abs_force_r=rows[..., 10].contiguous(),
         step=ts.step,
         generator=ts.generator,
         centroid_ring=ts.centroid_ring,
     )
+
+
+def exit_table(params: SimParams, ts: TableState) -> SimState:
+    """Gather table residency back to a bot-order SimState (chunk exit); a
+    batched carry gathers every scene, vmapped."""
+    if ts.origin.dim() == 1:
+        return _state_of_rows(_gather_rows(params, ts.fields), ts)
+    return _state_of_rows(vmap(lambda f: _gather_rows(params, f))(ts.fields), ts)
 
 
 def _rebuild_fields(params: SimParams, fields: dict):
@@ -236,28 +273,37 @@ def _smart_rebuild(params: SimParams, ts: TableState) -> TableState:
     Only MOVE_FIELDS travel; afac/pay are re-derived from the moved bid
     plane.  Falls back to the argsort rebuild when a precondition fails (a
     >1-cell move, a cell over capacity, or occupied edge columns).  The
-    choice reads ``ok`` on the host — one device sync per rebuild."""
+    choice reads ``ok`` on the host — one device sync per rebuild.  A
+    batched carry (a leading scene axis) is decided once for every scene
+    (the JAX package's ``_smart_rebuild_batched``): one kernel-2 launch
+    compacts every scene, and its result is taken for all of them only when
+    every scene's preconditions held; else every scene takes the exact
+    rebuild, vmapped."""
     from .ops.table_rebuild import incremental_rebuild
 
     moved, ok = incremental_rebuild(params, ts.fields, MOVE_FIELDS, ts.origin)
-    if bool(ok):
+    if bool(ok.all()):
+        REBUILDS["incremental"] += 1
         f = dict(ts.fields)
         f.update(moved)
         return ts.replace(fields=_derived_rows(params, f))
-    fields, origin = _rebuild_fields(params, ts.fields)
+    REBUILDS["exact"] += 1
+    if ts.origin.dim() == 1:
+        fields, origin = _rebuild_fields(params, ts.fields)
+    else:
+        fields, origin = vmap(lambda f: _rebuild_fields(params, f))(ts.fields)
     return ts.replace(fields=fields, origin=origin)
 
 
 def _inject_dead_table(params: SimParams, f: dict, generator, step: int) -> torch.Tensor:
     """Kill n_dead occupied, not-yet-dead rows (cf. engine._inject_dead):
-    one score per table and parking row."""
+    one score per table and parking row, of each scene on a leading scene
+    axis."""
     alive = (f["val"] > 0.5) & (f["dead"] < 0.5)
     scores = rng.uniform(generator, step, f["dead"].shape, f["dead"].device)
     scores = torch.where(alive, scores, torch.full_like(scores, float("inf")))
-    kill = torch.topk(-scores, params.n_dead).indices
-    dead = f["dead"].clone()
-    dead[kill] = 1.0
-    return dead
+    kill = torch.topk(-scores, params.n_dead, dim=-1).indices
+    return f["dead"].scatter(-1, kill, 1.0)
 
 
 def _gates(params: SimParams, step: int):
@@ -291,7 +337,8 @@ def gate_seg(params: SimParams) -> int:
 
 def _make_mega_glue(params: SimParams):
     """(mega_pack, mega_unpack, incremental_packed) — the glue around the
-    megakernel span (``ops/megakernel.py``) for one scene."""
+    megakernel span (``ops/megakernel.py``) for one scene, or for a batch
+    of scenes on a leading axis (the batched loop's fields and tables)."""
     total, _, n_pad = _geometry(params)
     g = params.resolved_grid_dim()
     cs = params.storage_capacity()
@@ -302,44 +349,57 @@ def _make_mega_glue(params: SimParams):
     assert TABLE_FIELDS[:6] + TABLE_FIELDS[7:9] + TABLE_FIELDS[12:13] == MOVE_FIELDS
 
     def mega_pack(fields: dict):
+        lead = fields["px"].shape[:-1]
         tbl = torch.stack(
-            [fields[kf][:total].reshape(cs, g * g) for kf in TABLE_FIELDS]
+            [fields[kf][..., :total].reshape(lead + (cs, g * g)) for kf in TABLE_FIELDS],
+            dim=-3,
         )
         strip = torch.stack(
-            [fields[kf][total:].reshape(s_sub, 128) for kf in TABLE_FIELDS]
+            [fields[kf][..., total:].reshape(lead + (s_sub, 128)) for kf in TABLE_FIELDS],
+            dim=-3,
         )
         return tbl, strip
 
     def mega_unpack(tbl, strip) -> dict:
+        lead = tbl.shape[:-3]
         return {
-            kf: torch.cat([tbl[j].reshape(total), strip[j].reshape(n_pad)])
+            kf: torch.cat(
+                [tbl[..., j, :, :].reshape(lead + (total,)),
+                 strip[..., j, :, :].reshape(lead + (n_pad,))],
+                dim=-1,
+            )
             for j, kf in enumerate(TABLE_FIELDS)
         }
 
     def incremental_packed(tbl, origin):
-        """Unconditional incremental rebuild on the stacked (N_TF, C, G*G)
-        planes: MOVE_FIELDS move through the compaction (kernel 2), pay and
-        afac are re-derived from the moved bid plane, aa and ar (rows 9:11)
-        stay unmoved (dead values between integrate and collide).  Returns
-        (tbl', ok); when ``ok`` is False the planes are garbage that the
-        caller discards.  The parking strip is not touched."""
+        """Unconditional incremental rebuild on the stacked ([B,] N_TF, C,
+        G*G) planes: MOVE_FIELDS move through the compaction (kernel 2), pay
+        and afac are re-derived from the moved bid plane, aa and ar (rows
+        9:11) stay unmoved (dead values between integrate and collide).
+        Returns (tbl', ok), ``ok`` per scene; where it is False the planes
+        are garbage that the caller discards.  The parking strip is not
+        touched."""
         from .ops.table_rebuild import incremental_rebuild_planes
 
-        planes = torch.cat([tbl[0:6], tbl[7:9], tbl[12:13]], dim=0)
+        planes = torch.cat(
+            [tbl[..., 0:6, :, :], tbl[..., 7:9, :, :], tbl[..., 12:13, :, :]], dim=-3
+        )
         new_planes, ok = incremental_rebuild_planes(
             params, planes, MOVE_FIELDS, origin
         )
-        pay, afac = _payload_afac(params, new_planes[5] > 0.5, new_planes[8])
+        pay, afac = _payload_afac(
+            params, new_planes[..., 5, :, :] > 0.5, new_planes[..., 8, :, :]
+        )
         new_tbl = torch.cat(
             [
-                new_planes[0:6],
-                afac[None],
-                new_planes[6:8],
-                tbl[9:11],
-                pay[None],
-                new_planes[8:9],
+                new_planes[..., 0:6, :, :],
+                afac.unsqueeze(-3),
+                new_planes[..., 6:8, :, :],
+                tbl[..., 9:11, :, :],
+                pay.unsqueeze(-3),
+                new_planes[..., 8:9, :, :],
             ],
-            dim=0,
+            dim=-3,
         )
         return new_tbl, ok
 
@@ -352,10 +412,18 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
     ``step_pre(ts, dead_gate, cog_gate, phase_gate)`` runs dead injection,
     centroid ring, phase, radius and integrate (the step counter is NOT
     bumped); ``step_post(ts)`` runs collide + obstacles + friction and
-    bumps the counter.  Gates are host bools.  ``phase_fn``, the packed
-    sweep's per-scene phase hook in the JAX package, is not ported."""
-    if phase_fn is not None:
-        raise _not_ported("the packed sweep's phase_fn hook", 11)
+    bumps the counter.  Gates are host bools.  Both take a single scene's
+    carry or a batched one (a leading scene axis on every field, the
+    batched loop's): every op is elementwise or reduces the last axis, and
+    kernel 1 takes every scene in one launch.
+
+    ``phase_fn`` (optional) replaces the phase-gate body: called as
+    ``phase_fn(fields, val_mask, source, step) -> new phase plane`` inside
+    the gated branch, where the JAX package's hook takes the step's key in
+    place of ``(source, step)``; it draws through ``rng.normal(source,
+    step, ...)``.  The packed scene-tiling sweep (``parallel/packed.py``)
+    uses it to run the phase law per scene.  ``None`` runs the same ops as
+    without the hook."""
     params = params.validate()
     dt = params.timestep
     g, cap = params.resolved_grid_dim(), params.cell_capacity
@@ -379,46 +447,56 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
         if params.n_dead > 0 and dead_gate:
             f["dead"] = _inject_dead_table(params, f, ts.generator, ts.step)
 
-        # 2. centroid ring (pre-integrate positions)
+        # 2. centroid ring (pre-integrate positions), written out of place
+        ring = ts.centroid_ring
         if cog_gate:
-            cx = torch.sum(f["px"] * f["val"]) / f32(params.n_cells)
-            cy = torch.sum(f["py"] * f["val"]) / f32(params.n_cells)
+            cx = torch.sum(f["px"] * f["val"], dim=-1) / f32(params.n_cells)
+            cy = torch.sum(f["py"] * f["val"], dim=-1) / f32(params.n_cells)
             idx = (ts.step // params.centroid_steps_interval) % params.centroid_steps
-            ts.centroid_ring[idx] = torch.stack([cx, cy])
+            ring = ring.clone()
+            ring[..., idx, :] = torch.stack([cx, cy], dim=-1)
 
         # 3. phase controller
         if params.control == Control.LIGHT_WAVE and phase_gate:
-            pos_t = torch.stack([f["px"], f["py"]], dim=-1)
-            f["phase"] = update_phase(
-                params, pos_t, f["phase"], val, ts.generator, step=ts.step
-            )
+            if phase_fn is not None:
+                f["phase"] = phase_fn(f, val, ts.generator, ts.step)
+            else:
+                pos_t = torch.stack([f["px"], f["py"]], dim=-1)
+                f["phase"] = update_phase(
+                    params, pos_t, f["phase"], val, ts.generator, step=ts.step
+                )
 
         # 4+5. radius controller (previous step's force magnitudes) +
         #      integrate/boundary in component form
         f = radius_integrate_planes(params, f, time)
-        return ts.replace(fields=f)
+        return ts.replace(fields=f, centroid_ring=ring)
 
     def step_post(ts: TableState) -> TableState:
         f = dict(ts.fields)
+        lead = f["px"].shape[:-1]
 
-        # 7. collide: the kernel reads (C, G*G) views of the table
-        tables = {k: f[k][:force_total].view(cap, gg) for k in kernel_inputs}
+        # 7. collide: the kernel reads (C, G*G) views of each scene's table
+        tables = {
+            k: f[k][..., :force_total].unflatten(-1, (cap, gg)) for k in kernel_inputs
+        }
         fx, fy, fa, fr = stencil_forces(params, tables)
         zpad = torch.zeros(
-            (total_ext - force_total,), dtype=torch.float32, device=fx.device
+            lead + (total_ext - force_total,), dtype=torch.float32, device=fx.device
         )
-        fxf = torch.cat([fx.reshape(force_total), zpad])
-        fyf = torch.cat([fy.reshape(force_total), zpad])
-        f["aa"] = torch.cat([fa.reshape(force_total), zpad])
-        f["ar"] = torch.cat([fr.reshape(force_total), zpad])
+
+        def flat(t):
+            return torch.cat([t.reshape(lead + (force_total,)), zpad], dim=-1)
+
+        fxf, fyf = flat(fx), flat(fy)
+        f["aa"], f["ar"] = flat(fa), flat(fr)
 
         val_r = f["val"] > 0.5
         if params.circle_obstacles or params.rect_obstacles:
-            pos_r = torch.stack([f["px"], f["py"]], dim=-1)
-            vel_r = torch.stack([f["vx"], f["vy"]], dim=-1)
-            f_obs, m_obs = obstacle_forces(params, pos_r, vel_r, f["rad"])
-            fxf = fxf + f_obs[..., 0]
-            fyf = fyf + f_obs[..., 1]
+            ofx, ofy, m_obs = obstacle_forces_xy(
+                params, f["px"], f["py"], f["vx"], f["vy"], f["rad"]
+            )
+            fxf = fxf + ofx
+            fyf = fyf + ofy
             f["ar"] = f["ar"] + m_obs
 
         nvx, nvy = friction_velocity_update_xy(
@@ -436,7 +514,8 @@ def make_table_step(params: SimParams, phase_fn=None):
     """``step(ts, dead_gate, cog_gate, phase_gate, rebuild) -> ts``: one
     physics step; the slot rebuild (when ``rebuild``) sits after integrate
     and before collide, so the one-step-lag force carry is already consumed
-    and collide sees the freshest assignment."""
+    and collide sees the freshest assignment.  A batched carry's rebuild is
+    decided for all scenes at once (:func:`_smart_rebuild`)."""
     params = params.validate()
     step_pre, step_post = make_table_step_parts(params, phase_fn)
 
@@ -471,6 +550,27 @@ def make_run_chunk_table(params: SimParams, phase_fn=None):
     counts those redos.  The span path rebuilds on the same steps as the
     regular schedule; unaligned chunks and remainder steps run the regular
     path, so ``seg_aligned=False`` is the A/B of the regular schedule."""
+    return _make_table_runner(params, phase_fn)
+
+
+def make_run_chunk_table_batched(params: SimParams):
+    """``run_chunk(state, n_steps, seg_aligned=False) -> state`` for a batch
+    of scenes in lockstep: :func:`make_run_chunk_table` on a ``SimState``
+    with a leading scene axis (``state.stack_states``), at the fixed K the
+    params resolve (like the JAX package, no adaptive cadence).  The gates
+    come from the shared step counter; each step launches kernel 1 once for
+    every scene, each rebuild kernel 2 once (:func:`_smart_rebuild`: the
+    incremental result for all scenes or the exact rebuild for all);
+    on a mega-eligible table each span launches kernel 3 once, one cluster
+    per scene, and a segment is redone on the regular batched path, from
+    its entry state and every scene's draw state, when any scene's span
+    rebuild failed."""
+    return _make_table_runner(params, None)
+
+
+def _make_table_runner(params: SimParams, phase_fn):
+    """The chunk runner of a single-scene or a batched state: every piece
+    dispatches on the rank of what it is given."""
     params = params.validate()
     step = make_table_step(params, phase_fn)
     step_pre, step_post = make_table_step_parts(params, phase_fn)
@@ -493,9 +593,10 @@ def make_run_chunk_table(params: SimParams, phase_fn=None):
 
     def mega_seg(ts: TableState) -> TableState:
         """One gate segment through the span path, or the regular path
-        from the same entry state when a rebuild's preconditions failed."""
+        from the same entry state when a rebuild's preconditions failed
+        (for any scene of a batch)."""
         entry = (
-            dict(ts.fields), ts.origin, ts.step, ts.centroid_ring.clone(),
+            dict(ts.fields), ts.origin, ts.step, ts.centroid_ring,
             rng.snapshot(ts.generator),
         )
         # the gated first block minus its last post: that post belongs to
@@ -509,7 +610,7 @@ def make_run_chunk_table(params: SimParams, phase_fn=None):
         for b in range(bps - 1):
             tbl, strip = mega(tbl, strip, first + b * k)
             tbl, ok = incremental_packed(tbl, ts.origin)
-            ok_all = ok_all & ok
+            ok_all = ok_all & ok.all()
         if bool(ok_all.item()):
             # the last span ended mid-step first + (bps-1)*k - 1, after
             # pre + rebuild: its post completes the segment
@@ -656,7 +757,7 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
             runners[k] = make_run_chunk_table(p4 if k == 4 else p8, phase_fn)
         return runners[k]
 
-    get_runner(4)  # builds eagerly: refuses phase_fn up front
+    get_runner(4)  # the base cadence's runner, built eagerly
 
     def get_probe(k):
         if k not in probes:

@@ -15,7 +15,10 @@ build or a failed launch raises.  The plain PyTorch twins that CPU tensors
 use live beside their callers (``ops/pallas_stencil.py``,
 ``ops/table_rebuild.py``, ``ops/megakernel.py``).  Kernels 4 and 2's
 padded form take the shards one process holds in one launch; kernels 1 and
-4 are one tiled body in ``csrc/stencil_forces.cu``.
+4 are one tiled body in ``csrc/stencil_forces.cu``.  Kernels 1, 2 (wrap
+form) and 3 also take every scene of a batched table loop in one launch
+(the ``*_batched_cuda`` wrappers, one count per launch whatever the number
+of scenes); a single scene is the same entry point with one scene.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from .config import SimParams, padded_n
 LAUNCHES = {
     "stencil_forces": 0, "compact": 0, "mega_span": 0,
     "stencil_forces_ext": 0, "compact_padded": 0,
+    "stencil_forces_batched": 0, "compact_batched": 0, "mega_span_batched": 0,
 }
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -114,14 +118,14 @@ def _run_all(cmds: list) -> str:
 
 # argument types of the C entry points; each returns a cudaError_t
 SIGNATURES = {
-    "pbot_stencil_forces": [_vp] * 10 + [_i, _i] + [_f] * 10 + [_vp],
-    "pbot_compact": [_vp, _vp, _vp, _i, _i, _i, _vp],
-    "pbot_mega_span": [_vp] * 4 + [_i] * 5 + [_vp, _i, _vp, _i, _vp, _i, _i, _vp],
+    "pbot_stencil_forces": [_vp] * 10 + [_i, _i, _i, _ll] + [_f] * 10 + [_vp],
+    "pbot_compact": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    "pbot_mega_span": [_vp] * 4 + [_i] * 6 + [_vp, _i, _vp, _i, _vp, _i, _i, _vp],
     "pbot_compact_padded": [_vp, _vp, _vp] + [_i] * 6 + [_vp],
     "pbot_stencil_forces_ext": [_vp] * 11 + [_i] * 6 + [_ll] + [_f] * 10 + [_vp],
     "pbot_stencil_forces_plan": [_i] * 5 + [_vp],
     "pbot_compact_plan": [_i] * 3 + [_vp],
-    "pbot_mega_span_plan": [_i, _i, _i, _i, _vp],
+    "pbot_mega_span_plan": [_i] * 5 + [_vp],
 }
 
 
@@ -216,14 +220,18 @@ def compact_plan(cs: int, out_lanes: int, shards: int = 1) -> dict:
     }
 
 
-def mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> dict:
+def mega_plan(cap: int, g: int, n_strip: int, has_payload: bool,
+              scenes: int = 1) -> dict:
     """Kernel 3's cluster for a (C, G) table and an ``n_strip``-row strip,
     as ``mega_plan`` in ``csrc/mega_span.cu`` computes it: ``cluster`` CTAs
     (the largest divisor of G up to 16), ``grid_rows`` grid rows and
     ``rows`` table rows per CTA, ``smem`` bytes of dynamic shared memory
-    per CTA.  Raises ValueError for a shape the kernel refuses: more than
-    32 slots, more than 4096 table or strip rows, or more shared memory
-    than a CTA has."""
+    per CTA, and ``ctas`` in a launch of ``scenes`` scenes (one cluster
+    each).  Raises ValueError for a shape the kernel refuses: more than 32
+    slots, more than 4096 table or strip rows, more shared memory than a
+    CTA has, or fewer than one scene."""
+    if scenes < 1:
+        raise ValueError(f"mega_span: {scenes} scenes; at least one")
     if not 1 <= cap <= MASK_BITS or g < 1:
         raise ValueError(
             f"mega_span: storage capacity {cap} outside 1..{MASK_BITS} or grid side {g} < 1"
@@ -244,7 +252,8 @@ def mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> dict:
             f"mega_span: {smem} bytes of shared memory per CTA for C={cap}, "
             f"G={g} (cluster of {n}); a CTA has {SMEM_PER_BLOCK - MEGA_STATIC_SMEM}"
         )
-    return {"cluster": n, "grid_rows": th, "rows": rows, "smem": smem}
+    return {"cluster": n, "grid_rows": th, "rows": rows, "smem": smem,
+            "ctas": n * scenes}
 
 
 def library_stencil_plan(cap: int, g: int, has_payload: bool, rows: int | None = None,
@@ -269,27 +278,33 @@ def library_compact_plan(cs: int, out_lanes: int, shards: int = 1) -> dict:
     return {"blocks": out[0], "threads": out[1], "windows": out[2]}
 
 
-def library_mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> dict:
-    """Kernel 3's plan as the built library computes it on this card:
-    cluster, table rows per CTA, dynamic shared memory per CTA and
-    ``cudaOccupancyMaxActiveClusters`` for that launch.  Raises if the
-    library refuses the shape."""
+def library_mega_plan(cap: int, g: int, n_strip: int, has_payload: bool,
+                      scenes: int = 1) -> dict:
+    """Kernel 3's plan as the built library computes it on this card for a
+    launch of ``scenes`` scenes: cluster, table rows per CTA, dynamic
+    shared memory per CTA, ``cudaOccupancyMaxActiveClusters`` for that
+    launch (the clusters the card holds at once; more scenes run in
+    waves) and the launch's CTAs.  Raises if the library refuses the
+    shape."""
     lib = build()
-    out = (ctypes.c_int * 4)()
-    _raise_on(lib.pbot_mega_span_plan(cap, g, n_strip, int(has_payload), out), "mega_span plan")
-    return {"cluster": out[0], "rows": out[1], "smem": out[2], "max_active_clusters": out[3]}
+    out = (ctypes.c_int * 5)()
+    _raise_on(lib.pbot_mega_span_plan(cap, g, n_strip, int(has_payload), scenes, out),
+              "mega_span plan")
+    return {"cluster": out[0], "rows": out[1], "smem": out[2],
+            "max_active_clusters": out[3], "ctas": out[4]}
 
 
-def _check_mega_plan(cap: int, g: int, n_strip: int, has_payload: bool) -> None:
-    """Raises if :func:`mega_plan` refuses the shape, or (once per shape)
-    if the library's plan differs from it or no cluster of the plan fits
-    on the card."""
-    key = (cap, g, n_strip, bool(has_payload))
+def _check_mega_plan(cap: int, g: int, n_strip: int, has_payload: bool,
+                     scenes: int = 1) -> None:
+    """Raises if :func:`mega_plan` refuses the shape, or (once per shape
+    and scene count) if the library's plan differs from it or no cluster
+    of the plan fits on the card."""
+    key = (cap, g, n_strip, bool(has_payload), scenes)
     plan = mega_plan(*key)
     if key in _MEGA_CHECKED:
         return
     got = library_mega_plan(*key)
-    if any(got[k] != plan[k] for k in ("cluster", "rows", "smem")):
+    if any(got[k] != plan[k] for k in ("cluster", "rows", "smem", "ctas")):
         raise RuntimeError(f"mega_span: library plan {got} differs from {plan}")
     if got["max_active_clusters"] < 1:
         raise RuntimeError(
@@ -319,51 +334,110 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def stencil_forces_cuda(params: SimParams, tables: dict):
-    """Kernel 1 on (C, G*G) CUDA tables -> (fx, fy, fa, fr), each (C, G*G).
-    ``tables`` needs px, py, vx, vy, rad, and afac when the scene has a
-    payload."""
+def _stencil_names(params: SimParams) -> tuple:
+    names = ("px", "py", "vx", "vy", "rad")
+    return names + ("afac",) if params.has_payload else names
+
+
+def _launch_stencil(params: SimParams, tables: dict, scenes: int, sstride: int,
+                    out: torch.Tensor, what: str) -> None:
+    """Kernel 1 on ``scenes`` tables ``sstride`` floats apart into ``out``
+    (4 planes of ``scenes`` contiguous (C, G*G) blocks)."""
     from .ops.pallas_stencil import pair_constants
 
     g, cap = params.resolved_grid_dim(), params.cell_capacity
-    shape = (cap, g * g)
-    names = ("px", "py", "vx", "vy", "rad")
-    if params.has_payload:
-        names = names + ("afac",)
-    for k in names:
-        _check(k, tables[k], shape)
-    stencil_plan(cap, g, params.has_payload)
+    stencil_plan(cap, g, params.has_payload, shards=scenes)
     lib = build()
-    out = torch.empty((4,) + shape, dtype=torch.float32, device=tables["px"].device)
+    names = _stencil_names(params)
     afac = tables["afac"].data_ptr() if params.has_payload else None
     err = lib.pbot_stencil_forces(
         *(tables[k].data_ptr() for k in names[:5]), afac,
         *(out[i].data_ptr() for i in range(4)),
-        cap, g, *pair_constants(params), _stream(out),
+        scenes, cap, g, sstride, *pair_constants(params), _stream(out),
     )
-    _raise_on(err, "stencil_forces")
-    LAUNCHES["stencil_forces"] += 1
+    _raise_on(err, what)
+    LAUNCHES[what] += 1
+
+
+def stencil_forces_cuda(params: SimParams, tables: dict):
+    """Kernel 1 on (C, G*G) CUDA tables -> (fx, fy, fa, fr), each (C, G*G).
+    ``tables`` needs px, py, vx, vy, rad, and afac when the scene has a
+    payload."""
+    g, cap = params.resolved_grid_dim(), params.cell_capacity
+    shape = (cap, g * g)
+    for k in _stencil_names(params):
+        _check(k, tables[k], shape)
+    out = torch.empty((4,) + shape, dtype=torch.float32, device=tables["px"].device)
+    _launch_stencil(params, tables, 1, cap * g * g, out, "stencil_forces")
     return out[0], out[1], out[2], out[3]
+
+
+def stencil_forces_batched_cuda(params: SimParams, tables: dict):
+    """Kernel 1 on B scenes' CUDA tables in one launch -> (fx, fy, fa,
+    fr), each (B, C, G*G).  ``tables`` holds the planes of
+    :func:`stencil_forces_cuda`, each (B, C, G*G) with a contiguous (C,
+    G*G) block per scene and one scene stride and one device for all (views
+    of the batched table loop's (B, rows) field planes qualify).  Scene b's
+    outputs equal :func:`stencil_forces_cuda` on scene b's planes bit for
+    bit."""
+    g, cap = params.resolved_grid_dim(), params.cell_capacity
+    px = tables["px"]
+    if px.dim() != 3:
+        raise ValueError(f"tables: expected (B, C, G*G) planes, got {tuple(px.shape)}")
+    b = px.shape[0]
+    for k in _stencil_names(params):
+        t = tables[k]
+        if t.device.type != "cuda":
+            raise ValueError(f"{k}: expected a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{k}: expected float32, got {t.dtype}")
+        if tuple(t.shape) != (b, cap, g * g):
+            raise ValueError(f"{k}: expected shape {(b, cap, g * g)}, got {tuple(t.shape)}")
+        if t.device != px.device or t.stride() != (px.stride(0), g * g, 1):
+            raise ValueError(
+                f"{k}: each scene's (C, G*G) block must be contiguous, with one "
+                "scene stride and one device for all planes"
+            )
+    out = torch.empty((4, b, cap, g * g), dtype=torch.float32, device=px.device)
+    _launch_stencil(params, tables, b, px.stride(0), out, "stencil_forces_batched")
+    return out[0], out[1], out[2], out[3]
+
+
+def _launch_compact(params: SimParams, planes: torch.Tensor, scenes: int, what: str):
+    g, cs = params.resolved_grid_dim(), params.storage_capacity()
+    nfp = planes.shape[-3]
+    if nfp < 3:
+        raise ValueError(f"planes: need data fields plus dx, dy; got {nfp}")
+    lead = planes.shape[:-3]
+    _check("planes", planes, lead + (nfp, cs, g * g))
+    lib = build()
+    out = torch.empty(lead + (nfp - 2, cs, g * g), dtype=torch.float32, device=planes.device)
+    incoming = torch.empty(lead + (g * g,), dtype=torch.float32, device=planes.device)
+    err = lib.pbot_compact(
+        planes.data_ptr(), out.data_ptr(), incoming.data_ptr(),
+        scenes, nfp - 2, cs, g, _stream(out),
+    )
+    _raise_on(err, what)
+    LAUNCHES[what] += 1
+    return out, incoming
 
 
 def compact_cuda(params: SimParams, planes: torch.Tensor):
     """Kernel 2 on a CUDA (nf + 2, Cs, G*G) plane stack -> (compacted
     (nf, Cs, G*G) planes, per-lane incoming count (G*G,) float32)."""
-    g, cs = params.resolved_grid_dim(), params.storage_capacity()
-    nfp = planes.shape[0]
-    if nfp < 3:
-        raise ValueError(f"planes: need data fields plus dx, dy; got {nfp}")
-    _check("planes", planes, (nfp, cs, g * g))
-    lib = build()
-    out = torch.empty((nfp - 2, cs, g * g), dtype=torch.float32, device=planes.device)
-    incoming = torch.empty((g * g,), dtype=torch.float32, device=planes.device)
-    err = lib.pbot_compact(
-        planes.data_ptr(), out.data_ptr(), incoming.data_ptr(),
-        nfp - 2, cs, g, _stream(out),
-    )
-    _raise_on(err, "compact")
-    LAUNCHES["compact"] += 1
-    return out, incoming
+    if planes.dim() != 3:
+        raise ValueError(f"planes: expected (nf + 2, Cs, G*G), got {tuple(planes.shape)}")
+    return _launch_compact(params, planes, 1, "compact")
+
+
+def compact_batched_cuda(params: SimParams, planes: torch.Tensor):
+    """Kernel 2's wrap form on B scenes' CUDA (B, nf + 2, Cs, G*G) stacks in
+    one launch -> (compacted (B, nf, Cs, G*G) planes, per-lane incoming
+    count (B, G*G) float32).  Scene b's outputs equal :func:`compact_cuda`
+    on scene b's stack."""
+    if planes.dim() != 4 or planes.shape[0] < 1:
+        raise ValueError(f"planes: expected (B, nf + 2, Cs, G*G), got {tuple(planes.shape)}")
+    return _launch_compact(params, planes, planes.shape[0], "compact_batched")
 
 
 def compact_padded_cuda(params: SimParams, planes_padded: torch.Tensor,
@@ -479,18 +553,37 @@ def mega_span_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
     """Kernel 3 on CUDA tensors: one ungated span from mid-step ``step - 1``
     -> (tbl', strip').  ``tbl`` is (13, C, G*G), ``strip`` (13, n_pad//128,
     128); ``rects`` and ``circles`` come from :func:`obstacle_buffers`."""
+    if tbl.dim() != 3:
+        raise ValueError(f"tbl: expected (13, C, G*G), got {tuple(tbl.shape)}")
+    return _launch_mega(params, tbl, strip, step, rects, circles, 1, "mega_span")
+
+
+def mega_span_batched_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
+                           step: int, rects: torch.Tensor, circles: torch.Tensor):
+    """Kernel 3 on B scenes in one launch, one cluster each: ``tbl`` (B,
+    13, C, G*G) and ``strip`` (B, 13, n_pad//128, 128) -> (tbl', strip'),
+    the scenes in lockstep at ``step``.  Scene b's outputs equal
+    :func:`mega_span_cuda` on scene b's planes bit for bit."""
+    if tbl.dim() != 4 or tbl.shape[0] < 1:
+        raise ValueError(f"tbl: expected (B, 13, C, G*G), got {tuple(tbl.shape)}")
+    return _launch_mega(params, tbl, strip, step, rects, circles, tbl.shape[0],
+                        "mega_span_batched")
+
+
+def _launch_mega(params, tbl, strip, step, rects, circles, scenes: int, what: str):
     from .engine_table import N_TF
 
     g, cs = params.resolved_grid_dim(), params.storage_capacity()
     n_pad = padded_n(params)
-    _check("tbl", tbl, (N_TF, cs, g * g))
-    _check("strip", strip, (N_TF, n_pad // 128, 128))
+    lead = tbl.shape[:-3]
+    _check("tbl", tbl, lead + (N_TF, cs, g * g))
+    _check("strip", strip, lead + (N_TF, n_pad // 128, 128))
     _check("rects", rects, (len(params.rect_obstacles), 4))
     _check("circles", circles, (len(params.circle_obstacles), 3))
     for name, t in (("strip", strip), ("rects", rects), ("circles", circles)):
         if t.device != tbl.device:
             raise ValueError(f"{name}: on {t.device}, tbl on {tbl.device}")
-    _check_mega_plan(cs, g, n_pad, params.has_payload)
+    _check_mega_plan(cs, g, n_pad, params.has_payload, scenes)
     lib = build()
     consts = mega_constants(params)
     carr = (ctypes.c_float * len(consts))(*consts)
@@ -499,12 +592,12 @@ def mega_span_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
     k = max(1, params.resolved_slot_rebuild_steps())
     err = lib.pbot_mega_span(
         tbl.data_ptr(), strip.data_ptr(), tbl_out.data_ptr(), strip_out.data_ptr(),
-        cs, g, n_pad, k, int(step),
+        scenes, cs, g, n_pad, k, int(step),
         ctypes.cast(carr, _vp), len(consts),
         rects.data_ptr() if rects.numel() else None, rects.shape[0],
         circles.data_ptr() if circles.numel() else None, circles.shape[0],
         int(params.has_payload), _stream(tbl_out),
     )
-    _raise_on(err, "mega_span")
-    LAUNCHES["mega_span"] += 1
+    _raise_on(err, what)
+    LAUNCHES[what] += 1
     return tbl_out, strip_out

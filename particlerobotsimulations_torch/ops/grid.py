@@ -93,9 +93,10 @@ def build_cell_table(params: SimParams, pos, mask) -> CellTable:
     order, scid, rank, in_range, overflow = rank_cells(cid, g, cap)
     keep = in_range & (rank < cap)
     slot = torch.where(keep, scid * cap + rank, torch.full_like(scid, g * g * cap))
-    # one spare row takes the dropped bots' writes
+    # one spare row takes the dropped bots' writes (out of place, so that
+    # the batched step can vmap it)
     table = torch.full((g * g * cap + 1,), -1, dtype=torch.int32, device=pos.device)
-    table[slot.long()] = order.to(torch.int32)
+    table = table.index_put((slot.long(),), order.to(torch.int32))
     return CellTable(idx=table[: g * g * cap], cell_id=cid, overflow=overflow)
 
 

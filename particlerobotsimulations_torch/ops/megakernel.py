@@ -108,6 +108,15 @@ def mega_span_plain(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
     )
 
 
+def mega_span_batched_plain(params: SimParams, tbl: torch.Tensor,
+                            strip: torch.Tensor, step: int):
+    """Plain twin of kernel 3's batched form: :func:`mega_span_plain` on
+    each scene of (B, N_TF, C, G*G) tables and (B, N_TF, n_pad//128, 128)
+    strips, stacked."""
+    outs = [mega_span_plain(params, tbl[b], strip[b], step) for b in range(tbl.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
 def make_mega_span(params: SimParams, n_pad: int):
     """Returns ``span(tbl, strip, step) -> (tbl', strip')``.
 
@@ -118,25 +127,29 @@ def make_mega_span(params: SimParams, n_pad: int):
     carried-over ``post(step - 1)``, runs k-1 full steps, and ends mid-step
     ``step + k - 1`` after integrate.  The caller then runs the slot
     rebuild and either the next span or, at the segment end, the regular
-    path's ``step_post``.  CUDA tensors launch kernel 3 (or raise), CPU
-    tensors take :func:`mega_span_plain`."""
+    path's ``step_post``.  A leading scene axis on both (the batched loop's
+    scenes in lockstep) runs every scene's span.  CUDA tensors launch
+    kernel 3 once for all scenes (or raise), CPU tensors take
+    :func:`mega_span_plain` per scene."""
     p = params.validate()
     if n_pad % 128:
         raise ValueError(f"n_pad must be a multiple of 128, got {n_pad}")
     obstacles = {}  # device -> kernel 3's obstacle buffers, built once
 
     def span(tbl: torch.Tensor, strip: torch.Tensor, step: int):
-        if strip.shape[1] * 128 != n_pad:
+        if strip.shape[-2] * 128 != n_pad:
             raise ValueError(f"strip: expected {n_pad} rows, got {tuple(strip.shape)}")
-        kind = tbl.device.type
+        kind, batched = tbl.device.type, tbl.dim() == 4
         if kind == "cuda":
-            from ..kernels import mega_span_cuda, obstacle_buffers
+            from ..kernels import mega_span_batched_cuda, mega_span_cuda, obstacle_buffers
 
             if tbl.device not in obstacles:
                 obstacles[tbl.device] = obstacle_buffers(p, tbl.device)
-            return mega_span_cuda(p, tbl, strip, int(step), *obstacles[tbl.device])
+            fn = mega_span_batched_cuda if batched else mega_span_cuda
+            return fn(p, tbl, strip, int(step), *obstacles[tbl.device])
         if kind == "cpu":
-            return mega_span_plain(p, tbl, strip, int(step))
+            fn = mega_span_batched_plain if batched else mega_span_plain
+            return fn(p, tbl, strip, int(step))
         raise ValueError(f"mega span: unsupported device {tbl.device}")
 
     return span

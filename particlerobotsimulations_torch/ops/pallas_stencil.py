@@ -91,7 +91,7 @@ def assign_slots_slotmajor(params: SimParams, pos, mask, origin=None, cap=None):
         keep, rank * (g * g) + scid, torch.full_like(scid, g * g * cap)
     )
     slot = torch.zeros((n,), dtype=torch.int32, device=pos.device)
-    slot[order] = slot_sorted
+    slot = slot.index_put((order,), slot_sorted)
     return slot, overflow
 
 
@@ -186,17 +186,32 @@ def stencil_forces_plain(params: SimParams, tables: dict):
     return tuple(acc)
 
 
-def stencil_forces(params: SimParams, tables: dict):
-    """(fx, fy, fa, fr), each (C, G*G), for (C, G*G) field tables: the CUDA
-    kernel on CUDA tensors, the plain twin on CPU tensors."""
-    kind = tables["px"].device.type
-    if kind == "cuda":
-        from ..kernels import stencil_forces_cuda
+def stencil_forces_batched_plain(params: SimParams, tables: dict):
+    """Plain twin of kernel 1's batched form: :func:`stencil_forces_plain`
+    on each scene of (B, C, G*G) tables, stacked."""
+    outs = [
+        stencil_forces_plain(params, {k: v[b] for k, v in tables.items()})
+        for b in range(tables["px"].shape[0])
+    ]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(4))
 
-        return stencil_forces_cuda(params, tables)
+
+def stencil_forces(params: SimParams, tables: dict):
+    """(fx, fy, fa, fr) for (C, G*G) field tables, or (B, C, G*G) tables of
+    B scenes (the batched table loop), each output of the tables' shape:
+    kernel 1 on CUDA tensors (one launch for all scenes), the plain twin on
+    CPU tensors."""
+    px = tables["px"]
+    kind, batched = px.device.type, px.dim() == 3
+    if kind == "cuda":
+        from ..kernels import stencil_forces_batched_cuda, stencil_forces_cuda
+
+        fn = stencil_forces_batched_cuda if batched else stencil_forces_cuda
+        return fn(params, tables)
     if kind == "cpu":
-        return stencil_forces_plain(params, tables)
-    raise ValueError(f"stencil_forces: unsupported device {tables['px'].device}")
+        fn = stencil_forces_batched_plain if batched else stencil_forces_plain
+        return fn(params, tables)
+    raise ValueError(f"stencil_forces: unsupported device {px.device}")
 
 
 def stencil_forces_ext_plain(params: SimParams, tables_ext: dict,

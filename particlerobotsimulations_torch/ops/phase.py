@@ -68,13 +68,15 @@ def segment_hits_circle(ax, ay, bx, by, cx, cy, cr):
 
 
 def in_shadow(params: SimParams, pos: torch.Tensor) -> torch.Tensor:
-    """(n,) bool: light->bot segment blocked by any obstacle
+    """(..., n) bool: light->bot segment blocked by any obstacle
     (checkIntersection, particlebot_kernel_impl.cuh:238-262)."""
     lx, ly = f32(params.light_x), f32(params.light_y)
     px, py = pos[..., 0], pos[..., 1]
     shadowed = torch.zeros(px.shape, dtype=torch.bool, device=pos.device)
     for cx, cy, cr in params.circle_obstacles:
-        shadowed |= segment_hits_circle(lx, ly, px, py, f32(cx), f32(cy), f32(cr))
+        shadowed = shadowed | segment_hits_circle(
+            lx, ly, px, py, f32(cx), f32(cy), f32(cr)
+        )
     for x1, x2, y1, y2 in params.rect_obstacles:
         x1, x2, y1, y2 = f32(x1), f32(x2), f32(y1), f32(y2)
         for (sx, sy, ex, ey) in (
@@ -83,7 +85,7 @@ def in_shadow(params: SimParams, pos: torch.Tensor) -> torch.Tensor:
             (x2, y2, x2, y1),  # right
             (x2, y1, x1, y1),  # bottom
         ):
-            shadowed |= segment_hits_segment(lx, ly, px, py, sx, sy, ex, ey)
+            shadowed = shadowed | segment_hits_segment(lx, ly, px, py, sx, sy, ex, ey)
     return shadowed
 
 
@@ -97,9 +99,9 @@ def light_distance(params: SimParams, pos: torch.Tensor) -> torch.Tensor:
 
 def update_phase(
     params: SimParams,
-    pos: torch.Tensor,     # (n, 2)
-    phase: torch.Tensor,   # (n,)
-    mask: torch.Tensor,    # (n,) bool
+    pos: torch.Tensor,     # (..., n, 2)
+    phase: torch.Tensor,   # (..., n)
+    mask: torch.Tensor,    # (..., n) bool
     generator,
     min_d: torch.Tensor | None = None,
     step: int = 0,
@@ -107,11 +109,13 @@ def update_phase(
     """New phase for every masked bot; unmasked rows keep theirs.
     ``generator`` is the run's draw source (``rng``), drawn from for
     ``step`` in the layout of ``phase`` only when ``params.phase_std`` is
-    nonzero."""
+    nonzero.  A leading scene axis (the batched table loop's planes) takes
+    each scene's own minimum distance."""
     dist = light_distance(params, pos)
     if min_d is None:
-        min_d = torch.min(
-            torch.where(mask, dist, torch.full_like(dist, float("inf")))
+        min_d = torch.amin(
+            torch.where(mask, dist, torch.full_like(dist, float("inf"))),
+            dim=-1, keepdim=True,
         )
     spacing = f32(2.0) * f32(params.min_radius)
     base = (min_d - dist) / spacing * f32(params.rise_period)

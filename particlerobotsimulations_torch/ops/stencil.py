@@ -42,7 +42,7 @@ def assign_slots(params: SimParams, pos, mask) -> SlotAssignment:
     keep = in_range & (rank < cap)
     slot_sorted = torch.where(keep, scid * cap + rank, torch.full_like(scid, g * g * cap))
     slot = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
-    slot[order] = slot_sorted
+    slot = slot.index_put((order,), slot_sorted)
     return SlotAssignment(slot=slot, overflow=overflow)
 
 
@@ -56,9 +56,10 @@ def stencil_collide(params: SimParams, pos, vel, rad, mask, payload, dt):
     slot = assign_slots(params, pos, mask).slot.long()
 
     def scat(v):
-        # one spare row takes the dropped bots' writes
+        # one spare row takes the dropped bots' writes (out of place, so
+        # that the batched step can vmap it)
         out = torch.zeros((total + 1,) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
-        out[slot] = v
+        out = out.index_put((slot,), v)
         return out[:total].reshape((g, g, cap) + tuple(v.shape[1:]))
 
     afac = attraction_scale(params, payload)

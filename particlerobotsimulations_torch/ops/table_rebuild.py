@@ -85,7 +85,8 @@ def compact_plain(params: SimParams, planes: torch.Tensor):
     """Plain PyTorch twin of kernel 2's wrap form: (nf + 2, Cs, G*G) planes
     -> (compacted (nf, Cs, G*G) planes, per-lane incoming count (G*G,)
     float32).  The padded form on the table padded with its own wrapped
-    lanes, as the JAX ``_compact`` builds it."""
+    lanes, as the JAX ``_compact`` builds it.  Leading axes (the batched
+    loop's scenes) are independent stacks, each compacted on its own."""
     gg = planes.shape[-1]
     halo = _n_halo(params.resolved_grid_dim()) * CHUNK
     padded = torch.cat([planes[..., gg - halo :], planes, planes[..., :halo]], dim=-1)
@@ -94,12 +95,14 @@ def compact_plain(params: SimParams, planes: torch.Tensor):
 
 def compact(params: SimParams, planes: torch.Tensor):
     """Kernel 2's wrap form on a CUDA tensor, the plain twin on a CPU
-    tensor."""
+    tensor.  ``planes`` is (nf + 2, Cs, G*G) or, with a leading scene
+    axis, (B, nf + 2, Cs, G*G): one launch for all scenes."""
     kind = planes.device.type
     if kind == "cuda":
-        from ..kernels import compact_cuda
+        from ..kernels import compact_batched_cuda, compact_cuda
 
-        return compact_cuda(params, planes)
+        fn = compact_batched_cuda if planes.dim() == 4 else compact_cuda
+        return fn(params, planes)
     if kind == "cpu":
         return compact_plain(params, planes)
     raise ValueError(f"compact: unsupported device {planes.device}")
@@ -165,35 +168,47 @@ def rebuild_move_planes(params: SimParams, planes, field_names: tuple, origin,
 def incremental_rebuild_planes(params: SimParams, planes, field_names, origin):
     """Plane-native core of :func:`incremental_rebuild`: (new_planes, ok)
     for (nf, Cs, G*G) stacked field planes; ``ok`` is a 0-dim bool tensor.
-    Parked bots do not veto the incremental path: they ride through
-    untouched and get reinstatement attempts at fallbacks and chunk
-    entries."""
+    With a leading scene axis ((B, nf, Cs, G*G) planes, (B, 2) origins)
+    the preconditions are taken per scene (vmapped), kernel 2 compacts
+    every scene in one launch, and ``ok`` is (B,).  Parked bots do not veto
+    the incremental path: they ride through untouched and get
+    reinstatement attempts at fallbacks and chunk entries."""
     cap = params.storage_capacity()
-    dxf, dyf, moved_far, edge = rebuild_move_planes(
-        params, planes, field_names, origin
-    )
-    stacked = torch.cat([planes, dxf[None], dyf[None]], dim=0)
+    if planes.dim() == 4:
+        dxf, dyf, moved_far, edge = torch.func.vmap(
+            lambda pl, o: rebuild_move_planes(params, pl, field_names, o)
+        )(planes, origin)
+    else:
+        dxf, dyf, moved_far, edge = rebuild_move_planes(
+            params, planes, field_names, origin
+        )
+    stacked = torch.cat([planes, dxf.unsqueeze(-3), dyf.unsqueeze(-3)], dim=-3)
     new_planes, incoming = compact(params, stacked)
-    overflow = torch.any(incoming > cap)
+    overflow = torch.any(incoming > cap, dim=-1)
     ok = ~(moved_far | overflow | edge)
     return new_planes, ok
 
 
 def incremental_rebuild(params: SimParams, fields: dict, field_names: tuple, origin):
-    """(new_fields, ok) on the engine's flat ``(total_ext,)`` fields: only
-    ``field_names`` are stacked, compacted and returned; the parking strip
-    rows pass through.  ``ok`` False means the caller must run the exact
-    rebuild instead."""
+    """(new_fields, ok) on the engine's flat ``(total_ext,)`` fields, or
+    the batched loop's ``(B, total_ext)`` fields with (B, 2) origins (then
+    ``ok`` is per scene): only ``field_names`` are stacked, compacted and
+    returned; the parking strip rows pass through.  ``ok`` False means the
+    caller must run the exact rebuild instead."""
     g, cap = params.resolved_grid_dim(), params.storage_capacity()
     gg = g * g
     total = gg * cap
     nf = len(field_names)
+    lead = fields[field_names[0]].shape[:-1]
     planes = torch.stack(
-        [fields[k][:total] for k in field_names]
-    ).reshape(nf, cap, gg)
+        [fields[k][..., :total] for k in field_names], dim=-2
+    ).reshape(lead + (nf, cap, gg))
     new_planes, ok = incremental_rebuild_planes(params, planes, field_names, origin)
     new_fields = {
-        k: torch.cat([new_planes[j].reshape(total), fields[k][total:]])
+        k: torch.cat(
+            [new_planes[..., j, :, :].reshape(lead + (total,)), fields[k][..., total:]],
+            dim=-1,
+        )
         for j, k in enumerate(field_names)
     }
     return new_fields, ok

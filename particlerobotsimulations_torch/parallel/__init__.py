@@ -1,2 +1,3 @@
-"""Multi-shard paths of the port: the sharded table loop over a ring of
-shards (``spatial_table.py``, ``ring.py``)."""
+"""Multi-scene and multi-shard paths of the port: seed sweeps
+(``sweep.py``, the packed union in ``packed.py``) and the sharded table
+loop over a ring of shards (``spatial_table.py``, ``ring.py``)."""

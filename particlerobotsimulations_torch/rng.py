@@ -16,7 +16,11 @@ what comes back:
   values with nothing to restore.  The tests hand in one that returns the
   JAX package's draws for the same seed (``uniform(fold_in(key, step))``
   and ``normal(fold_in(fold_in(key, step), 1))``), which puts the two
-  packages on one stream.
+  packages on one stream;
+* a :class:`SceneDraws` (a batch of scenes, one source each) stacks each
+  scene's own draw: the shape asked for is the batch's, ``(B, *shape)``,
+  and scene b gets what its source gives for ``shape`` at that step, the
+  same values as a run of scene b alone.  Its snapshot is every scene's.
 """
 
 from __future__ import annotations
@@ -37,10 +41,43 @@ class StepDraws(Protocol):
         """Standard normal values (phase noise, before ``phase_std``)."""
 
 
+class SceneDraws:
+    """The draw sources of a batch of scenes, one per scene, in scene
+    order: ``torch.Generator`` s, step-keyed providers, or both."""
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+
+    def _stack(self, draw, step: int, shape: tuple, device) -> torch.Tensor:
+        shape = tuple(shape)
+        if not shape or shape[0] != len(self.sources):
+            raise ValueError(
+                f"a draw for {len(self.sources)} scenes needs shape (B, ...), got {shape}"
+            )
+        return torch.stack([draw(s, step, shape[1:], device) for s in self.sources])
+
+
+class Drawn:
+    """A provider that returns values drawn beforehand: lets a function
+    that draws through this module run under ``torch.func.vmap`` with its
+    draws taken outside."""
+
+    def __init__(self, uniform=None, normal=None):
+        self._uniform, self._normal = uniform, normal
+
+    def uniform(self, step, shape, device):
+        return self._uniform
+
+    def normal(self, step, shape, device):
+        return self._normal
+
+
 def uniform(source, step: int, shape: tuple, device) -> torch.Tensor:
     """U[0, 1) float32 values of ``shape`` for ``step``."""
     if isinstance(source, torch.Generator):
         return torch.rand(shape, generator=source, device=device)
+    if isinstance(source, SceneDraws):
+        return source._stack(uniform, step, shape, device)
     return source.uniform(step, shape, device)
 
 
@@ -48,15 +85,23 @@ def normal(source, step: int, shape: tuple, device) -> torch.Tensor:
     """Standard normal float32 values of ``shape`` for ``step``."""
     if isinstance(source, torch.Generator):
         return torch.randn(shape, generator=source, dtype=torch.float32, device=device)
+    if isinstance(source, SceneDraws):
+        return source._stack(normal, step, shape, device)
     return source.normal(step, shape, device)
 
 
 def snapshot(source):
     """What :func:`restore` needs to draw the same values again: the
-    generator's state, or nothing for a step-keyed provider."""
+    generator's state, nothing for a step-keyed provider, and each scene's
+    for a :class:`SceneDraws`."""
+    if isinstance(source, SceneDraws):
+        return [snapshot(s) for s in source.sources]
     return source.get_state() if isinstance(source, torch.Generator) else None
 
 
 def restore(source, snap) -> None:
-    if isinstance(source, torch.Generator):
+    if isinstance(source, SceneDraws):
+        for s, sn in zip(source.sources, snap):
+            restore(s, sn)
+    elif isinstance(source, torch.Generator):
         source.set_state(snap)

@@ -17,6 +17,12 @@ Two things differ in kind from the JAX ``SimState``:
   step-keyed provider handed to :func:`state_from_arrays` (``draws=``)
   takes its place; the tests hand in one that returns JAX's draws.
 
+A batch of scenes (the seed sweep's batched runs) is one ``SimState`` with
+a leading scene axis on every array field, one shared ``step`` (the scenes
+run in lockstep) and a ``rng.SceneDraws`` holding each scene's source:
+:func:`stack_states`, :func:`scene_state`, and the JAX bridge
+:func:`batch_state_from_arrays` / :func:`batch_state_to_arrays`.
+
 One-step-lag force feedback: ``abs_force_a`` / ``abs_force_r`` are the
 attraction / repulsion magnitudes of the previous step's collide pass; the
 radius controller reads them before collide overwrites them.
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from .config import SimParams, padded_n
+from .rng import SceneDraws
 
 ARRAY_FIELDS = (
     "pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r",
@@ -122,6 +129,72 @@ def state_from_arrays(params: SimParams, arrays: dict, device="cuda",
             seed = arrays.get("seed", params.seed)
         draws = make_generator(seed, device)
     return SimState(step=int(np.asarray(arrays["step"])), generator=draws, **t)
+
+
+def stack_states(states) -> SimState:
+    """One batched state of scenes in lockstep: every array field stacked
+    on a leading scene axis, the draw sources gathered in a
+    ``rng.SceneDraws``.  Raises ValueError when the scenes' steps
+    differ."""
+    states = list(states)
+    steps = sorted({s.step for s in states})
+    if len(steps) != 1:
+        raise ValueError(
+            f"a batch runs its scenes in lockstep; got steps {steps}"
+        )
+    return SimState(
+        step=steps[0],
+        generator=SceneDraws([s.generator for s in states]),
+        **{k: torch.stack([getattr(s, k) for s in states]) for k in ARRAY_FIELDS},
+    )
+
+
+def scene_state(state: SimState, b: int) -> SimState:
+    """Scene ``b`` of a batched state, with its own draw source."""
+    return SimState(
+        step=state.step,
+        generator=state.generator.sources[b],
+        **{k: getattr(state, k)[b] for k in ARRAY_FIELDS},
+    )
+
+
+def batch_state_from_arrays(params: SimParams, arrays: dict, device="cuda",
+                            draws=None) -> SimState:
+    """Batched twin of :func:`state_from_arrays`: every array of ``arrays``
+    has a leading scene axis, as a JAX batched ``SimState`` (``
+    make_batch_state``) gives them: the fields, ``step`` (one per scene,
+    all equal: the batch runs in lockstep, else ValueError) and optionally
+    ``seed`` or ``key`` data per scene.  ``draws`` is one step-keyed
+    provider per scene, or None for a generator per scene's seed."""
+    steps = np.asarray(arrays["step"]).reshape(-1)
+    if len(set(steps.tolist())) != 1:
+        raise ValueError(
+            f"a batch runs its scenes in lockstep; got steps {sorted(set(steps.tolist()))}"
+        )
+    n = np.asarray(arrays["pos"]).shape[0]
+    if draws is not None and len(draws) != n:
+        raise ValueError(f"{len(draws)} draw providers for {n} scenes")
+    scenes = []
+    for b in range(n):
+        one = {k: np.asarray(arrays[k])[b] for k in ARRAY_FIELDS}
+        one["step"] = steps[b]
+        for key in ("seed", "key"):
+            if key in arrays:
+                one[key] = np.asarray(arrays[key])[b]
+        scenes.append(state_from_arrays(
+            params, one, device, None if draws is None else draws[b]
+        ))
+    return stack_states(scenes)
+
+
+def batch_state_to_arrays(state: SimState) -> dict:
+    """numpy dict of a batched state (inverse of
+    :func:`batch_state_from_arrays`, draw sources excluded): each field
+    with its scene axis, ``step`` one int32 per scene as in the JAX
+    package."""
+    out = {k: getattr(state, k).detach().cpu().numpy() for k in ARRAY_FIELDS}
+    out["step"] = np.full((state.pos.shape[0],), state.step, np.int32)
+    return out
 
 
 def state_to_arrays(state: SimState) -> dict:

@@ -146,6 +146,12 @@ def check_span_against_twin(p, card):
     got = make_mega_span(p, _geometry(p)[2])(tbl, strip, ts.step + 1)
     assert kernels.LAUNCHES["mega_span"] == n0 + 1
     want = mega_span_plain(p, tbl, strip, ts.step + 1)
+    assert_span_close(p, got, want)
+
+
+def assert_span_close(p, got, want):
+    """Kernel 3's (tbl, strip) against its twin's, with the tolerances of
+    :func:`check_span_against_twin`."""
     ix = {f: j for j, f in enumerate(TABLE_FIELDS)}
     dpos = max(
         float((a[ix[f]] - b[ix[f]]).abs().max())
@@ -531,3 +537,181 @@ def test_per_bot_pallas_step_on_card_matches_cpu(card):
     sa, sb = state_to_arrays(a), state_to_arrays(b)
     np.testing.assert_allclose(sa["pos"], sb["pos"], atol=1e-5)
     np.testing.assert_allclose(sa["vel"], sb["vel"], atol=1e-4)
+
+
+# ---------------------------------------------------- the batched forms
+
+
+def bitwise(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("payload", [False, True])
+def test_batched_stencil_kernel_equals_single_launches(card, payload):
+    """Kernel 1 on B = 3 scenes in one launch, from planes a scene stride
+    apart that is not C*G*G (views of (B, rows) field planes, as the
+    batched table loop hands them over): each scene's outputs bit for bit
+    its single-scene launch, and within the single launch's tolerance of
+    the twin."""
+    p = pt.SimParams(n_dead=-1 if payload else 0, grid_dim=16).validate()
+    cap, gg = p.cell_capacity, 256
+    scenes = [random_tables(p, seed, fill=0.3) for seed in (3, 4, 5)]
+    flat = {k: torch.zeros((3, cap * gg + 384), device=card) for k in scenes[0]}
+    for k, v in flat.items():
+        for b in range(3):
+            v[b, : cap * gg] = scenes[b][k].reshape(-1).to(card)
+    tables = {k: v[:, : cap * gg].unflatten(-1, (cap, gg)) for k, v in flat.items()}
+    n0 = dict(kernels.LAUNCHES)
+    got = kernels.stencil_forces_batched_cuda(p, tables)
+    assert kernels.LAUNCHES["stencil_forces_batched"] == n0["stencil_forces_batched"] + 1
+    assert kernels.LAUNCHES["stencil_forces"] == n0["stencil_forces"]
+    for b in range(3):
+        one = {k: v[b].contiguous() for k, v in tables.items()}
+        single = kernels.stencil_forces_cuda(p, one)
+        assert all(bitwise(x[b], y) for x, y in zip(got, single)), b
+        want = stencil_forces_plain(p, one)
+        summed = want[2] + want[3]
+        for i, (a, w) in enumerate(zip(got, want)):
+            tol = 1e-4 + 1e-5 * w.abs() + (1e-5 * summed if i < 2 else 0)
+            assert bool(((a[b] - w).abs() <= tol).all())
+
+
+def test_batched_compact_kernel_equals_single_launches(card):
+    """Kernel 2's wrap form on B = 3 stacks (70 % fill: cells overflow) in
+    one launch: each scene equal to its single launch and to the twin."""
+    p = pt.SimParams(n_dead=0, grid_dim=16).validate()
+    g, cs = p.resolved_grid_dim(), p.storage_capacity()
+    gen = torch.Generator(device=card).manual_seed(5)
+    data = torch.randn((3, 9, cs, g * g), generator=gen, device=card)
+    occ = torch.rand((3, cs, g * g), generator=gen, device=card) < 0.7
+    mv = torch.randint(-1, 2, (3, 2, cs, g * g), generator=gen, device=card).float()
+    far = torch.full_like(mv[:, 0], 99.0)
+    planes = torch.cat(
+        [data, torch.where(occ, mv[:, 0], far)[:, None], torch.where(occ, mv[:, 1], far)[:, None]],
+        dim=1,
+    ).contiguous()
+    n0 = kernels.LAUNCHES["compact_batched"]
+    out, inc = kernels.compact_batched_cuda(p, planes)
+    assert kernels.LAUNCHES["compact_batched"] == n0 + 1
+    for b in range(3):
+        out1, inc1 = kernels.compact_cuda(p, planes[b].contiguous())
+        assert bitwise(out[b], out1) and bitwise(inc[b], inc1)
+        out_p, inc_p = compact_plain(p, planes[b])
+        assert torch.equal(inc[b], inc_p) and bool((out[b] == out_p).all())
+    assert bool((inc > cs).any())
+
+
+def band_span_inputs(p, card, seed):
+    """(tbl, strip, first step) of one span from the mid-step state after
+    200 steps of the band scene ``p`` at ``seed`` on the span path."""
+    sim = pt.Simulation(p.replace(seed=seed), device=card)
+    sim.step_chunk(200, start_step=0)
+    ts = enter_table(p, sim.state)
+    ts = make_table_step_parts(p)[0](ts, *_gates(p, ts.step))
+    tbl, strip = _make_mega_glue(p)[0](ts.fields)
+    return tbl, strip, ts.step + 1
+
+
+def test_batched_mega_span_equals_single_launches(card):
+    """Kernel 3 on B = 3 band scenes (1000 HEX bots, G=16: one cluster of
+    16 CTAs each) in one launch: each scene bit for bit its single launch
+    and within the single launch's tolerance of the twin; the plan learns
+    B."""
+    p = pt.SimParams(
+        n_cells=1000, n_dead=0, seed=3, config=pt.Config.HEX, light_x=-5.0,
+    ).validate()
+    ins = [band_span_inputs(p, card, seed) for seed in (3, 4, 5)]
+    assert len({first for _, _, first in ins}) == 1
+    tbl = torch.stack([t for t, _, _ in ins])
+    strip = torch.stack([s for _, s, _ in ins])
+    first = ins[0][2]
+    g, cs, n_pad = p.resolved_grid_dim(), p.storage_capacity(), _geometry(p)[2]
+    plan = kernels.mega_plan(cs, g, n_pad, p.has_payload, scenes=3)
+    lib = kernels.library_mega_plan(cs, g, n_pad, p.has_payload, scenes=3)
+    assert plan["ctas"] == lib["ctas"] == 48 and lib["max_active_clusters"] >= 1
+    obs = kernels.obstacle_buffers(p, card)
+    n0 = kernels.LAUNCHES["mega_span_batched"]
+    got = kernels.mega_span_batched_cuda(p, tbl, strip, first, *obs)
+    assert kernels.LAUNCHES["mega_span_batched"] == n0 + 1
+    for b in range(3):
+        single = kernels.mega_span_cuda(p, tbl[b].contiguous(), strip[b].contiguous(),
+                                        first, *obs)
+        assert bitwise(got[0][b], single[0]) and bitwise(got[1][b], single[1]), b
+        want = mega_span_plain(p, tbl[b], strip[b], first)
+        assert_span_close(p, (got[0][b], got[1][b]), want)
+
+
+def test_batched_table_loop_on_card_matches_cpu(card):
+    """The batched table loop on the card (B = 2 scenes of 300 HEX bots,
+    K = 4, 12 steps) against the same run on the CPU twins, one kernel-1
+    launch per step and one kernel-2 launch per rebuild for both scenes;
+    and the batched span path (24 seg-aligned steps) with one kernel-3
+    launch per span.  Positions 1e-5; velocities 1e-4 plus what the
+    position differences cost through the magnet ramp (kernel 3's form)."""
+    from particlerobotsimulations_torch.engine_table import make_run_chunk_table_batched
+    from particlerobotsimulations_torch.state import (
+        batch_state_from_arrays,
+        batch_state_to_arrays,
+    )
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    p = pt.SimParams(
+        n_cells=300, n_dead=0, seed=3, config=pt.Config.HEX, light_x=-5.0,
+        force_backend=pt.ForceBackend.PALLAS, phase_std=0.0, slot_rebuild_steps=4,
+        centroid_int=0.08, phase_update_interval=0.16,
+    ).validate()
+    arrays = batch_state_to_arrays(make_batch_state(p, [3, 4], "cpu"))
+    rng = np.random.default_rng(99)
+    arrays["pos"] = arrays["pos"] + (
+        1e-4 * rng.standard_normal(arrays["pos"].shape)
+    ).astype(np.float32)
+    arrays["seed"] = np.array([3, 4])
+    run = make_run_chunk_table_batched(p)
+    assert run.path_info["use_mega"] and run.path_info["gate_seg"] == 8
+    for n_steps, aligned in ((12, False), (24, True)):
+        n0 = dict(kernels.LAUNCHES)
+        a = batch_state_to_arrays(
+            run(batch_state_from_arrays(p, arrays, card), n_steps, aligned)
+        )
+        dl = {k: kernels.LAUNCHES[k] - n0[k] for k in n0}
+        b = batch_state_to_arrays(
+            run(batch_state_from_arrays(p, arrays, "cpu"), n_steps, aligned)
+        )
+        # velocities take the force that position ulps cost through the
+        # magnet ramp, as in kernel 3's tolerance (chip_smoke.py)
+        dpos = float(np.abs(a["pos"] - b["pos"]).max())
+        (_, _, _, _, attr, _, _, mina, inv_i2_sq, inv_span) = pair_constants(p)
+        slope = abs(attr * inv_i2_sq - mina) * inv_span
+        assert dpos <= 1e-5
+        np.testing.assert_allclose(
+            a["vel"], b["vel"], atol=1e-4 + p.timestep * 6 * slope * 2 * dpos
+        )
+        assert dl["stencil_forces"] == dl["compact"] == dl["mega_span"] == 0
+        if aligned:
+            assert dl["mega_span_batched"] == 3 and run.redos == 0
+        else:
+            assert dl["stencil_forces_batched"] == 12 and dl["compact_batched"] == 3
+
+
+def test_batched_wrappers_refuse_cpu_tensors_and_bad_strides():
+    """No fallback: the batched wrappers refuse CPU tensors, and kernel 1's
+    refuses planes whose scene blocks are not contiguous."""
+    p = pt.SimParams(n_cells=300, n_dead=0, grid_dim=16).validate()
+    g, cs = p.resolved_grid_dim(), p.storage_capacity()
+    n_pad = _geometry(p)[2]
+    tables = {k: torch.zeros((2, cs, g * g)) for k in ("px", "py", "vx", "vy", "rad")}
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stencil_forces_batched_cuda(p, tables)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.compact_batched_cuda(p, torch.zeros((2, 11, cs, g * g)))
+    rects, circles = kernels.obstacle_buffers(p, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.mega_span_batched_cuda(
+            p, torch.zeros((2, N_TF, cs, g * g)), torch.zeros((2, N_TF, n_pad // 128, 128)),
+            1, rects, circles,
+        )
+    if torch.cuda.is_available():
+        strided = {k: torch.zeros((2, g * g, cs), device="cuda").transpose(1, 2)
+                   for k in tables}
+        with pytest.raises(ValueError, match="contiguous"):
+            kernels.stencil_forces_batched_cuda(p, strided)

@@ -116,9 +116,10 @@ def test_resolved_backend_follows_jax_rule_per_device():
 
 
 def test_not_ported_paths_raise():
-    """Every force backend builds (make_step, make_run_chunk); the
-    differentiable step and batched runs still raise, naming their ROADMAP
-    items (13 and 11)."""
+    """Every force backend builds (make_step, make_run_chunk), and so do the
+    batched runs (item 11) and a runner with the packed sweep's phase
+    hook; the differentiable step and checkpoints still raise, naming
+    their ROADMAP items (13 and 12)."""
     from particlerobotsimulations_torch.engine import (
         make_run_chunk,
         make_run_chunk_batched,
@@ -131,20 +132,22 @@ def test_not_ported_paths_raise():
     make_run_chunk(big.replace(force_backend=pt.ForceBackend.CELLGRID), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 13"):
         make_step(big, device="cpu", differentiable=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 11"):
-        make_run_chunk_batched(big, device="cpu")
+    assert callable(make_run_chunk_batched(big, device="cpu"))  # STENCIL, batched
+    assert make_run_chunk_batched(big, device="cuda").path_info["use_mega"] is False
     from particlerobotsimulations_torch.engine_table import make_adaptive_run_chunk
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_adaptive_run_chunk(big, phase_fn=lambda f, val, g: f["phase"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    runner = make_adaptive_run_chunk(
+        big, phase_fn=lambda f, val, source, step: f["phase"]
+    )
+    assert runner.path_info["adaptive"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 12"):
         pt.Simulation.from_checkpoint("x.npz", device="cpu")
 
 
 def test_cli_unported_subcommand_exits_2(capsys):
     from particlerobotsimulations_torch.cli import main
 
-    assert main(["sweep", "x.cfg"]) == 2
+    assert main(["bench"]) == 2
     assert "not yet ported" in capsys.readouterr().err
 
 
@@ -159,7 +162,8 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "want = {'cli', 'engine_table', 'kernels', 'ops.megakernel', "
-        "'parallel.ring', 'parallel.spatial_table', 'io.csvio'}\n"
+        "'parallel.ring', 'parallel.spatial_table', 'io.csvio', "
+        "'parallel.sweep', 'parallel.packed', 'models.experiments'}\n"
         "missing = {pt.__name__ + '.' + w for w in want} - set(names)\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', "
