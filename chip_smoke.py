@@ -93,7 +93,26 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    those sweeps' eight tables in one launch against eight single launches
    (bit for bit) and their twins, each timed in a CUDA graph beside the
    eight launches; ``cli experiment robustness`` and ``cli sweep``; and
-   ``gap_transit`` on ``examples/example_gap.cfg`` at ``grid_dim 32``.
+   ``gap_transit`` on ``examples/example_gap.cfg`` at ``grid_dim 32``;
+13. checkpoints, video and the gradient path: bench.py's workload through
+   ``Simulation.run`` for 3,000 steps with a checkpoint every dump and a
+   1920x1080 MJPG ``VideoRecorder`` as the frame callback, then
+   ``Simulation.from_checkpoint`` and ``Simulation(params, state=<the
+   saved state>)`` 1,000 steps each, bit for bit with equal launch
+   counts, the gap to the uninterrupted run printed, the AVI parsed back,
+   the native renderer checked to be the one built from source, and the
+   save and load times, the file's bytes, the ms per frame and the
+   particle-steps/s with and without the recorder printed; ``cli
+   simulate`` on ``examples/example.cfg --backend pallas`` (the span
+   path) with ``--video --checkpoint`` to 120 s, then ``--resume`` to 180
+   s: the CSV on the dump grid with no duplicate row, the resumed state
+   bit for bit a one-call run's; ``models/optimize.make_phase_rollout`` at
+   10k on PALLAS (kernel 1 forward inside the autograd wrapper) from the
+   saved state: its value bit for bit a plain ``make_step`` run's, its
+   gradient within ``DIFF_REL_L2_BOUND`` of STENCIL's, kernel 1 launched
+   twice per step; ``optimize_phases`` for two iterations (ms per
+   iteration, peak memory); and a 24-bot blob's PALLAS gradient against
+   DENSE at the JAX package's tolerance.
 
 The four kernels are timed per launch from replays of a CUDA graph of
 20 launches, so their wrappers' host-side checks stay out of the time
@@ -110,6 +129,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -153,6 +173,10 @@ from particlerobotsimulations_torch.ops.table_rebuild import (
     rebuild_move_planes,
 )
 from particlerobotsimulations_torch.engine import make_step
+from particlerobotsimulations_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from particlerobotsimulations_torch.models.optimize import make_phase_rollout, optimize_phases
+from particlerobotsimulations_torch.render import native as render_native
+from particlerobotsimulations_torch.render.video import VideoRecorder
 from particlerobotsimulations_torch.parallel.ring import LocalRing
 from particlerobotsimulations_torch.parallel.spatial_table import (
     HALO_ROWS,
@@ -161,6 +185,7 @@ from particlerobotsimulations_torch.parallel.spatial_table import (
 )
 from particlerobotsimulations_torch.parallel.sweep import choose_sweep_strategy, run_sweep
 from particlerobotsimulations_torch.state import (
+    ARRAY_FIELDS,
     active_mask,
     payload_mask,
     scene_state,
@@ -1943,6 +1968,372 @@ def sweep_phase():
     return kc, counts
 
 
+# ---------------------------- phase 13: checkpoints, video, the gradient path
+
+# phase 13's shapes: the recorder at the reference's 1920x1080 MJPG; the
+# 10k run's 3,000 steps through Simulation.run and the 1,000 of each
+# continuation; the differentiable rollouts' horizon and optimizer steps
+FRAME_W, FRAME_H = 1920, 1080
+CK_STEPS, CK_MORE = 3000, 1000
+DIFF_STEPS, OPT_ITERS = 20, 2
+# the 10k PALLAS rollout's phase gradient against STENCIL's: the same
+# backward, on forward trajectories that part by float reassociation (kernel
+# 1's pair sums and pair law against STENCIL's).  Over DIFF_SHORT_STEPS
+# (the phase reaches a position through the radius, then the collide's
+# velocity, so the gradient is zero before 2 steps) the two must agree to
+# DIFF_REL_L2_SHORT (relative L2); over DIFF_STEPS the gap grows with the
+# contact dynamics' sensitivity, which is measured beside it as STENCIL's
+# own gap to STENCIL from positions moved by one ulp, and must stay within
+# DIFF_REL_L2_BOUND.  On an H100 (80GB HBM3, 700 W) from the 10k state at
+# step 3,000: 4.9e-5 after 3 steps, 0.247 after 20, where one ulp moves
+# STENCIL's own 20-step gradient by 1.02 (relative L2): at 10k the 20-step
+# gradient is as sensitive as that, so its bound fails only a gradient of
+# another size or direction
+DIFF_SHORT_STEPS, DIFF_REL_L2_SHORT = 3, 1e-3
+DIFF_REL_L2_BOUND = 0.5
+# the JAX package's tolerance for its custom VJP against DENSE
+# (tests/test_optimize.py, 24 bots, 40 steps)
+DIFF_RTOL, DIFF_ATOL, DIFF_BLOB_STEPS = 2e-2, 2e-4, 40
+
+
+def clone_state(state):
+    """A copy of a single-scene state with its own generator at the same
+    point, so that a later run of the original does not move it."""
+    gen = torch.Generator(device=state.device)
+    gen.set_state(state.generator.get_state())
+    return state.replace(generator=gen, **{k: getattr(state, k).clone()
+                                           for k in ARRAY_FIELDS})
+
+
+def states_equal(a, b) -> bool:
+    return a.step == b.step and all(
+        torch.equal(getattr(a, k), getattr(b, k)) for k in ARRAY_FIELDS
+    )
+
+
+def avi_frames(path) -> tuple:
+    """(width, height, frame count, each frame's payload) of an AVI the
+    port wrote, read back through its idx1 index."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        fail(f"{path}: not an AVI")
+    if struct.unpack("<I", data[4:8])[0] != len(data) - 8:
+        fail(f"{path}: RIFF size is not the file's")
+    total, = struct.unpack("<I", data[48:52])
+    width, height = struct.unpack("<II", data[64:72])
+    movi, idx1 = data.find(b"movi"), data.rfind(b"idx1")
+    payloads = []
+    for i in range(struct.unpack("<I", data[idx1 + 4: idx1 + 8])[0] // 16):
+        ckid, _, off, size = struct.unpack("<4sIII", data[idx1 + 8 + 16 * i: idx1 + 24 + 16 * i])
+        if data[movi + off: movi + off + 4] != ckid:
+            fail(f"{path}: index entry {i} does not point at its chunk")
+        payloads.append(data[movi + off + 8: movi + off + 8 + size])
+    return width, height, total, payloads
+
+
+def timed_run(sim, max_time, csv, **kw) -> float:
+    if sim.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(max_time=max_time, csv_path=csv, echo=False, **kw)
+    if sim.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def checkpoint_video_phase(tmp, params, steps=CK_STEPS, more=CK_MORE, device="cuda",
+                           size=(FRAME_W, FRAME_H)) -> tuple:
+    """13a: bench.py's workload through ``Simulation.run`` for ``steps``
+    steps with a checkpoint every dump and a 1920x1080 MJPG recorder as
+    the frame callback; then ``from_checkpoint`` and ``Simulation(params,
+    state=<the saved state>)`` each ``more`` steps, bit for bit and with
+    equal launch counts, and the uninterrupted run (the recorder still
+    on) ``more`` steps beside them.  Returns (text, the saved state,
+    params, kernel-1 and kernel-2 launches of the recorded run)."""
+    dt = params.timestep
+    sim = pt.Simulation(params, device=device)
+    p = sim.params
+    ck, avi = os.path.join(tmp, "ck10k.npz"), os.path.join(tmp, "v10k.avi")
+    rec = VideoRecorder(p, path=avi, width=size[0], height=size[1], codec="MJPG")
+    frame_s = []
+
+    def capture(s):
+        t0 = time.perf_counter()
+        rec.capture(s)
+        frame_s.append(time.perf_counter() - t0)
+
+    reset_counts()
+    run_s = timed_run(sim, steps * dt, os.path.join(tmp, "a.csv"), checkpoint_path=ck,
+                      checkpoint_every_dumps=1, frame_callback=capture)
+    launched = dict(kernels.LAUNCHES)
+    if sim.state.step != steps:
+        fail(f"13a: the recorded run ended at step {sim.state.step}")
+    saved = clone_state(sim.state)
+    _, loaded = load_checkpoint(ck, device=device)
+    if not states_equal(loaded, saved) or not torch.equal(
+            loaded.generator.get_state(), saved.generator.get_state()):
+        fail("13a: the final checkpoint does not hold the run's state")
+    ck_bytes = os.path.getsize(ck)
+    save_ms, load_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "again.npz"), p, saved)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        load_checkpoint(ck, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+
+    end = (steps + more) * dt
+    a_s = timed_run(sim, end, os.path.join(tmp, "a2.csv"), frame_callback=capture)
+    rec.close()
+    reset_counts()
+    b = pt.Simulation.from_checkpoint(ck, device=device)
+    b_s = timed_run(b, end, os.path.join(tmp, "b.csv"))
+    lb = dict(kernels.LAUNCHES)
+    reset_counts()
+    c = pt.Simulation(p, state=saved, device=device)
+    c_s = timed_run(c, end, os.path.join(tmp, "c.csv"))
+    lc = dict(kernels.LAUNCHES)
+    if not states_equal(b.state, c.state):
+        fail("13a: from_checkpoint and Simulation(params, state=saved) parted")
+    keys = ("stencil_forces", "compact")
+    if any(lb[k] != lc[k] for k in keys):
+        fail(f"13a: launches differ: from_checkpoint {lb}, in memory {lc}")
+    n = p.n_cells
+    gap = (sim.state.pos[:n] - b.state.pos[:n]).abs().max().item()
+    cgap = (sim.state.pos[:n].mean(0) - b.state.pos[:n].mean(0)).abs().max().item()
+
+    width, height, total, payloads = avi_frames(avi)
+    if (width, height) != size or total != len(frame_s) or len(payloads) != total:
+        fail(f"13a: AVI {width}x{height} with {total} frames ({len(payloads)} indexed), "
+             f"want {size} and {len(frame_s)}")
+    if not all(f[:2] == b"\xff\xd8" and f[-2:] == b"\xff\xd9" for f in payloads):
+        fail("13a: an AVI frame is not a whole JPEG")
+    lib = render_native._LIB
+    if lib is None or lib.path != render_native.library_path():
+        fail(f"13a: the native renderer in use is not the one built from source: {lib}")
+    text = (
+        f"10k HEX Simulation.run {steps} steps with a checkpoint every dump and a "
+        f"{size[0]}x{size[1]} MJPG recorder: {run_s:.2f} s, "
+        f"{n * steps / run_s:.4e} particle-steps/s, {len(frame_s)} frames, launches "
+        f"{ {k: launched[k] for k in keys} } | checkpoint {ck_bytes} bytes, save "
+        f"{statistics.median(save_ms):.1f} ms, load {statistics.median(load_ms):.1f} ms | "
+        f"{more} more steps: from_checkpoint == Simulation(params, state=saved) bit for "
+        f"bit (every field, step, ring), launches {dict((k, lb[k]) for k in keys)} each; "
+        f"{n * more / b_s:.4e} and {n * more / c_s:.4e} particle-steps/s without the "
+        f"recorder vs {n * more / a_s:.4e} with it (the uninterrupted run); gap to the "
+        f"uninterrupted run: max |dpos| {gap:.3e}, centroid {cgap:.3e} | AVI parsed "
+        f"back: {total} frames of {width}x{height}, JPEG {min(map(len, payloads))}-"
+        f"{max(map(len, payloads))} bytes, {statistics.median(frame_s) * 1e3:.1f} ms per "
+        f"rendered frame (median), native {lib.path.name}"
+    )
+    return text, saved, p, {k: launched[k] + lb[k] + lc[k] for k in keys}
+
+
+def cli_resume_phase(tmp, device="cuda", first="120", last="180",
+                     cfg=os.path.join(ROOT, "examples", "example.cfg")) -> tuple:
+    """13b: ``cli simulate examples/example.cfg --backend pallas`` (300
+    bots, the span path) with ``--video --checkpoint --checkpoint-every
+    1`` to ``first`` sim-s, then ``--resume`` to ``last``, in a
+    directory of its own (the video goes to the cfg's video_filename).
+    The CSV continues on the dump grid with one header and no duplicate
+    row; the resumed state equals a one-call run's (the same chunks: the
+    frame cadence's) bit for bit.  Returns (text, kernel-3 launches)."""
+    from contextlib import redirect_stderr
+    from io import StringIO
+
+    from particlerobotsimulations_torch.cli import main as cli_main
+
+    csv, ck = os.path.join(tmp, "cli.csv"), os.path.join(tmp, "cli.ck")
+    common = ["simulate", cfg, "--backend", "pallas", "--csv", csv, "--quiet",
+              "--device", device, "--video", "--checkpoint", ck, "--checkpoint-every", "1"]
+    here = os.getcwd()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        errs, secs = [], []
+        for extra in (["--max-time", first], ["--resume", "--max-time", last]):
+            buf = StringIO()
+            t0 = time.perf_counter()
+            with redirect_stderr(buf):
+                rc = cli_main(common + extra)
+            secs.append(time.perf_counter() - t0)
+            if rc != 0:
+                fail(f"13b: cli {extra} exited {rc}: {buf.getvalue()[-2000:]}")
+            errs.append(buf.getvalue().strip().splitlines())
+        launched = dict(kernels.LAUNCHES)
+        params = pt.load_cfg(cfg).replace(force_backend=pt.ForceBackend.PALLAS,
+                                          max_time=float(last))
+        one = pt.Simulation(params, device=device)
+        one.run(csv_path=os.path.join(tmp, "one.csv"), echo=False,
+                frame_callback=lambda s: None)
+        _, resumed = load_checkpoint(ck, device=device)
+        _, _, frames, _ = avi_frames(os.path.join(tmp, params.video_filename))
+        with open(csv, encoding="utf-8") as f:
+            lines = f.read().splitlines()
+    finally:
+        os.chdir(here)
+    times = [float(r.split(",")[0]) for r in lines[2:]]
+    dump = params.dump_steps
+    want = [float(f"{i * dump * params.timestep:.6f}")
+            for i in range(params.n_steps() // dump + 1)]
+    if lines[0] != "Seed, 5555" or any(r.startswith("Seed") for r in lines[1:]) or times != want:
+        fail(f"13b: CSV header {lines[:2]}, rows at {times}, want {want}")
+    if f"resumed at t = {first} s" not in errs[1][0] or "span path" not in errs[1][-1]:
+        fail(f"13b: cli said {errs}")
+    if not states_equal(resumed, one.state):
+        gap = (resumed.pos - one.state.pos).abs().max().item()
+        fail(f"13b: the resumed run parted from the one-call run (max |dpos| {gap:.3e})")
+    text = (
+        f"cli example.cfg pallas --video --checkpoint to {first} s ({secs[0]:.1f} s), "
+        f"--resume to {last} s ({secs[1]:.1f} s, {frames} frames): CSV rows at "
+        f"{times} with one header; resumed == one-call run bit for bit; launches "
+        f"{ {k: v for k, v in launched.items() if v} }; {errs[1][-1]}"
+    )
+    return text, launched["mega_span"]
+
+
+def rollout_grad(params, n_steps, state, phase0, device="cuda"):
+    """(value, phase gradient of the real bots, seconds) of one
+    value-and-grad of ``make_phase_rollout``."""
+    rollout = make_phase_rollout(params, n_steps, device=device)
+    ph = phase0.clone().requires_grad_()
+    t0 = time.perf_counter()
+    v = rollout(ph, state)
+    v.backward()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return v.detach(), ph.grad[: params.n_cells], time.perf_counter() - t0
+
+
+def ulp_moved(state, seed=0):
+    """``state`` with every real bot's coordinates moved by one ulp, each
+    in a random direction."""
+    pos = state.pos
+    gen = torch.Generator(device=pos.device).manual_seed(seed)
+    up = torch.rand(pos.shape, generator=gen, device=pos.device) < 0.5
+    inf = torch.full_like(pos, float("inf"))
+    return state.replace(pos=torch.nextafter(pos, torch.where(up, inf, -inf)))
+
+
+def diff_phase(state, p, device="cuda", steps=DIFF_STEPS) -> tuple:
+    """13c: the differentiable path at 10k on PALLAS from ``state`` (the
+    main path's, after the phase gate): the rollout's value against a
+    plain ``make_step`` run of the frozen params (bit for bit: the same
+    kernel forward), its gradient finite, nonzero and within
+    DIFF_REL_L2_BOUND of STENCIL's, kernel 1 launched twice per step;
+    ``optimize_phases`` for OPT_ITERS iterations; and a 24-bot blob's
+    PALLAS gradient against DENSE at the JAX package's tolerance.
+    Returns (text, kernel-1 launches)."""
+    pp = p.replace(force_backend=pt.ForceBackend.PALLAS)
+    phase0 = state.phase.detach().clone()
+    n = p.n_cells
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    v, g, vg_s = rollout_grad(pp, steps, state, phase0, device)
+    k1 = kernels.LAUNCHES["stencil_forces"]
+    peak_vg = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if k1 != 2 * steps and device == "cuda":
+        fail(f"13c: {k1} kernel-1 launches in a {steps}-step value-and-grad, want {2 * steps}")
+    frozen = pp.replace(control=pt.Control.FIXED_PHASE, phase_std=0.0)
+    step = make_step(frozen, device)
+    s = state.replace(phase=phase0)
+    for _ in range(steps):
+        s = step(s)
+    mask = active_mask(p, state.n_pad, state.device)
+    x = s.pos[:, 0]
+    plain = torch.sum(torch.where(mask, x, torch.zeros_like(x))) / np.float32(n)
+    if not torch.equal(v, plain):
+        fail(f"13c: rollout value {v.item()!r} != plain make_step {plain.item()!r}")
+    ps = p.replace(force_backend=pt.ForceBackend.STENCIL)
+    _, gs, st_s = rollout_grad(ps, steps, state, phase0, device)
+    if not (torch.isfinite(g).all() and g.abs().max() > 0):
+        fail("13c: the PALLAS rollout gradient is not finite or is zero")
+
+    def rel_l2(a, b):
+        return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+    rel = rel_l2(g, gs)
+    short = DIFF_SHORT_STEPS
+    rel1 = rel_l2(rollout_grad(pp, short, state, phase0, device)[1],
+                  rollout_grad(ps, short, state, phase0, device)[1])
+    env = rel_l2(rollout_grad(ps, steps, ulp_moved(state), phase0, device)[1], gs)
+    print(f"phase 13c gradient gaps: PALLAS vs STENCIL after {short} steps {rel1:.3e}, after "
+          f"{steps} {rel:.3e}; STENCIL vs STENCIL from positions one ulp away after "
+          f"{steps} {env:.3e}", flush=True)
+    if not rel1 <= DIFF_REL_L2_SHORT:
+        fail(f"13c: PALLAS gradient vs STENCIL's after {short} steps: relative L2 {rel1:.3e}")
+    if not rel <= DIFF_REL_L2_BOUND:
+        fail(f"13c: PALLAS gradient vs STENCIL's: relative L2 {rel:.3e} > {DIFF_REL_L2_BOUND}")
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    k0 = kernels.LAUNCHES["stencil_forces"]
+    t0 = time.perf_counter()
+    _, hist = optimize_phases(pp, state, n_steps=steps, iters=OPT_ITERS, lr=0.05,
+                              phase0=phase0)
+    opt_s = time.perf_counter() - t0
+    k_opt = kernels.LAUNCHES["stencil_forces"] - k0
+    peak_opt = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if device == "cuda" and k_opt != OPT_ITERS * 2 * steps + steps:
+        fail(f"13c: optimize_phases launched kernel 1 {k_opt} times")
+    if not np.isfinite(hist).all():
+        fail(f"13c: optimize_phases history {hist}")
+
+    blob = pt.Simulation(pt.SimParams(n_cells=24, n_dead=0, seed=3, config=pt.Config.HEX,
+                                      light_x=-5.0, light_y=0.0), device=device)
+    bp0 = torch.tensor((0.1 * np.random.default_rng(1).standard_normal(blob.state.n_pad))
+                       .astype(np.float32), device=blob.state.device)
+    grads = {
+        b: rollout_grad(blob.params.replace(force_backend=b), DIFF_BLOB_STEPS, blob.state,
+                        bp0, device)[1].cpu().numpy()
+        for b in (pt.ForceBackend.DENSE, pt.ForceBackend.PALLAS)
+    }
+    gd, gp = grads[pt.ForceBackend.DENSE], grads[pt.ForceBackend.PALLAS]
+    blob_err = np.abs(gp - gd).max()
+    if not (np.isfinite(gp).all() and np.abs(gp).max() > 0) or not np.allclose(
+            gp, gd, rtol=DIFF_RTOL, atol=DIFF_ATOL):
+        fail(f"13c: 24-bot PALLAS gradient vs DENSE: max |diff| {blob_err:.3e}")
+    text = (
+        f"10k HEX rollout from step {state.step}, {steps} steps on PALLAS: value "
+        f"{v.item():.7f} == plain make_step bit for bit; value-and-grad {vg_s:.2f} s, "
+        f"kernel-1 launches {k1} (2 per step), peak {peak_vg / 2**20:.0f} MiB; |grad| max "
+        f"{g.abs().max().item():.3e}, relative L2 to STENCIL's {rel:.3e} (bound "
+        f"{DIFF_REL_L2_BOUND}; after {short} steps {rel1:.3e}, bound {DIFF_REL_L2_SHORT}; "
+        f"STENCIL's own one-ulp gap {env:.3e}; STENCIL value-and-grad {st_s:.2f} s) | "
+        f"optimize_phases "
+        f"{OPT_ITERS} iterations at {steps} steps: {opt_s * 1e3 / OPT_ITERS:.0f} ms per "
+        f"iteration (the final evaluation included), kernel-1 launches {k_opt}, peak "
+        f"{peak_opt / 2**20:.0f} MiB, objective {[round(float(h), 6) for h in hist]} | "
+        f"24-bot blob {DIFF_BLOB_STEPS} steps: PALLAS vs DENSE gradient max |diff| "
+        f"{blob_err:.2e} (rtol {DIFF_RTOL}, atol {DIFF_ATOL})"
+    )
+    return text, k1 + k_opt
+
+
+def resume_phase() -> tuple:
+    """Phase 13: checkpoints and video at 10k, the CLI resume on the span
+    path, the differentiable path, each printed as it ends.  Returns the
+    kernel launches of the paths it drove."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        text_a, saved, p, launched = checkpoint_video_phase(tmp, bench_params())
+        print(f"phase 13a {text_a} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        text_b, k3 = cli_resume_phase(tmp)
+        print(f"phase 13b {text_b} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    text_c, k1 = diff_phase(saved, p)
+    print(f"phase 13c {text_c} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    launched["stencil_forces"] += k1
+    launched["mega_span"] = k3
+    return launched
+
+
 def main() -> int:
     # 1. the card
     if not torch.cuda.is_available():
@@ -2160,6 +2551,12 @@ def main() -> int:
     kc, sweep_counts = sweep_phase()
     print(f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
+    # 13. checkpoints and video at 10k, the CLI resume on the span path,
+    #     the differentiable path; counters reset just before each
+    t13 = time.perf_counter()
+    launches13 = resume_phase()
+    print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -2171,19 +2568,21 @@ def main() -> int:
         {"name": "stencil_forces", "route": "cuda",
          "source": "particlerobotsimulations_torch/csrc/stencil_forces.cu",
          "replaces": "particlerobotsimulations_tpu/ops/pallas_stencil.py:458",
-         "launches": launches["stencil_forces"] + per_bot_launches, "max_abs_err": k1_err,
+         "launches": launches["stencil_forces"] + per_bot_launches
+         + launches13["stencil_forces"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "compact", "route": "cuda",
          "source": "particlerobotsimulations_torch/csrc/compact.cu",
          "replaces": "particlerobotsimulations_tpu/ops/table_rebuild.py:203",
-         "launches": launches["compact"], "max_abs_err": k2_err,
+         "launches": launches["compact"] + launches13["compact"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
         {"name": "mega_span", "route": "cuda",
          "source": "particlerobotsimulations_torch/csrc/mega_span.cu",
          "replaces": "particlerobotsimulations_tpu/ops/megakernel.py:272",
-         "launches": b_launches["mega_span"], "max_abs_err": k3_err,
+         "launches": b_launches["mega_span"] + launches13["mega_span"],
+         "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
     ] + record9 + [

@@ -9,7 +9,10 @@ small-table span kernel, and the halo stencil of the sharded loop in
 ``parallel/``); on the CPU the same calls take their plain PyTorch twins.
 Seed sweeps (``parallel/sweep.run_sweep``, ``models/experiments.py``) run
 many scenes at once through the batched loops, whose kernels take every
-scene in one launch.  The package never imports JAX.
+scene in one launch.  Runs checkpoint and resume in the JAX package's
+format (``io/checkpoint.py``), record video (``render/``), and take
+gradients through the step (``models/optimize.py``; on PALLAS kernel 1
+inside a ``torch.autograd.Function``).  The package never imports JAX.
 """
 
 from .config import (

@@ -1,11 +1,13 @@
 """Command-line entry point of the PyTorch port.
 
     python -m particlerobotsimulations_torch.cli simulate examples/example.cfg --device cuda
+    python -m particlerobotsimulations_torch.cli simulate cfg --video --checkpoint ck.npz --checkpoint-every 1
+    python -m particlerobotsimulations_torch.cli simulate cfg --resume --checkpoint ck.npz --max-time 600
     python -m particlerobotsimulations_torch.cli sweep examples/example.cfg --seeds 0:8 --steps 6000
     python -m particlerobotsimulations_torch.cli experiment robustness examples/example_dead_cells.cfg
 
-``simulate`` writes under the cfg's csv_filename, like the reference
-binary (main.cpp:913-917); ``sweep`` and ``experiment`` print the JAX
+``simulate`` writes under the cfg's csv_filename and video_filename, like
+the reference binary (main.cpp:913-917); ``sweep`` and ``experiment`` print the JAX
 package's CSV to stdout.  ``bench`` prints that it is not ported yet and
 exits 2 (ROADMAP.md queue 1 item 5), as does ``--mesh`` (item 14).
 """
@@ -58,16 +60,71 @@ def _apply_overrides(params, args):
 
 
 def cmd_simulate(args) -> int:
+    import os
+
     from .config import load_cfg
     from .sim import Simulation
 
     params = _apply_overrides(load_cfg(args.cfg), args)
-    sim = Simulation(params, device=args.device)
+    resumed = False
+    if args.resume:
+        # reference 'cont' mode (main.cpp:886, 941-956): continue from the
+        # checkpoint when there is one, else from the last complete CSV row
+        if args.checkpoint and os.path.exists(args.checkpoint):
+            from .io.checkpoint import load_checkpoint
+
+            ck_params, ck_state = load_checkpoint(args.checkpoint, device=args.device)
+            # CLI overrides (e.g. a later --max-time) apply on top of the
+            # checkpoint's params; structural mismatches raise on shapes
+            sim = Simulation(_apply_overrides(ck_params, args), state=ck_state,
+                             device=args.device)
+        elif os.path.exists(params.csv_filename):
+            sim = Simulation.resume_from_csv(params, params.csv_filename,
+                                             device=args.device)
+        else:
+            raise SystemExit(
+                "error: --resume needs an existing checkpoint or CSV "
+                f"({params.csv_filename})"
+            )
+        resumed = True
+        print(f"resumed at t = {sim.time:g} s", file=sys.stderr)
+    else:
+        sim = Simulation(params, device=args.device)
+    # the sim's params (a checkpoint's, or auto-fitted) describe the run:
+    # the recorder, the CSV target and the summary use them
     params = sim.params
+    start_steps = sim.state.step
+
+    recorder = None
+    frame_cb = None
+    if args.video:
+        from .render.video import VideoRecorder
+
+        recorder = VideoRecorder(params, width=args.video_width,
+                                 height=args.video_height,
+                                 codec=args.video_codec,
+                                 quality=args.video_quality,
+                                 style=args.video_style)
+        frame_cb = recorder.capture
+        print(f"recording video -> {recorder.path}", file=sys.stderr)
+
     t0 = time.time()
-    sim.run(csv_path=params.csv_filename, echo=not args.quiet)
+    try:
+        sim.run(
+            csv_path=params.csv_filename,
+            echo=not args.quiet,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every_dumps=args.checkpoint_every,
+            frame_callback=frame_cb,
+            frame_every_steps=args.frame_every or None,
+            append_csv=resumed,
+        )
+    finally:
+        if recorder is not None:
+            recorder.close()
     wall = time.time() - t0
-    steps = params.n_steps()
+    # the steps run in this call (a resume starts mid-run)
+    steps = max(0, params.n_steps() - start_steps)
     path = sim.backend.name
     if getattr(sim._run_chunk, "path_info", {}).get("use_mega"):
         path += " span path"
@@ -164,7 +221,27 @@ def main(argv=None) -> int:
 
     sim_p = sub.add_parser("simulate", help="run one scenario from a .cfg")
     sim_p.add_argument("cfg")
+    sim_p.add_argument("--video", action="store_true", help="record AVI video")
+    # reference default geometry: 1920x1080 @ 20 FPS (main.cpp:65,
+    # postprocess.cu:102)
+    sim_p.add_argument("--video-width", type=int, default=1920)
+    sim_p.add_argument("--video-height", type=int, default=1080)
+    sim_p.add_argument("--video-codec", choices=["MJPG", "DIB "], default="MJPG",
+                       help="MJPG (compressed, default) or 'DIB ' (raw)")
+    sim_p.add_argument("--video-quality", type=int, default=90,
+                       help="JPEG quality 1-100 for MJPG")
+    sim_p.add_argument("--video-style", choices=["2d", "3d"], default="2d",
+                       help="top-down ortho (2d) or the reference's "
+                            "perspective presentation look (3d)")
+    sim_p.add_argument("--frame-every", type=int, default=0,
+                       help="physics steps between frames "
+                            "(default: cfg DISPLAY_INTERVAL)")
     sim_p.add_argument("--quiet", action="store_true")
+    sim_p.add_argument("--resume", action="store_true",
+                       help="continue from checkpoint/CSV (reference 'cont' mode)")
+    sim_p.add_argument("--checkpoint", type=str, default=None)
+    sim_p.add_argument("--checkpoint-every", type=int, default=0,
+                       help="checkpoint every N dumps")
     _add_overrides(sim_p)
     sim_p.set_defaults(fn=cmd_simulate)
 

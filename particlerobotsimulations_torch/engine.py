@@ -24,8 +24,11 @@ others to a loop of :func:`make_step`.  The random draws go through
 ``rng.py`` with the step they are drawn for.  :func:`make_run_chunk_batched`
 runs a batch of scenes in lockstep (the seed sweep): PALLAS through the
 batched table loop, the other backends through :func:`make_step_batched`,
-the per-scene step vmapped over the scene axis.  Not ported yet, and
-raising: the differentiable step (ROADMAP queue 1 item 13).
+the per-scene step vmapped over the scene axis.  ``make_step(...,
+differentiable=True)`` is the step that ``torch.autograd`` differentiates
+(``models/optimize.py``): PALLAS through ``ops/pallas_stencil.
+make_diff_pallas_collide`` (kernel 1 forward, the STENCIL collide
+backward), the other backends as written.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from .ops.actuation import update_radius
 from .ops.forces import dense_collide
 from .ops.grid import cellgrid_collide
 from .ops.integrate import integrate
-from .ops.pallas_stencil import pallas_stencil_collide
+from .ops.pallas_stencil import make_diff_pallas_collide, pallas_stencil_collide
 from .ops.phase import update_phase
 from .ops.stencil import stencil_collide
 from .engine_table import (
@@ -54,12 +57,6 @@ from .engine_table import (
 from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
 
 f32 = np.float32
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (see ROADMAP.md, queue 1 item {item})"
-    )
 
 
 _COLLIDES = {
@@ -101,11 +98,26 @@ def _draws(params: SimParams, source, step: int, gates: tuple, shape: tuple,
     return out
 
 
-def _make_body(params: SimParams, backend: ForceBackend):
+def _collide_fn(params: SimParams, backend: ForceBackend, differentiable: bool):
+    """The backend's collide; on PALLAS with ``differentiable`` the
+    autograd wrapper of kernel 1 (the slot argument is not taken: the
+    wrapper assigns slots itself)."""
+    if not (differentiable and backend == ForceBackend.PALLAS):
+        return _COLLIDES[backend]
+    diff = make_diff_pallas_collide(params, params.timestep)
+
+    def collide(p, pos, vel, rad, mask, payload, dt, slot=None):
+        return diff(pos, vel, rad, mask, payload)
+
+    return collide
+
+
+def _make_body(params: SimParams, backend: ForceBackend, differentiable: bool = False):
     """The step on one scene's arrays, with its draws taken beforehand
     (``_draws``) and its gates decided on the host: pure, so the batched
-    step can ``torch.func.vmap`` it over a scene axis."""
-    collide = _COLLIDES[backend]
+    step can ``torch.func.vmap`` it over a scene axis, and
+    ``torch.utils.checkpoint`` can run it again in a backward pass."""
+    collide = _collide_fn(params, backend, differentiable)
     dt = params.timestep
     cog_steps = params.centroid_steps_interval
 
@@ -173,13 +185,13 @@ def make_step(params: SimParams, device="cuda",
     ``device``.  ``step(state, slot=None)``: on PALLAS, ``slot`` may carry a
     slot assignment reused over a few steps (``ops.pallas_stencil.
     assign_slots_slotmajor``); the other backends build their tables every
-    step.  ``differentiable=True`` (the JAX package's custom-VJP collide)
-    is not ported and raises."""
-    if differentiable:
-        raise _not_ported("the differentiable step (make_step(differentiable=True))", 13)
+    step.  ``differentiable=True`` puts the PALLAS collide behind its
+    autograd wrapper (``make_diff_pallas_collide``), so that a gradient
+    flows through the whole step; the other backends are differentiable
+    as they are."""
     params = params.validate()
     backend = params.resolved_backend(device)
-    body = _make_body(params, backend)
+    body = _make_body(params, backend, differentiable)
 
     def step(state: SimState, slot: torch.Tensor | None = None) -> SimState:
         gates = _step_gates(params, state.step)

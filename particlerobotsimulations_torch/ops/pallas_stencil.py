@@ -308,3 +308,38 @@ def pallas_stencil_collide(params: SimParams, pos, vel, rad, mask, payload, dt,
     abs_r = abs_r + m_obs
     new_vel = friction_velocity_update(params, vel, force, payload, dt)
     return torch.where(mask[..., None], new_vel, zero), abs_a, abs_r
+
+
+def make_diff_pallas_collide(params: SimParams, dt: float):
+    """The per-bot PALLAS collide with a gradient: ``collide(pos, vel, rad,
+    mask, payload) -> (new velocity, attraction sums, contact sums)``.
+
+    Port of the JAX package's custom-VJP wrapper as a
+    ``torch.autograd.Function``.  The forward is :func:`pallas_stencil_collide`
+    (kernel 1 on CUDA tensors, its twin on CPU tensors).  Kernel 1 has no
+    gradient, and its pair law may not be differentiated anyway: ``inv2`` of
+    its magnet term is unguarded.  So the backward runs the STENCIL collide
+    (``ops/stencil.stencil_collide``: the same pair set and law, guarded) on
+    the saved inputs and pulls the three outputs' cotangents back through it
+    (a missing cotangent counts as zeros).  ``mask`` and ``payload`` get no
+    gradient."""
+    from .stencil import stencil_collide
+
+    class DiffPallasCollide(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, pos, vel, rad, mask, payload):
+            ctx.save_for_backward(pos, vel, rad, mask, payload)
+            return pallas_stencil_collide(params, pos, vel, rad, mask, payload, dt)
+
+        @staticmethod
+        def backward(ctx, *cts):
+            pos, vel, rad, mask, payload = ctx.saved_tensors
+            with torch.enable_grad():
+                primals = [t.detach().requires_grad_() for t in (pos, vel, rad)]
+                outs = stencil_collide(params, *primals, mask, payload, dt)
+                cts = [torch.zeros_like(o) if c is None else c for o, c in zip(outs, cts)]
+                grads = torch.autograd.grad(outs, primals, cts, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(primals, grads)]
+            return (*grads, None, None)
+
+    return DiffPallasCollide.apply

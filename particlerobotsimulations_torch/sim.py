@@ -1,21 +1,25 @@
 """High-level simulation front end — the app layer.
 
 Port of ``particlerobotsimulations_tpu.sim``: scenario setup from a
-``.cfg``, the step loop in dump-interval chunks, CSV metrics and the health
-checks.  Checkpoints, CSV resume and video recording are not ported yet
-(ROADMAP queue 1 item 12).
+``.cfg``, the step loop in dump-interval chunks, CSV metrics, the health
+checks, checkpoints, CSV resume and the frame hook that video recording
+(``render.VideoRecorder``) uses.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+import warnings
+from math import gcd
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from .config import ForceBackend, SimParams, load_cfg
-from .engine import _not_ported, make_run_chunk
-from .io.csvio import CsvDumper
+from .engine import make_run_chunk
+from .io.checkpoint import load_checkpoint, save_checkpoint
+from .io.csvio import CsvDumper, load_last_row
 from .models.placement import initial_state_arrays
 from .state import SimState, make_state
 
@@ -42,6 +46,8 @@ class Simulation:
             params, pos, vel, rad, phase, dead = initial_state_arrays(params)
             state = make_state(params, pos, vel, rad, phase, dead, device=device)
         elif params.world_half == 0:
+            # auto-fit from the restored state's active rows: padding rows
+            # sit at the world corner after one step and must not widen it
             from .models.placement import autofit_world_half
 
             p_act = state.pos[: params.n_cells].cpu().numpy()
@@ -83,8 +89,49 @@ class Simulation:
         return cls(params, device=device)
 
     @classmethod
-    def from_checkpoint(cls, path: str, device="cuda"):
-        raise _not_ported("checkpoints (Simulation.from_checkpoint)", 12)
+    def from_checkpoint(cls, path: str, device="cuda", draws=None):
+        """Continue from a checkpoint (``io.checkpoint``, either package's);
+        ``draws`` as ``load_checkpoint`` takes it."""
+        params, state = load_checkpoint(path, device, draws)
+        return cls(params, state=state, device=device)
+
+    @classmethod
+    def resume_from_csv(cls, params: SimParams, csv_path: str, device="cuda"):
+        """Continue from the last complete CSV row (reference ``cont`` mode,
+        main.cpp:941-956; the CSV needs ``testing=1``).  Phase and dead
+        flags are not in the CSV, as in the reference: prefer
+        checkpoints."""
+        row = load_last_row(params, csv_path)
+        if row is None:
+            return cls(params, device=device)
+        t, pos, vel, rad = row
+        if params.n_dead > 0 and t >= params.time_to_dead:
+            warnings.warn(
+                f"CSV resume at t={t:g}s is at/past time_to_dead="
+                f"{params.time_to_dead:g}s: the CSV stores no dead flags "
+                f"(reference fidelity, particlebot.cpp:369-411) and the "
+                f"one-shot injection step is already behind the resumed "
+                f"counter, so the continued run has ZERO dead bots instead "
+                f"of the {params.n_dead} the original run killed. Use "
+                f"checkpoints (Simulation.from_checkpoint) for exact "
+                f"continuation.",
+                stacklevel=2,
+            )
+        sim = cls(params, device=device)  # placement sets dead flags / payload
+        n = params.n_cells
+
+        def put(a, rows):
+            out = a.clone()
+            out[:n] = torch.as_tensor(np.asarray(rows, np.float32), device=a.device)
+            return out
+
+        sim.state = sim.state.replace(
+            pos=put(sim.state.pos, pos),
+            vel=put(sim.state.vel, vel),
+            rad=put(sim.state.rad, rad),
+            step=int(round(t / params.timestep)),
+        )
+        return sim
 
     # ------------------------------------------------------------ stepping
 
@@ -213,45 +260,86 @@ class Simulation:
         max_time: float | None = None,
         csv_path: str | None = None,
         echo: bool = True,
+        checkpoint_path: str | None = None,
+        checkpoint_every_dumps: int = 0,
+        frame_callback: Optional[Callable[["Simulation"], None]] = None,
+        frame_every_steps: int | None = None,
+        append_csv: bool = False,
         health_check: bool = True,
     ):
         """Run to ``max_time`` (params.max_time by default), dumping CSV rows
         every ``dump_interval``.  Like the reference, the dump comes before
         the step (main.cpp:359 vs 361): row t=0 is the initial condition and
-        the last row is at the final dump boundary <= max_time."""
+        the last row is at the final dump boundary <= max_time.
+
+        ``checkpoint_path`` gets a checkpoint every ``checkpoint_every_dumps``
+        dumps (0: none) and one at the end.  ``frame_callback(sim)`` fires
+        every ``frame_every_steps`` steps (default ``params.display_interval``,
+        the reference's frame cadence, main.cpp:370); the chunks then end on
+        the finer grid ``gcd(dump, frame)``.  ``append_csv`` appends to
+        ``csv_path``, with no header and no row at the resume step when the
+        file already has content."""
         p = self.params
         total_steps = int(round(
             (p.max_time if max_time is None else max_time) / p.timestep
         ))
-        stride = p.dump_steps
+        dump_steps = p.dump_steps
         csv_path = csv_path or p.csv_filename
+        if frame_every_steps is None:
+            frame_every_steps = p.display_interval
+        frame_every_steps = max(1, frame_every_steps)
+        stride = (
+            gcd(dump_steps, frame_every_steps) if frame_callback is not None
+            else dump_steps
+        )
+        # on append, a target that already has content has its header and
+        # the row at the resume step; a missing or empty one gets both
+        has_content = (
+            append_csv and os.path.exists(csv_path) and os.path.getsize(csv_path) > 0
+        )
 
-        with open(csv_path, "w", encoding="utf-8") as out:
+        with open(csv_path, "a" if append_csv else "w", encoding="utf-8") as out:
             dumper = CsvDumper(p, out, echo=echo)
-            done = self.state.step
+            dumper._wrote_header = has_content
+            done = start_step = self.state.step
+            dumps_done = 0
 
             def boundary(step_count):
-                if step_count % stride:
-                    return
-                pos, vel, rad = self.host_view()
-                if health_check:
-                    self._check_grid_fits(pos, step_count=step_count)
-                    self._check_cell_overflow(pos, step_count)
-                    if not (np.isfinite(pos).all() and np.isfinite(vel).all()):
-                        raise RuntimeError(
-                            f"simulation diverged by t="
-                            f"{step_count * p.timestep:g}s (non-finite "
-                            f"positions/velocities); see Simulation.health()"
-                        )
-                dumper.dump(step_count * p.timestep, pos, vel, rad)
+                nonlocal dumps_done
+                resume_row = has_content and step_count == start_step
+                if step_count % dump_steps == 0 and not resume_row:
+                    pos, vel, rad = self.host_view()
+                    if health_check:
+                        self._check_grid_fits(pos, step_count=step_count)
+                        self._check_cell_overflow(pos, step_count)
+                        if not (np.isfinite(pos).all() and np.isfinite(vel).all()):
+                            raise RuntimeError(
+                                f"simulation diverged by t="
+                                f"{step_count * p.timestep:g}s (non-finite "
+                                f"positions/velocities); see Simulation.health()"
+                            )
+                    dumper.dump(step_count * p.timestep, pos, vel, rad)
+                    dumps_done += 1
+                    if (
+                        checkpoint_path
+                        and checkpoint_every_dumps
+                        and dumps_done % checkpoint_every_dumps == 0
+                    ):
+                        save_checkpoint(checkpoint_path, p, self.state)
+                if frame_callback is not None and (
+                    resume_row or step_count % frame_every_steps == 0
+                ):
+                    frame_callback(self)
 
             boundary(done)
             while done < total_steps:
-                # a start off the dump grid first steps up to the next
-                # boundary, so dumps stay on the absolute dump grid
+                # a start off the stride grid first steps up to the next
+                # boundary, so dumps and frames stay on the absolute grid
                 chunk = stride - done % stride if done % stride else stride
                 chunk = min(chunk, total_steps - done)
                 self.step_chunk(chunk, start_step=done)
                 done += chunk
                 boundary(done)
+            if checkpoint_path:
+                save_checkpoint(checkpoint_path, p, self.state)
         return self

@@ -715,3 +715,80 @@ def test_batched_wrappers_refuse_cpu_tensors_and_bad_strides():
                    for k in tables}
         with pytest.raises(ValueError, match="contiguous"):
             kernels.stencil_forces_batched_cuda(p, strided)
+
+
+# ------------------------------------- the differentiable path, checkpoints
+
+
+def test_diff_collide_on_card_matches_cpu_and_stencil_grads(card):
+    """The autograd wrapper of kernel 1 on the card: its forward against
+    its CPU twin's forward on one 300-bot state (kernel 1's tolerance:
+    velocities 1e-4, magnitudes 1e-4 absolute + 1e-5 relative), one
+    kernel-1 launch; its gradient against the STENCIL collide's on the
+    card, which is the backward it runs (the same graph on the same
+    inputs: 1e-5 relative to the largest entry)."""
+    from particlerobotsimulations_torch.ops.pallas_stencil import make_diff_pallas_collide
+    from particlerobotsimulations_torch.ops.stencil import stencil_collide
+
+    p = pt.SimParams(n_cells=300, n_dead=0, seed=3, config=pt.Config.HEX,
+                     force_backend=pt.ForceBackend.PALLAS, light_x=-5.0).validate()
+    st = pt.Simulation(p, device="cpu").state
+    rng = np.random.default_rng(7)
+    pos = st.pos + torch.tensor(1e-4 * rng.standard_normal(tuple(st.pos.shape)),
+                                dtype=torch.float32)
+    vel = torch.tensor(0.05 * rng.standard_normal(tuple(st.pos.shape)), dtype=torch.float32)
+    rad = st.rad + torch.tensor(rng.uniform(0, 0.02, st.n_pad), dtype=torch.float32)
+    mask = pt.active_mask(p, st.n_pad)
+    payload = pt.payload_mask(p, st.n_pad)
+    collide = make_diff_pallas_collide(p, p.timestep)
+    cts = [torch.tensor(rng.standard_normal(tuple(s)), dtype=torch.float32)
+           for s in ((st.n_pad, 2), (st.n_pad,), (st.n_pad,))]
+
+    def run(fn, dev):
+        ins = [t.to(dev).requires_grad_() for t in (pos, vel, rad)]
+        outs = fn(*ins, mask.to(dev), payload.to(dev))
+        grads = torch.autograd.grad(outs, ins, [c.to(dev) for c in cts])
+        return [o.detach().cpu() for o in outs], [g.cpu() for g in grads]
+
+    n0 = kernels.LAUNCHES["stencil_forces"]
+    outs_c, grads_c = run(collide, card)
+    assert kernels.LAUNCHES["stencil_forces"] == n0 + 1
+    outs_h, _ = run(collide, "cpu")
+    for got, want in zip(outs_c, outs_h):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-5)
+    _, grads_s = run(lambda *a: stencil_collide(p, *a, p.timestep), card)
+    for got, want in zip(grads_c, grads_s):
+        assert torch.isfinite(got).all() and got.abs().max() > 0
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_native_renderer_builds_from_source(card):
+    from particlerobotsimulations_torch.render import native
+
+    lib = native.load()
+    assert lib.path == native.library_path() and lib.path.exists()
+    img = np.zeros((8, 8, 3), np.uint8)
+    native.splat_disks(img, [4.0], [4.0], [2.0], [[255, 0, 0]])
+    assert img[4, 4, 0] == 255
+    jpeg = native.encode_jpeg(np.full((16, 16, 3), 90, np.uint8))
+    assert jpeg[:2] == b"\xff\xd8" and jpeg[-2:] == b"\xff\xd9"
+
+
+def test_card_checkpoint_loads_on_card_and_refuses_cpu(card, tmp_path):
+    from particlerobotsimulations_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    p = pt.SimParams(n_cells=24, n_dead=2, time_to_dead=0.2, phase_std=0.3, seed=4)
+    sim = pt.Simulation(p, device=card)
+    sim.step_chunk(10)
+    path = str(tmp_path / "card.ck")
+    save_checkpoint(path, sim.params, sim.state)
+    _, st = load_checkpoint(path, device=card)
+    assert st.generator.device.type == "cuda"
+    assert torch.equal(st.generator.get_state(), sim.state.generator.get_state())
+    resumed = pt.Simulation(sim.params, state=st, device=card)
+    sim.step_chunk(30)
+    resumed.step_chunk(30)
+    for k in ("pos", "vel", "rad", "phase", "dead"):
+        assert torch.equal(getattr(sim.state, k), getattr(resumed.state, k)), k
+    with pytest.raises(ValueError, match="cuda generator state.*cpu device"):
+        load_checkpoint(path, device="cpu")
