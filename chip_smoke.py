@@ -112,7 +112,20 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    gradient within ``DIFF_REL_L2_BOUND`` of STENCIL's, kernel 1 launched
    twice per step; ``optimize_phases`` for two iterations (ms per
    iteration, peak memory); and a 24-bot blob's PALLAS gradient against
-   DENSE at the JAX package's tolerance.
+   DENSE at the JAX package's tolerance;
+14. the multi-device layer: ``dryrun.dryrun_multichip(8)`` (the JAX dry
+   run's eight certifications on a virtual mesh of 8 places of the card);
+   the dp x tp table loop on bench.py's workload, 4 seeds x 4 shards
+   (G=64), 200 steps with the counters reset just before (one kernel-4
+   launch per step and one padded kernel-2 launch per rebuild for all 16
+   blocks), each scene bit for bit its lockstep replay (alone through the
+   single-scene sharded loop, taking the batch's rebuild decisions) and
+   within phase 9's sharded tolerance of the unsharded batched loop, timed
+   beside both; kernels 4 and 2 (padded) at those 16 blocks in one launch
+   against the 16 single-block launches (bit for bit) and their twins,
+   timed in a CUDA graph beside 4 launches of 4 shards; and ``run_sweep``
+   of eight seeds of ``examples/example.cfg`` over ``Mesh(["cuda"] * 4)``
+   against the unsharded batched run (every scene bit for bit).
 
 The four kernels are timed per launch from replays of a CUDA graph of
 20 launches, so their wrappers' host-side checks stay out of the time
@@ -2334,6 +2347,289 @@ def resume_phase() -> tuple:
     return launched
 
 
+# ------------------------------------------- phase 14: the multi-device layer
+
+# the dp x tp table loop on bench.py's workload: B seeds x N_SHARDS shards
+DPTP_SEEDS = (0, 1, 2, 3)
+DPTP_STEPS = 200
+# the mesh sweep: eight seeds of example.cfg over four places of one card
+MESH_PLACES = 4
+
+
+def record_decisions():
+    """(decisions, restore): wraps ``spatial_table._all_ok`` so that every
+    rebuild decision the sharded loops take is appended to ``decisions``;
+    ``restore()`` puts the function back."""
+    from particlerobotsimulations_torch.parallel import spatial_table
+
+    inner, seen = spatial_table._all_ok, []
+
+    def recording(ring, ok_local):
+        ok = inner(ring, ok_local)
+        seen.append(ok)
+        return ok
+
+    spatial_table._all_ok = recording
+    return seen, lambda: setattr(spatial_table, "_all_ok", inner)
+
+
+def replay_decisions(decisions):
+    """Makes the sharded loops take ``decisions`` in order (a lockstep
+    replay of a batch's rebuilds); returns the restore function."""
+    from particlerobotsimulations_torch.parallel import spatial_table
+
+    inner, todo = spatial_table._all_ok, list(decisions)
+
+    def replaying(ring, ok_local):
+        if not todo:
+            fail("lockstep replay: more rebuilds than the batch took")
+        return todo.pop(0)
+
+    spatial_table._all_ok = replaying
+
+    def restore():
+        spatial_table._all_ok = inner
+        if todo:
+            fail(f"lockstep replay: {len(todo)} of the batch's rebuilds not taken")
+
+    return restore
+
+
+def dp_tp_inputs(p, state):
+    """Kernel 4's and kernel 2 padded's inputs on the dp x tp loop's
+    shard-major layout from a batched 10k state: (halo-extended tables (S,
+    B, C, E) per plane, each scene's whole kernel-1 tables, padded move
+    planes (S, B, nf + 2, Cs, E) after 7 steps without a rebuild)."""
+    g, cap, cs = p.resolved_grid_dim(), p.cell_capacity, p.storage_capacity()
+    gg = g * g
+    ts = enter_table(p, state)
+    whole = torch.stack([ts.fields[k][:, : cap * gg].unflatten(-1, (cap, gg))
+                         for k in KERNEL_FIELDS], dim=1)          # (B, 7, C, G*G)
+    ext = shard_halo(whole, N_SHARDS, g)                          # (S, B, 7, C, E)
+    tables_ext = {k: ext[:, :, j] for j, k in enumerate(KERNEL_FIELDS)}
+    step = make_table_step(p)
+    for _ in range(7):
+        ts = step(ts, False, False, False, False)
+    planes = torch.stack([ts.fields[k][:, : cs * gg] for k in MOVE_FIELDS], dim=1)
+    planes = planes.unflatten(-1, (cs, gg))
+    dxf, dyf, _, _ = torch.func.vmap(
+        lambda pl, o: rebuild_move_planes(p, pl, MOVE_FIELDS, o)
+    )(planes, ts.origin)
+    padded = shard_halo(torch.cat([planes, dxf[:, None], dyf[:, None]], dim=1), N_SHARDS, g)
+    return tables_ext, whole, padded
+
+
+def dp_tp_kernel_checks(p, state):
+    """Kernel 4 and kernel 2's padded form on the S x B = 16 blocks of the
+    dp x tp loop's 10k tables, one launch each: every block bit for bit
+    its single-block launch, within tolerance of (kernel 2: equal to) the
+    twin, timed in a CUDA graph beside B launches of S shards each."""
+    g = p.resolved_grid_dim()
+    h, l0 = HALO_ROWS * g, g * g // N_SHARDS
+    tables_ext, whole, padded = dp_tp_inputs(p, state)
+    s, b = padded.shape[:2]
+    got = kernels.stencil_forces_ext_batched_cuda(p, tables_ext, h, l0)
+    out_k, inc_k = kernels.compact_padded_batched_cuda(p, padded, h, l0)
+    torch.cuda.synchronize()
+    for i in range(s):
+        for j in range(b):
+            one = kernels.stencil_forces_ext_cuda(
+                p, {k: v[i, j][None] for k, v in tables_ext.items()}, h, l0)
+            if not all(torch.equal(x[i, j], y[0]) for x, y in zip(got, one)):
+                fail(f"batched stencil_forces_ext: block ({i}, {j}) differs from its single launch")
+            o1, c1 = kernels.compact_padded_cuda(p, padded[i, j][None].contiguous(), h, l0)
+            if not (torch.equal(out_k[i, j], o1[0]) and torch.equal(inc_k[i, j], c1[0])):
+                fail(f"batched compact_padded: block ({i}, {j}) differs from its single launch")
+    k4_err = check_forces("batched stencil_forces_ext", got,
+                          stencil_forces_ext_plain(p, tables_ext, h, l0))
+    out_p, inc_p = compact_padded_plain(p, padded, h, l0)
+    torch.cuda.synchronize()
+    k2_err = max(float((out_k - out_p).abs().max()), float((inc_k - inc_p).abs().max()))
+    if not (torch.equal(inc_k, inc_p) and bool((out_k == out_p).all())):
+        fail(f"batched compact_padded differs from its twin (max |diff| {k2_err})")
+    per_scene_ext = [{k: v[:, j] for k, v in tables_ext.items()} for j in range(b)]
+    per_scene_pad = [padded[:, j].contiguous() for j in range(b)]
+    n_in = 7 if p.has_payload else 6
+    cap = p.cell_capacity
+    k4_bound = bound(
+        (n_in * s * b * cap * (l0 + 2 * g) + 4 * s * b * cap * l0) * 4,
+        PAIR_OPS * sum(occupied_pairs(p, whole[j, KERNEL_FIELDS.index("rad")]) for j in range(b)),
+    )
+    return {
+        "stencil_forces_ext_batched": {
+            "err": k4_err,
+            "ms": graph_ms(lambda: kernels.stencil_forces_ext_batched_cuda(p, tables_ext, h, l0)),
+            "split_ms": graph_ms(lambda: [kernels.stencil_forces_ext_cuda(p, t, h, l0)
+                                          for t in per_scene_ext]),
+            "plain_ms": median_ms(lambda: stencil_forces_ext_plain(p, tables_ext, h, l0), 5, 3),
+            "bound": k4_bound,
+        },
+        "compact_padded_batched": {
+            "err": k2_err,
+            "ms": graph_ms(lambda: kernels.compact_padded_batched_cuda(p, padded, h, l0)),
+            "split_ms": graph_ms(lambda: [kernels.compact_padded_cuda(p, x, h, l0)
+                                          for x in per_scene_pad]),
+            "plain_ms": median_ms(lambda: compact_padded_plain(p, padded, h, l0), 5, 3),
+            "bound": compact_padded_bound(p, padded.flatten(0, 1), l0),
+        },
+    }
+
+
+def dp_tp_phase():
+    """The dp x tp table loop on bench.py's 10k workload, B = 4 seeds x D =
+    4 shards (G=64), 200 steps, the counters reset just before: exactly one
+    kernel-4 launch per step and one padded kernel-2 launch per rebuild for
+    all 16 blocks; each scene bit for bit (its centroid ring within a
+    reordered sum's bound) its lockstep replay, the scene alone through the
+    single-scene sharded loop taking the batch's rebuild decisions; each
+    scene within phase 9's sharded tolerance of the unsharded batched table
+    loop.  Returns (launches, kernel checks, text)."""
+    from particlerobotsimulations_torch.engine_table import make_run_chunk_table_batched
+    from particlerobotsimulations_torch.parallel.spatial_table import (
+        make_sharded_table_run_batched,
+    )
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    base = resolve_params(bench_params().validate())
+    run, p = make_sharded_table_run_batched(base, LocalRing(N_SHARDS, "cuda"), with_stats=True)
+    seeds, n_steps = list(DPTP_SEEDS), DPTP_STEPS
+    k = max(1, p.resolved_slot_rebuild_steps())
+    batch = make_batch_state(p, seeds, "cuda")
+    decisions, restore = record_decisions()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out, stats = run(batch, n_steps)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update(stencil_forces_ext_batched=n_steps, compact_padded_batched=n_steps // k)
+    if launches != want:
+        fail(f"dp x tp launches {launches}, want {want}")
+    if len(decisions) != n_steps // k or stats["fallbacks"] != decisions.count(False):
+        fail(f"dp x tp: {len(decisions)} decisions, stats {stats}")
+    if not np.isfinite(out.pos.cpu().numpy()).all():
+        fail("dp x tp: non-finite state")
+
+    n = p.n_cells
+    single, _ = make_sharded_table_run(p, LocalRing(N_SHARDS, "cuda"))
+    same, ring_r, replay_s = 0, 0.0, 0.0
+    for b, seed in enumerate(seeds):
+        scene = scene_state(make_batch_state(p, [seed], "cuda"), 0)
+        restore = replay_decisions(decisions)
+        t0 = time.perf_counter()
+        try:
+            one = single(scene, n_steps)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        replay_s += time.perf_counter() - t0
+        eq, ring_b = scene_diff(scene_state(out, b), one, n)
+        if not (eq and ring_b <= 1.0):
+            fail(f"dp x tp scene {b} differs from its lockstep replay (ring {ring_b:.3f})")
+        same += 1
+        ring_r = max(ring_r, ring_b)
+
+    t0 = time.perf_counter()
+    ref = make_run_chunk_table_batched(p)(make_batch_state(p, seeds, "cuda"), n_steps)
+    torch.cuda.synchronize()
+    unsharded_s = time.perf_counter() - t0
+    dpos = float((out.pos[:, :n] - ref.pos[:, :n]).abs().max())
+    dvel = float((out.vel[:, :n] - ref.vel[:, :n]).abs().max())
+    if not (dpos <= TP_POS_ATOL and dvel <= TP_VEL_ATOL):
+        fail(f"dp x tp vs the unsharded batched loop: dpos {dpos} dvel {dvel}")
+
+    kc = dp_tp_kernel_checks(p, out)
+    b = len(seeds)
+    text = (
+        f"dp x tp 10k HEX, {b} seeds x {N_SHARDS} shards (G={p.resolved_grid_dim()}, "
+        f"K={k}), {n_steps} steps: {wall * 1e6 / n_steps:.1f} us per batched step "
+        f"({n * b * n_steps / wall:.4e} particle-steps/s), launches "
+        f"{ {key: v for key, v in launches.items() if v} }, {stats}; the {b} lockstep "
+        f"replays alone through the single-scene sharded loop {replay_s * 1e6 / (b * n_steps):.1f} "
+        f"us per scene-step; bit for bit in {same}/{b} scenes (ring at up to {ring_r:.3f} "
+        f"of its reorder bound); unsharded batched loop {unsharded_s * 1e6 / n_steps:.1f} us "
+        f"per batched step, max |dpos| {dpos:.2e} |dvel| {dvel:.2e} (atol {TP_POS_ATOL}, "
+        f"{TP_VEL_ATOL})"
+    )
+    return launches, kc, text
+
+
+def mesh_sweep_phase() -> str:
+    """``run_sweep`` of eight seeds of example.cfg (300 bots, AUTO: DENSE)
+    over ``Mesh(["cuda"] * 4)``, two seeds per place, against the unsharded
+    batched run: every scene's dynamics bit for bit, the centroid records
+    within a reordered sum's bound."""
+    from particlerobotsimulations_torch.parallel.mesh import Mesh
+
+    pe = resolve_params(pt.load_cfg(os.path.join(ROOT, "examples", "example.cfg")).validate())
+    seeds, n_steps = list(SWEEP_SEEDS), 200
+    mesh = Mesh(["cuda"] * MESH_PLACES)
+    if choose_sweep_strategy(pe, len(seeds), mesh) != "batched":
+        fail("mesh sweep: AUTO did not choose batched")
+    reset_counts()
+    t0 = time.perf_counter()
+    fin_m, cents_m = run_sweep(pe, seeds, n_steps, mesh=mesh, record_every=100, device="cuda")
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fin_u, cents_u = run_sweep(pe, seeds, n_steps, record_every=100, strategy="batched",
+                               device="cuda")
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    n = pe.n_cells
+    ring_r, rec_r = 0.0, 0.0
+    for b in range(len(seeds)):
+        eq, ring_b = scene_diff(scene_state(fin_m, b), scene_state(fin_u, b), n)
+        if not (eq and ring_b <= 1.0):
+            fail(f"mesh sweep scene {b} differs from the unsharded batch (ring {ring_b:.3f})")
+        ring_r = max(ring_r, ring_b)
+        atol = math.ceil(math.log2(n)) * float(np.finfo(np.float32).eps) * float(
+            np.abs(cents_u[:, b]).max())
+        rec_r = max(rec_r, float(np.abs(cents_m[:, b] - cents_u[:, b]).max()) / atol)
+    if rec_r > 1.0 or cents_m.shape != cents_u.shape:
+        fail(f"mesh sweep: centroid records at {rec_r:.3f} of their reorder bound")
+    steps = len(seeds) * n_steps
+    return (
+        f"run_sweep example.cfg ({pe.resolved_backend('cuda').name}) 8 seeds x {n_steps} steps "
+        f"over Mesh(['cuda'] * {MESH_PLACES}): {mesh_s * 1e6 / n_steps:.1f} us per step of "
+        f"the sweep ({n * steps / mesh_s:.4e} particle-steps/s) vs unsharded batched "
+        f"{whole_s * 1e6 / n_steps:.1f} us ({n * steps / whole_s:.4e}); every scene bit "
+        f"for bit (ring at up to {ring_r:.3f}, records at up to {rec_r:.3f} of their "
+        f"reorder bound)"
+    )
+
+
+def multi_device_phase():
+    """Phase 14: the dry run over 8 places of the card, the dp x tp table
+    loop, the mesh sweep.  Returns (dp x tp launches, kernel checks)."""
+    from particlerobotsimulations_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    results = dryrun_multichip(8, "cuda")
+    torch.cuda.synchronize()
+    print(f"phase 14 dry run: {len(results)} certifications over 8 places of the card "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches, kc, text = dp_tp_phase()
+    print(f"phase 14 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for name, v in kc.items():
+        print(
+            f"phase 14 {name} S x B = {N_SHARDS} x {len(DPTP_SEEDS)}: every block bit for "
+            f"bit its single launch, max|diff| vs twin {v['err']:.3e}; "
+            f"{v['ms'] * 1e3:.1f} us per launch in a CUDA graph vs {v['split_ms'] * 1e3:.1f} "
+            f"us for {len(DPTP_SEEDS)} launches of {N_SHARDS} shards, plain "
+            f"{v['plain_ms'] * 1e3:.1f} us, bound (ms, by) ({v['bound'][0]:.4g}, {v['bound'][1]})"
+        )
+    t0 = time.perf_counter()
+    text = mesh_sweep_phase()
+    print(f"phase 14 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches, kc
+
+
 def main() -> int:
     # 1. the card
     if not torch.cuda.is_available():
@@ -2373,10 +2669,17 @@ def main() -> int:
     lib4 = kernels.library_stencil_plan(*k4_args)
     if lib4 != k4_plan:
         fail(f"kernel 4 plan: library {lib4}, python {k4_plan}")
+    blocks = N_SHARDS * len(DPTP_SEEDS)
+    k4b_args = k4_args[:-1] + (blocks,)
+    k4b_plan = kernels.stencil_plan(*k4b_args)
+    if kernels.library_stencil_plan(*k4b_args) != k4b_plan:
+        fail(f"kernel 4 plan at {blocks} blocks: library "
+             f"{kernels.library_stencil_plan(*k4b_args)}, python {k4b_plan}")
     k2_plans = {}
     for name, q, lanes, shards in (("10k", p10, g10 * g10, 1),
                                    ("band", pb, pb.resolved_grid_dim() ** 2, 1),
-                                   ("sharded", p4, l4, N_SHARDS)):
+                                   ("sharded", p4, l4, N_SHARDS),
+                                   ("dp x tp", p4, l4, blocks)):
         k2_args = (q.storage_capacity(), lanes, shards)
         k2_plans[name] = kernels.compact_plan(*k2_args)
         if kernels.library_compact_plan(*k2_args) != k2_plans[name]:
@@ -2388,7 +2691,8 @@ def main() -> int:
         f"CTAs x {kernels.MEGA_THREADS} threads, {k3_plan['grid_rows']} grid rows = "
         f"{k3_plan['rows']} table rows and {k3_plan['smem']} B of shared memory per "
         f"CTA, cudaOccupancyMaxActiveClusters {lib3['max_active_clusters']} | sharded "
-        f"G={g4} ({N_SHARDS} shards of {l4 // g4} rows): stencil_forces_ext {k4_plan} | "
+        f"G={g4} ({N_SHARDS} shards of {l4 // g4} rows): stencil_forces_ext {k4_plan}, "
+        f"at {blocks} dp x tp blocks {k4b_plan} | "
         f"compact ({kernels.COMPACT_LANES} lanes per block) {k2_plans}"
     )
 
@@ -2557,6 +2861,12 @@ def main() -> int:
     launches13 = resume_phase()
     print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
 
+    # 14. the multi-device layer: the dry run, the dp x tp table loop (the
+    #     counters reset just before), the mesh sweep
+    t14 = time.perf_counter()
+    launches14, kc14 = multi_device_phase()
+    print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -2598,6 +2908,18 @@ def main() -> int:
              "particlerobotsimulations_tpu/ops/table_rebuild.py:203"),
             ("mega_span_batched", "particlerobotsimulations_torch/csrc/mega_span.cu",
              "particlerobotsimulations_tpu/ops/megakernel.py:272"),
+        )
+    ] + [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep_,
+         "launches": launches14[name], "max_abs_err": kc14[name]["err"],
+         "ms": kc14[name]["ms"], "plain_ms": kc14[name]["plain_ms"],
+         "bound_ms": kc14[name]["bound"][0], "bound_by": kc14[name]["bound"][1],
+         "library_ms": None}
+        for name, src, rep_ in (
+            ("stencil_forces_ext_batched", "particlerobotsimulations_torch/csrc/stencil_forces.cu",
+             "particlerobotsimulations_tpu/ops/pallas_stencil.py:570"),
+            ("compact_padded_batched", "particlerobotsimulations_torch/csrc/compact.cu",
+             "particlerobotsimulations_tpu/ops/table_rebuild.py:203"),
         )
     ]}
     print(json.dumps(record))

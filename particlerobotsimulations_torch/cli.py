@@ -4,12 +4,14 @@
     python -m particlerobotsimulations_torch.cli simulate cfg --video --checkpoint ck.npz --checkpoint-every 1
     python -m particlerobotsimulations_torch.cli simulate cfg --resume --checkpoint ck.npz --max-time 600
     python -m particlerobotsimulations_torch.cli sweep examples/example.cfg --seeds 0:8 --steps 6000
+    python -m particlerobotsimulations_torch.cli sweep examples/example.cfg --seeds 0:8 --mesh
     python -m particlerobotsimulations_torch.cli experiment robustness examples/example_dead_cells.cfg
 
 ``simulate`` writes under the cfg's csv_filename and video_filename, like
 the reference binary (main.cpp:913-917); ``sweep`` and ``experiment`` print the JAX
-package's CSV to stdout.  ``bench`` prints that it is not ported yet and
-exits 2 (ROADMAP.md queue 1 item 5), as does ``--mesh`` (item 14).
+package's CSV to stdout; with ``--mesh`` they shard the seeds over every
+visible card (``parallel/mesh.default_mesh``).  ``bench`` prints that it
+is not ported yet and exits 2 (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -143,23 +145,22 @@ def _seeds(text: str) -> list:
     return list(range(lo, hi))
 
 
-def _mesh_not_ported() -> int:
-    print(
-        "error: --mesh is not yet ported to PyTorch (see ROADMAP.md, queue 1 item 14)",
-        file=sys.stderr,
-    )
-    return 2
+def _mesh(args):
+    """The mesh of ``--mesh``: every visible card of ``--device``'s kind
+    (the one CPU for ``cpu``), or None."""
+    from .parallel.mesh import default_mesh
+
+    return default_mesh(device=args.device) if args.mesh else None
 
 
 def cmd_sweep(args) -> int:
     from .config import load_cfg
     from .parallel.sweep import run_sweep, sweep_summary
 
-    if args.mesh:
-        return _mesh_not_ported()
     params = _apply_overrides(load_cfg(args.cfg), args)
     n_steps = args.steps or params.n_steps()
-    _, cents = run_sweep(params, _seeds(args.seeds), n_steps, device=args.device)
+    _, cents = run_sweep(params, _seeds(args.seeds), n_steps, mesh=_mesh(args),
+                         device=args.device)
     summary = sweep_summary(cents, params)
     print("time_s,distance_mean,distance_std,centroid_x,centroid_y")
     dump_dt = params.dump_steps * params.timestep
@@ -181,33 +182,32 @@ def cmd_experiment(args) -> int:
         phototaxis_speed,
     )
 
-    if args.mesh:
-        return _mesh_not_ported()
     params = _apply_overrides(load_cfg(args.cfg), args)
     seeds = _seeds(args.seeds)
-    dev = args.device
+    dev, mesh = args.device, _mesh(args)
 
     if args.kind == "robustness":
         fracs = [float(f) for f in args.fractions.split(",")]
-        out = dead_cell_robustness(params, fracs, seeds, args.sim_seconds, device=dev)
+        out = dead_cell_robustness(params, fracs, seeds, args.sim_seconds, mesh=mesh,
+                                   device=dev)
         print("dead_fraction,approach_speed_units_per_s")
         for f, v in zip(out["fractions"], out["approach_speed"]):
             print(f"{f:g},{v:.6f}")
     elif args.kind == "gap":
-        out = gap_transit(params, seeds, args.sim_seconds, device=dev)
+        out = gap_transit(params, seeds, args.sim_seconds, mesh=mesh, device=dev)
         print("seed,frac_past_wall")
         for s, v in zip(seeds, out["frac_past_wall"]):
             print(f"{s},{v:.4f}")
         print(f"# mean fraction past wall x={out['wall_x']:g}: "
               f"{out['frac_past_wall_mean']:.4f}")
     elif args.kind == "transport":
-        out = payload_transport(params, seeds, args.sim_seconds, device=dev)
+        out = payload_transport(params, seeds, args.sim_seconds, mesh=mesh, device=dev)
         print("seed,payload_dx,payload_dy")
         for s, d in zip(seeds, out["payload_displacement"]):
             print(f"{s},{d[0]:.6f},{d[1]:.6f}")
         print(f"# mean payload dx: {out['payload_mean_dx']:.6f}")
     else:
-        out = phototaxis_speed(params, seeds, args.sim_seconds, device=dev)
+        out = phototaxis_speed(params, seeds, args.sim_seconds, mesh=mesh, device=dev)
         print("time_s,distance_mean,distance_std")
         for t, m, s in zip(out["time_s"], out["distance_mean"], out["distance_std"]):
             print(f"{t:g},{m:.6f},{s:.6f}")
@@ -250,7 +250,7 @@ def main(argv=None) -> int:
     sw_p.add_argument("--seeds", type=str, default="0:8", help="lo:hi seed range")
     sw_p.add_argument("--steps", type=int, default=0)
     sw_p.add_argument("--mesh", action="store_true",
-                      help="shard over all devices (not ported: exits 2)")
+                      help="shard the seeds over every card of --device")
     _add_overrides(sw_p)
     sw_p.set_defaults(fn=cmd_sweep)
 
@@ -264,7 +264,7 @@ def main(argv=None) -> int:
     ex_p.add_argument("--fractions", type=str, default="0,0.1,0.2,0.3",
                       help="dead-cell fractions (robustness)")
     ex_p.add_argument("--mesh", action="store_true",
-                      help="shard over all devices (not ported: exits 2)")
+                      help="shard the seeds over every card of --device")
     _add_overrides(ex_p)
     ex_p.set_defaults(fn=cmd_experiment)
 

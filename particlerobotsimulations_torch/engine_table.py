@@ -246,6 +246,14 @@ def _rebuild_fields(params: SimParams, fields: dict):
     return _scatter_rows(params, rows[:, 0:2], rows[:, 5] > 0.5, rows)
 
 
+def _exact_rebuild(params: SimParams, fields: dict):
+    """:func:`_rebuild_fields` of one scene's ``(total_ext,)`` fields, or of
+    every scene of a batch's ``([B,] total_ext)`` fields, vmapped."""
+    if fields["val"].dim() == 1:
+        return _rebuild_fields(params, fields)
+    return vmap(lambda f: _rebuild_fields(params, f))(fields)
+
+
 def _payload_afac(params: SimParams, nval: torch.Tensor, bid: torch.Tensor):
     """(pay, afac) planes from validity + bot id — the payload attraction
     law (reference factors at particlebot_kernel_impl.cuh:568-570)."""
@@ -288,10 +296,7 @@ def _smart_rebuild(params: SimParams, ts: TableState) -> TableState:
         f.update(moved)
         return ts.replace(fields=_derived_rows(params, f))
     REBUILDS["exact"] += 1
-    if ts.origin.dim() == 1:
-        fields, origin = _rebuild_fields(params, ts.fields)
-    else:
-        fields, origin = vmap(lambda f: _rebuild_fields(params, f))(ts.fields)
+    fields, origin = _exact_rebuild(params, ts.fields)
     return ts.replace(fields=fields, origin=origin)
 
 

@@ -18,7 +18,10 @@ padded form take the shards one process holds in one launch; kernels 1 and
 4 are one tiled body in ``csrc/stencil_forces.cu``.  Kernels 1, 2 (wrap
 form) and 3 also take every scene of a batched table loop in one launch
 (the ``*_batched_cuda`` wrappers, one count per launch whatever the number
-of scenes); a single scene is the same entry point with one scene.
+of scenes); a single scene is the same entry point with one scene.  Kernels
+4 and 2's padded form take the dp x tp loop's shard-major (S, B, ...)
+stacks as S x B blocks in one launch (``stencil_forces_ext_batched_cuda``,
+``compact_padded_batched_cuda``), each block as its own single launch.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ LAUNCHES = {
     "stencil_forces": 0, "compact": 0, "mega_span": 0,
     "stencil_forces_ext": 0, "compact_padded": 0,
     "stencil_forces_batched": 0, "compact_batched": 0, "mega_span_batched": 0,
+    "stencil_forces_ext_batched": 0, "compact_padded_batched": 0,
 }
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -445,9 +449,28 @@ def compact_padded_cuda(params: SimParams, planes_padded: torch.Tensor,
     """Kernel 2's padded form on a CUDA (S, nf + 2, Cs, pad + out + pad)
     stack of S shards -> (compacted (S, nf, Cs, out) planes, per-lane
     incoming count (S, out) float32)."""
-    g, cs = params.resolved_grid_dim(), params.storage_capacity()
     if planes_padded.dim() != 4:
         raise ValueError(f"planes_padded: expected (S, nf + 2, Cs, E), got {tuple(planes_padded.shape)}")
+    return _launch_compact_padded(params, planes_padded, pad_lanes, out_lanes, "compact_padded")
+
+
+def compact_padded_batched_cuda(params: SimParams, planes_padded: torch.Tensor,
+                                pad_lanes: int, out_lanes: int):
+    """Kernel 2's padded form on the dp x tp loop's shard-major CUDA (S, B,
+    nf + 2, Cs, E) stacks in one launch of S x B blocks -> (compacted (S, B,
+    nf, Cs, out) planes, per-lane incoming count (S, B, out) float32).
+    Block (s, b) equals :func:`compact_padded_cuda` on its stack alone."""
+    if planes_padded.dim() != 5:
+        raise ValueError(f"planes_padded: expected (S, B, nf + 2, Cs, E), got {tuple(planes_padded.shape)}")
+    lead = planes_padded.shape[:2]
+    out, incoming = _launch_compact_padded(
+        params, planes_padded.flatten(0, 1), pad_lanes, out_lanes, "compact_padded_batched"
+    )
+    return out.unflatten(0, lead), incoming.unflatten(0, lead)
+
+
+def _launch_compact_padded(params, planes_padded, pad_lanes: int, out_lanes: int, what: str):
+    g, cs = params.resolved_grid_dim(), params.storage_capacity()
     s, nfp = planes_padded.shape[:2]
     if nfp < 3:
         raise ValueError(f"planes_padded: need data fields plus dx, dy; got {nfp}")
@@ -462,8 +485,8 @@ def compact_padded_cuda(params: SimParams, planes_padded: torch.Tensor,
         planes_padded.data_ptr(), out.data_ptr(), incoming.data_ptr(),
         s, nfp - 2, cs, g, pad_lanes, out_lanes, _stream(out),
     )
-    _raise_on(err, "compact_padded")
-    LAUNCHES["compact_padded"] += 1
+    _raise_on(err, what)
+    LAUNCHES[what] += 1
     return out, incoming
 
 
@@ -474,6 +497,30 @@ def stencil_forces_ext_cuda(params: SimParams, tables_ext: dict,
     of ``ops.pallas_stencil.FIELDS``, each (S, C, E) with E = 2 *
     center_start + center_lanes, a contiguous (C, E) block per shard and
     one shard stride for all seven (views of one stacked tensor qualify)."""
+    if tables_ext["px"].dim() != 3:
+        raise ValueError(f"tables_ext: expected (S, C, E) planes, got {tuple(tables_ext['px'].shape)}")
+    return _launch_stencil_ext(params, tables_ext, center_start, center_lanes,
+                               "stencil_forces_ext")
+
+
+def stencil_forces_ext_batched_cuda(params: SimParams, tables_ext: dict,
+                                    center_start: int, center_lanes: int):
+    """Kernel 4 on the dp x tp loop's shard-major CUDA tables, each plane
+    (S, B, C, E), in one launch of S x B blocks -> (fx, fy, fa, fr), each
+    (S, B, C, center_lanes).  The (S, B) axes must flatten to one block
+    stride (views of one (S, B, 7, C, E) stack qualify); block (s, b)
+    equals :func:`stencil_forces_ext_cuda` on its tables alone."""
+    px = tables_ext["px"]
+    if px.dim() != 4:
+        raise ValueError(f"tables_ext: expected (S, B, C, E) planes, got {tuple(px.shape)}")
+    lead = px.shape[:2]
+    flat = {k: v.flatten(0, 1) for k, v in tables_ext.items()}
+    out = _launch_stencil_ext(params, flat, center_start, center_lanes,
+                              "stencil_forces_ext_batched")
+    return tuple(o.unflatten(0, lead) for o in out)
+
+
+def _launch_stencil_ext(params, tables_ext, center_start: int, center_lanes: int, what: str):
     from .ops.pallas_stencil import FIELDS, pair_constants
 
     g, cap = params.resolved_grid_dim(), params.cell_capacity
@@ -484,8 +531,6 @@ def stencil_forces_ext_cuda(params: SimParams, tables_ext: dict,
             f"({center}) must be positive multiples of G={g}"
         )
     px = tables_ext["px"]
-    if px.dim() != 3:
-        raise ValueError(f"tables_ext: expected (S, C, E) planes, got {tuple(px.shape)}")
     s, ext = px.shape[0], 2 * h + center
     for k in FIELDS:
         t = tables_ext[k]
@@ -510,8 +555,8 @@ def stencil_forces_ext_cuda(params: SimParams, tables_ext: dict,
         s, cap, g, ext, h, center, px.stride(0),
         *pair_constants(params), _stream(out),
     )
-    _raise_on(err, "stencil_forces_ext")
-    LAUNCHES["stencil_forces_ext"] += 1
+    _raise_on(err, what)
+    LAUNCHES[what] += 1
     return out[0], out[1], out[2], out[3]
 
 

@@ -160,10 +160,27 @@ def _pair_terms(params: SimParams, t: dict, c: dict, self_block: bool, cap: int)
     return fx, fy, ma, mc
 
 
+# the twins' lane count is rounded up to a multiple of this many lanes: the
+# CPU's vectorised sum over the candidate slots then treats each lane as the
+# whole-table sum does, so the result does not depend on the lanes skipped
+LANE_PAD = 64
+
+
+def _occupied_lanes(occupied: torch.Tensor) -> torch.Tensor:
+    """The lanes, in order, that the twins compute for (..., C, L)
+    occupancy: every lane that holds an occupied row in any block, and
+    unoccupied ones up to a multiple of LANE_PAD (or all L).  A lane left
+    out holds no target, so its sums are zero."""
+    occ = occupied.reshape(-1, occupied.shape[-1]).any(dim=0)
+    n = min(occ.numel(), -(-int(occ.sum()) // LANE_PAD) * LANE_PAD)
+    return torch.sort(torch.argsort(~occ, stable=True)[:n]).values
+
+
 def stencil_forces_plain(params: SimParams, tables: dict):
     """Plain PyTorch twin of kernel 1: the (C, 1, L) x (1, C, L) pair
-    broadcast over the 9 rolled neighbour blocks (exact 2-D wrap).
-    ``tables``: (C, G*G) px, py, vx, vy, rad (+ afac with a payload)."""
+    broadcast over the 9 rolled neighbour blocks (exact 2-D wrap), on the
+    lanes that hold a target.  ``tables``: (C, G*G) px, py, vx, vy, rad
+    (+ afac with a payload)."""
     g, cap = params.resolved_grid_dim(), params.cell_capacity
     gg = g * g
     names = ["px", "py", "vx", "vy", "rad"] + (
@@ -171,19 +188,25 @@ def stencil_forces_plain(params: SimParams, tables: dict):
     )
     base = {k: tables[k] for k in names}
     base["val"] = (base["rad"] > 0).to(torch.float32)
-    t = {k: v[:, None, :] for k, v in base.items()}
-    acc = [torch.zeros((cap, gg), dtype=torch.float32, device=tables["px"].device)
+    lanes = _occupied_lanes(base["rad"] > 0)
+    t = {k: v[:, None, lanes] for k, v in base.items()}
+    acc = [torch.zeros((cap, lanes.numel()), dtype=torch.float32, device=tables["px"].device)
            for _ in range(4)]
     for dx, dy in OFFSETS9:
         c = {
             k: torch.roll(v.reshape(cap, g, g), (-dy, -dx), dims=(1, 2))
-            .reshape(1, cap, gg)
+            .reshape(1, cap, gg)[..., lanes]
             for k, v in base.items()
         }
         terms = _pair_terms(params, t, c, (dx, dy) == (0, 0), cap)
         for i in range(4):
             acc[i] = acc[i] + terms[i].sum(dim=1)
-    return tuple(acc)
+    out = []
+    for a in acc:
+        full = torch.zeros((cap, gg), dtype=torch.float32, device=a.device)
+        full[:, lanes] = a
+        out.append(full)
+    return tuple(out)
 
 
 def stencil_forces_batched_plain(params: SimParams, tables: dict):
@@ -220,33 +243,43 @@ def stencil_forces_ext_plain(params: SimParams, tables_ext: dict,
     the 9 OFFSETS9 blocks preshifted over the extended lanes
     (:func:`_preshift_flat`), the pair term with the center block's own
     slot excluded and ``val`` taken from the val plane, summed over
-    candidate slots, for the CENTER lanes only.  ``tables_ext``: the
-    FIELDS planes, each (..., C, E); returns (fx, fy, fa, fr), each (...,
-    C, center_lanes)."""
+    candidate slots, for the CENTER lanes that hold a target.
+    ``tables_ext``: the FIELDS planes, each (..., C, E); returns (fx, fy,
+    fa, fr), each (..., C, center_lanes)."""
     g, cap = params.resolved_grid_dim(), params.cell_capacity
-    center = slice(center_start, center_start + center_lanes)
     base = torch.stack([tables_ext[k] for k in FIELDS])  # (7, ..., C, E)
-    t = {k: base[j][..., :, None, center] for j, k in enumerate(FIELDS)}
+    center = base[FIELDS.index("val")][..., center_start:center_start + center_lanes]
+    lanes = _occupied_lanes(center != 0)
+    ext_lanes = lanes + center_start
+    t = {k: base[j][..., :, None, ext_lanes] for j, k in enumerate(FIELDS)}
     acc = [0.0] * 4
     for dx, dy in OFFSETS9:
-        blk = _preshift_flat(base, g, dx, dy)[..., center]
+        blk = _preshift_flat(base, g, dx, dy)[..., ext_lanes]
         c = {k: blk[j][..., None, :, :] for j, k in enumerate(FIELDS)}
         terms = _pair_terms(params, t, c, (dx, dy) == (0, 0), cap)
         for i in range(4):
             acc[i] = acc[i] + terms[i].sum(dim=-2)
-    return tuple(acc)
+    out = []
+    for a in acc:
+        full = center.new_zeros(center.shape)
+        if lanes.numel():
+            full[..., lanes] = a
+        out.append(full)
+    return tuple(out)
 
 
 def stencil_forces_ext(params: SimParams, tables_ext: dict,
                        center_start: int, center_lanes: int):
     """(fx, fy, fa, fr) for the CENTER lanes of halo-extended tables
     (``[H pad | center | H pad]`` lanes, optionally with a leading shard
-    axis): kernel 4 on CUDA tensors, the plain twin on CPU tensors."""
+    axis, or the dp x tp loop's (S, B) axes): kernel 4 on CUDA tensors, one
+    launch for every shard and scene, the plain twin on CPU tensors."""
     kind = tables_ext["px"].device.type
     if kind == "cuda":
-        from ..kernels import stencil_forces_ext_cuda
+        from ..kernels import stencil_forces_ext_batched_cuda, stencil_forces_ext_cuda
 
-        return stencil_forces_ext_cuda(params, tables_ext, center_start, center_lanes)
+        fn = stencil_forces_ext_batched_cuda if tables_ext["px"].dim() == 4 else stencil_forces_ext_cuda
+        return fn(params, tables_ext, center_start, center_lanes)
     if kind == "cpu":
         return stencil_forces_ext_plain(params, tables_ext, center_start, center_lanes)
     raise ValueError(f"stencil_forces_ext: unsupported device {tables_ext['px'].device}")

@@ -113,12 +113,14 @@ def compact_padded(params: SimParams, planes_padded: torch.Tensor,
     """Kernel 2's padded form on a CUDA tensor, the plain twin
     :func:`compact_padded_plain` on a CPU tensor.  ``planes_padded`` is
     (nf + 2, Cs, pad + out + pad) or, with a leading shard axis, (S, nf + 2,
-    Cs, pad + out + pad)."""
+    Cs, pad + out + pad), or the dp x tp loop's (S, B, nf + 2, Cs, pad + out
+    + pad): one launch for every shard and scene."""
     kind = planes_padded.device.type
     if kind == "cuda":
-        from ..kernels import compact_padded_cuda
+        from ..kernels import compact_padded_batched_cuda, compact_padded_cuda
 
-        return compact_padded_cuda(params, planes_padded, pad_lanes, out_lanes)
+        fn = compact_padded_batched_cuda if planes_padded.dim() == 5 else compact_padded_cuda
+        return fn(params, planes_padded, pad_lanes, out_lanes)
     if kind == "cpu":
         return compact_padded_plain(params, planes_padded, pad_lanes, out_lanes)
     raise ValueError(f"compact_padded: unsupported device {planes_padded.device}")

@@ -31,7 +31,11 @@ holds (S = D on a :class:`~.ring.LocalRing`, 1 on a
 strip.  The halo is ``HALO_ROWS`` grid rows per side — 3 zero rows and the
 neighbour's boundary row — as in the JAX package, so both packages build
 byte-identical extended tables; it also covers the compaction's G+1-lane
-reach.
+reach.  A batch of B scenes in lockstep (dp x tp,
+:func:`make_sharded_table_run_batched`) is laid out shard-major, ``(S, B,
+Cs*L0 + n_pad)``: the ring shifts and reduces on the leading axis as for
+one scene, kernels 4 and 2 take all S x B blocks in one launch each, and a
+rebuild takes one decision for every shard and scene (:func:`_all_ok`).
 
 Random draws: phase noise and dead-injection scores are drawn for the
 whole ``(total_ext,)`` table layout from the run's draw source (``rng``),
@@ -55,9 +59,9 @@ from ..engine_table import (
     MOVE_FIELDS,
     TABLE_FIELDS,
     _derived_rows,
+    _exact_rebuild,
     _gates,
     _geometry,
-    _rebuild_fields,
     enter_table,
     exit_table,
 )
@@ -90,18 +94,30 @@ def resolve_tp_params(params: SimParams, n_shards: int) -> SimParams:
     return params.replace(grid_dim=g)
 
 
+def _all_ok(ring, ok_local: torch.Tensor) -> bool:
+    """The rebuild decision: whether every shard's (and every scene's)
+    incremental-compaction preconditions held.  ``ok_local`` is one 0-dim
+    flag for all the shards and scenes this process holds; the ring-wide
+    min is read on the host, once per rebuild."""
+    S = ring.shard_ids().numel()
+    return bool(ring.pmin(ok_local.to(torch.int32).expand(S)) > 0)
+
+
 def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = False,
                            device="cuda"):
     """(run_chunk, resolved_params): the table-resident loop sharded over
     ``ring`` (default ``LocalRing(DEFAULT_SHARDS, device)``).
     ``run_chunk(state, n_steps)`` takes and returns a bot-order SimState on
     the ring's device (the same state on every rank of a DistRing); the
-    sharded table lives only inside.
+    sharded table lives only inside.  A batched state (a leading scene
+    axis: the dp x tp loop, :func:`make_sharded_table_run_batched`) runs
+    its scenes in lockstep on the shard-major layout.
 
     ``with_stats=True`` makes ``run_chunk`` return ``(state, stats)``:
     ``fallbacks``, how many rebuilds took the exact global fallback, and
     ``spill_rows_max``, the largest number of occupied overflow-spill rows
-    over all shards at the end of a step (0 without spill rows)."""
+    over all shards (and scenes) at the end of a step (0 without spill
+    rows)."""
     ring = ring if ring is not None else LocalRing(DEFAULT_SHARDS, device)
     D = ring.n_shards
     params = resolve_tp_params(params, D)
@@ -116,14 +132,16 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
     dt = params.timestep
     ids = ring.shard_ids()
     S = ids.numel()
-    lane_offset = (ids * L0).to(torch.int32).view(S, 1, 1)
     no_noise = params.replace(phase_std=0.0)
 
     def local(v):
-        """A global (total_ext,) tensor -> this process's (S, C + n_pad)
-        rows: its shards' lane blocks of the table, then the strip."""
-        center = v[:total].view(cs, D, L0)[:, ids].transpose(0, 1)
-        return torch.cat([center.reshape(S, C), v[total:].expand(S, n_pad)], dim=1)
+        """A whole table's ([B,] total_ext) tensor -> this process's (S,
+        [B,] C + n_pad) rows: its shards' lane blocks of the table, then
+        the strip."""
+        lead = v.shape[:-1]
+        center = v[..., :total].view(lead + (cs, D, L0))[..., ids, :].movedim(-2, 0)
+        strip = v[..., total:].expand((S,) + lead + (n_pad,))
+        return torch.cat([center.reshape((S,) + lead + (C,)), strip], dim=-1)
 
     def halo_exchange(x):
         """(S, ..., L0) -> (S, ..., L0 + 2H): the ring neighbours' boundary
@@ -139,32 +157,40 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         return {k: local(fields[k]) for k in TABLE_FIELDS}
 
     def join_global(f):
-        """All-gather the shard centers -> global (total_ext,) fields."""
-        c = torch.stack([f[k][:, :C] for k in TABLE_FIELDS], dim=1)
-        glob = ring.all_gather(c).view(D, len(TABLE_FIELDS), cs, L0)
-        glob = glob.permute(1, 2, 0, 3).reshape(len(TABLE_FIELDS), total)
+        """All-gather the shard centers -> whole-table ([B,] total_ext)
+        fields."""
+        c = torch.stack([f[k][..., :C] for k in TABLE_FIELDS], dim=-2)
+        lead = c.shape[1:-2]
+        glob = ring.all_gather(c).view((D,) + lead + (len(TABLE_FIELDS), cs, L0))
+        glob = glob.movedim(0, -2).reshape(lead + (len(TABLE_FIELDS), total))
         return {
-            k: torch.cat([glob[j], f[k][0, C:]]) for j, k in enumerate(TABLE_FIELDS)
+            k: torch.cat([glob[..., j, :], f[k][0, ..., C:]], dim=-1)
+            for j, k in enumerate(TABLE_FIELDS)
         }
 
     def sharded_rebuild(f, origin):
         """(f, origin, ok): the incremental compaction with neighbour
-        halos, or the exact global rebuild when any shard's preconditions
-        fail."""
-        planes = torch.stack([f[k][:, :C] for k in MOVE_FIELDS], dim=1).view(S, nf, cs, L0)
+        halos, or the exact global rebuild when any shard's (any scene's)
+        preconditions fail."""
+        lead = f["val"].shape[1:-1]
+        planes = torch.stack([f[k][..., :C] for k in MOVE_FIELDS], dim=-2)
+        planes = planes.view((S,) + lead + (nf, cs, L0))
+        # one origin per scene, broadcast over its shards, slots and lanes
+        org = origin.movedim(-1, 0).reshape((2,) + lead + (1, 1))
+        offset = (ids * L0).to(torch.int32).view((S,) + (1,) * len(lead) + (1, 1))
         dxf, dyf, moved_far, edge = rebuild_move_planes(
-            params, planes.transpose(0, 1), MOVE_FIELDS, origin, lane_offset=lane_offset
+            params, planes.movedim(-3, 0), MOVE_FIELDS, org, lane_offset=offset
         )
-        padded = halo_exchange(torch.cat([planes, dxf[:, None], dyf[:, None]], dim=1))
+        padded = halo_exchange(torch.cat([planes, dxf[..., None, :, :], dyf[..., None, :, :]], dim=-3))
         new_planes, incoming = compact_padded(params, padded, H, L0)
-        # the flags already cover every shard this process holds
-        ok_local = ~(moved_far | torch.any(incoming > cs) | edge)
-        ok = bool(ring.pmin(ok_local.to(torch.int32).expand(S)) > 0)
-        if ok:
+        # the flags already cover every shard and scene this process holds
+        if _all_ok(ring, ~(moved_far | torch.any(incoming > cs) | edge)):
             for j, k in enumerate(MOVE_FIELDS):
-                f[k] = torch.cat([new_planes[:, j].reshape(S, C), f[k][:, C:]], dim=1)
+                f[k] = torch.cat(
+                    [new_planes[..., j, :, :].reshape((S,) + lead + (C,)), f[k][..., C:]], dim=-1
+                )
             return _derived_rows(params, f), origin, True
-        gf, origin = _rebuild_fields(params, join_global(f))
+        gf, origin = _exact_rebuild(params, join_global(f))
         return split_local(gf), origin, False
 
     def step_local(f, ts, rebuild):
@@ -173,6 +199,7 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         step, gen = ts.step, ts.generator
         time = float(f32(step) * f32(dt))
         dev = f["val"].device
+        lead = f["val"].shape[1:-1]
         val = f["val"] > 0.5
         dead_g, cog_g, phase_g = _gates(params, step)
 
@@ -180,26 +207,28 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         #    the strip's
         if params.n_dead > 0 and dead_g:
             alive = val & (f["dead"] < 0.5)
-            scores = local(rng.uniform(gen, step, (total + n_pad,), dev))
+            scores = local(rng.uniform(gen, step, lead + (total + n_pad,), dev))
             scores = torch.where(alive, scores, torch.full_like(scores, float("inf")))
-            gall = torch.cat([ring.all_gather(scores[:, :C]).reshape(-1), scores[0, C:]])
-            killed = torch.zeros(gall.shape, dtype=torch.bool, device=dev)
-            killed[torch.topk(-gall, params.n_dead).indices] = True
-            mine = torch.cat(
-                [killed[: D * C].view(D, C)[ids], killed[D * C:].expand(S, n_pad)], dim=1
-            )
+            centres = ring.all_gather(scores[..., :C]).movedim(0, -2).flatten(-2)
+            gall = torch.cat([centres, scores[0, ..., C:]], dim=-1)
+            kill = torch.topk(-gall, params.n_dead, dim=-1).indices
+            killed = torch.zeros(gall.shape, dtype=torch.bool, device=dev).scatter(-1, kill, True)
+            mine = torch.cat([
+                killed[..., : D * C].unflatten(-1, (D, C))[..., ids, :].movedim(-2, 0),
+                killed[..., D * C:].expand((S,) + lead + (n_pad,)),
+            ], dim=-1)
             f["dead"] = torch.where(mine, torch.ones_like(f["dead"]), f["dead"])
 
         # 2. centroid ring (pre-integrate positions): the ring-wide sum of
         #    the centres plus the replicated strip once
         if cog_g:
             cxy = [
-                ring.psum(torch.sum(f[k][:, :C] * f["val"][:, :C], dim=1))
-                + torch.sum(f[k][0, C:] * f["val"][0, C:])
+                ring.psum(torch.sum(f[k][..., :C] * f["val"][..., :C], dim=-1))
+                + torch.sum(f[k][0, ..., C:] * f["val"][0, ..., C:], dim=-1)
                 for k in ("px", "py")
             ]
             idx = (step // params.centroid_steps_interval) % params.centroid_steps
-            ts.centroid_ring[idx] = torch.stack(cxy) / f32(params.n_cells)
+            ts.centroid_ring[..., idx, :] = torch.stack(cxy, dim=-1) / f32(params.n_cells)
 
         # 3. phase law: the ring-wide min light distance of the centres and
         #    the strip's own min
@@ -208,12 +237,12 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             dist = light_distance(params, pos)
             inf = torch.full_like(dist, float("inf"))
             dmin = torch.minimum(
-                ring.pmin(torch.where(val[:, :C], dist[:, :C], inf[:, :C]).amin(dim=1)),
-                torch.where(val[0, C:], dist[0, C:], inf[0, C:]).amin(),
+                ring.pmin(torch.where(val[..., :C], dist[..., :C], inf[..., :C]).amin(dim=-1)),
+                torch.where(val[0, ..., C:], dist[0, ..., C:], inf[0, ..., C:]).amin(dim=-1),
             )
-            phase = update_phase(no_noise, pos, f["phase"], val, None, min_d=dmin)
+            phase = update_phase(no_noise, pos, f["phase"], val, None, min_d=dmin[..., None])
             if params.phase_std:
-                noise = local(rng.normal(gen, step, (total + n_pad,), dev))
+                noise = local(rng.normal(gen, step, lead + (total + n_pad,), dev))
                 phase = torch.where(val, phase + f32(params.phase_std) * noise, phase)
             f["phase"] = phase
 
@@ -226,19 +255,23 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             f, ts.origin, ok = sharded_rebuild(f, ts.origin)
 
         # 7. collide: halo exchange + the non-Newton extended force pass on
-        #    the force-visible slots
+        #    the force-visible slots (kernel 4: one launch for every shard
+        #    and scene)
         stk = torch.stack(
-            [f[k][:, :C].view(S, cs, L0)[:, :cap] for k in KERNEL_FIELDS], dim=1
+            [f[k][..., :C].unflatten(-1, (cs, L0))[..., :cap, :] for k in KERNEL_FIELDS],
+            dim=-3,
         )
         ext = halo_exchange(stk)
-        tables_ext = {k: ext[:, j] for j, k in enumerate(KERNEL_FIELDS)}
+        tables_ext = {k: ext[..., j, :, :] for j, k in enumerate(KERNEL_FIELDS)}
         fx, fy, fa, fr = stencil_forces_ext(params, tables_ext, H, L0)
 
         def expand(a):
-            """(S, cap, L0) -> (S, C + n_pad): spill rows and the strip feel
-            no pair force."""
-            full = torch.cat([a, a.new_zeros((S, cs - cap, L0))], dim=1)
-            return torch.cat([full.reshape(S, C), a.new_zeros((S, n_pad))], dim=1)
+            """(S, [B,] cap, L0) -> (S, [B,] C + n_pad): spill rows and the
+            strip feel no pair force."""
+            full = torch.cat([a, a.new_zeros(a.shape[:-2] + (cs - cap, L0))], dim=-2)
+            return torch.cat(
+                [full.flatten(-2), a.new_zeros(a.shape[:-2] + (n_pad,))], dim=-1
+            )
 
         fxf, fyf = expand(fx), expand(fy)
         f["aa"], f["ar"] = expand(fa), expand(fr)
@@ -273,11 +306,65 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             f, ok = step_local(f, ts, rebuild)
             fallbacks += not ok
             if with_stats and cs > cap:
-                spill = (f["val"][:, :C].view(S, cs, L0)[:, cap:] > 0.5).sum(dim=(1, 2))
-                spill_max = torch.maximum(spill_max, ring.psum(spill))
+                rows = f["val"][..., :C].unflatten(-1, (cs, L0))[..., cap:, :] > 0.5
+                spill_max = torch.maximum(spill_max, ring.psum(rows.flatten(1).sum(dim=1)))
         out = exit_table(params, ts.replace(fields=join_global(f)))
         if with_stats:
             return out, {"fallbacks": fallbacks, "spill_rows_max": int(spill_max)}
         return out
 
     return run_chunk, params
+
+
+def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
+                                   with_stats: bool = False, device="cuda"):
+    """(run_chunk, resolved_params): the dp x tp table loop, a lockstep
+    batch of scenes (``sweep.make_batch_state`` on the resolved params)
+    whose tables each split their grid rows over a ring of shards.
+
+    On ``ring`` (default ``LocalRing(DEFAULT_SHARDS, device)``) the batch
+    runs as one: every field is laid out shard-major, ``(S, B, C +
+    n_pad)``, so the ring shifts and reduces on the leading axis as for
+    one scene, and kernel 4 and kernel 2's padded form each launch once per
+    step / rebuild for all S x B blocks.  A rebuild takes one decision for
+    every shard and scene (one ring-wide min, one host read): the
+    incremental compaction when every scene's preconditions held, else the
+    exact global rebuild for every scene — the batched table loop's
+    all-scenes rule (``engine_table._smart_rebuild``), where the JAX
+    package's vmapped cond decays to a per-scene select.
+
+    With a ``mesh`` (``parallel/mesh.Mesh`` with axes ``("data",
+    "bots")``), each place of the data axis runs its scene group
+    (``sweep.shard_batch``) on a ``LocalRing`` of the bots axis' size on
+    that place's device, and decides its rebuilds for its own scenes;
+    ``run_chunk`` returns the batch in scene order on the first place.
+    ``with_stats`` adds the stats of :func:`make_sharded_table_run`, summed
+    (``fallbacks``) and maxed (``spill_rows_max``) over the groups."""
+    if mesh is None:
+        ring = ring if ring is not None else LocalRing(DEFAULT_SHARDS, device)
+        run, params = make_sharded_table_run(params, ring, with_stats)
+
+        def run_chunk(batch_state: SimState, n_steps: int):
+            if batch_state.pos.dim() != 3:
+                raise ValueError("the dp x tp loop takes a batched state (B, n_pad, 2)")
+            return run(batch_state, n_steps)
+
+        return run_chunk, params
+
+    from .sweep import gather_batch, shard_batch
+
+    places = mesh.axis_devices("data")
+    runs = [make_sharded_table_run(params, LocalRing(mesh.shape["bots"], dev), with_stats)
+            for dev in places]
+    params = runs[0][1]
+
+    def run_mesh(batch_state: SimState, n_steps: int):
+        groups = shard_batch(batch_state, mesh)
+        outs = [run(gs, n_steps) for gs, (run, _) in zip(groups, runs)]
+        if not with_stats:
+            return gather_batch(outs)
+        stats = {"fallbacks": sum(s["fallbacks"] for _, s in outs),
+                 "spill_rows_max": max(s["spill_rows_max"] for _, s in outs)}
+        return gather_batch([o for o, _ in outs]), stats
+
+    return run_mesh, params

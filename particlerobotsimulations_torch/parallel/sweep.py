@@ -18,8 +18,16 @@ which were measured on a TPU (its table at ``sweep.py:27-44``): batched
 everywhere except the megakernel band (PALLAS, mega-eligible tables), which
 runs sequential; packed only on a TPU, which the port never runs on, so
 AUTO never picks it here and only ``strategy="packed"`` reaches it.  Not
-ported: the ``PBOT_SWEEP_STRATEGY`` knob (``strategy=`` covers it) and the
-device mesh (``mesh=`` raises, ROADMAP queue 1 item 14).
+ported: the ``PBOT_SWEEP_STRATEGY`` knob (``strategy=`` covers it).
+
+Over a device mesh (``parallel/mesh.py``) the scene batch is the
+parallel axis, as in the JAX package: the strategy is always ``batched``,
+:func:`shard_batch` splits the batch into one scene group per place of
+the mesh's data axis, and each group runs the batched loop on its place.
+A batched table loop decides its slot rebuilds once for all scenes of
+what it runs (``engine_table._smart_rebuild``), so over a mesh each group
+decides for its own scenes: a scene's run can differ from its run in the
+whole batch where some other scene fell back.
 """
 
 from __future__ import annotations
@@ -32,17 +40,12 @@ import torch
 from ..config import ForceBackend, SimParams
 from ..engine import make_run_chunk, make_run_chunk_batched
 from ..models.placement import initial_state_arrays, resolve_params
-from ..state import SimState, make_state, stack_states
+from ..rng import SceneDraws
+from ..state import ARRAY_FIELDS, SimState, make_state, stack_states
+from .mesh import Mesh, default_mesh  # noqa: F401  (default_mesh: where the JAX package has it)
+from .ring import _device
 
 STRATEGIES = ("sequential", "batched", "packed")
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sweeps over a device mesh are not ported to PyTorch yet "
-            "(see ROADMAP.md, queue 1 item 14)"
-        )
 
 
 def _scene_state(params: SimParams, seed: int, device, draws) -> SimState:
@@ -67,6 +70,47 @@ def make_batch_state(params: SimParams, seeds: Sequence[int], device="cuda",
     return stack_states([_scene_state(params, s, device, draws) for s in seeds])
 
 
+def _group_bounds(n_scenes: int, n_groups: int) -> list:
+    """(start, stop) of each non-empty scene group: the scenes cut into
+    ``n_groups`` contiguous groups, the first ones a scene larger where
+    they do not divide."""
+    sizes = [n_scenes // n_groups + (g < n_scenes % n_groups) for g in range(n_groups)]
+    starts = np.cumsum([0] + sizes)
+    return [(int(a), int(b)) for a, b in zip(starts[:-1], starts[1:]) if b > a]
+
+
+def shard_batch(state: SimState, mesh: Mesh, axis: str = "data") -> list:
+    """A batched state split into one scene group per place along the
+    mesh's ``axis``, each on its place's device (contiguous groups, in
+    scene order; a place gets no group when there are fewer scenes than
+    places).  Each group keeps its scenes' draw sources; a
+    ``torch.Generator`` cannot change device, so one that is not on its
+    group's device raises ValueError."""
+    devices = mesh.axis_devices(axis)
+    groups = []
+    for (lo, hi), dev in zip(_group_bounds(state.pos.shape[0], len(devices)), devices):
+        sources = state.generator.sources[lo:hi]
+        for s in sources:
+            if isinstance(s, torch.Generator) and _device(s.device) != dev:
+                raise ValueError(f"a scene's generator is on {s.device}, its place on {dev}")
+        groups.append(SimState(
+            step=state.step, generator=SceneDraws(sources),
+            **{k: getattr(state, k)[lo:hi].to(dev) for k in ARRAY_FIELDS},
+        ))
+    return groups
+
+
+def gather_batch(groups, device=None) -> SimState:
+    """The scene groups of :func:`shard_batch` joined into one batched
+    state on ``device`` (default: the first group's), in group order."""
+    device = groups[0].device if device is None else device
+    return SimState(
+        step=groups[0].step,
+        generator=SceneDraws([s for g in groups for s in g.generator.sources]),
+        **{k: torch.cat([getattr(g, k).to(device) for g in groups]) for k in ARRAY_FIELDS},
+    )
+
+
 def choose_sweep_strategy(params: SimParams, n_scenes: int, mesh=None,
                           device="cuda") -> str:
     """``"sequential"`` or ``"batched"`` for ``n_scenes`` scenes on
@@ -74,8 +118,10 @@ def choose_sweep_strategy(params: SimParams, n_scenes: int, mesh=None,
     megakernel band (the PALLAS backend on a mega-eligible table) runs
     sequential, because there a single scene's span kernel beat the
     batched span on the TPU; everything else runs batched.  The packed
-    strategy is picked by AUTO only on a TPU."""
-    _no_mesh(mesh)
+    strategy is picked by AUTO only on a TPU.  With a mesh the scene batch
+    is the parallel axis: always batched."""
+    if mesh is not None:
+        return "batched"
     if n_scenes <= 1:
         return "sequential"
     from ..ops.megakernel import mega_eligible
@@ -130,19 +176,33 @@ def run_sweep(
     ``strategy`` None picks one by :func:`choose_sweep_strategy`.
     ``draws`` maps a seed to its scene's draw source (the tests hand in
     the JAX package's draws); by default each scene draws from a generator
-    seeded with its seed, the same under every strategy."""
+    seeded with its seed, the same under every strategy.
+
+    With a ``mesh`` (``parallel/mesh.Mesh``; ``device`` is then ignored)
+    the seeds are cut into one group per place of its ``"data"`` axis,
+    as :func:`shard_batch` cuts a batch, each group is placed and run by
+    the batched loop on its place's device, every group's chunk issued
+    before any result is read, and the final state and the centroids come
+    back in seed order on the first place.  Any strategy but ``batched``
+    raises ValueError there, as in the JAX package."""
     from ..engine_table import gate_seg
 
-    _no_mesh(mesh)
     # Nx == 0 -> config_size_x, exactly as Simulation resolves it — the
     # actuation wave period must match single-scene runs
     params = resolve_params(params.validate())
+    places = [device] if mesh is None else mesh.axis_devices("data")
+    device = places[0]
     record_every = record_every or params.dump_steps
     seg = gate_seg(params) if params.resolved_backend(device) == ForceBackend.PALLAS else 0
     if strategy is None:
-        strategy = choose_sweep_strategy(params, len(seeds), None, device)
+        strategy = choose_sweep_strategy(params, len(seeds), mesh, device)
     elif strategy not in STRATEGIES:
         raise ValueError(f"unknown sweep strategy: {strategy!r}")
+    elif strategy != "batched" and mesh is not None:
+        raise ValueError(
+            f"strategy={strategy!r} is incompatible with a device mesh "
+            "(the scene batch is the sharding axis)"
+        )
     if strategy == "packed":
         from .packed import run_sweep_packed
 
@@ -152,17 +212,21 @@ def run_sweep(
             params, seeds, n_steps, record_every, seg, device, draws
         )
 
-    state = make_batch_state(params, seeds, device, draws)
-    run = make_run_chunk_batched(params, device)
+    groups = [
+        (make_batch_state(params, seeds[lo:hi], dev, draws), make_run_chunk_batched(params, dev))
+        for (lo, hi), dev in zip(_group_bounds(len(seeds), len(places)), places)
+    ]
     n = params.n_cells
-    records = [_centroid(state, n)]
+    records = [[_centroid(state, n) for state, _ in groups]]
     done = 0  # scenes start at step 0 and advance in lockstep
     while done < n_steps:
         chunk = min(record_every, n_steps - done)
-        state = run(state, chunk, seg > 0 and done % seg == 0)
+        groups = [(run(state, chunk, seg > 0 and done % seg == 0), run)
+                  for state, run in groups]
         done += chunk
-        records.append(_centroid(state, n))
-    return state, torch.stack(records).cpu().numpy()
+        records.append([_centroid(state, n) for state, _ in groups])
+    cents = torch.stack([torch.cat([c.to(device) for c in rec]) for rec in records])
+    return gather_batch([state for state, _ in groups], device), cents.cpu().numpy()
 
 
 def sweep_summary(centroids: np.ndarray, params: SimParams):

@@ -717,6 +717,114 @@ def test_batched_wrappers_refuse_cpu_tensors_and_bad_strides():
             kernels.stencil_forces_batched_cuda(p, strided)
 
 
+def dp_tp_planes(p, card, shards=2, scenes=3):
+    """The dp x tp loop's shard-major inputs on the card: halo-extended
+    tables (S, B, 7, C, E) of ``ext_tables`` per scene, and a random
+    padded move-plane stack (S, B, 11, Cs, E) at 70 % fill."""
+    ext = torch.stack([ext_tables(p, seed, shards)[0] for seed in range(5, 5 + scenes)],
+                      dim=1).to(card)
+    g, cs = p.resolved_grid_dim(), p.storage_capacity()
+    l0, h = g * g // shards, HALO_ROWS * g
+    gen = torch.Generator(device=card).manual_seed(6)
+    shape = (shards, scenes, cs, l0 + 2 * h)
+    data = torch.randn((shards, scenes, 9) + shape[2:], generator=gen, device=card)
+    occ = torch.rand(shape, generator=gen, device=card) < 0.7
+    mv = torch.randint(-1, 2, (2,) + shape, generator=gen, device=card).float()
+    far = torch.full_like(mv[0], 99.0)
+    planes = torch.cat([data, torch.where(occ, mv[0], far)[:, :, None],
+                        torch.where(occ, mv[1], far)[:, :, None]], dim=2).contiguous()
+    return ext, planes, h, l0
+
+
+@pytest.mark.parametrize("payload", [False, True])
+def test_batched_sharded_kernels_equal_single_launches(card, payload):
+    """Kernel 4 and kernel 2's padded form on S x B = 2 x 3 blocks in one
+    launch each (one count under their batched keys): every block bit for
+    bit its single-block launch, and kernel 4 within its tolerance of the
+    twin, kernel 2 equal to it."""
+    from particlerobotsimulations_torch.ops.pallas_stencil import (
+        FIELDS,
+        stencil_forces_ext_plain,
+    )
+
+    p = pt.SimParams(n_dead=-1 if payload else 0, grid_dim=32).validate()
+    ext, planes, h, l0 = dp_tp_planes(p, card)
+    tables = {k: ext[:, :, j] for j, k in enumerate(FIELDS)}
+    n0 = dict(kernels.LAUNCHES)
+    got = kernels.stencil_forces_ext_batched_cuda(p, tables, h, l0)
+    out_k, inc_k = kernels.compact_padded_batched_cuda(p, planes, h, l0)
+    dl = {k: kernels.LAUNCHES[k] - n0[k] for k in n0}
+    assert dl["stencil_forces_ext_batched"] == dl["compact_padded_batched"] == 1
+    assert sum(dl.values()) == 2
+    assert got[0].shape == (2, 3, p.cell_capacity, l0) and inc_k.shape == (2, 3, l0)
+    for s in range(2):
+        for b in range(3):
+            one = kernels.stencil_forces_ext_cuda(p, {k: v[s, b][None] for k, v in tables.items()},
+                                                  h, l0)
+            assert all(bitwise(x[s, b], y[0]) for x, y in zip(got, one)), (s, b)
+            o1, c1 = kernels.compact_padded_cuda(p, planes[s, b][None].contiguous(), h, l0)
+            assert bitwise(out_k[s, b], o1[0]) and bitwise(inc_k[s, b], c1[0]), (s, b)
+    want = stencil_forces_ext_plain(p, tables, h, l0)
+    summed = want[2] + want[3]
+    for i, (a, b_) in enumerate(zip(got, want)):
+        tol = 1e-4 + 1e-5 * b_.abs() + (1e-5 * summed if i < 2 else 0)
+        assert bool(((a - b_).abs() <= tol).all())
+    out_p, inc_p = compact_padded_plain(p, planes, h, l0)
+    assert torch.equal(inc_k, inc_p) and bool((out_k == out_p).all())
+
+
+def test_dp_tp_table_loop_on_card_matches_cpu(card):
+    """The dp x tp table loop on ``LocalRing(2)`` on the card (B = 2 scenes
+    of 300 HEX bots, K = 4, 12 steps) against the same run on the CPU
+    twins: one kernel-4 launch per step and one padded kernel-2 launch per
+    rebuild for all four blocks."""
+    from particlerobotsimulations_torch.parallel.spatial_table import (
+        make_sharded_table_run_batched,
+    )
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+    from particlerobotsimulations_torch.state import (
+        batch_state_from_arrays,
+        batch_state_to_arrays,
+    )
+
+    p = pt.SimParams(
+        n_cells=300, n_dead=0, seed=3, config=pt.Config.HEX, light_x=-5.0,
+        force_backend=pt.ForceBackend.PALLAS, phase_std=0.0, slot_rebuild_steps=4,
+    )
+    run_c, p2 = make_sharded_table_run_batched(p, LocalRing(2, card))
+    run_h, _ = make_sharded_table_run_batched(p, LocalRing(2, "cpu"))
+    arrays = batch_state_to_arrays(make_batch_state(p2, [3, 4], "cpu"))
+    rng = np.random.default_rng(99)
+    arrays["pos"] = arrays["pos"] + (
+        1e-4 * rng.standard_normal(arrays["pos"].shape)
+    ).astype(np.float32)
+    n0 = dict(kernels.LAUNCHES)
+    a = batch_state_to_arrays(run_c(batch_state_from_arrays(p2, arrays, card), 12))
+    dl = {k: kernels.LAUNCHES[k] - n0[k] for k in n0}
+    assert dl["stencil_forces_ext_batched"] == 12 and dl["compact_padded_batched"] == 3
+    assert sum(dl.values()) == 15
+    b = batch_state_to_arrays(run_h(batch_state_from_arrays(p2, arrays, "cpu"), 12))
+    np.testing.assert_allclose(a["pos"], b["pos"], atol=1e-5)
+    np.testing.assert_allclose(a["vel"], b["vel"], atol=1e-4)
+
+
+def test_batched_sharded_wrappers_refuse():
+    """No fallback: the dp x tp wrappers refuse CPU tensors and stacks
+    without their two leading axes."""
+    p = pt.SimParams(n_dead=0, grid_dim=32).validate()
+    _, tables, h, l0 = ext_tables(p, 1)
+    cs = p.storage_capacity()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stencil_forces_ext_batched_cuda(p, {k: v[:, None] for k, v in tables.items()},
+                                                h, l0)
+    with pytest.raises(ValueError, match="S, B, C, E"):
+        kernels.stencil_forces_ext_batched_cuda(p, tables, h, l0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.compact_padded_batched_cuda(p, torch.zeros((4, 2, 11, cs, l0 + 2 * h)), h, l0)
+    with pytest.raises(ValueError, match="S, B, nf"):
+        kernels.compact_padded_batched_cuda(p, torch.zeros((4, 11, cs, l0 + 2 * h)), h, l0)
+
+
 # ------------------------------------- the differentiable path, checkpoints
 
 

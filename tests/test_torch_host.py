@@ -164,7 +164,8 @@ def test_port_imports_without_jax():
         "    importlib.import_module(name)\n"
         "want = {'cli', 'engine_table', 'kernels', 'ops.megakernel', "
         "'parallel.ring', 'parallel.spatial_table', 'io.csvio', "
-        "'parallel.sweep', 'parallel.packed', 'models.experiments'}\n"
+        "'parallel.sweep', 'parallel.packed', 'models.experiments', "
+        "'parallel.mesh', 'parallel.spatial', 'dryrun'}\n"
         "missing = {pt.__name__ + '.' + w for w in want} - set(names)\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', "

@@ -449,3 +449,196 @@ def test_sharded_entry_points_refuse():
     tables = {k: torch.zeros((16, 3 * g * g)) for k in t_ps.FIELDS}
     t_ps.stencil_forces_ext(tp, tables, g * g, g * g)
     assert kernels.LAUNCHES == before  # the CPU path never counts a launch
+
+
+# ------------------------------------------------- dp x tp: scene batches
+
+
+@pytest.fixture
+def decisions(monkeypatch):
+    """The sharded loops' rebuild decisions, recorded in order; a test sets
+    ``replay`` to a list to make the loops take those decisions instead
+    (a lockstep replay: one scene alone taking its batch's decisions)."""
+    rec = {"seen": [], "replay": None}
+    real = t_st._all_ok
+
+    def hooked(ring, ok_local):
+        if rec["replay"] is not None:
+            return rec["replay"].pop(0)
+        ok = real(ring, ok_local)
+        rec["seen"].append(ok)
+        return ok
+
+    monkeypatch.setattr(t_st, "_all_ok", hooked)
+    return rec
+
+
+def batch_arrays(tp, seeds, kick=None):
+    """Bot-order arrays of a batch of fresh scenes, positions jittered by
+    1e-4 per scene (numpy); ``kick`` = (scene, vx) puts that scene's
+    outermost bot at vx."""
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+    from particlerobotsimulations_torch.state import batch_state_to_arrays
+
+    a = batch_state_to_arrays(make_batch_state(tp, seeds, "cpu"))
+    n = tp.n_cells
+    rng = np.random.default_rng(99)
+    a["pos"][:, :n] += (1e-4 * rng.standard_normal((len(seeds), n, 2))).astype(np.float32)
+    if kick is not None:
+        b, vx = kick
+        edge = int(np.argmax(a["pos"][b, :n, 0]))
+        a["vel"][b, edge, 0] = vx
+    return a
+
+
+@pytest.fixture(scope="module")
+def jax_dp_tp():
+    """JAX's dp x tp table loop for 96 bots on a (2, 2) mesh, built once
+    (its interpret-mode compile dominates the cases' time)."""
+    jp, _ = params_pair(n_shards=2, n_cells=96)
+    jmesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "bots"))
+    jrun, jp2 = j_st.make_sharded_table_run_batched(jp, jmesh)
+    assert jp2 == jp
+    return jrun
+
+
+@pytest.mark.parametrize("case", ["plain", "fallback"])
+def test_dp_tp_table_loop_matches_jax_and_lockstep(case, decisions, jax_dp_tp):
+    """2 scenes x 2 shards of 96 bots, 10 steps (2 rebuilds), against JAX's
+    ``make_sharded_table_run_batched`` on a (2, 2) mesh and, scene by
+    scene, bit for bit against the scene alone through the single-scene
+    sharded loop taking the batch's rebuild decisions.  ``fallback`` kicks
+    scene 1's outermost bot to 60 u/s: every rebuild falls back for both
+    scenes in the port (JAX decides per scene; the exact and incremental
+    rebuilds differ only in summation order).  The batch also equals the
+    unsharded batched table loop, which decides for all scenes alike, and
+    the mesh entry (one data place per scene, each deciding alone) equals
+    the ring entry where no scene fell back."""
+    from particlerobotsimulations_torch.parallel.mesh import Mesh as TorchMesh
+    from particlerobotsimulations_torch.state import (
+        batch_state_from_arrays,
+        batch_state_to_arrays,
+        scene_state,
+    )
+    from particlerobotsimulations_tpu.parallel.sweep import make_batch_state as jax_batch
+
+    seeds = [0, 1]
+    jp, tp = params_pair(n_shards=2, n_cells=96)
+    a = batch_arrays(tp, seeds, kick=(1, 60.0) if case == "fallback" else None)
+    jst = jax_batch(jp, seeds)
+    want = jax_dp_tp(jst._replace(**{k: jnp.asarray(a[k]) for k in ("pos", "vel")}), 10)
+    want = {k: np.asarray(getattr(want, k)) for k in ("pos", "vel", "rad")}
+
+    run, p2 = t_st.make_sharded_table_run_batched(tp, LocalRing(2, "cpu"), with_stats=True)
+    assert p2 == tp
+    out, stats = run(batch_state_from_arrays(tp, a, "cpu"), 10)
+    seen = list(decisions["seen"])
+    assert len(seen) == 2 and stats["fallbacks"] == seen.count(False)
+    assert stats["fallbacks"] == (2 if case == "fallback" else 0)
+    got = batch_state_to_arrays(out)
+    for b in range(2):
+        np.testing.assert_allclose(got["pos"][b], want["pos"][b], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got["vel"][b], want["vel"][b], atol=1e-4, rtol=0)
+    single, _ = t_st.make_sharded_table_run(tp, LocalRing(2, "cpu"))
+    for b in range(2):
+        decisions["replay"] = list(seen)
+        one = single(scene_state(batch_state_from_arrays(tp, a, "cpu"), b), 10)
+        assert decisions["replay"] == []
+        for k in ("pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r"):
+            assert torch.equal(getattr(one, k), getattr(out, k)[b]), (b, k)
+    decisions["replay"] = None
+    ref = t_et.make_run_chunk_table_batched(tp)(batch_state_from_arrays(tp, a, "cpu"), 10)
+    for k in ("pos", "vel", "rad", "phase", "dead"):
+        assert torch.equal(getattr(ref, k), getattr(out, k)), k
+    if case == "plain":
+        mesh = TorchMesh(np.array(["cpu"] * 4).reshape(2, 2), ("data", "bots"))
+        mrun, _ = t_st.make_sharded_table_run_batched(tp, mesh=mesh)
+        mout = mrun(batch_state_from_arrays(tp, a, "cpu"), 10)
+        for k in ("pos", "vel", "rad", "phase", "dead"):
+            assert torch.equal(getattr(mout, k), getattr(out, k)), k
+
+
+DIST_BATCH_WORKER = """
+import pickle, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+from particlerobotsimulations_torch.parallel.ring import DistRing
+from particlerobotsimulations_torch.parallel.spatial import gather_state, make_sharded_step, shard_state
+from particlerobotsimulations_torch.parallel.spatial_table import make_sharded_table_run_batched
+from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+from particlerobotsimulations_torch.state import batch_state_from_arrays, batch_state_to_arrays
+init, rank, src, dst = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+with open(src, "rb") as fh:
+    tp, dp, arrays, seeds, n_steps = pickle.load(fh)
+ring = DistRing()
+run, _ = make_sharded_table_run_batched(tp, ring, with_stats=True)
+out, stats = run(batch_state_from_arrays(tp, arrays, "cpu"), n_steps)
+step = make_sharded_step(dp, ring, batch=True)
+st = shard_state(make_batch_state(dp, seeds, "cpu"), ring, batch=True)
+for _ in range(n_steps):
+    st = step(st)
+dense = batch_state_to_arrays(gather_state(st, ring, batch=True))
+np.savez(dst, fallbacks=stats["fallbacks"], **batch_state_to_arrays(out),
+         **{"dense_" + k: v for k, v in dense.items()})
+dist.destroy_process_group()
+"""
+
+
+def test_batched_dist_ring_equals_local_ring(tmp_path):
+    """Two gloo ranks, one shard each, against ``LocalRing(2)``: the dp x tp
+    table loop on 2 scenes of 64 bots (scene 1 kicked to 60 u/s: the
+    fallbacks all-gather and argsort), dead injection and phase noise, and
+    the dense split on a batch of 2 with the same draws, 12 steps each:
+    elementwise equal (a two-shard sum commutes exactly)."""
+    import pickle
+
+    from particlerobotsimulations_torch.parallel import spatial as t_sp
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+    from particlerobotsimulations_torch.state import (
+        batch_state_from_arrays,
+        batch_state_to_arrays,
+    )
+
+    seeds = [0, 1]
+    _, tp = params_pair(n_shards=2, n_cells=64, n_dead=5, time_to_dead=0.03, phase_std=0.5)
+    dp = tp.replace(force_backend=pt.ForceBackend.DENSE)
+    a = batch_arrays(tp, seeds, kick=(1, 60.0))
+    src = tmp_path / "in.pkl"
+    with open(src, "wb") as fh:
+        pickle.dump((tp, dp, a, seeds, 12), fh)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    init = f"file://{tmp_path / 'rendezvous'}"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", DIST_BATCH_WORKER, init, str(r), str(src),
+             str(tmp_path / f"out{r}.npz")],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(2)
+    ]
+    try:
+        logs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    ring = LocalRing(2, "cpu")
+    run, _ = t_st.make_sharded_table_run_batched(tp, ring, with_stats=True)
+    out, stats = run(batch_state_from_arrays(tp, a, "cpu"), 12)
+    want = batch_state_to_arrays(out)
+    assert stats["fallbacks"] >= 1 and (want["dead"][:, :64].sum(axis=1) == 5).all()
+    step = t_sp.make_sharded_step(dp, ring, batch=True)
+    st = t_sp.shard_state(make_batch_state(dp, seeds, "cpu"), ring, batch=True)
+    for _ in range(12):
+        st = step(st)
+    dense = batch_state_to_arrays(t_sp.gather_state(st, ring, batch=True))
+    want.update({"dense_" + k: v for k, v in dense.items()})
+    for r in range(2):
+        got = np.load(tmp_path / f"out{r}.npz")
+        assert int(got["fallbacks"]) == stats["fallbacks"]
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=f"rank {r} {k}")

@@ -61,6 +61,9 @@ TOL = {"pos": 1e-5, "vel": 1e-4, "rad": 1e-6, "centroid_ring": 1e-6, "phase": 1e
 # equals its own single-scene runs bit for bit.
 TABLE_TOL = dict(TOL, vel=3e-4, rad=5e-6)
 CHUNK_TOL = {"pos": 2e-4, "rad": 2e-4, "phase": 1e-4, "centroid_ring": 1e-5}
+# the mesh sweep's centroids against JAX's from placed (unjittered) layouts,
+# 24 steps: see test_run_sweep_mesh_matches_jax_and_unsharded
+MESH_JAX_ATOL = 2e-4
 
 
 class JaxDraws:
@@ -393,13 +396,67 @@ def test_run_sweep_matches_jax(strategy, monkeypatch):
 
 
 def test_run_sweep_refuses_unknown_strategy_and_mesh():
+    """Unknown strategies, and any strategy but batched with a mesh (the
+    scene batch is the mesh's parallel axis): JAX's ``ValueError`` s.  With
+    a mesh AUTO picks batched, as in the JAX package."""
+    from particlerobotsimulations_torch.parallel.mesh import Mesh
+
     p = pt.SimParams(n_cells=24, n_dead=0)
+    mesh = Mesh(["cpu"] * 2)
     with pytest.raises(ValueError, match="unknown sweep strategy"):
         t_sw.run_sweep(p, [0, 1], 10, strategy="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        t_sw.run_sweep(p, [0, 1], 10, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        t_sw.choose_sweep_strategy(p, 2, mesh=object())
+    for strategy in ("sequential", "packed"):
+        with pytest.raises(ValueError, match="incompatible with a device mesh"):
+            t_sw.run_sweep(p, [0, 1], 10, mesh=mesh, strategy=strategy, device="cpu")
+    band = pt.SimParams(n_cells=1000, force_backend=pt.ForceBackend.PALLAS)
+    assert t_sw.choose_sweep_strategy(band, 8, None, "cpu") == "sequential"
+    assert t_sw.choose_sweep_strategy(band, 8, mesh) == "batched"
+    assert t_sw.choose_sweep_strategy(p, 1, mesh) == "batched"
+
+
+@pytest.mark.parametrize("backend", ["DENSE", "PALLAS"])
+def test_run_sweep_mesh_matches_jax_and_unsharded(backend, monkeypatch):
+    """``run_sweep(mesh=)`` over 4 CPU places, 8 seeds of 40 RANDOM bots (2
+    per place) with phase noise, 24 steps recorded every 8: against the
+    port's unsharded batched run, bit for bit where no group's rebuild fell
+    back (DENSE has none; on PALLAS each group decides for its own
+    scenes), and on DENSE against JAX's ``run_sweep(mesh=default_mesh())``
+    on its 8 virtual devices, on JAX's draws (``test_run_sweep_matches_jax``'s
+    scene).  The placed layouts are not jittered, and their exact
+    tangencies flip contact branches between the two packages within the
+    first steps: seed 7 parts from JAX by 5.9e-6 at step 4 and 1.18e-4 at
+    step 24, with or without a mesh in either package, while seeds 0-6
+    stay within 2.4e-6.  So the port is held to JAX's sharded run within
+    MESH_JAX_ATOL, and its gap to it must be the gap between the two
+    packages' unsharded runs, bit for bit: the mesh adds nothing in
+    either."""
+    from particlerobotsimulations_torch.parallel.mesh import Mesh
+
+    monkeypatch.delenv("PBOT_SWEEP_STRATEGY", raising=False)
+    jp = pj.SimParams(n_cells=40, n_dead=0, seed=1, config=pj.Config.RANDOM,
+                      phase_update_interval=0.04, light_x=-5.0, light_y=1.0,
+                      force_backend=pj.ForceBackend[backend])
+    tp = to_port(jp)
+    seeds = list(range(8))
+    mesh = Mesh(["cpu"] * 4)
+    n0 = t_et.REBUILDS["exact"]
+    fin_m, got = t_sw.run_sweep(tp, seeds, 24, mesh=mesh, record_every=8, device="cpu",
+                                draws=JaxDraws)
+    exact = t_et.REBUILDS["exact"] - n0
+    fin_u, local = t_sw.run_sweep(tp, seeds, 24, record_every=8, device="cpu",
+                                  draws=JaxDraws)
+    assert got.shape == local.shape == (4, 8, 2)
+    assert fin_m.pos.shape == fin_u.pos.shape and fin_m.step == 24
+    if t_et.REBUILDS["exact"] - n0 == exact == 0:
+        np.testing.assert_array_equal(got, local)
+        assert_equal_states(fin_m, fin_u)
+    else:
+        np.testing.assert_allclose(got, local, atol=1e-5, rtol=0)
+    if backend == "DENSE":
+        _, want = j_sw.run_sweep(jp, seeds, 24, mesh=j_sw.default_mesh(), record_every=8)
+        _, want_local = j_sw.run_sweep(jp, seeds, 24, record_every=8)
+        np.testing.assert_allclose(got, want, atol=MESH_JAX_ATOL, rtol=0)
+        np.testing.assert_array_equal(got - want, local - want_local)
 
 
 # ------------------------------------------------------------ experiments
@@ -453,7 +510,8 @@ def test_experiment_matches_jax(kind):
 def test_cli_sweep_and_experiment_print_jax_formats(capsys, tmp_path):
     """``cli sweep`` and ``cli experiment ... --device cpu`` print the JAX
     package's header and row format (values within 1e-4: the draws are each
-    package's own, and example.cfg draws only phase noise, off here)."""
+    package's own, and example.cfg draws only phase noise, off here), and
+    so does ``cli sweep --mesh``."""
     from particlerobotsimulations_torch import cli as t_cli
     from particlerobotsimulations_tpu import cli as j_cli
 
@@ -463,6 +521,9 @@ def test_cli_sweep_and_experiment_print_jax_formats(capsys, tmp_path):
         ["sweep", str(cfg), "--seeds", "0:2", "--steps", "20", "--n-cells", "24"],
         ["experiment", "speed", str(cfg), "--seeds", "0:2", "--sim-seconds", "0.2",
          "--n-cells", "24"],
+        # JAX shards its 8 seeds over its 8 virtual devices, the port over
+        # the one CPU place of default_mesh(device="cpu")
+        ["sweep", str(cfg), "--seeds", "0:8", "--steps", "20", "--n-cells", "24", "--mesh"],
     )
     for argv in runs:
         assert j_cli.main(argv) == 0
@@ -478,5 +539,3 @@ def test_cli_sweep_and_experiment_print_jax_formats(capsys, tmp_path):
             assert len(gv) == len(wv) and gv[0] == wv[0]
             np.testing.assert_allclose([float(x) for x in gv], [float(x) for x in wv],
                                        atol=1e-4)
-    assert t_cli.main(["sweep", str(cfg), "--mesh", "--device", "cpu"]) == 2
-    assert "queue 1 item 14" in capsys.readouterr().err
