@@ -125,7 +125,22 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    against the 16 single-block launches (bit for bit) and their twins,
    timed in a CUDA graph beside 4 launches of 4 shards; and ``run_sweep``
    of eight seeds of ``examples/example.cfg`` over ``Mesh(["cuda"] * 4)``
-   against the unsharded batched run (every scene bit for bit).
+   against the unsharded batched run (every scene bit for bit);
+15. the measurement and paper-parity layer: ``utils.profiling``'s
+   ``measure_call_overhead`` and ``measure_throughput`` on bench.py's
+   workload (PALLAS: kernel 1 once per step, kernel 2 once per rebuild,
+   the counters reset just before) and ``scaling_report`` at 1,000 to
+   20,000 bots (the 1,000-bot row on the span path); the bench's callable
+   (``particlerobotsimulations_torch/bench.py``) at 400-step chunks with
+   its three warm-ups and its JSON line parsed; the five shipped scenes
+   through ``scripts/fullscale_torch.py``'s per-scene function at 2 sim-s,
+   as shipped, where the gap scene must carry the grid-fit refusal (its
+   RANDOM swarm outgrows AUTO's G=16, as in the JAX package) and the others
+   run healthy; each scenario of ``scripts/parity_report_torch.py`` at 2
+   seeds x 2,000 steps with the anchors computed (the gap sweep prints its
+   backend, table and rebuilds); and ``--from-json`` on
+   ``docs/parity/parity.json``, whose verdicts it must reproduce.  Their
+   launches are added to the kernels' counts.
 
 The four kernels are timed per launch from replays of a CUDA graph of
 20 launches, so their wrappers' host-side checks stay out of the time
@@ -2630,6 +2645,191 @@ def multi_device_phase():
     return launches, kc
 
 
+# -------------------------- phase 15: the measurement and paper-parity layer
+
+# phase 15's cuts: measure_throughput's chunk (a multiple of the 200-step
+# gate segment) and reps at 10k; scaling_report's; the bench's chunk; the
+# fullscale scenes' horizon; the parity scenarios' seeds and sim-seconds
+# (2,000 steps)
+P15_STEPS, P15_REPS = 600, 3
+P15_SCALING = (1000, 4000, 10000, 20000)
+P15_SCALING_STEPS, P15_SCALING_REPS = 200, 2
+P15_BENCH_STEPS = 400
+P15_FULLSCALE_S = 2.0
+P15_PARITY_SEEDS, P15_PARITY_S = [0, 1], 20.0
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def load_script(name):
+    """A script of ``scripts/`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def add_counts(total: dict) -> dict:
+    """Add the launch counters to ``total``; returns this part's counts."""
+    torch.cuda.synchronize()
+    part = dict(kernels.LAUNCHES)
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+    return part
+
+
+def profiling_checks(total: dict, device="cuda") -> None:
+    """Phase 15a: ``measure_call_overhead`` and ``measure_throughput`` at
+    10k (PALLAS, the adaptive table loop: kernel 1 once per step, kernel 2
+    once per rebuild), then ``scaling_report`` over four sizes."""
+    from particlerobotsimulations_torch.utils import profiling
+
+    overhead = profiling.measure_call_overhead(device=device)
+    if not 0 < overhead < 0.1 or profiling.measure_call_overhead(
+        device=torch.device(device)
+    ) != overhead:
+        fail(f"call overhead {overhead} (or not cached per device)")
+    reset_counts()
+    t = profiling.measure_throughput(bench_params(), P15_STEPS, P15_REPS, device)
+    part = add_counts(total)
+    steps = (1 + P15_REPS) * P15_STEPS
+    rebuilds = REBUILDS["incremental"] + REBUILDS["exact"]
+    if t.backend != "PALLAS" or t.n_bots != bench_params().n_cells or not t.particle_steps_per_sec > 0:
+        fail(f"measure_throughput at 10k: {t}")
+    if part["stencil_forces"] != steps or part["compact"] != rebuilds or not (
+        steps // 8 <= rebuilds <= steps // 4
+    ) or any(v for k, v in part.items() if k not in ("stencil_forces", "compact")):
+        fail(f"measure_throughput launches {part}, rebuilds {dict(REBUILDS)} over {steps} steps")
+    print(f"phase 15a call overhead {overhead * 1e6:.1f} us; measure_throughput 10k HEX "
+          f"{1 + P15_REPS} chunks of {P15_STEPS} steps: {t.ms_per_step:.3f} ms/step, "
+          f"{t.particle_steps_per_sec:.4e} particle-steps/s [{t.backend}], launches "
+          f"{part}, rebuilds {dict(REBUILDS)}", flush=True)
+    reset_counts()
+    rows = profiling.scaling_report(P15_SCALING, device=device, n_steps=P15_SCALING_STEPS,
+                                     reps=P15_SCALING_REPS)
+    part = add_counts(total)
+    if [r.n_bots for r in rows] != list(P15_SCALING) or any(
+        r.backend != "PALLAS" or not r.particle_steps_per_sec > 0 for r in rows
+    ):
+        fail(f"scaling_report rows {rows}")
+    steps = len(P15_SCALING) * (1 + P15_SCALING_REPS) * P15_SCALING_STEPS
+    if not part["mega_span"] or not part["stencil_forces"] or not part["compact"]:
+        fail(f"scaling_report launches {part}: the 1000-bot row takes the span path")
+    print(f"phase 15a scaling_report {P15_SCALING} ({1 + P15_SCALING_REPS} chunks of "
+          f"{P15_SCALING_STEPS} steps each): launches {part} over {steps} steps", flush=True)
+
+
+def bench_check(total: dict, device="cuda") -> None:
+    """Phase 15b: the bench's callable at a cut chunk, with its three
+    warm-ups (adaptive at 10k): the card line, one JSON line with bench.py's
+    keys, kernel 1 once per step."""
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    from particlerobotsimulations_torch import bench
+
+    reset_counts()
+    buf = StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        record = bench.run_bench(device, bench_params().n_cells, P15_BENCH_STEPS)
+    part = add_counts(total)
+    lines = buf.getvalue().strip().splitlines()
+    out = json.loads(lines[-1])
+    if out != record or set(out) != BENCH_KEYS or out["vs_baseline"] is not None or (
+        out["metric"] != "particle_steps_per_sec_10k_bots_torch"
+    ) or not (math.isfinite(out["value"]) and out["value"] > 0):
+        fail(f"bench line {lines[-1]}")
+    if not lines[0].startswith("card: ") or "3 chunks" not in lines[1]:
+        fail(f"bench lines {lines}")
+    if part["stencil_forces"] != 6 * P15_BENCH_STEPS:
+        fail(f"bench launches {part}")
+    print(f"phase 15b bench at {P15_BENCH_STEPS}-step chunks ({time.perf_counter() - t0:.1f} s): "
+          f"{lines[1]} | {lines[-1]} | launches {part}", flush=True)
+
+
+def fullscale_check(tmp, total: dict, device="cuda") -> None:
+    """Phase 15c: the five shipped scenes through the fullscale script's
+    per-scene function at a cut horizon, as shipped (AUTO).  The gap scene
+    (1,000 RANDOM bots) resolves to PALLAS at G=16, which its swarm outgrows:
+    ``Simulation`` refuses it, as in the JAX package, and the script records
+    the error; every other scene must run healthy."""
+    fs = load_script("fullscale_torch")
+    reset_counts()
+    cfgs = sorted(os.path.join(ROOT, "examples", f) for f in os.listdir(os.path.join(ROOT, "examples"))
+                  if f.endswith(".cfg"))
+    results = fs.run_all(cfgs, device, max_time=P15_FULLSCALE_S, csv_dir=tmp)
+    part = add_counts(total)
+    if len(results) != 5:
+        fail(f"fullscale scenes {sorted(results)}")
+    for name, rec in results.items():
+        if name == "example_gap":
+            if "grid cells" not in rec.get("error", ""):
+                fail(f"fullscale example_gap: {rec} (expected the grid-fit refusal)")
+        elif "error" in rec or rec["steps"] != round(P15_FULLSCALE_S * 100):
+            fail(f"fullscale {name}: {rec}")
+    print(f"phase 15c fullscale at {P15_FULLSCALE_S:g} sim-s: {json.dumps(results)} | "
+          f"launches {part}", flush=True)
+
+
+def parity_check(tmp, total: dict, device="cuda") -> None:
+    """Phase 15d: each parity scenario at 2 seeds and 2,000 steps with the
+    anchors computed (their verdicts printed: the anchors are stated at the
+    scenarios' full horizons), then ``--from-json`` on the JAX package's
+    record, which must reproduce its verdicts."""
+    pr = load_script("parity_report_torch")
+    results = {}
+    for name in ("phototaxis", "robustness", "obstacle", "gap", "transport"):
+        reset_counts()
+        t0 = time.perf_counter()
+        results[name] = getattr(pr, name)(P15_PARITY_SEEDS, P15_PARITY_S, device)
+        part = add_counts(total)
+        vals = [v for v in results[name].values() if isinstance(v, float)]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"parity {name}: {results[name]}")
+        print(f"phase 15d parity {name} {len(P15_PARITY_SEEDS)} seeds x {P15_PARITY_S:g} sim-s "
+              f"({time.perf_counter() - t0:.1f} s): {json.dumps(results[name])} | launches "
+              f"{ {k: v for k, v in part.items() if v} }", flush=True)
+    anchors = pr._anchors(results, pr.cfg("example.cfg"))
+    print("phase 15d anchors at this horizon: " + "; ".join(
+        f"{a['name']} {a['measured']:.4f} ({a['verdict']})" for a in anchors.values()
+    ), flush=True)
+    out = os.path.join(tmp, "parity_from_json")
+    record_path = os.path.join(ROOT, "docs", "parity", "parity.json")
+    with open(record_path) as f:
+        record = json.load(f)
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    with redirect_stdout(StringIO()):
+        rc = pr.main(["--from-json", record_path, "--out", out])
+    with open(os.path.join(out, "parity.json")) as f:
+        redo = json.load(f)
+    want = {k: a["verdict"] for k, a in record["anchors"].items()}
+    got = {k: a["verdict"] for k, a in redo["anchors"].items()}
+    if rc != 0 or got != want:
+        fail(f"--from-json: rc {rc}, verdicts {got} against the record's {want}")
+    print(f"phase 15d --from-json docs/parity/parity.json: verdicts {got}, as recorded",
+          flush=True)
+
+
+def measurement_phase(device="cuda") -> dict:
+    """Phase 15: the profiling helpers, the bench, the fullscale and parity
+    scripts on the card.  Returns the kernel launches of the paths they
+    drove."""
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (("a", lambda: profiling_checks(total, device)),
+                         ("b", lambda: bench_check(total, device)),
+                         ("c", lambda: fullscale_check(tmp, total, device)),
+                         ("d", lambda: parity_check(tmp, total, device))):
+            t0 = time.perf_counter()
+            fn()
+            print(f"phase 15{name} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     # 1. the card
     if not torch.cuda.is_available():
@@ -2867,6 +3067,12 @@ def main() -> int:
     launches14, kc14 = multi_device_phase()
     print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
 
+    # 15. the measurement and parity layer: the profiling helpers, the
+    #     bench, the fullscale and parity scripts (counters reset before each)
+    t15 = time.perf_counter()
+    launches15 = measurement_phase()
+    print(f"phase 15 took {time.perf_counter() - t15:.1f} s; launches {launches15}")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -2922,6 +3128,8 @@ def main() -> int:
              "particlerobotsimulations_tpu/ops/table_rebuild.py:203"),
         )
     ]}
+    for entry in record["kernels"]:
+        entry["launches"] += launches15.get(entry["name"], 0)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,12 +6,14 @@
     python -m particlerobotsimulations_torch.cli sweep examples/example.cfg --seeds 0:8 --steps 6000
     python -m particlerobotsimulations_torch.cli sweep examples/example.cfg --seeds 0:8 --mesh
     python -m particlerobotsimulations_torch.cli experiment robustness examples/example_dead_cells.cfg
+    python -m particlerobotsimulations_torch.cli bench
 
 ``simulate`` writes under the cfg's csv_filename and video_filename, like
 the reference binary (main.cpp:913-917); ``sweep`` and ``experiment`` print the JAX
 package's CSV to stdout; with ``--mesh`` they shard the seeds over every
-visible card (``parallel/mesh.default_mesh``).  ``bench`` prints that it
-is not ported yet and exits 2 (ROADMAP.md queue 1 item 5).
+visible card (``parallel/mesh.default_mesh``).  ``bench`` runs the
+package's throughput bench (``bench.py``: 10k bots, the JAX package's
+bench.py protocol) and prints its JSON line.
 """
 
 from __future__ import annotations
@@ -19,8 +21,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-NOT_PORTED = ("bench",)
 
 
 def _add_overrides(p: argparse.ArgumentParser):
@@ -215,6 +215,12 @@ def cmd_experiment(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from .bench import main as bench_main
+
+    return bench_main(["--device", args.device])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="particlerobotsimulations_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -268,19 +274,14 @@ def main(argv=None) -> int:
     _add_overrides(ex_p)
     ex_p.set_defaults(fn=cmd_experiment)
 
-    for name in NOT_PORTED:
-        p = sub.add_parser(name, help="not ported yet")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
-        p.set_defaults(fn=None)
+    bench_p = sub.add_parser(
+        "bench", help="throughput benchmark: particle-steps/s at 10k bots"
+    )
+    bench_p.add_argument("--device", type=str, default="cuda",
+                         help="torch device to run on (default cuda)")
+    bench_p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
-    if args.fn is None:
-        print(
-            f"error: '{args.cmd}' is not yet ported to PyTorch "
-            "(see ROADMAP.md, queue 1 item 5)",
-            file=sys.stderr,
-        )
-        return 2
     return args.fn(args)
 
 
