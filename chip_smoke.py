@@ -140,6 +140,23 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    seeds x 2,000 steps with the anchors computed (the gap sweep prints its
    backend, table and rebuilds); and ``--from-json`` on
    ``docs/parity/parity.json``, whose verdicts it must reproduce.  Their
+   launches are added to the kernels' counts;
+16. the graphed chunk: the table runners replay their ungated K-step
+   blocks from CUDA graphs.  Three scenes run graph against eager (the
+   same runner with ``engine_table._CapturedBlock`` swapped for the eager
+   block), bit for bit with equal launch and rebuild counts: bench.py's
+   10k workload from phase 4's state through the adaptive runner (4
+   seg-aligned chunks of 600 steps, a probe segment then K-step blocks;
+   a fixed K=8 run is added when the probe kept K=4), 100,000 HEX bots
+   from placement without spill rows (400 steps: most rebuilds exact, so
+   the select takes the exact rebuild) and eight 10k seeds batched (400
+   steps).  One more chunk of each graph runner runs under
+   ``torch.cuda.set_sync_debug_mode("error")``.  The device-side
+   rebuild choice is timed against the incremental rebuild alone at 10k
+   and 100k; eager against graph at 10k (wall, device us/step and busy
+   share under ``torch.profiler``, in turns); and the bench's
+   multi-place branch on ``Mesh(["cuda"] * 2)``: dispatch interleaved,
+   each scene bit for bit its solo run.  The graph runs' and the bench's
    launches are added to the kernels' counts.
 
 The four kernels are timed per launch from replays of a CUDA graph of
@@ -156,6 +173,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -167,7 +185,7 @@ import numpy as np
 import torch
 
 import particlerobotsimulations_torch as pt
-from particlerobotsimulations_torch import kernels
+from particlerobotsimulations_torch import engine_table, kernels
 from particlerobotsimulations_torch.engine_table import (
     MOVE_FIELDS,
     REBUILDS,
@@ -180,6 +198,7 @@ from particlerobotsimulations_torch.engine_table import (
     make_run_chunk_table,
     make_table_step,
     make_table_step_parts,
+    step_tensor,
 )
 from particlerobotsimulations_torch.models.placement import resolve_params
 from particlerobotsimulations_torch.ops.megakernel import (
@@ -212,6 +231,7 @@ from particlerobotsimulations_torch.parallel.spatial_table import (
     resolve_tp_params,
 )
 from particlerobotsimulations_torch.parallel.sweep import choose_sweep_strategy, run_sweep
+from particlerobotsimulations_torch.rng import SceneDraws
 from particlerobotsimulations_torch.state import (
     ARRAY_FIELDS,
     active_mask,
@@ -2025,12 +2045,18 @@ DIFF_RTOL, DIFF_ATOL, DIFF_BLOB_STEPS = 2e-2, 2e-4, 40
 
 
 def clone_state(state):
-    """A copy of a single-scene state with its own generator at the same
-    point, so that a later run of the original does not move it."""
-    gen = torch.Generator(device=state.device)
-    gen.set_state(state.generator.get_state())
-    return state.replace(generator=gen, **{k: getattr(state, k).clone()
-                                           for k in ARRAY_FIELDS})
+    """A copy of a single or batched state whose generators stand at the
+    same point as the original's, so that a later run of the original does
+    not move them."""
+    def gen_copy(g):
+        out = torch.Generator(device=g.device)
+        out.set_state(g.get_state())
+        return out
+
+    src = state.generator
+    gen = (SceneDraws([gen_copy(g) for g in src.sources]) if isinstance(src, SceneDraws)
+           else gen_copy(src))
+    return state.replace(generator=gen, **{k: getattr(state, k).clone() for k in ARRAY_FIELDS})
 
 
 def states_equal(a, b) -> bool:
@@ -2830,6 +2856,279 @@ def measurement_phase(device="cuda") -> dict:
     return total
 
 
+# --------------------------------------------- phase 16: the graphed chunk
+
+# the three scenes graph against eager: bench.py's 10k workload through the
+# adaptive runner (seg-aligned chunks: a probe segment, then K-step blocks),
+# the 100k HEX table from placement (no spill rows; most rebuilds exact),
+# and eight 10k seeds batched
+GRAPH_CHUNK_10K, GRAPH_CHUNKS_10K = 600, 4
+GRAPH_N_100K, GRAPH_CHUNK_100K, GRAPH_CHUNKS_100K = 100_000, 200, 2
+GRAPH_SEEDS, GRAPH_CHUNK_BATCH, GRAPH_CHUNKS_BATCH = tuple(range(8)), 200, 2
+# the profiled eager-vs-graph comparison at 10k, and the two-place bench
+GRAPH_PROFILE_STEPS, BENCH2_STEPS = 800, 400
+
+
+class EagerBlock:
+    """Stands in for ``engine_table._CapturedBlock`` in phase 16's eager
+    runs: the same runner, its ungated K-step blocks run eagerly (K calls
+    of the step) where the graph runs replay them."""
+
+    def __init__(self, block, ts, k):
+        self.block = block
+
+    def __call__(self, ts):
+        return self.block(ts, step_tensor(ts.step, ts.origin.device))
+
+
+def chunks_run(make_runner, state, chunks, aligned, eager):
+    """A fresh runner's ``chunks`` from a copy of ``state``, with its K-step
+    blocks eager or replayed from graphs, the counters reset just before:
+    (runner, state, launches, rebuilds, wall s, live K after each chunk)."""
+    captured = engine_table._CapturedBlock
+    if eager:
+        engine_table._CapturedBlock = EagerBlock
+    try:
+        run = make_runner()
+        state = clone_state(state)
+        reset_counts()
+        ks = []
+        t0 = time.perf_counter()
+        for n in chunks:
+            state = run(state, n, aligned)
+            ks.append(getattr(run, "live", {}).get("k"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return run, state, dict(kernels.LAUNCHES), dict(REBUILDS), wall, ks
+    finally:
+        engine_table._CapturedBlock = captured
+
+
+def sync_free_chunk(name, run, state, n, aligned):
+    """One more chunk of a warm runner under ``set_sync_debug_mode("error")``:
+    nothing between its entry and exit may wait for the card."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = run(state, n, aligned)
+    except RuntimeError as err:
+        fail(f"{name}: a chunk waited for the card: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(state.pos).all()):
+        fail(f"{name}: non-finite state after the sync-free chunk")
+
+
+def graph_vs_eager(name, make_runner, state, chunks, aligned, total):
+    """``chunks`` through eager and graph runs of one runner kind from one
+    state: bit for bit, with equal launch and rebuild counts, then one
+    sync-free chunk of the graph runner.  Adds the graph run's launches to
+    ``total``; returns (text, live Ks)."""
+    _, e_state, e_launch, e_reb, e_wall, ks = chunks_run(make_runner, state, chunks, aligned, True)
+    run, g_state, g_launch, g_reb, g_wall, g_ks = chunks_run(make_runner, state, chunks, aligned,
+                                                            False)
+    if not states_equal(e_state, g_state):
+        bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e_state, k), getattr(g_state, k))]
+        fail(f"{name}: graph run differs from the eager run in {bad}")
+    if (e_launch, e_reb, ks) != (g_launch, g_reb, g_ks):
+        fail(f"{name}: eager launches {e_launch} rebuilds {e_reb} K {ks}, "
+             f"graph {g_launch} {g_reb} {g_ks}")
+    for k, v in g_launch.items():
+        total[k] = total.get(k, 0) + v
+    sync_free_chunk(name, run, g_state, chunks[-1], aligned)
+    steps = sum(chunks)
+    used = {k: v for k, v in g_launch.items() if v}
+    return (f"{name}: {steps} steps, graph == eager bit for bit, launches {used}, "
+            f"rebuilds {g_reb}, live K {g_ks}; wall {e_wall * 1e6 / steps:.1f} us/step eager, "
+            f"{g_wall * 1e6 / steps:.1f} graph (first chunk captures); sync-free chunk ok"), g_ks
+
+
+def select_cost(p, state) -> str:
+    """The device-side rebuild choice against the incremental rebuild alone
+    on ``state``'s table after one step's integrate: per-rebuild device
+    times in a CUDA graph, and their difference (what the exact rebuild and
+    the select add to each rebuild)."""
+    from particlerobotsimulations_torch.engine_table import _derived_rows, _smart_rebuild
+    from particlerobotsimulations_torch.ops.table_rebuild import incremental_rebuild
+
+    pre, _ = make_table_step_parts(p)
+    ts = pre(enter_table(p, state), False, False, False)
+
+    def inc_only():
+        moved, ok = incremental_rebuild(p, ts.fields, MOVE_FIELDS, ts.origin)
+        return _derived_rows(p, {**ts.fields, **moved}), ok
+
+    sel = graph_ms(lambda: _smart_rebuild(p, ts), launches=10)
+    inc = graph_ms(inc_only, launches=10)
+    return (f"select {sel * 1e3:.1f} us, incremental alone {inc * 1e3:.1f} us, "
+            f"select adds {(sel - inc) * 1e3:.1f} us per rebuild; the exact rebuild's "
+            f"device time by op: {exact_rebuild_ops(p, ts)}")
+
+
+def exact_rebuild_ops(p, ts, calls: int = 10, top: int = 6) -> str:
+    """Device us per call of the exact rebuild under ``torch.profiler``:
+    the total and its ``top`` operators by self device time."""
+    from particlerobotsimulations_torch.engine_table import _exact_rebuild
+    from torch.profiler import ProfilerActivity, profile
+
+    _exact_rebuild(p, ts.fields)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            _exact_rebuild(p, ts.fields)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::") and dev_us(e) > 0]
+    ops.sort(key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in ops) / calls
+    return f"{total:.1f} us in all, " + ", ".join(
+        f"{e.key[6:]} {dev_us(e) / calls:.1f}" for e in ops[:top])
+
+
+def profiled_modes(p, state, k) -> str:
+    """Eager against graph in one call at 10k on the K-step table loop
+    (unaligned chunks: gated blocks eager, the others replayed): wall
+    us/step of an unprofiled chunk after a warm-up chunk, then the
+    profiler's busy share and device us/step over another."""
+    pk = p.replace(slot_rebuild_steps=k).validate()
+    out = []
+    for mode in ("eager", "graph", "graph", "eager"):
+        run, st, *_ = chunks_run(lambda: make_run_chunk_table(pk), state, [200], False,
+                                 mode == "eager")
+        captured = engine_table._CapturedBlock
+        if mode == "eager":
+            engine_table._CapturedBlock = EagerBlock
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = run(st, GRAPH_PROFILE_STEPS, False)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6 / GRAPH_PROFILE_STEPS
+            holder = {"st": st}
+
+            def more():
+                holder["st"] = run(holder["st"], GRAPH_PROFILE_STEPS, False)
+
+            share = busy_share(more, GRAPH_PROFILE_STEPS)
+        finally:
+            engine_table._CapturedBlock = captured
+        # the profiler's own host work stretches the profiled wall: the
+        # device time over the unprofiled wall is the share without it
+        dev = re.search(r"\(([0-9.]+) device us/step", share)
+        plain = f", device us over unprofiled wall {float(dev.group(1)) / wall:.4f}" if dev else ""
+        out.append(f"{mode} {wall:.1f} us/step wall{plain}, profiled busy share {share}")
+    return f"K={k}: " + " | ".join(out)
+
+
+def two_place_bench(total) -> str:
+    """The bench's multi-place branch on ``Mesh(["cuda"] * 2)`` at 10k and
+    BENCH2_STEPS-step chunks: the places' blocks dispatched in turn, and
+    each place's scene bit for bit its seed run alone through the batched
+    loop (the bench's four chunks)."""
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    from particlerobotsimulations_torch import bench
+    from particlerobotsimulations_torch.engine import make_run_chunk_batched
+    from particlerobotsimulations_torch.parallel.mesh import Mesh
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    log = {"order": []}
+    real = bench.interleave
+
+    def logged(iterators):
+        def wrap(i, it):
+            while True:
+                try:
+                    next(it)
+                except StopIteration as stop:
+                    return stop.value
+                log["order"].append(i)
+                yield
+
+        log["states"] = real([wrap(i, it) for i, it in enumerate(iterators)])
+        return log["states"]
+
+    reset_counts()
+    bench.interleave = logged
+    buf = StringIO()
+    try:
+        with redirect_stdout(buf):
+            record = bench.run_bench("cuda", bench_params().n_cells, BENCH2_STEPS,
+                                     mesh=Mesh(["cuda"] * 2))
+    finally:
+        bench.interleave = real
+    part = add_counts(total)
+    order = log["order"]
+    first = order[:2 * min(order.count(0), order.count(1))]
+    if first != [0, 1] * (len(first) // 2) or not first:
+        fail(f"two-place bench: dispatch order {order[:12]}... is not interleaved")
+    params = resolve_params(bench_params().validate())
+    n_chunks = 4  # one warm-up, three timed
+    for b, got in enumerate(log["states"]):
+        solo = make_batch_state(params, [b], "cuda")
+        run = make_run_chunk_batched(params, "cuda")
+        for _ in range(n_chunks):
+            solo = run(solo, BENCH2_STEPS, True)
+        if not states_equal(got, solo):
+            fail(f"two-place bench: place {b}'s scene differs from its solo run")
+    return (f"two-place bench on Mesh(['cuda'] * 2), {BENCH2_STEPS}-step chunks: "
+            f"{json.dumps(record)}; {len(order)} block dispatches interleaved "
+            f"(first {order[:8]}), each scene bit for bit its solo run; launches "
+            f"{ {k: v for k, v in part.items() if v} }")
+
+
+def graph_phase(main_state) -> dict:
+    """Phase 16: the ungated K-step blocks from CUDA graphs, held bit for
+    bit to the eager blocks on three scenes, sync-free chunks, the select's
+    cost, eager against graph profiled at 10k, and the two-place bench.
+    Returns the graph runs' launches."""
+    from particlerobotsimulations_torch.engine import make_run_chunk, make_run_chunk_batched
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    total: dict = {}
+    p10 = resolve_params(bench_params().validate())
+    t0 = time.perf_counter()
+    text, ks = graph_vs_eager("10k adaptive", lambda: make_run_chunk(p10, "cuda"), main_state,
+                              [GRAPH_CHUNK_10K] * GRAPH_CHUNKS_10K, True, total)
+    print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if 8 not in ks:
+        p8 = p10.replace(slot_rebuild_steps=8).validate()
+        text, _ = graph_vs_eager("10k K=8 (the probe kept K=4)",
+                                 lambda: make_run_chunk_table(p8), main_state,
+                                 [GRAPH_CHUNK_10K] * 2, False, total)
+        print(f"phase 16 {text}", flush=True)
+    k_live = 8 if 8 in ks else 4
+    print(f"phase 16 10k {select_cost(p10, main_state)}", flush=True)
+    print(f"phase 16 10k eager against graph, {GRAPH_PROFILE_STEPS} steps each "
+          f"(eager, graph, graph, eager): {profiled_modes(p10, main_state, k_live)}", flush=True)
+
+    t0 = time.perf_counter()
+    p100 = resolve_params(bench_params().replace(n_cells=GRAPH_N_100K).validate())
+    if p100.resolved_overflow_slots():
+        fail(f"100k scene: {p100.resolved_overflow_slots()} spill rows, want none")
+    s100 = pt.Simulation(p100, device="cuda").state
+    text, _ = graph_vs_eager("100k HEX", lambda: make_run_chunk_table(p100), s100,
+                             [GRAPH_CHUNK_100K] * GRAPH_CHUNKS_100K, False, total)
+    print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"phase 16 100k G={p100.resolved_grid_dim()} {select_cost(p100, s100)}", flush=True)
+
+    t0 = time.perf_counter()
+    batch = make_batch_state(p10, list(GRAPH_SEEDS), "cuda")
+    text, _ = graph_vs_eager(f"{len(GRAPH_SEEDS)} seeds x 10k batched",
+                             lambda: make_run_chunk_batched(p10, "cuda"), batch,
+                             [GRAPH_CHUNK_BATCH] * GRAPH_CHUNKS_BATCH, True, total)
+    print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    print(f"phase 16 {two_place_bench(total)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return total
+
+
 def main() -> int:
     # 1. the card
     if not torch.cuda.is_available():
@@ -3073,6 +3372,13 @@ def main() -> int:
     launches15 = measurement_phase()
     print(f"phase 15 took {time.perf_counter() - t15:.1f} s; launches {launches15}")
 
+    # 16. the graphed chunk: graph against eager on three scenes (the
+    #     counters reset just before each run), sync-free chunks, the
+    #     two-place bench
+    t16 = time.perf_counter()
+    launches16 = graph_phase(main_state)
+    print(f"phase 16 took {time.perf_counter() - t16:.1f} s; launches {launches16}")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -3129,7 +3435,7 @@ def main() -> int:
         )
     ]}
     for entry in record["kernels"]:
-        entry["launches"] += launches15.get(entry["name"], 0)
+        entry["launches"] += launches15.get(entry["name"], 0) + launches16.get(entry["name"], 0)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

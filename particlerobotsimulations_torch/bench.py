@@ -11,7 +11,9 @@ first probes the HEX relaxation transient and withholds K=8, the second
 measures the steady state, the third runs the certified cadence), else
 one; then the best of three timed chunks and a finite check on the bots'
 positions.  With several visible cards it runs one scene per card (seeds
-0, 1, ...) through the batched loop on its card, and counts every scene.
+0, 1, ...) through the batched loop on its card, every card's chunk
+enqueued block by block in turn (``engine_table.interleave``), and counts
+every scene.
 
 Prints the card's name and power limit, a line on the warm-ups, and as its
 last line ONE JSON object with bench.py's keys::
@@ -35,7 +37,7 @@ import torch
 
 from .config import Config, ForceBackend, SimParams
 from .engine import make_run_chunk, make_run_chunk_batched
-from .engine_table import gate_seg
+from .engine_table import gate_seg, interleave
 from .parallel.mesh import default_mesh
 from .parallel.sweep import make_batch_state, shard_batch
 from .sim import Simulation
@@ -92,7 +94,9 @@ def run_bench(device="cuda", n_bots: int = N_BOTS, steps: int = STEPS, mesh=None
     aligned = seg > 0 and steps % seg == 0
 
     def chunk(states):
-        states = [run(s, steps, aligned) for s, run in zip(states, runs)]
+        # every place's chunk enqueued block by block, in turn, before any
+        # place is waited for
+        states = interleave([run.blocks(s, steps, aligned) for s, run in zip(states, runs)])
         for s in states:
             sync(s)
         return states

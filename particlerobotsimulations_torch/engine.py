@@ -50,6 +50,7 @@ from .ops.phase import update_phase
 from .ops.stencil import stencil_collide
 from .engine_table import (
     _gates,
+    drain,
     make_adaptive_run_chunk,
     make_run_chunk_table,
     make_run_chunk_table_batched,
@@ -240,21 +241,32 @@ def make_run_chunk(params: SimParams, device="cuda"):
     """``run_chunk(state, n_steps, seg_aligned=False) -> state`` for a run
     on ``device``.  PALLAS goes to the table-resident loop (the adaptive-K
     runner from 4096 bots up), DENSE, STENCIL and CELLGRID to a loop of
-    :func:`make_step`."""
+    :func:`make_step`.  Every runner has ``run_chunk.blocks``, the chunk
+    as a block iterator (``engine_table.interleave`` runs several)."""
     params = params.validate()
     backend = params.resolved_backend(device)
     if backend == ForceBackend.PALLAS:
         if params.adaptive_rebuild():
             return make_adaptive_run_chunk(params)
         return make_run_chunk_table(params)
-    step = make_step(params, device)
+    return _step_loop(make_step(params, device))
 
-    def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
+
+def _step_loop(step):
+    """``run_chunk`` of a loop of ``step``, with the table runners'
+    ``blocks`` iterator (a block is one step)."""
+
+    def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         # seg_aligned: signature parity with the table loop; no-op here
         for _ in range(n_steps):
             state = step(state)
+            yield
         return state
 
+    def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
+        return drain(blocks(state, n_steps, seg_aligned))
+
+    run_chunk.blocks = blocks
     return run_chunk
 
 
@@ -269,12 +281,4 @@ def make_run_chunk_batched(params: SimParams, device="cuda"):
     params = params.validate()
     if params.resolved_backend(device) == ForceBackend.PALLAS:
         return make_run_chunk_table_batched(params)
-    step = make_step_batched(params, device)
-
-    def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
-        # seg_aligned: signature parity with the table loop; no-op here
-        for _ in range(n_steps):
-            state = step(state)
-        return state
-
-    return run_chunk
+    return _step_loop(make_step_batched(params, device))

@@ -23,7 +23,14 @@ positions), phase, radius (one-step-lag force feedback), integrate, then
 
 A Python loop over steps, with every gate decided from the host-side step
 counter, fires the same gates and rebuilds on the same steps as the JAX
-loop's segment scan.  Small tables (``ops/megakernel.mega_eligible``) run
+loop's segment scan.  Like the JAX package's jitted chunk, a chunk reads
+nothing from the device between entry and exit (the span path's one read
+per gate segment aside): the rebuild's
+incremental-or-exact choice is a select on the device, the rebuild counts
+(:data:`REBUILDS`) are device counters, and the sim time is a device
+scalar.  On the card the ungated K-step blocks (the JAX loop's ``plain_u``
+scan) replay from a CUDA graph captured once per runner and carry layout;
+the other steps run eagerly.  Small tables (``ops/megakernel.mega_eligible``) run
 the ungated part of each gate segment through the megakernel span path:
 one launch of kernel 3 per rebuild block, with the slot rebuild between
 spans, and the whole segment redone on the regular path when a rebuild's
@@ -45,13 +52,15 @@ segment on the regular batched path when any scene's span rebuild failed.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
+from collections.abc import MutableMapping
 
 import numpy as np
 import torch
 from torch.func import vmap
 
-from . import rng
+from . import kernels, rng
 from .config import Control, SimParams, padded_n
 from .ops.forces import attraction_scale, friction_velocity_update_xy, obstacle_forces_xy
 from .ops.integrate import radius_integrate_planes
@@ -80,13 +89,78 @@ MOVE_FIELDS = (
     "px", "py", "vx", "vy", "rad", "val", "phase", "dead", "bid",
 )
 
-# what the loops' rebuild schedule took, for callers that check a run: one
-# count per slot rebuild (a batched rebuild counts once for all its
-# scenes), the incremental compaction or the exact argsort rebuild its
-# failed preconditions fell back to.  The span path's unconditional
-# rebuilds between spans are not counted; their failures show as the
-# runner's ``redos``.
-REBUILDS = {"incremental": 0, "exact": 0}
+
+class RebuildCounts(MutableMapping):
+    """What the loops' rebuild schedule took, for callers that check a run:
+    one count per slot rebuild (a batched rebuild counts once for all its
+    scenes), ``"incremental"`` for the compaction's result, ``"exact"``
+    for the argsort rebuild that failed preconditions select.  The span
+    path's unconditional rebuilds between spans are not counted; their
+    failures show as the runner's ``redos``.
+
+    The counts live on the device: each rebuild adds its decision in
+    place to a counter tensor on its carry's device, so a CUDA graph that
+    captured the rebuild counts its replays, and the loop reads nothing.
+    Reading a count copies the counters to the host (it waits for the
+    card); setting one (to 0, say) zeroes the counters in place."""
+
+    KEYS = ("incremental", "exact")
+
+    def __init__(self):
+        self._base = dict.fromkeys(self.KEYS, 0)
+        self._counters = {}  # device -> (2,) int64, never reallocated
+
+    def counter(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        if device not in self._counters:
+            self._counters[device] = torch.zeros(2, dtype=torch.int64, device=device)
+        return self._counters[device]
+
+    def add(self, ok: torch.Tensor) -> None:
+        """Count one rebuild: incremental where the 0-dim bool ``ok``
+        holds, exact where it does not."""
+        self.counter(ok.device).add_(torch.stack([ok, ~ok]).to(torch.int64))
+
+    def _index(self, key) -> int:
+        if key not in self.KEYS:
+            raise KeyError(key)
+        return self.KEYS.index(key)
+
+    def __getitem__(self, key) -> int:
+        i = self._index(key)
+        return self._base[key] + sum(int(c[i]) for c in self._counters.values())
+
+    def __setitem__(self, key, value) -> None:
+        i = self._index(key)
+        self._base[key] = int(value)
+        for c in self._counters.values():
+            c[i].zero_()
+
+    def __delitem__(self, key):
+        raise TypeError("the rebuild counts have fixed keys")
+
+    def __iter__(self):
+        return iter(self.KEYS)
+
+    def __len__(self) -> int:
+        return len(self.KEYS)
+
+
+REBUILDS = RebuildCounts()
+
+
+def step_tensor(step: int, device) -> torch.Tensor:
+    """The step counter as a 0-dim int64 tensor on ``device`` (a fill: no
+    copy from the host)."""
+    return torch.full((), step, dtype=torch.int64, device=device)
+
+
+def sim_time(step: torch.Tensor, dt: float) -> torch.Tensor:
+    """The sim time ``f32(step) * f32(dt)`` of a 0-dim int64 step tensor,
+    as a 0-dim float32 tensor on its device: bitwise the host value
+    ``float(np.float32(step) * np.float32(dt))`` (both round the step to
+    float32 to nearest and multiply in float32)."""
+    return step.to(torch.float32) * f32(dt)
 
 
 @dataclasses.dataclass
@@ -281,7 +355,10 @@ def _smart_rebuild(params: SimParams, ts: TableState) -> TableState:
     Only MOVE_FIELDS travel; afac/pay are re-derived from the moved bid
     plane.  Falls back to the argsort rebuild when a precondition fails (a
     >1-cell move, a cell over capacity, or occupied edge columns).  The
-    choice reads ``ok`` on the host — one device sync per rebuild.  A
+    choice is made on the device, as the JAX package's ``lax.cond`` makes
+    it: both rebuilds run, and every field plane and the origin take the
+    incremental result where ``ok`` holds, else the exact one
+    (``torch.where`` on a 0-dim ``ok``), so the host reads nothing.  A
     batched carry (a leading scene axis) is decided once for every scene
     (the JAX package's ``_smart_rebuild_batched``): one kernel-2 launch
     compacts every scene, and its result is taken for all of them only when
@@ -290,14 +367,14 @@ def _smart_rebuild(params: SimParams, ts: TableState) -> TableState:
     from .ops.table_rebuild import incremental_rebuild
 
     moved, ok = incremental_rebuild(params, ts.fields, MOVE_FIELDS, ts.origin)
-    if bool(ok.all()):
-        REBUILDS["incremental"] += 1
-        f = dict(ts.fields)
-        f.update(moved)
-        return ts.replace(fields=_derived_rows(params, f))
-    REBUILDS["exact"] += 1
-    fields, origin = _exact_rebuild(params, ts.fields)
-    return ts.replace(fields=fields, origin=origin)
+    ok = ok.all()
+    REBUILDS.add(ok)
+    inc = _derived_rows(params, {**ts.fields, **moved})
+    exact, origin = _exact_rebuild(params, ts.fields)
+    return ts.replace(
+        fields={kf: torch.where(ok, inc[kf], exact[kf]) for kf in TABLE_FIELDS},
+        origin=torch.where(ok, ts.origin, origin),
+    )
 
 
 def _inject_dead_table(params: SimParams, f: dict, generator, step: int) -> torch.Tensor:
@@ -414,10 +491,13 @@ def _make_mega_glue(params: SimParams):
 def make_table_step_parts(params: SimParams, phase_fn=None):
     """(step_pre, step_post): the physics step split around the rebuild.
 
-    ``step_pre(ts, dead_gate, cog_gate, phase_gate)`` runs dead injection,
-    centroid ring, phase, radius and integrate (the step counter is NOT
-    bumped); ``step_post(ts)`` runs collide + obstacles + friction and
-    bumps the counter.  Gates are host bools.  Both take a single scene's
+    ``step_pre(ts, dead_gate, cog_gate, phase_gate, time=None)`` runs dead
+    injection, centroid ring, phase, radius and integrate (the step counter
+    is NOT bumped); ``step_post(ts)`` runs collide + obstacles + friction
+    and bumps the counter.  Gates are host bools; ``time`` is the step's
+    sim time as a 0-dim float32 device tensor (:func:`sim_time`), by
+    default made from ``ts.step`` (the K-step block passes its own, from
+    a step tensor a CUDA graph replay reads).  Both take a single scene's
     carry or a batched one (a leading scene axis on every field, the
     batched loop's): every op is elementwise or reduces the last axis, and
     kernel 1 takes every scene in one launch.
@@ -443,9 +523,10 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
     )
 
     def step_pre(ts: TableState, dead_gate: bool, cog_gate: bool,
-                 phase_gate: bool) -> TableState:
+                 phase_gate: bool, time: torch.Tensor | None = None) -> TableState:
         f = dict(ts.fields)
-        time = float(f32(ts.step) * f32(dt))
+        if time is None:
+            time = sim_time(step_tensor(ts.step, f["px"].device), dt)
         val = f["val"] > 0.5
 
         # 1. dead-cell injection (one-shot)
@@ -516,16 +597,17 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
 
 
 def make_table_step(params: SimParams, phase_fn=None):
-    """``step(ts, dead_gate, cog_gate, phase_gate, rebuild) -> ts``: one
-    physics step; the slot rebuild (when ``rebuild``) sits after integrate
-    and before collide, so the one-step-lag force carry is already consumed
-    and collide sees the freshest assignment.  A batched carry's rebuild is
-    decided for all scenes at once (:func:`_smart_rebuild`)."""
+    """``step(ts, dead_gate, cog_gate, phase_gate, rebuild, time=None) ->
+    ts``: one physics step; the slot rebuild (when ``rebuild``) sits after
+    integrate and before collide, so the one-step-lag force carry is
+    already consumed and collide sees the freshest assignment.  A batched
+    carry's rebuild is decided for all scenes at once
+    (:func:`_smart_rebuild`).  ``time``: as ``step_pre`` takes it."""
     params = params.validate()
     step_pre, step_post = make_table_step_parts(params, phase_fn)
 
-    def step(ts, dead_gate, cog_gate, phase_gate, rebuild):
-        ts = step_pre(ts, dead_gate, cog_gate, phase_gate)
+    def step(ts, dead_gate, cog_gate, phase_gate, rebuild, time=None):
+        ts = step_pre(ts, dead_gate, cog_gate, phase_gate, time)
         if rebuild:
             ts = _smart_rebuild(params, ts)
         return step_post(ts)
@@ -573,14 +655,128 @@ def make_run_chunk_table_batched(params: SimParams):
     return _make_table_runner(params, None)
 
 
+def drain(blocks):
+    """Run a block iterator (a runner's ``blocks``) to its end; returns
+    its value, the chunk's final state."""
+    while True:
+        try:
+            next(blocks)
+        except StopIteration as stop:
+            return stop.value
+
+
+def interleave(iterators) -> list:
+    """Advance block iterators (one per place, each a runner's ``blocks``)
+    one block at a time, in turn, until every one has ended; returns their
+    final states in order.  Every place's chunk is enqueued block by block
+    beside the others', and nothing is read back from any place before all
+    are enqueued (the loops read nothing inside a chunk)."""
+    its = list(iterators)
+    out = [None] * len(its)
+    live = list(range(len(its)))
+    while live:
+        for i in list(live):
+            try:
+                next(its[i])
+            except StopIteration as stop:
+                out[i] = stop.value
+                live.remove(i)
+    return out
+
+
+class _CapturedBlock:
+    """An ungated K-step block captured once as a CUDA graph, replayed by
+    calling it on a carry of the layout it was captured for.
+
+    The carry lives in static buffers (the fields and the origin) beside a
+    0-dim int64 step tensor the block's sim times are made from.  A call
+    copies in the fields the caller holds that are not the buffers already
+    (after a replay they are, until an eager step replaces some), fills the
+    step, replays, and returns the carry on the buffers: the captured block
+    ends by copying its outputs back into them.  The kernel wrappers count
+    their launches while the block is captured; those counts are taken back
+    and added again at every replay, so ``kernels.LAUNCHES`` counts what ran.
+    The caller has run the block eagerly on the card first: that warm-up
+    grants each kernel its shared memory at these sizes, which capture may
+    not do, and creates the rebuild counter on this device.  Python's
+    cyclic garbage collector is held off during the capture: a runner no
+    longer referenced (runners hold reference cycles) that it freed
+    mid-capture would destroy its graphs there, and that voids the
+    capture."""
+
+    def __init__(self, block, ts: TableState, k: int):
+        dev = ts.origin.device
+        self.k = k
+        self.fields = {kf: torch.empty_like(v) for kf, v in ts.fields.items()}
+        self.origin = torch.empty_like(ts.origin)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        REBUILDS.counter(dev)
+        before = dict(kernels.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                self.graph.capture_begin()
+                try:
+                    out = block(ts.replace(fields=dict(self.fields), origin=self.origin),
+                                self.step)
+                    for kf, v in out.fields.items():
+                        self.fields[kf].copy_(v)
+                    self.origin.copy_(out.origin)
+                except BaseException:
+                    # the capture is void: end it, and raise what voided it
+                    try:
+                        self.graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.launches = {n: c - before[n] for n, c in kernels.LAUNCHES.items() if c != before[n]}
+        kernels.LAUNCHES.update(before)
+
+    def __call__(self, ts: TableState) -> TableState:
+        for kf, v in ts.fields.items():
+            if v is not self.fields[kf]:
+                self.fields[kf].copy_(v)
+        if ts.origin is not self.origin:
+            self.origin.copy_(ts.origin)
+        self.step.fill_(ts.step)
+        self.graph.replay()
+        for n, c in self.launches.items():
+            kernels.LAUNCHES[n] += c
+        return ts.replace(fields=dict(self.fields), origin=self.origin, step=ts.step + self.k)
+
+
 def _make_table_runner(params: SimParams, phase_fn):
     """The chunk runner of a single-scene or a batched state: every piece
-    dispatches on the rank of what it is given."""
+    dispatches on the rank of what it is given.
+
+    ``run_chunk.blocks(state, n_steps, seg_aligned=False)`` is the chunk
+    as a block iterator: it enqueues the chunk a block at a time (an
+    ungated K-step block, a gated or ragged step, a span segment), yields
+    after each, and returns the final state; ``run_chunk`` drains it and
+    the multi-place loops :func:`interleave` several.  An ungated block
+    (K steps, none of which fires a gate, ending in the rebuild step: the
+    JAX package's ``plain_u`` scan) on a CUDA carry runs from a CUDA graph
+    (:class:`_CapturedBlock`), captured on the first such block after it
+    ran eagerly, once per carry layout, and replayed after that; a failed
+    capture raises.  On the CPU every block runs eagerly, through the same
+    step.  Gated steps, the ragged remainder, chunk entry and exit and the
+    span path run eagerly.  A runner advances one chunk at a time (its
+    graphs hold that chunk's carry)."""
     params = params.validate()
     step = make_table_step(params, phase_fn)
     step_pre, step_post = make_table_step_parts(params, phase_fn)
     k = max(1, params.resolved_slot_rebuild_steps())
     seg = gate_seg(params)
+    dt = params.timestep
 
     from .ops.megakernel import make_mega_span, mega_eligible
 
@@ -590,10 +786,44 @@ def _make_table_runner(params: SimParams, phase_fn):
         mega = make_mega_span(params, _geometry(params)[2])
         mega_pack, mega_unpack, incremental_packed = _make_mega_glue(params)
 
-    def regular_steps(ts: TableState, n: int) -> TableState:
-        for j in range(n):
-            rebuild = ts.step % k == k - 1 if k > 8 else j % k == k - 1
-            ts = step(ts, *_gates(params, ts.step), rebuild)
+    def gated(s: int) -> bool:
+        dead, cog, phase = _gates(params, s)
+        return dead or cog or (phase and params.control == Control.LIGHT_WAVE)
+
+    def block(ts: TableState, step0: torch.Tensor) -> TableState:
+        """The ungated block from step ``ts.step`` (``step0``, on the
+        device): K - 1 plain steps, then the step with the rebuild."""
+        for j in range(k):
+            ts = step(ts, False, False, False, j == k - 1, time=sim_time(step0 + j, dt))
+        return ts
+
+    graphs: dict = {}
+
+    def ungated_block(ts: TableState) -> TableState:
+        dev = ts.origin.device
+        if dev.type != "cuda":
+            return block(ts, step_tensor(ts.step, dev))
+        key = (dev, tuple(ts.origin.shape))
+        if key in graphs:
+            return graphs[key](ts)
+        ts_in = ts
+        ts = block(ts_in, step_tensor(ts_in.step, dev))
+        graphs[key] = _CapturedBlock(block, ts_in, k)
+        return ts
+
+    def regular(ts: TableState, n: int):
+        """``n`` steps on the regular schedule, block by block."""
+        j = 0
+        while j < n:
+            if ((j if k <= 8 else ts.step) % k == 0 and j + k <= n
+                    and not any(gated(ts.step + i) for i in range(k))):
+                ts = ungated_block(ts)
+                j += k
+            else:
+                rebuild = ts.step % k == k - 1 if k > 8 else j % k == k - 1
+                ts = step(ts, *_gates(params, ts.step), rebuild)
+                j += 1
+            yield
         return ts
 
     def mega_seg(ts: TableState) -> TableState:
@@ -627,18 +857,31 @@ def _make_table_runner(params: SimParams, phase_fn):
         fields, origin, step0, ring, snap = entry
         rng.restore(ts.generator, snap)
         ts = ts.replace(fields=fields, origin=origin, step=step0, centroid_ring=ring)
-        return regular_steps(ts, seg)
+        return drain(regular(ts, seg))
+
+    busy = []
+
+    def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
+        if busy:
+            raise RuntimeError("a table runner advances one chunk at a time")
+        busy.append(True)
+        try:
+            ts = enter_table(params, state)
+            n_segs = 0
+            if use_mega and seg_aligned and bps > 1:
+                n_segs = n_steps // seg
+                for _ in range(n_segs):
+                    ts = mega_seg(ts)
+                    yield
+            ts = yield from regular(ts, n_steps - n_segs * seg)
+            return exit_table(params, ts)
+        finally:
+            busy.clear()
 
     def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
-        ts = enter_table(params, state)
-        n_segs = 0
-        if use_mega and seg_aligned and bps > 1:
-            n_segs = n_steps // seg
-            for _ in range(n_segs):
-                ts = mega_seg(ts)
-        ts = regular_steps(ts, n_steps - n_segs * seg)
-        return exit_table(params, ts)
+        return drain(blocks(state, n_steps, seg_aligned))
 
+    run_chunk.blocks = blocks
     run_chunk.redos = 0
     run_chunk.path_info = {
         "use_mega": use_mega,
@@ -735,6 +978,28 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
     return probe_chunk
 
 
+class _HostValue:
+    """A 0-dim device value on its way to the host: the copy is enqueued
+    at once (on a card into pinned memory, behind an event), and
+    :meth:`read` waits for that copy alone, not for the work enqueued
+    after it."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+            t = host
+        self._t = t
+
+    def read(self) -> float:
+        if self._event is not None:
+            self._event.synchronize()
+        return float(self._t)
+
+
 def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     """Speed-certified adaptive rebuild cadence — the ``slot_rebuild_steps
     = -1`` auto mode on large tables (``SimParams.adaptive_rebuild``).
@@ -742,11 +1007,14 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     Every seg-aligned chunk opens with one probe segment at the CURRENT
     cadence; the cadence for the NEXT chunk is K=8 iff the measured bound
     stays within :func:`certified_closing_bound` for K=8, else K=4.  The
-    probe value is read at the next chunk boundary, so detection latency is
-    one chunk.  Chunks that cannot take the segment schedule (unaligned
-    entry, short or ragged chunks) run the base K=4 path.  ``runner.live
-    ["k"]`` / ``runner.last_probe`` expose the live cadence and the last
-    bound read."""
+    probe value is copied to the host as soon as the probe is enqueued and
+    read at the next chunk boundary (waiting for that copy alone), so
+    detection latency is one chunk and the chunk reads nothing.  Chunks
+    that cannot take the segment schedule (unaligned entry, short or
+    ragged chunks) run the base K=4 path.  ``runner.blocks`` is the chunk
+    as a block iterator (the table runner's); ``runner.live["k"]`` /
+    ``runner.last_probe`` expose the live cadence and the last bound
+    read."""
     base = params.validate()
     p4 = base.replace(slot_rebuild_steps=4)
     p8 = base.replace(slot_rebuild_steps=8)
@@ -769,20 +1037,26 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
             probes[k] = make_probe_chunk(p4 if k == 4 else p8, phase_fn)
         return probes[k]
 
-    def runner(state: SimState, n_steps: int, seg_aligned: bool = False):
+    def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         if not seg_ok or not seg_aligned or n_steps < seg or n_steps % seg:
-            return get_runner(4)(state, n_steps, seg_aligned)
+            return (yield from get_runner(4).blocks(state, n_steps, seg_aligned))
         if runner._pending is not None:
             # the previous chunk's probe, computed long ago on the device
-            pm = float(runner._pending.item())
+            pm = runner._pending.read()
             runner.last_probe = pm
             live["k"] = 8 if pm <= bound8 else 4
-        state, runner._pending = get_probe(live["k"])(state)
+        state, pm = get_probe(live["k"])(state)
+        runner._pending = _HostValue(pm)
+        yield
         rest = n_steps - seg
         if rest:
-            state = get_runner(live["k"])(state, rest, True)
+            state = yield from get_runner(live["k"]).blocks(state, rest, True)
         return state
 
+    def runner(state: SimState, n_steps: int, seg_aligned: bool = False):
+        return drain(blocks(state, n_steps, seg_aligned))
+
+    runner.blocks = blocks
     runner.live = live
     runner.last_probe = None
     runner._pending = None

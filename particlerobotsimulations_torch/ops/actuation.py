@@ -35,7 +35,8 @@ def update_radius(
     abs_force_r: torch.Tensor,  # (n,) previous-step repulsion magnitudes
     dead: torch.Tensor,         # (n,) bool
     mask: torch.Tensor,         # (n,) bool
-    time: float,                # sim time, a float32 value
+    time,                       # sim time: a float32 value, or a 0-dim
+                                # float32 tensor on rad's device
     dt: float,
 ) -> torch.Tensor:
     period = f32(params.wave_period())
@@ -46,7 +47,7 @@ def update_radius(
     # local clock with the reference's conditional wrap
     # (particlebot_kernel_impl.cuh:137-141): +100 periods once if negative,
     # fmod only when t1 >= period
-    t1 = f32(time) + phase
+    t1 = (time if torch.is_tensor(time) else f32(time)) + phase
     t1 = torch.where(t1 < 0, t1 + f32(100.0) * period, t1)
     t1 = torch.where(t1 >= period, t1 - period * torch.floor(t1 / period), t1)
     in_window = t1 < f32(2.0) * rise

@@ -46,12 +46,10 @@ def _norm(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def _where(cond, a, b):
-    """``jnp.where`` with python-scalar branches kept float32."""
-    like = a if torch.is_tensor(a) else b
-    if not torch.is_tensor(a):
-        a = torch.tensor(a, dtype=like.dtype, device=like.device)
-    if not torch.is_tensor(b):
-        b = torch.tensor(b, dtype=like.dtype, device=like.device)
+    """``jnp.where`` with a python-scalar branch: ``torch.where`` takes the
+    scalar as it is, and the tensor branch's float32 sets the result's
+    type.  No tensor is built from the scalar, so nothing is copied from
+    the host (a CUDA graph can capture the call)."""
     return torch.where(cond, a, b)
 
 

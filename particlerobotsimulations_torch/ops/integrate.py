@@ -44,14 +44,16 @@ def integrate(params: SimParams, pos, vel, rad, dt: float):
     return new_pos, new_vel
 
 
-def radius_integrate_planes(params: SimParams, f: dict, time: float) -> dict:
+def radius_integrate_planes(params: SimParams, f: dict, time) -> dict:
     """Radius controller + integrate/boundary on a dict of flat component
     planes (keys rad/phase/aa/ar/dead/val/px/py/vx/vy) — the table-resident
     form of steps 4 and 5: radius from the PREVIOUS step's force
     magnitudes, then position integrate with the ±world_half clamp and the
     boundary_damping velocity flip.  The expression shape is the JAX
-    package's (``integrate.py:62-64`` pins it there).  Mutates and returns
-    ``f``."""
+    package's (``integrate.py:62-64`` pins it there).  ``time`` is a
+    float32 value or a 0-dim float32 tensor on the planes' device (the
+    table loop's, so that the step reads no host value).  Mutates and
+    returns ``f``."""
     from .actuation import update_radius
 
     _require_resolved_world(params)

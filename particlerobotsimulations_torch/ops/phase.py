@@ -90,10 +90,11 @@ def in_shadow(params: SimParams, pos: torch.Tensor) -> torch.Tensor:
 
 
 def light_distance(params: SimParams, pos: torch.Tensor) -> torch.Tensor:
-    light = torch.tensor(
-        [params.light_x, params.light_y], dtype=torch.float32, device=pos.device
+    """(..., n) distance of each bot to the light.  The light's coordinates
+    enter as float32 scalars: no tensor is copied from the host."""
+    d = torch.stack(
+        [pos[..., 0] - f32(params.light_x), pos[..., 1] - f32(params.light_y)], dim=-1
     )
-    d = pos - light
     return torch.sqrt(torch.sum(d * d, dim=-1))
 
 

@@ -181,11 +181,12 @@ def run_sweep(
     With a ``mesh`` (``parallel/mesh.Mesh``; ``device`` is then ignored)
     the seeds are cut into one group per place of its ``"data"`` axis,
     as :func:`shard_batch` cuts a batch, each group is placed and run by
-    the batched loop on its place's device, every group's chunk issued
-    before any result is read, and the final state and the centroids come
+    the batched loop on its place's device, every group's chunk enqueued
+    block by block in turn (``engine_table.interleave``) before any result
+    is read, and the final state and the centroids come
     back in seed order on the first place.  Any strategy but ``batched``
     raises ValueError there, as in the JAX package."""
-    from ..engine_table import gate_seg
+    from ..engine_table import gate_seg, interleave
 
     # Nx == 0 -> config_size_x, exactly as Simulation resolves it — the
     # actuation wave period must match single-scene runs
@@ -221,8 +222,9 @@ def run_sweep(
     done = 0  # scenes start at step 0 and advance in lockstep
     while done < n_steps:
         chunk = min(record_every, n_steps - done)
-        groups = [(run(state, chunk, seg > 0 and done % seg == 0), run)
-                  for state, run in groups]
+        aligned = seg > 0 and done % seg == 0
+        states = interleave([run.blocks(state, chunk, aligned) for state, run in groups])
+        groups = [(state, run) for state, (_, run) in zip(states, groups)]
         done += chunk
         records.append([_centroid(state, n) for state, _ in groups])
     cents = torch.stack([torch.cat([c.to(device) for c in rec]) for rec in records])

@@ -15,14 +15,20 @@ import particlerobotsimulations_torch as pt
 from particlerobotsimulations_torch import kernels
 from particlerobotsimulations_torch.engine_table import (
     N_TF,
+    REBUILDS,
     TABLE_FIELDS,
     _gates,
     _geometry,
     _make_mega_glue,
     enter_table,
+    exit_table,
+    make_adaptive_run_chunk,
     make_run_chunk_table,
+    make_run_chunk_table_batched,
+    make_table_step,
     make_table_step_parts,
 )
+from particlerobotsimulations_torch.models.placement import resolve_params
 from particlerobotsimulations_torch.ops.megakernel import make_mega_span, mega_span_plain
 from particlerobotsimulations_torch.ops.pallas_stencil import (
     pair_constants,
@@ -37,6 +43,7 @@ from particlerobotsimulations_torch.parallel.spatial_table import (
     HALO_ROWS,
     make_sharded_table_run,
 )
+from particlerobotsimulations_torch.parallel.sweep import make_batch_state
 from particlerobotsimulations_torch.state import state_from_arrays, state_to_arrays
 
 pytestmark = pytest.mark.cuda
@@ -900,3 +907,89 @@ def test_card_checkpoint_loads_on_card_and_refuses_cpu(card, tmp_path):
         assert torch.equal(getattr(sim.state, k), getattr(resumed.state, k)), k
     with pytest.raises(ValueError, match="cuda generator state.*cpu device"):
         load_checkpoint(path, device="cpu")
+
+
+# the graph runner's scene: 2,000 HEX bots with phase noise, centroid gates
+# every 16 steps and phase gates every 24, so that a 64-step chunk holds
+# gated and ungated K=4 blocks and a ragged end
+GRAPH_SCENE = dict(n_cells=2000, n_dead=0, seed=7, config=pt.Config.HEX,
+                   force_backend=pt.ForceBackend.PALLAS, slot_rebuild_steps=4,
+                   light_x=-20.0, phase_std=0.5, centroid_int=0.16,
+                   phase_update_interval=0.24)
+CHUNK_FIELDS = ("pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r",
+                "centroid_ring")
+
+
+def reset_counts():
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    for k in REBUILDS:
+        REBUILDS[k] = 0
+
+
+def eager_table_loop(p, state, n_steps):
+    """``n_steps`` of ``make_table_step``, one call a step, on the regular
+    schedule (chunk-relative rebuilds) between chunk entry and exit: the
+    eager loop the graph runner is held to."""
+    k = max(1, p.resolved_slot_rebuild_steps())
+    step = make_table_step(p)
+    ts = enter_table(p, state)
+    for j in range(n_steps):
+        ts = step(ts, *_gates(p, ts.step), j % k == k - 1)
+    return exit_table(p, ts)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_graph_loop_equals_eager_step_loop(card, batched):
+    """Two 62-step chunks of the table runner (ungated K-step blocks
+    replayed from a CUDA graph after the first) equal the eager step loop
+    bit for bit, with equal launch and rebuild counts; batched: three
+    scenes in lockstep."""
+    p = resolve_params(pt.SimParams(**GRAPH_SCENE).validate())
+
+    def fresh():
+        if batched:
+            return make_batch_state(p, [0, 1, 2], card)
+        return pt.Simulation(p, device=card).state
+
+    run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
+    reset_counts()
+    got = fresh()
+    for _ in range(2):
+        got = run(got, 62)
+    counts = (dict(kernels.LAUNCHES), dict(REBUILDS))
+    reset_counts()
+    want = fresh()
+    for _ in range(2):
+        want = eager_table_loop(p, want, 62)
+    assert (dict(kernels.LAUNCHES), dict(REBUILDS)) == counts
+    assert sum(counts[1].values()) == 2 * 15
+    for k in CHUNK_FIELDS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert got.step == want.step == 124
+
+
+@pytest.mark.parametrize("kind", ["single", "adaptive", "batched"])
+def test_table_chunk_reads_nothing_from_the_card(card, kind):
+    """A warm table-loop chunk (graphs captured) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing between its entry
+    and its exit waits for the card; the adaptive runner reads its last
+    probe from the host copy enqueued with it."""
+    p = resolve_params(pt.SimParams(**dict(GRAPH_SCENE, centroid_int=2.0,
+                                            phase_update_interval=2.0)).validate())
+    if kind == "batched":
+        run, state = make_run_chunk_table_batched(p), make_batch_state(p, [0, 1], card)
+    else:
+        make = make_adaptive_run_chunk if kind == "adaptive" else make_run_chunk_table
+        run, state = make(p), pt.Simulation(p, device=card).state
+    for _ in range(2):
+        state = run(state, 400, True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = run(state, 400, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert state.step == 1200 and bool(torch.isfinite(state.pos).all())
