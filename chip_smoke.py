@@ -29,8 +29,9 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    profile 200 more steps for the device busy share;
 5. run the CLI on ``examples/example.cfg`` (300 bots, PALLAS: the span
    path) and check its CSV;
-6. hold kernel 3 against its twin on the card, one span from a mid-step
-   state of four scenes (the 1000 HEX bots, the gap scene's walls, the
+6. hold kernel 3 against its twin on the card (both take the span's
+   first step as a 0-dim int64 tensor on the card), one span from a
+   mid-step state of four scenes (the 1000 HEX bots, the gap scene's walls, the
    obstacle scene, the object-transport scene; each after 200 steps), and
    hold a 256-bot, 8-step-segment span schedule on the card against the
    same run on the CPU twins;
@@ -157,7 +158,27 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    share under ``torch.profiler``, in turns); and the bench's
    multi-place branch on ``Mesh(["cuda"] * 2)``: dispatch interleaved,
    each scene bit for bit its solo run.  The graph runs' and the bench's
-   launches are added to the kernels' counts.
+   launches are added to the kernels' counts;
+17. the compiled small-scene paths: the per-bot runner (DENSE, AUTO's
+   choice on the card up to 640 bots) replays its ungated blocks of
+   ``engine.BLOCK_STEPS`` steps from CUDA graphs, and the span path
+   replays each segment's spans from a graph and reads its adopt-or-redo
+   flag one segment behind.  Graph against eager (the runner with
+   ``engine_table._CapturedBlock`` swapped for the eager block), bit for
+   bit with equal counts: ``examples/example.cfg`` (300 bots) and
+   ``examples/example_obstacle.cfg`` (500 bots), 2,000 steps each from
+   placement (a phase gate included), and eight seeds of example.cfg
+   batched (400 steps); the span path against the reference kept here
+   (every segment's flag read before the next is enqueued), bit for bit
+   with equal launches, rebuilds and redos: the 1,000-bot band, 2,000
+   seg-aligned steps, and its eight seeds batched under phase noise, 800
+   steps (redos and dropped segments printed).  One more chunk of each
+   runner under ``torch.cuda.set_sync_debug_mode("error")``.  Eager
+   against graph in turns (wall, device us/step and busy share under
+   ``torch.profiler``, the card's name and power limit) for DENSE at 300
+   and 500 bots and the band's span and regular paths, and the per-bot
+   runner at 8 against 32 steps per block.  The graph runs' launches are
+   added to the kernels' counts.
 
 The four kernels are timed per launch from replays of a CUDA graph of
 20 launches, so their wrappers' host-side checks stay out of the time
@@ -556,13 +577,14 @@ def span_bound(p, tbl, strip) -> tuple:
 
 def span_inputs(sim):
     """(params, tbl, strip, first step) of a mid-step state of ``sim``:
-    entry, then the gated pre of its current step."""
+    entry, then the gated pre of its current step.  The first step is a
+    0-dim int64 tensor on the card, as kernel 3 and its twin take it."""
     p = sim.params.validate()
     ts = enter_table(p, sim.state)
     step_pre, _ = make_table_step_parts(p)
     ts = step_pre(ts, *_gates(p, ts.step))
     tbl, strip = _make_mega_glue(p)[0](ts.fields)
-    return p, tbl, strip, ts.step + 1
+    return p, tbl, strip, step_tensor(ts.step + 1, tbl.device)
 
 
 def ramp_slope(p) -> float:
@@ -758,17 +780,19 @@ def ptxas_report(log: str) -> str:
     return "; ".join(out)
 
 
-def busy_share(run_steps, n_steps):
+def busy_share(run_steps, n_steps, host_ops: bool = True):
     """Device activity of ``run_steps()``, ``n_steps`` steps, under
     torch.profiler, as text: the busy share (kernel and copy time over wall
     time, "not measured" when the profiler saw no device activity), device
     us/step, each hand-written kernel's us/step and the device activities
-    per step."""
+    per step.  ``host_ops=False`` traces the device alone, which costs the
+    host less (an eager step records hundreds of host operators)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run_steps()
         torch.cuda.synchronize()
@@ -1862,7 +1886,8 @@ def batched_kernel_checks(p10, state10, pb, state_b):
     tsb = enter_table(pb, state_b)
     tsb = make_table_step_parts(pb)[0](tsb, *_gates(pb, tsb.step))
     tbl, strip = _make_mega_glue(pb)[0](tsb.fields)
-    tbl, strip, first = tbl.contiguous(), strip.contiguous(), tsb.step + 1
+    tbl, strip = tbl.contiguous(), strip.contiguous()
+    first = step_tensor(tsb.step + 1, tbl.device)
     obs = kernels.obstacle_buffers(pb, tbl.device)
     s_tbl = [tbl[i].contiguous() for i in range(b)]
     s_strip = [strip[i].contiguous() for i in range(b)]
@@ -2870,15 +2895,16 @@ GRAPH_PROFILE_STEPS, BENCH2_STEPS = 800, 400
 
 
 class EagerBlock:
-    """Stands in for ``engine_table._CapturedBlock`` in phase 16's eager
-    runs: the same runner, its ungated K-step blocks run eagerly (K calls
-    of the step) where the graph runs replay them."""
+    """Stands in for ``engine_table._CapturedBlock`` in phases 16 and 17's
+    eager runs: the same runner, its captured blocks (the table loop's
+    ungated K-step blocks, the span path's spans, the per-bot runner's
+    ungated blocks) run eagerly where the graph runs replay them."""
 
-    def __init__(self, block, ts, k):
+    def __init__(self, block, carry):
         self.block = block
 
-    def __call__(self, ts):
-        return self.block(ts, step_tensor(ts.step, ts.origin.device))
+    def __call__(self, carry, step):
+        return self.block(carry, step_tensor(step, next(iter(carry.values())).device))
 
 
 def chunks_run(make_runner, state, chunks, aligned, eager):
@@ -3127,6 +3153,294 @@ def graph_phase(main_state) -> dict:
     t0 = time.perf_counter()
     print(f"phase 16 {two_place_bench(total)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     return total
+
+
+# ------------------------------- phase 17: the compiled small-scene paths
+
+# a: the two DENSE scenes from placement, in Simulation.run's 1,000-step
+# chunks; b: eight seeds of example.cfg batched; c: the band's span path,
+# one scene in seg-aligned chunks and the eight-seed batch under phase
+# noise (it redoes segments); e: the profiled turns
+SMALL_CFGS, SMALL_CHUNKS = ("example.cfg", "example_obstacle.cfg"), (1000, 1000)
+SMALL_SEEDS, SMALL_BATCH_CHUNKS = tuple(range(8)), (200, 200)
+BAND_CHUNKS, BAND_BATCH_CHUNKS = (1000, 1000), (400, 400)
+# (timed, traced) steps of each turn: DENSE, the band
+SMALL_PROFILE_STEPS, BAND_PROFILE_STEPS = (400, 50), (400, 200)
+# the per-bot runner's block lengths phase 17 times against each other
+BLOCK_CHOICES = (8, 32)
+
+
+def eager_blocks(on: bool):
+    """A context in which the runners built and first run inside it take
+    :class:`EagerBlock` for ``engine_table._CapturedBlock`` (``on``), or
+    the CUDA graphs (not ``on``)."""
+    from contextlib import contextmanager
+
+    @contextmanager
+    def swap():
+        captured = engine_table._CapturedBlock
+        if on:
+            engine_table._CapturedBlock = EagerBlock
+        try:
+            yield
+        finally:
+            engine_table._CapturedBlock = captured
+
+    return swap()
+
+
+def reference_span_chunk(p, state, n_steps):
+    """The span path as it was before the decision went one segment
+    behind: every piece eager, each segment's flag read (``bool(ok_all.
+    item())``) before the next segment is enqueued, a failed segment
+    redone on the regular path from its entry.  The regular steps run one
+    at a time (bit for bit the runner's graphed blocks, phase 16).
+    Returns (state, redos)."""
+    from particlerobotsimulations_torch import rng
+    from particlerobotsimulations_torch.engine_table import _geometry, _smart_rebuild
+    from particlerobotsimulations_torch.ops.megakernel import make_mega_span
+
+    step = make_table_step(p)
+    step_pre, step_post = make_table_step_parts(p)
+    k = max(1, p.resolved_slot_rebuild_steps())
+    seg = gate_seg(p)
+    bps = seg // k
+    mega = make_mega_span(p, _geometry(p)[2])
+    mega_pack, mega_unpack, incremental_packed = _make_mega_glue(p)
+    redos = 0
+
+    def regular(ts, n):
+        for j in range(n):
+            ts = step(ts, *_gates(p, ts.step), j % k == k - 1)
+        return ts
+
+    def mega_seg(ts):
+        nonlocal redos
+        entry = (dict(ts.fields), ts.origin, ts.step, ts.centroid_ring,
+                 rng.snapshot(ts.generator))
+        for _ in range(k - 1):
+            ts = step(ts, *_gates(p, ts.step), False)
+        ts = _smart_rebuild(p, step_pre(ts, *_gates(p, ts.step)))
+        tbl, strip = mega_pack(ts.fields)
+        ok_all = torch.ones((), dtype=torch.bool, device=tbl.device)
+        first = ts.step + 1
+        for b in range(bps - 1):
+            tbl, strip = mega(tbl, strip, first + b * k)
+            tbl, ok = incremental_packed(tbl, ts.origin)
+            ok_all = ok_all & ok.all()
+        if bool(ok_all.item()):
+            mid = ts.replace(fields=mega_unpack(tbl, strip), step=first + (bps - 1) * k - 1)
+            return step_post(mid)
+        redos += 1
+        fields, origin, step0, ring, snap = entry
+        rng.restore(ts.generator, snap)
+        ts = ts.replace(fields=fields, origin=origin, step=step0, centroid_ring=ring)
+        return regular(ts, seg)
+
+    ts = enter_table(p, state)
+    n_segs = n_steps // seg
+    for _ in range(n_segs):
+        ts = mega_seg(ts)
+    return exit_table(p, regular(ts, n_steps - n_segs * seg)), redos
+
+
+def generators_equal(a, b) -> bool:
+    ga = a.generator.sources if isinstance(a.generator, SceneDraws) else [a.generator]
+    gb = b.generator.sources if isinstance(b.generator, SceneDraws) else [b.generator]
+    return all(torch.equal(x.get_state(), y.get_state()) for x, y in zip(ga, gb))
+
+
+def gate_counts(p, start, n) -> dict:
+    """How often each gate fires over steps ``start`` .. ``start + n - 1``."""
+    from particlerobotsimulations_torch.engine import _step_gates
+
+    fired = [0, 0, 0]
+    for s in range(start, start + n):
+        for i, g in enumerate(_step_gates(p, s)):
+            fired[i] += bool(g)
+    return dict(zip(("dead", "centroid", "phase"), fired))
+
+
+def span_vs_reference(name, p, state, chunks, total):
+    """``chunks`` of the span path's runner (the spans from a CUDA graph,
+    each segment's flag read one segment behind) against
+    :func:`reference_span_chunk` from one state: bit for bit, generators
+    included, with equal launches, rebuilds and redos; then one sync-free
+    chunk of the runner.  Adds the runner's launches to ``total``."""
+    from particlerobotsimulations_torch.engine_table import make_run_chunk_table_batched
+
+    batched = state.pos.dim() == 3
+    run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
+    if not run.path_info["use_mega"]:
+        fail(f"{name}: not on the span path")
+    reset_counts()
+    t0 = time.perf_counter()
+    got = clone_state(state)
+    for n in chunks:
+        got = run(got, n, True)
+    torch.cuda.synchronize()
+    g_wall, g_launch, g_reb = time.perf_counter() - t0, dict(kernels.LAUNCHES), dict(REBUILDS)
+    reset_counts()
+    t0 = time.perf_counter()
+    want, redos = clone_state(state), 0
+    for n in chunks:
+        want, r = reference_span_chunk(p, want, n)
+        redos += r
+    torch.cuda.synchronize()
+    r_wall, r_launch, r_reb = time.perf_counter() - t0, dict(kernels.LAUNCHES), dict(REBUILDS)
+    if not (states_equal(got, want) and generators_equal(got, want)):
+        bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(got, k), getattr(want, k))]
+        fail(f"{name}: the lagged span path differs from the reference in {bad}")
+    if (g_launch, g_reb, run.redos) != (r_launch, r_reb, redos):
+        fail(f"{name}: launches {g_launch} rebuilds {g_reb} redos {run.redos}, "
+             f"reference {r_launch} {r_reb} {redos}")
+    for k, v in g_launch.items():
+        total[k] = total.get(k, 0) + v
+    discarded, dropped = run.discarded, dict(run.discarded_launches)
+    sync_free_chunk(name, run, got, chunks[-1], True)
+    steps = sum(chunks)
+    return (f"{name}: {steps} seg-aligned steps, lagged == reference bit for bit, launches "
+            f"{ {k: v for k, v in g_launch.items() if v} }, rebuilds {g_reb}, redos {redos}, "
+            f"discarded segments {discarded} (their launches {dropped}); wall "
+            f"{r_wall * 1e6 / steps:.1f} us/step reference, {g_wall * 1e6 / steps:.1f} lagged "
+            f"(first chunk captures); sync-free chunk ok")
+
+
+def timed_turns(name, modes, state, steps, smi) -> str:
+    """Two ways of running one scene, taken in turns (a, b, b, a), each
+    from a copy of ``state``: a warm-up chunk of ``n`` steps (it captures
+    the graphs), the wall of an unprofiled chunk of ``n``, then
+    :func:`busy_share` of ``n_traced`` more, the device alone traced.
+    ``steps``: (n, n_traced); ``modes``: {label: (eager, advance(state, n)
+    -> state)}."""
+    n, n_traced = steps
+    labels = list(modes)
+    out = []
+    for label in (labels[0], labels[1], labels[1], labels[0]):
+        eager, advance = modes[label]
+        with eager_blocks(eager):
+            st = advance(clone_state(state), n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = advance(st, n)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6 / n
+        if not bool(torch.isfinite(st.pos).all()):
+            fail(f"{name} {label}: non-finite state")
+        holder = {"st": st}
+
+        def more():
+            holder["st"] = advance(holder["st"], n_traced)
+
+        share = busy_share(more, n_traced, host_ops=False)
+        dev = re.search(r"\(([0-9.]+) device us/step", share)
+        plain = f", device over unprofiled wall {float(dev.group(1)) / wall:.4f}" if dev else ""
+        out.append(f"{label} {wall:.1f} us/step wall{plain}, profiled busy share {share}")
+    return (f"{name} ({smi}), {n} steps timed and {n_traced} traced each: "
+            + " | ".join(out))
+
+
+def block_choice(p, state, smi) -> str:
+    """Wall us/step of the per-bot runner at each of BLOCK_CHOICES steps
+    per block, in turns (8, 32, 32, 8): 1,000 steps from placement (the
+    graphs captured), then 1,000 timed (a centroid and a phase gate)."""
+    from particlerobotsimulations_torch import engine
+    from particlerobotsimulations_torch.engine import make_run_chunk
+
+    keep = engine.BLOCK_STEPS
+    times = {b: [] for b in BLOCK_CHOICES}
+    try:
+        for b in (BLOCK_CHOICES[0], BLOCK_CHOICES[1], BLOCK_CHOICES[1], BLOCK_CHOICES[0]):
+            engine.BLOCK_STEPS = b
+            run = make_run_chunk(p, "cuda")
+            st = run(clone_state(state), 1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = run(st, 1000)
+            torch.cuda.synchronize()
+            times[b].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        engine.BLOCK_STEPS = keep
+    return (f"{p.n_cells} bots DENSE, steps per block {BLOCK_CHOICES[0]} against "
+            f"{BLOCK_CHOICES[1]} in turns ({smi}): wall us/step "
+            + ", ".join(f"B={b} {[round(t, 1) for t in v]}" for b, v in times.items())
+            + f"; the module's BLOCK_STEPS is {keep}")
+
+
+def small_scene_phase(smi) -> dict:
+    """Phase 17: the per-bot runner's blocks from CUDA graphs held bit for
+    bit to the eager blocks on example.cfg and example_obstacle.cfg (AUTO:
+    DENSE) and eight example.cfg seeds batched; the span path with its
+    spans graphed and its decision one segment behind held to the
+    reference on the 1,000-bot band, one scene and eight seeds batched;
+    sync-free chunks of each runner; eager against graph in turns under
+    the profiler; the block length's choice.  Returns the launches of the
+    graph runs."""
+    from particlerobotsimulations_torch.engine import make_run_chunk, make_run_chunk_batched
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    total: dict = {}
+    states = {}
+    for name in SMALL_CFGS:
+        t0 = time.perf_counter()
+        p = resolve_params(pt.load_cfg(os.path.join(ROOT, "examples", name)).validate())
+        if p.resolved_backend("cuda") != pt.ForceBackend.DENSE:
+            fail(f"{name}: AUTO did not choose DENSE on the card")
+        state = pt.Simulation(p, device="cuda").state
+        states[name] = (p, state)
+        gates = gate_counts(p, 0, sum(SMALL_CHUNKS))
+        if not gates["phase"] or (p.n_dead > 0 and not gates["dead"]):
+            fail(f"{name}: the run passes no phase gate ({gates})")
+        text, _ = graph_vs_eager(f"{name} {p.n_cells} bots DENSE",
+                                 lambda p=p: make_run_chunk(p, "cuda"), state,
+                                 list(SMALL_CHUNKS), False, total)
+        print(f"phase 17a {text}; gates {gates} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    pe, _ = states["example.cfg"]
+    batch = make_batch_state(pe, list(SMALL_SEEDS), "cuda")
+    text, _ = graph_vs_eager(f"{len(SMALL_SEEDS)} seeds of example.cfg batched DENSE",
+                             lambda: make_run_chunk_batched(pe, "cuda"), batch,
+                             list(SMALL_BATCH_CHUNKS), False, total)
+    print(f"phase 17b {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    pb = resolve_params(band_params().validate())
+    sb = pt.Simulation(pb, device="cuda").state
+    print(f"phase 17c {span_vs_reference('band 1000 HEX', pb, sb, BAND_CHUNKS, total)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    bb = make_batch_state(pb, list(SMALL_SEEDS), "cuda")
+    print(f"phase 17c {span_vs_reference('band 8 seeds batched', pb, bb, BAND_BATCH_CHUNKS, total)}"
+          f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    for name in SMALL_CFGS:
+        p, state = states[name]
+        print("phase 17e " + timed_turns(
+            f"{name} {p.n_cells} bots DENSE, eager against graph", {
+                "eager": (True, make_advance(make_run_chunk(p, "cuda"), False)),
+                "graph": (False, make_advance(make_run_chunk(p, "cuda"), False)),
+            }, state, SMALL_PROFILE_STEPS, smi), flush=True)
+    print("phase 17e " + timed_turns(
+        "band 1000 HEX span path, reference (eager, one read per segment) against graph", {
+            "reference": (True, lambda st, n: reference_span_chunk(pb, st, n)[0]),
+            "graph": (False, make_advance(make_run_chunk_table(pb), True)),
+        }, sb, BAND_PROFILE_STEPS, smi), flush=True)
+    print("phase 17e " + timed_turns(
+        "band 1000 HEX regular path, eager against graph", {
+            "eager": (True, make_advance(make_run_chunk_table(pb), False)),
+            "graph": (False, make_advance(make_run_chunk_table(pb), False)),
+        }, sb, BAND_PROFILE_STEPS, smi), flush=True)
+    po, so = states["example_obstacle.cfg"]
+    print(f"phase 17e {block_choice(po, so, smi)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return total
+
+
+def make_advance(run, aligned):
+    """``advance(state, n)``: one chunk of ``run``; a fresh runner's first
+    call builds its graphs."""
+    return lambda st, n: run(st, n, aligned)
 
 
 def main() -> int:
@@ -3379,6 +3693,13 @@ def main() -> int:
     launches16 = graph_phase(main_state)
     print(f"phase 16 took {time.perf_counter() - t16:.1f} s; launches {launches16}")
 
+    # 17. the compiled small-scene paths: the per-bot runner's graph against
+    #     eager, the lagged span path against the reference (the counters
+    #     reset just before each run), sync-free chunks, the profiled turns
+    t17 = time.perf_counter()
+    launches17 = small_scene_phase(smi)
+    print(f"phase 17 took {time.perf_counter() - t17:.1f} s; launches {launches17}")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -3435,7 +3756,8 @@ def main() -> int:
         )
     ]}
     for entry in record["kernels"]:
-        entry["launches"] += launches15.get(entry["name"], 0) + launches16.get(entry["name"], 0)
+        entry["launches"] += (launches15.get(entry["name"], 0) + launches16.get(entry["name"], 0)
+                              + launches17.get(entry["name"], 0))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,7 +5,9 @@
 
 Builds the other checkout's kernel library from its ``csrc`` beside this
 checkout's and calls both through this checkout's wrappers (the C entry
-points keep their signatures) on the same inputs, at ``chip_smoke.py``'s
+points keep their signatures, but for kernel 3's step: a checkout whose
+``mega_span.cu`` takes it as an ``int`` gets the value the step tensor was
+made from) on the same inputs, at ``chip_smoke.py``'s
 shapes: kernel 1 on the 10k path's table after 200 steps (G=48), kernel 4
 on the sharded 10k table after 200 steps (G=64), kernel 3 on one K=4 span
 of the 1000-bot band after 200 steps, and kernel 2 on the compaction stacks
@@ -22,6 +24,7 @@ not allow.  Exits 1 without a card, 3 when a pair of outputs differs.
 
 from __future__ import annotations
 
+import ctypes
 import statistics
 import subprocess
 import sys
@@ -43,6 +46,32 @@ ENTRY_POINTS = ("pbot_stencil_forces", "pbot_stencil_forces_ext", "pbot_mega_spa
                 "pbot_compact", "pbot_compact_padded")
 
 
+# kernel 3's step tensors, by address: what an int-step library is given
+STEPS: dict = {}
+# the position of kernel 3's step in pbot_mega_span's arguments
+MEGA_STEP_ARG = 9
+
+
+class IntStepLibrary:
+    """A library whose ``pbot_mega_span`` takes its first step as an
+    ``int`` (before it read a 0-dim int64 on the card), called as the
+    current one: the step tensor's address is swapped for its value."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        sig = list(kernels.SIGNATURES["pbot_mega_span"])
+        sig[MEGA_STEP_ARG] = ctypes.c_int
+        lib.pbot_mega_span.argtypes = sig
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def pbot_mega_span(self, *args):
+        args = list(args)
+        args[MEGA_STEP_ARG] = STEPS[args[MEGA_STEP_ARG]]
+        return self._lib.pbot_mega_span(*args)
+
+
 def cases() -> dict:
     """name -> a call of that kernel's wrapper on chip_smoke.py's inputs."""
     params = cs.bench_params()
@@ -55,6 +84,7 @@ def cases() -> dict:
     band = pt.Simulation(cs.band_params(), device="cuda")
     band.step_chunk(200, start_step=0)
     p3, tbl, strip, first = cs.span_inputs(band)
+    STEPS[first.data_ptr()] = int(first)
     obs = kernels.obstacle_buffers(p3, tbl.device)
     return {
         "stencil_forces": lambda: kernels.stencil_forces_cuda(p1, tables),
@@ -92,6 +122,8 @@ def main(argv) -> int:
     so.parent.mkdir(parents=True, exist_ok=True)
     kernels.compile_library(Path(argv[1]).resolve(), so)
     libs["other"] = kernels.load_library(so, ENTRY_POINTS)
+    if "const void* step0" not in (Path(argv[1]) / "mega_span.cu").read_text():
+        libs["other"] = IntStepLibrary(libs["other"])
 
     differ = False
     for name, fn in cases().items():

@@ -7,9 +7,11 @@
 // Contract: tbl is float32 (13, C, G*G) — the TABLE_FIELDS planes px py vx
 // vy rad val afac phase dead aa ar pay bid, slot-major (row c*G*G + lane,
 // lane = y*G + x) — and strip is float32 (13, S, 128), the parking strip's
-// n_pad rows in the same field order.  The input is mid-step step0 - 1
-// (after integrate and rebuild).  The span runs post(step0 - 1), k - 1
-// full steps and pre(step0 + k - 1), with no gates and no random draws:
+// n_pad rows in the same field order.  step0 is a 0-dim int64 on the
+// card, read by the kernel (so a CUDA graph of spans replays at any step).
+// The input is mid-step step0 - 1 (after integrate and rebuild).  The
+// span runs post(step0 - 1), k - 1 full steps and pre(step0 + k - 1),
+// with no gates and no random draws:
 //   post = pair forces (table rows only; a row is occupied iff rad > 0,
 //          exact 2-D wrap of the 3x3 cells, pair_math.cuh), aa/ar from
 //          them, obstacles, stick-slip friction, vx = vy = 0 where
@@ -362,10 +364,12 @@ MegaPlan mega_plan(int cap, int g, int has_payload) {
 __global__ void __launch_bounds__(kThreads, 1) mega_span_kernel(
     const float* __restrict__ tbl, const float* __restrict__ strip,
     float* __restrict__ tbl_out, float* __restrict__ strip_out,
-    int cap, int g, int n_strip, int k_steps, int step0, MegaConsts c,
+    int cap, int g, int n_strip, int k_steps,
+    const long long* __restrict__ step0_ptr, MegaConsts c,
     const float* __restrict__ rects, int n_rect,
     const float* __restrict__ circs, int n_circ, int has_payload) {
   cg::cluster_group cluster = cg::this_cluster();
+  const long long step0 = *step0_ptr;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_rect[4 * kMaxRect];
   __shared__ float s_circ[3 * kMaxCirc];
@@ -611,7 +615,8 @@ extern "C" int pbot_mega_span_plan(int cap, int g, int n_strip, int has_payload,
 // One span of `scenes` scenes in one launch, one cluster each: scene b's
 // table and strip are the b-th contiguous (13, C, G*G) and (13, S, 128)
 // blocks of tbl and strip (and of the outputs); the obstacles, constants
-// and step0 are shared, the scenes running in lockstep.  A cluster reads
+// and the step (*step0, an int64 on the card) are shared, the scenes
+// running in lockstep.  A cluster reads
 // and syncs only within itself, so each scene's outputs equal a one-scene
 // launch on its planes bit for bit, whether or not the clusters of other
 // scenes are resident at the same time (the card may run them in waves).
@@ -621,12 +626,12 @@ extern "C" int pbot_mega_span_plan(int cap, int g, int n_strip, int has_payload,
 // else the launch's own status.
 extern "C" int pbot_mega_span(
     const void* tbl, const void* strip, void* tbl_out, void* strip_out,
-    int scenes, int cap, int g, int n_strip, int k_steps, int step0,
+    int scenes, int cap, int g, int n_strip, int k_steps, const void* step0,
     const float* consts, int n_consts,
     const void* rects, int n_rect, const void* circs, int n_circ,
     int has_payload, void* stream) {
   if (n_consts != kNumConsts || n_rect > kMaxRect || n_circ > kMaxCirc ||
-      k_steps < 1 || scenes < 1) {
+      k_steps < 1 || scenes < 1 || step0 == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MegaPlan plan;
@@ -642,7 +647,7 @@ extern "C" int pbot_mega_span(
       &cfg, mega_span_kernel,
       static_cast<const float*>(tbl), static_cast<const float*>(strip),
       static_cast<float*>(tbl_out), static_cast<float*>(strip_out),
-      cap, g, n_strip, k_steps, step0, c,
+      cap, g, n_strip, k_steps, static_cast<const long long*>(step0), c,
       static_cast<const float*>(rects), n_rect,
       static_cast<const float*>(circs), n_circ, has_payload);
   if (err != cudaSuccess) return static_cast<int>(err);

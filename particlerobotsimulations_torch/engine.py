@@ -20,11 +20,15 @@ Port of ``particlerobotsimulations_tpu.engine`` — ``Particlebot::update``
 (``ops/pallas_stencil.pallas_stencil_collide``: kernel 1 on the card, with
 an optional reused slot assignment).  :func:`make_run_chunk` sends the
 PALLAS backend to the table-resident loop (``engine_table.py``) and the
-others to a loop of :func:`make_step`.  The random draws go through
+others to the per-bot block runner: gated steps one at a time, ungated
+stretches as blocks of :data:`BLOCK_STEPS` steps that the card replays
+from CUDA graphs, the sim time a device scalar, nothing read inside a
+chunk (the JAX package's scanned chunk).  The random draws go through
 ``rng.py`` with the step they are drawn for.  :func:`make_run_chunk_batched`
 runs a batch of scenes in lockstep (the seed sweep): PALLAS through the
-batched table loop, the other backends through :func:`make_step_batched`,
-the per-scene step vmapped over the scene axis.  ``make_step(...,
+batched table loop, the other backends through the same block runner on
+:func:`make_step_batched`, the per-scene step vmapped over the scene
+axis.  ``make_step(...,
 differentiable=True)`` is the step that ``torch.autograd`` differentiates
 (``models/optimize.py``): PALLAS through ``ops/pallas_stencil.
 make_diff_pallas_collide`` (kernel 1 forward, the STENCIL collide
@@ -50,14 +54,29 @@ from .ops.phase import update_phase
 from .ops.stencil import stencil_collide
 from .engine_table import (
     _gates,
+    _graphed,
+    _one_chunk_at_a_time,
     drain,
     make_adaptive_run_chunk,
     make_run_chunk_table,
     make_run_chunk_table_batched,
+    sim_time,
+    step_tensor,
 )
 from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
 
 f32 = np.float32
+
+# steps per block of the per-bot chunk runner: an ungated stretch of the
+# DENSE, STENCIL or CELLGRID loop runs as blocks of this many steps, each
+# replayed on the card from one CUDA graph.  8 beat 32 at 500 DENSE bots
+# (chip_smoke.py phase 17, PERF.md): a gate interval of L steps leaves
+# (L - 1) mod 8 of them eager, and a replay's host cost is small beside 8
+# steps
+BLOCK_STEPS = 8
+
+# what an ungated step changes: the other arrays pass through it
+_UNGATED_OUT = ("pos", "vel", "rad", "abs_force_a", "abs_force_r")
 
 
 _COLLIDES = {
@@ -117,12 +136,19 @@ def _make_body(params: SimParams, backend: ForceBackend, differentiable: bool = 
     """The step on one scene's arrays, with its draws taken beforehand
     (``_draws``) and its gates decided on the host: pure, so the batched
     step can ``torch.func.vmap`` it over a scene axis, and
-    ``torch.utils.checkpoint`` can run it again in a backward pass."""
+    ``torch.utils.checkpoint`` can run it again in a backward pass.
+
+    ``body(arrays, draws, step, gates, slot=None, step_t=None)``: the sim
+    time is ``engine_table.sim_time`` of ``step_t``, the step as a 0-dim
+    int64 tensor on the arrays' device (by default made from the host
+    ``step``), so that a CUDA graph of ungated steps reads it from a
+    tensor it refills; the host ``step`` serves the gated branches."""
     collide = _collide_fn(params, backend, differentiable)
     dt = params.timestep
     cog_steps = params.centroid_steps_interval
 
-    def body(arrays: dict, draws: dict, step: int, gates: tuple, slot=None) -> dict:
+    def body(arrays: dict, draws: dict, step: int, gates: tuple, slot=None,
+             step_t: torch.Tensor | None = None) -> dict:
         pos, vel, rad, phase, dead, ring = (
             arrays[k] for k in ("pos", "vel", "rad", "phase", "dead", "centroid_ring")
         )
@@ -130,7 +156,7 @@ def _make_body(params: SimParams, backend: ForceBackend, differentiable: bool = 
         n_pad = pos.shape[-2]
         mask = active_mask(params, n_pad, dev)
         payload = payload_mask(params, n_pad, dev)
-        time = float(f32(step) * f32(dt))
+        time = sim_time(step_tensor(step, dev) if step_t is None else step_t, dt)
         dead_gate, cog_gate, phase_gate = gates
 
         # 1. dead-cell injection (one-shot)
@@ -240,27 +266,80 @@ def make_step_batched(params: SimParams, device="cuda") -> Callable[[SimState], 
 def make_run_chunk(params: SimParams, device="cuda"):
     """``run_chunk(state, n_steps, seg_aligned=False) -> state`` for a run
     on ``device``.  PALLAS goes to the table-resident loop (the adaptive-K
-    runner from 4096 bots up), DENSE, STENCIL and CELLGRID to a loop of
-    :func:`make_step`.  Every runner has ``run_chunk.blocks``, the chunk
-    as a block iterator (``engine_table.interleave`` runs several)."""
+    runner from 4096 bots up), DENSE, STENCIL and CELLGRID to the per-bot
+    block runner (:func:`_step_runner`).  Every runner has
+    ``run_chunk.blocks``, the chunk as a block iterator
+    (``engine_table.interleave`` runs several)."""
     params = params.validate()
     backend = params.resolved_backend(device)
     if backend == ForceBackend.PALLAS:
         if params.adaptive_rebuild():
             return make_adaptive_run_chunk(params)
         return make_run_chunk_table(params)
-    return _step_loop(make_step(params, device))
+    return _step_runner(params, device, batched=False)
 
 
-def _step_loop(step):
-    """``run_chunk`` of a loop of ``step``, with the table runners'
-    ``blocks`` iterator (a block is one step)."""
+def _step_runner(params: SimParams, device, batched: bool):
+    """The per-bot chunk runner of DENSE, STENCIL or CELLGRID, on one scene
+    or (``batched``) on a batch in lockstep (:func:`make_step_batched`'s).
 
+    Like the JAX package's scanned chunk it reads nothing from the device.
+    Gated steps (dead injection, centroid or phase gate: the steps that
+    draw or write the ring) and the ragged end of the chunk run eagerly,
+    one at a time; every stretch of :data:`BLOCK_STEPS` steps that fires
+    no gate runs as one block, whose sim times come from a device step
+    tensor.  On the card each block replays a CUDA graph
+    (``engine_table._CapturedBlock``) captured once per runner and carry
+    layout after the first block ran eagerly; a failed capture raises.  On
+    the CPU every block runs eagerly, through the same code.
+    ``run_chunk.blocks(state, n_steps, seg_aligned=False)`` yields after
+    each step or block (``seg_aligned`` is taken for the table runners'
+    signature, and changes nothing here).  A runner advances one chunk at
+    a time (its graphs hold that chunk's carry)."""
+    eager_step = (make_step_batched if batched else make_step)(params, device)
+    body = _make_body(params, params.resolved_backend(device))
+    no_gates = (False, False, False)
+
+    def ungated(arrays: dict, step_t: torch.Tensor) -> dict:
+        if batched:
+            return torch.func.vmap(functools.partial(
+                body, step=None, gates=no_gates, step_t=step_t))(arrays, {})
+        return body(arrays, {}, None, no_gates, step_t=step_t)
+
+    def block(carry: dict, step0: torch.Tensor) -> dict:
+        arrays = dict(carry)
+        for j in range(BLOCK_STEPS):
+            out = ungated(arrays, step0 + j)
+            arrays.update({k: out[k] for k in _UNGATED_OUT})
+        return {k: arrays[k] for k in _UNGATED_OUT}
+
+    def gated(s: int) -> bool:
+        return any(_step_gates(params, s))
+
+    graphs: dict = {}
+
+    @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
-        # seg_aligned: signature parity with the table loop; no-op here
-        for _ in range(n_steps):
-            state = step(state)
+        j, on_card = 0, state.device.type == "cuda"
+        graphed = False
+        while j < n_steps:
+            s = state.step
+            if j + BLOCK_STEPS <= n_steps and not any(
+                    gated(s + i) for i in range(BLOCK_STEPS)):
+                arrays = {k: getattr(state, k) for k in ARRAY_FIELDS}
+                out = _graphed(graphs, (state.device, tuple(state.pos.shape)), block,
+                               arrays, s)
+                state = state.replace(step=s + BLOCK_STEPS, **out)
+                graphed = graphed or on_card
+                j += BLOCK_STEPS
+            else:
+                state = eager_step(state)
+                j += 1
             yield
+        if graphed:
+            # arrays may sit in a graph's buffers, which the runner's next
+            # chunk overwrites
+            state = state.replace(**{k: getattr(state, k).clone() for k in ARRAY_FIELDS})
         return state
 
     def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
@@ -276,9 +355,9 @@ def make_run_chunk_batched(params: SimParams, device="cuda"):
     batch builder of the package starts its scenes at one step).  PALLAS
     goes to the batched table loop
     (``engine_table.make_run_chunk_table_batched``: kernels 1 to 3 each
-    take every scene in one launch), DENSE, STENCIL and CELLGRID to a loop
-    of :func:`make_step_batched`."""
+    take every scene in one launch), DENSE, STENCIL and CELLGRID to the
+    per-bot block runner on :func:`make_step_batched`'s vmapped step."""
     params = params.validate()
     if params.resolved_backend(device) == ForceBackend.PALLAS:
         return make_run_chunk_table_batched(params)
-    return _step_loop(make_step_batched(params, device))
+    return _step_runner(params, device, batched=True)

@@ -23,20 +23,21 @@ positions), phase, radius (one-step-lag force feedback), integrate, then
 
 A Python loop over steps, with every gate decided from the host-side step
 counter, fires the same gates and rebuilds on the same steps as the JAX
-loop's segment scan.  Like the JAX package's jitted chunk, a chunk reads
-nothing from the device between entry and exit (the span path's one read
-per gate segment aside): the rebuild's
-incremental-or-exact choice is a select on the device, the rebuild counts
-(:data:`REBUILDS`) are device counters, and the sim time is a device
-scalar.  On the card the ungated K-step blocks (the JAX loop's ``plain_u``
-scan) replay from a CUDA graph captured once per runner and carry layout;
-the other steps run eagerly.  Small tables (``ops/megakernel.mega_eligible``) run
-the ungated part of each gate segment through the megakernel span path:
-one launch of kernel 3 per rebuild block, with the slot rebuild between
-spans, and the whole segment redone on the regular path when a rebuild's
-preconditions fail.  Not carried over from the JAX loop: its TPU schedule
-machinery (traced conds, deferred fallback groups, block unrolling) and
-the ``PBOT_*`` switches.
+loop's segment scan.  Like the JAX package's jitted chunk, a chunk waits
+for nothing it has just enqueued: the rebuild's incremental-or-exact
+choice is a select on the device, the rebuild counts (:data:`REBUILDS`)
+are device counters, and the sim time is a device scalar.  On the card
+the ungated K-step blocks (the JAX loop's ``plain_u`` scan) replay from a
+CUDA graph captured once per runner and carry layout; the other steps run
+eagerly.  Small tables (``ops/megakernel.mega_eligible``) run the ungated
+part of each gate segment through the megakernel span path: one launch
+of kernel 3 per rebuild block, with the slot rebuild between spans, the
+spans of a segment replayed from a CUDA graph, and the whole segment
+redone on the regular path when a rebuild's preconditions fail.  That
+decision (the JAX loop's ``lax.cond``) is read one segment behind: the
+next segment is enqueued before the flag is waited for.  Not carried over
+from the JAX loop: its TPU schedule machinery (traced conds, deferred
+fallback groups, block unrolling) and the ``PBOT_*`` switches.
 
 :func:`make_run_chunk_table_batched` runs a batch of scenes in lockstep
 (the seed sweep) with the same step on ``(B, rows)`` field planes: the
@@ -116,10 +117,10 @@ class RebuildCounts(MutableMapping):
             self._counters[device] = torch.zeros(2, dtype=torch.int64, device=device)
         return self._counters[device]
 
-    def add(self, ok: torch.Tensor) -> None:
+    def add(self, ok: torch.Tensor, sign: int = 1) -> None:
         """Count one rebuild: incremental where the 0-dim bool ``ok``
-        holds, exact where it does not."""
-        self.counter(ok.device).add_(torch.stack([ok, ~ok]).to(torch.int64))
+        holds, exact where it does not (``sign=-1`` takes one back)."""
+        self.counter(ok.device).add_(torch.stack([ok, ~ok]).to(torch.int64), alpha=sign)
 
     def _index(self, key) -> int:
         if key not in self.KEYS:
@@ -350,7 +351,13 @@ def _derived_rows(params: SimParams, f: dict) -> dict:
 
 
 def _smart_rebuild(params: SimParams, ts: TableState) -> TableState:
-    """Incremental compaction rebuild with exact fallback.
+    """:func:`_choose_rebuild`'s carry."""
+    return _choose_rebuild(params, ts)[0]
+
+
+def _choose_rebuild(params: SimParams, ts: TableState):
+    """Incremental compaction rebuild with exact fallback: (carry, ``ok``),
+    the 0-dim bool that chose the incremental result and was counted.
 
     Only MOVE_FIELDS travel; afac/pay are re-derived from the moved bid
     plane.  Falls back to the argsort rebuild when a precondition fails (a
@@ -374,7 +381,7 @@ def _smart_rebuild(params: SimParams, ts: TableState) -> TableState:
     return ts.replace(
         fields={kf: torch.where(ok, inc[kf], exact[kf]) for kf in TABLE_FIELDS},
         origin=torch.where(ok, ts.origin, origin),
-    )
+    ), ok
 
 
 def _inject_dead_table(params: SimParams, f: dict, generator, step: int) -> torch.Tensor:
@@ -630,11 +637,15 @@ def make_run_chunk_table(params: SimParams, phase_fn=None):
     segment with ``seg // K > 1`` as: the gated first block minus its last
     post, ``seg // K - 1`` megakernel spans each followed by the
     unconditional incremental rebuild, and the last post.  The rebuilds'
-    ``ok`` flags are ANDed on the device and read once per segment; when
-    one failed, the segment is redone on the regular per-step path from its
-    entry state (fields, origin, centroid ring and the draw source's state,
-    ``rng.snapshot``), which then takes the exact fallback where it is due.  ``run_chunk.redos``
-    counts those redos.  The span path rebuilds on the same steps as the
+    ``ok`` flags are ANDed on the device and read one segment behind (the
+    next segment is enqueued first); when one failed, the segment is
+    redone on the regular per-step path from its entry state (fields,
+    origin, centroid ring and the draw source's state, ``rng.snapshot``),
+    which then takes the exact fallback where it is due, and the segment
+    enqueued after it is dropped and enqueued again.  ``run_chunk.redos``
+    counts those redos, ``run_chunk.discarded`` the dropped segments and
+    ``run_chunk.discarded_launches`` their launches, which
+    ``kernels.LAUNCHES`` does not keep.  The span path rebuilds on the same steps as the
     regular schedule; unaligned chunks and remainder steps run the regular
     path, so ``seg_aligned=False`` is the A/B of the regular schedule."""
     return _make_table_runner(params, phase_fn)
@@ -685,30 +696,33 @@ def interleave(iterators) -> list:
 
 
 class _CapturedBlock:
-    """An ungated K-step block captured once as a CUDA graph, replayed by
-    calling it on a carry of the layout it was captured for.
+    """A block of steps captured once as a CUDA graph, replayed by calling
+    it on a carry of the layout it was captured for.
 
-    The carry lives in static buffers (the fields and the origin) beside a
-    0-dim int64 step tensor the block's sim times are made from.  A call
-    copies in the fields the caller holds that are not the buffers already
-    (after a replay they are, until an eager step replaces some), fills the
-    step, replays, and returns the carry on the buffers: the captured block
-    ends by copying its outputs back into them.  The kernel wrappers count
-    their launches while the block is captured; those counts are taken back
-    and added again at every replay, so ``kernels.LAUNCHES`` counts what ran.
-    The caller has run the block eagerly on the card first: that warm-up
-    grants each kernel its shared memory at these sizes, which capture may
-    not do, and creates the rebuild counter on this device.  Python's
-    cyclic garbage collector is held off during the capture: a runner no
-    longer referenced (runners hold reference cycles) that it freed
-    mid-capture would destroy its graphs there, and that voids the
-    capture."""
+    ``block(carry, step) -> outputs`` takes a dict of named tensors and a
+    0-dim int64 step tensor (the block's sim times are made from it) and
+    returns a dict.  The carry lives in static buffers beside the step
+    tensor.  A call copies in the carry entries the caller holds that are
+    not the buffers already (after a replay they are, until an eager step
+    replaces some), fills the step, replays, and returns the carry on the
+    buffers together with the other outputs: an output named as a carry
+    entry is copied back into that entry's buffer at the end of the
+    captured block, any other output (a flag, say) stays in the memory
+    capture gave it, which every replay rewrites.  The kernel wrappers
+    count their launches while the block is captured; those counts are
+    taken back and added again at every replay, so ``kernels.LAUNCHES``
+    counts what ran.  The caller has run the block eagerly on the card
+    first: that warm-up grants each kernel its shared memory at these
+    sizes, which capture may not do, and creates the rebuild counter on
+    this device.  Python's cyclic garbage collector is held off during
+    the capture: a runner no longer referenced (runners hold reference
+    cycles) that it freed mid-capture would destroy its graphs there, and
+    that voids the capture.  A failed capture raises."""
 
-    def __init__(self, block, ts: TableState, k: int):
-        dev = ts.origin.device
-        self.k = k
-        self.fields = {kf: torch.empty_like(v) for kf, v in ts.fields.items()}
-        self.origin = torch.empty_like(ts.origin)
+    def __init__(self, block, carry: dict):
+        dev = next(iter(carry.values())).device
+        self.carry = {n: torch.empty_like(v) for n, v in carry.items()}
+        self.outputs = {}
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
         REBUILDS.counter(dev)
         before = dict(kernels.LAUNCHES)
@@ -721,11 +735,12 @@ class _CapturedBlock:
             with torch.cuda.device(dev), torch.cuda.stream(stream):
                 self.graph.capture_begin()
                 try:
-                    out = block(ts.replace(fields=dict(self.fields), origin=self.origin),
-                                self.step)
-                    for kf, v in out.fields.items():
-                        self.fields[kf].copy_(v)
-                    self.origin.copy_(out.origin)
+                    out = block(dict(self.carry), self.step)
+                    for n, v in out.items():
+                        if n not in self.carry:
+                            self.outputs[n] = v
+                        elif v is not self.carry[n]:
+                            self.carry[n].copy_(v)
                 except BaseException:
                     # the capture is void: end it, and raise what voided it
                     try:
@@ -741,17 +756,68 @@ class _CapturedBlock:
         self.launches = {n: c - before[n] for n, c in kernels.LAUNCHES.items() if c != before[n]}
         kernels.LAUNCHES.update(before)
 
-    def __call__(self, ts: TableState) -> TableState:
-        for kf, v in ts.fields.items():
-            if v is not self.fields[kf]:
-                self.fields[kf].copy_(v)
-        if ts.origin is not self.origin:
-            self.origin.copy_(ts.origin)
-        self.step.fill_(ts.step)
+    def __call__(self, carry: dict, step: int) -> dict:
+        for n, v in carry.items():
+            if v is not self.carry[n]:
+                self.carry[n].copy_(v)
+        self.step.fill_(step)
         self.graph.replay()
         for n, c in self.launches.items():
             kernels.LAUNCHES[n] += c
-        return ts.replace(fields=dict(self.fields), origin=self.origin, step=ts.step + self.k)
+        return {**self.carry, **self.outputs}
+
+
+def _graphed(graphs: dict, key, block, carry: dict, step: int) -> dict:
+    """``block(carry, step)`` (as :class:`_CapturedBlock` takes it) at the
+    host step ``step``: eagerly off the card; on the card replayed from the
+    graph ``graphs[key]``, which the first call of a ``key`` captures after
+    running the block eagerly.  ``key`` names the block and the carry's
+    device and layout."""
+    dev = next(iter(carry.values())).device
+    if dev.type != "cuda":
+        return block(carry, step_tensor(step, dev))
+    if key in graphs:
+        return graphs[key](carry, step)
+    out = block(carry, step_tensor(step, dev))
+    graphs[key] = _CapturedBlock(block, carry)
+    return out
+
+
+def _one_chunk_at_a_time(blocks):
+    """``blocks`` that refuses to start a chunk while another of the same
+    runner is open: a runner's graphs hold one chunk's carry."""
+    busy = []
+
+    def guarded(*args, **kw):
+        if busy:
+            raise RuntimeError("a runner advances one chunk at a time")
+        busy.append(True)
+        try:
+            return (yield from blocks(*args, **kw))
+        finally:
+            busy.clear()
+
+    return guarded
+
+
+def _launch_delta(before: dict) -> dict:
+    return {n: c - before[n] for n, c in kernels.LAUNCHES.items() if c != before[n]}
+
+
+@dataclasses.dataclass
+class _Segment:
+    """A span-path gate segment enqueued before its spans' rebuilds were
+    known to hold: its entry (to redo it from), its end carry, its flag on
+    the way to the host, the launches of its closing post (dropped with
+    it on a redo), the launches of the whole segment and its rebuild's
+    choice (both dropped when it was speculated on a segment redone)."""
+
+    entry: tuple
+    out: TableState
+    flag: "_HostValue"
+    post_launches: dict
+    launches: dict
+    rebuild_ok: torch.Tensor
 
 
 def _make_table_runner(params: SimParams, phase_fn):
@@ -766,11 +832,28 @@ def _make_table_runner(params: SimParams, phase_fn):
     (K steps, none of which fires a gate, ending in the rebuild step: the
     JAX package's ``plain_u`` scan) on a CUDA carry runs from a CUDA graph
     (:class:`_CapturedBlock`), captured on the first such block after it
-    ran eagerly, once per carry layout, and replayed after that; a failed
-    capture raises.  On the CPU every block runs eagerly, through the same
-    step.  Gated steps, the ragged remainder, chunk entry and exit and the
-    span path run eagerly.  A runner advances one chunk at a time (its
-    graphs hold that chunk's carry)."""
+    ran eagerly, once per carry layout, and replayed after that; so do
+    the ``bps - 1`` spans of a span-path segment with their rebuilds.  A
+    failed capture raises.  On the CPU every block runs eagerly, through
+    the same code.  Gated steps, the ragged remainder, chunk entry and
+    exit, and the span segment's gated first block and closing post run
+    eagerly.  A runner advances one chunk at a time (its graphs hold that
+    chunk's carry).
+
+    The span path decides a segment's adopt-or-redo one segment behind:
+    segment s's flag (the AND of its span rebuilds' ``ok``) is copied to
+    the host as soon as it is enqueued (:class:`_HostValue`), segment s + 1
+    is enqueued from s's end carry, and only then is s's flag read.  When
+    it failed, s's post and the speculated s + 1 are dropped (their
+    launches move from ``kernels.LAUNCHES`` to ``run_chunk.
+    discarded_launches``, s + 1's rebuild count is taken back from
+    :data:`REBUILDS`, ``run_chunk.discarded`` counts the dropped
+    segments), s is redone on the regular path from its entry (fields,
+    origin, step, centroid ring and the draw source's state), and s + 1
+    is enqueued again from there.  The last segment's flag is read at the
+    end of the segments.  So a chunk's results, ``redos``, ``REBUILDS``
+    and ``LAUNCHES`` are those of reading each flag before the next
+    segment."""
     params = params.validate()
     step = make_table_step(params, phase_fn)
     step_pre, step_post = make_table_step_parts(params, phase_fn)
@@ -800,16 +883,17 @@ def _make_table_runner(params: SimParams, phase_fn):
     graphs: dict = {}
 
     def ungated_block(ts: TableState) -> TableState:
-        dev = ts.origin.device
-        if dev.type != "cuda":
-            return block(ts, step_tensor(ts.step, dev))
-        key = (dev, tuple(ts.origin.shape))
-        if key in graphs:
-            return graphs[key](ts)
-        ts_in = ts
-        ts = block(ts_in, step_tensor(ts_in.step, dev))
-        graphs[key] = _CapturedBlock(block, ts_in, k)
-        return ts
+        def on_carry(carry: dict, step0: torch.Tensor) -> dict:
+            # no gate fires: the host step, the draw source and the ring
+            # are bookkeeping only
+            out = block(ts.replace(fields={kf: carry[kf] for kf in TABLE_FIELDS},
+                                   origin=carry["origin"]), step0)
+            return {**out.fields, "origin": out.origin}
+
+        out = _graphed(graphs, ("block", ts.origin.device, tuple(ts.origin.shape)), on_carry,
+                       {**ts.fields, "origin": ts.origin}, ts.step)
+        return ts.replace(fields={kf: out[kf] for kf in TABLE_FIELDS}, origin=out["origin"],
+                          step=ts.step + k)
 
     def regular(ts: TableState, n: int):
         """``n`` steps on the regular schedule, block by block."""
@@ -826,63 +910,100 @@ def _make_table_runner(params: SimParams, phase_fn):
             yield
         return ts
 
-    def mega_seg(ts: TableState) -> TableState:
-        """One gate segment through the span path, or the regular path
-        from the same entry state when a rebuild's preconditions failed
-        (for any scene of a batch)."""
+    def spans(carry: dict, first: torch.Tensor) -> dict:
+        """The ``bps - 1`` spans of a segment from mid-step ``first - 1``,
+        each followed by the unconditional incremental rebuild: the planes
+        after the last, and the AND of the rebuilds' ``ok`` (of every
+        scene of a batch)."""
+        tbl, strip, ok_all = carry["tbl"], carry["strip"], None
+        for b in range(bps - 1):
+            tbl, strip = mega(tbl, strip, first + b * k)
+            tbl, ok = incremental_packed(tbl, carry["origin"])
+            ok_all = ok.all() if ok_all is None else ok_all & ok.all()
+        return {"tbl": tbl, "strip": strip, "ok": ok_all}
+
+    def launch_seg(ts: TableState) -> _Segment:
+        """Enqueue one gate segment through the span path, reading
+        nothing: the gated first block minus its last post (that post
+        belongs to an ungated step and opens the first span), the spans,
+        and the last span's closing post."""
+        before = dict(kernels.LAUNCHES)
         entry = (
             dict(ts.fields), ts.origin, ts.step, ts.centroid_ring,
             rng.snapshot(ts.generator),
         )
-        # the gated first block minus its last post: that post belongs to
-        # an ungated step and opens the first span
         for _ in range(k - 1):
             ts = step(ts, *_gates(params, ts.step), False)
-        ts = _smart_rebuild(params, step_pre(ts, *_gates(params, ts.step)))
+        ts, rebuild_ok = _choose_rebuild(params, step_pre(ts, *_gates(params, ts.step)))
         tbl, strip = mega_pack(ts.fields)
-        ok_all = torch.ones((), dtype=torch.bool, device=tbl.device)
         first = ts.step + 1
-        for b in range(bps - 1):
-            tbl, strip = mega(tbl, strip, first + b * k)
-            tbl, ok = incremental_packed(tbl, ts.origin)
-            ok_all = ok_all & ok.all()
-        if bool(ok_all.item()):
-            # the last span ended mid-step first + (bps-1)*k - 1, after
-            # pre + rebuild: its post completes the segment
-            mid = ts.replace(
-                fields=mega_unpack(tbl, strip), step=first + (bps - 1) * k - 1
-            )
-            return step_post(mid)
+        out = _graphed(graphs, ("spans", tbl.device, tuple(tbl.shape)), spans,
+                       {"tbl": tbl, "strip": strip, "origin": ts.origin}, first)
+        flag = _HostValue(out["ok"])
+        # the last span ended mid-step first + (bps-1)*k - 1, after pre +
+        # rebuild: its post completes the segment
+        mid = ts.replace(fields=mega_unpack(out["tbl"], out["strip"]),
+                         step=first + (bps - 1) * k - 1)
+        before_post = dict(kernels.LAUNCHES)
+        end = step_post(mid)
+        return _Segment(entry, end, flag, _launch_delta(before_post), _launch_delta(before),
+                        rebuild_ok)
+
+    def drop(failed: _Segment, speculated: _Segment | None) -> None:
+        """Take back what the kept schedule does not run: the failed
+        segment's post, and the segment enqueued from its end carry."""
+        gone = [failed.post_launches]
+        if speculated is not None:
+            gone.append(speculated.launches)
+            REBUILDS.add(speculated.rebuild_ok, sign=-1)
+            run_chunk.discarded += 1
+        for launches in gone:
+            for n, c in launches.items():
+                kernels.LAUNCHES[n] -= c
+                run_chunk.discarded_launches[n] = run_chunk.discarded_launches.get(n, 0) + c
+
+    def redo(ts: TableState, entry: tuple) -> TableState:
+        """The segment from ``entry`` on the regular path, which takes the
+        exact fallback where it is due."""
         run_chunk.redos += 1
         fields, origin, step0, ring, snap = entry
         rng.restore(ts.generator, snap)
         ts = ts.replace(fields=fields, origin=origin, step=step0, centroid_ring=ring)
         return drain(regular(ts, seg))
 
-    busy = []
+    def span_segments(ts: TableState, n_segs: int):
+        """``n_segs`` gate segments through the span path, each decided one
+        segment behind (see the runner's docstring); yields after each."""
+        pending = None
+        for s in range(n_segs + 1):
+            cur = launch_seg(ts) if s < n_segs else None
+            if pending is not None and not pending.flag.read():
+                drop(pending, cur)
+                ts = redo(ts, pending.entry)
+                cur = launch_seg(ts) if s < n_segs else None
+            if cur is not None:
+                ts = cur.out
+                yield
+            pending = cur
+        return ts
 
+    @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
-        if busy:
-            raise RuntimeError("a table runner advances one chunk at a time")
-        busy.append(True)
-        try:
-            ts = enter_table(params, state)
-            n_segs = 0
-            if use_mega and seg_aligned and bps > 1:
-                n_segs = n_steps // seg
-                for _ in range(n_segs):
-                    ts = mega_seg(ts)
-                    yield
-            ts = yield from regular(ts, n_steps - n_segs * seg)
-            return exit_table(params, ts)
-        finally:
-            busy.clear()
+        ts = enter_table(params, state)
+        n_segs = 0
+        if use_mega and seg_aligned and bps > 1:
+            n_segs = n_steps // seg
+            ts = yield from span_segments(ts, n_segs)
+        ts = yield from regular(ts, n_steps - n_segs * seg)
+        return exit_table(params, ts)
 
     def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
         return drain(blocks(state, n_steps, seg_aligned))
 
     run_chunk.blocks = blocks
     run_chunk.redos = 0
+    run_chunk.discarded = 0
+    run_chunk.discarded_launches = {}
     run_chunk.path_info = {
         "use_mega": use_mega,
         "gate_seg": seg,

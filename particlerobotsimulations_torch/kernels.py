@@ -124,7 +124,7 @@ def _run_all(cmds: list) -> str:
 SIGNATURES = {
     "pbot_stencil_forces": [_vp] * 10 + [_i, _i, _i, _ll] + [_f] * 10 + [_vp],
     "pbot_compact": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
-    "pbot_mega_span": [_vp] * 4 + [_i] * 6 + [_vp, _i, _vp, _i, _vp, _i, _i, _vp],
+    "pbot_mega_span": [_vp] * 4 + [_i] * 5 + [_vp, _vp, _i, _vp, _i, _vp, _i, _i, _vp],
     "pbot_compact_padded": [_vp, _vp, _vp] + [_i] * 6 + [_vp],
     "pbot_stencil_forces_ext": [_vp] * 11 + [_i] * 6 + [_ll] + [_f] * 10 + [_vp],
     "pbot_stencil_forces_plan": [_i] * 5 + [_vp],
@@ -594,17 +594,20 @@ def obstacle_buffers(params: SimParams, device) -> tuple:
 
 
 def mega_span_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
-                   step: int, rects: torch.Tensor, circles: torch.Tensor):
+                   step: torch.Tensor, rects: torch.Tensor, circles: torch.Tensor):
     """Kernel 3 on CUDA tensors: one ungated span from mid-step ``step - 1``
     -> (tbl', strip').  ``tbl`` is (13, C, G*G), ``strip`` (13, n_pad//128,
-    128); ``rects`` and ``circles`` come from :func:`obstacle_buffers`."""
+    128); ``step`` a 0-dim int64 tensor on the same card, which the kernel
+    reads (so a CUDA graph of the launch replays at whatever step the
+    tensor then holds); ``rects`` and ``circles`` come from
+    :func:`obstacle_buffers`."""
     if tbl.dim() != 3:
         raise ValueError(f"tbl: expected (13, C, G*G), got {tuple(tbl.shape)}")
     return _launch_mega(params, tbl, strip, step, rects, circles, 1, "mega_span")
 
 
 def mega_span_batched_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
-                           step: int, rects: torch.Tensor, circles: torch.Tensor):
+                           step: torch.Tensor, rects: torch.Tensor, circles: torch.Tensor):
     """Kernel 3 on B scenes in one launch, one cluster each: ``tbl`` (B,
     13, C, G*G) and ``strip`` (B, 13, n_pad//128, 128) -> (tbl', strip'),
     the scenes in lockstep at ``step``.  Scene b's outputs equal
@@ -629,6 +632,9 @@ def _launch_mega(params, tbl, strip, step, rects, circles, scenes: int, what: st
         if t.device != tbl.device:
             raise ValueError(f"{name}: on {t.device}, tbl on {tbl.device}")
     _check_mega_plan(cs, g, n_pad, params.has_payload, scenes)
+    if not (torch.is_tensor(step) and step.dtype == torch.int64 and step.dim() == 0
+            and step.device == tbl.device):
+        raise ValueError(f"step: expected a 0-dim int64 tensor on {tbl.device}")
     lib = build()
     consts = mega_constants(params)
     carr = (ctypes.c_float * len(consts))(*consts)
@@ -637,7 +643,7 @@ def _launch_mega(params, tbl, strip, step, rects, circles, scenes: int, what: st
     k = max(1, params.resolved_slot_rebuild_steps())
     err = lib.pbot_mega_span(
         tbl.data_ptr(), strip.data_ptr(), tbl_out.data_ptr(), strip_out.data_ptr(),
-        scenes, cs, g, n_pad, k, int(step),
+        scenes, cs, g, n_pad, k, step.data_ptr(),
         ctypes.cast(carr, _vp), len(consts),
         rects.data_ptr() if rects.numel() else None, rects.shape[0],
         circles.data_ptr() if circles.numel() else None, circles.shape[0],

@@ -107,11 +107,12 @@ def neighbor_candidates(params: SimParams, table: CellTable) -> torch.Tensor:
     dev = table.cell_id.device
     cid = torch.clamp(table.cell_id, max=g * g - 1)
     cx, cy = cid % g, cid // g
-    offs = torch.tensor(
-        [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)], dtype=torch.int32, device=dev
-    )
-    nx = (cx[:, None] + offs[None, :, 1]) % g
-    ny = (cy[:, None] + offs[None, :, 0]) % g
+    # (dy, dx) row-major over {-1, 0, 1}^2, made on the device (a copy from
+    # the host would wait for the card, and a CUDA graph cannot hold it)
+    o = torch.arange(9, dtype=torch.int32, device=dev)
+    dy, dx = o // 3 - 1, o % 3 - 1
+    nx = (cx[:, None] + dx[None, :]) % g
+    ny = (cy[:, None] + dy[None, :]) % g
     ncell = ny * g + nx                                              # (n, 9)
     base = ncell[..., None] * cap + torch.arange(cap, dtype=torch.int32, device=dev)
     return table.idx[base.reshape(base.shape[0], -1).long()]        # (n, 9*cap)

@@ -24,15 +24,12 @@ with the kernel it checks.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..config import ForceBackend, SimParams, padded_n
 from .forces import friction_velocity_update_xy, obstacle_forces_xy
 from .integrate import radius_integrate_planes
 from .pallas_stencil import stencil_forces_plain
-
-f32 = np.float32
 
 # table-row budget: G=16 at capacity 16.  The JAX package's limit, set by
 # the TPU's VMEM; kept until a measurement on the card moves it, so that
@@ -59,13 +56,15 @@ def mega_eligible(params: SimParams) -> bool:
 
 
 def mega_span_plain(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
-                    step: int):
+                    step: torch.Tensor):
     """Plain PyTorch twin of kernel 3: (tbl', strip') after one span from
     mid-step ``step - 1``.  ``tbl`` is (N_TF, C, G*G), ``strip`` (N_TF,
-    n_pad//128, 128), both in TABLE_FIELDS order.  Parking-strip rows get
-    no pair force: their aa and ar are zeroed, then obstacles and friction
-    run with zero pair force."""
-    from ..engine_table import TABLE_FIELDS
+    n_pad//128, 128), both in TABLE_FIELDS order; ``step`` a 0-dim int64
+    tensor on their device, as the kernel takes it (each step's time is
+    ``engine_table.sim_time`` of it).  Parking-strip rows get no pair
+    force: their aa and ar are zeroed, then obstacles and friction run
+    with zero pair force."""
+    from ..engine_table import TABLE_FIELDS, sim_time
 
     p = params.validate()
     k = max(1, p.resolved_slot_rebuild_steps())
@@ -99,7 +98,7 @@ def mega_span_plain(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
             e["vx"] = torch.where(val, nvx, zero)
             e["vy"] = torch.where(val, nvy, zero)
         # pre(step + j)
-        time = float(f32(step + j) * f32(dt))
+        time = sim_time(step + j, dt)
         d = radius_integrate_planes(p, d, time)
         s = radius_integrate_planes(p, s, time)
     return (
@@ -109,7 +108,7 @@ def mega_span_plain(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
 
 
 def mega_span_batched_plain(params: SimParams, tbl: torch.Tensor,
-                            strip: torch.Tensor, step: int):
+                            strip: torch.Tensor, step: torch.Tensor):
     """Plain twin of kernel 3's batched form: :func:`mega_span_plain` on
     each scene of (B, N_TF, C, G*G) tables and (B, N_TF, n_pad//128, 128)
     strips, stacked."""
@@ -121,8 +120,9 @@ def make_mega_span(params: SimParams, n_pad: int):
     """Returns ``span(tbl, strip, step) -> (tbl', strip')``.
 
     tbl: (N_TF, C, G*G) float32 table planes; strip: (N_TF, n_pad//128,
-    128) parking-strip planes; step: int, the first step of the k-step
-    rebuild block this span belongs to.  The input must be mid-step
+    128) parking-strip planes; step: the first step of the k-step rebuild
+    block this span belongs to, a 0-dim int64 tensor on their device (an
+    int is made one), which kernel 3 reads on the card.  The input must be mid-step
     ``step - 1`` (after integrate and rebuild): the span opens with the
     carried-over ``post(step - 1)``, runs k-1 full steps, and ends mid-step
     ``step + k - 1`` after integrate.  The caller then runs the slot
@@ -136,20 +136,22 @@ def make_mega_span(params: SimParams, n_pad: int):
         raise ValueError(f"n_pad must be a multiple of 128, got {n_pad}")
     obstacles = {}  # device -> kernel 3's obstacle buffers, built once
 
-    def span(tbl: torch.Tensor, strip: torch.Tensor, step: int):
+    def span(tbl: torch.Tensor, strip: torch.Tensor, step):
         if strip.shape[-2] * 128 != n_pad:
             raise ValueError(f"strip: expected {n_pad} rows, got {tuple(strip.shape)}")
         kind, batched = tbl.device.type, tbl.dim() == 4
+        if kind not in ("cuda", "cpu"):
+            raise ValueError(f"mega span: unsupported device {tbl.device}")
+        if not torch.is_tensor(step):
+            step = torch.full((), int(step), dtype=torch.int64, device=tbl.device)
         if kind == "cuda":
             from ..kernels import mega_span_batched_cuda, mega_span_cuda, obstacle_buffers
 
             if tbl.device not in obstacles:
                 obstacles[tbl.device] = obstacle_buffers(p, tbl.device)
             fn = mega_span_batched_cuda if batched else mega_span_cuda
-            return fn(p, tbl, strip, int(step), *obstacles[tbl.device])
-        if kind == "cpu":
-            fn = mega_span_batched_plain if batched else mega_span_plain
-            return fn(p, tbl, strip, int(step))
-        raise ValueError(f"mega span: unsupported device {tbl.device}")
+            return fn(p, tbl, strip, step, *obstacles[tbl.device])
+        fn = mega_span_batched_plain if batched else mega_span_plain
+        return fn(p, tbl, strip, step)
 
     return span

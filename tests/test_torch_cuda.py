@@ -22,11 +22,13 @@ from particlerobotsimulations_torch.engine_table import (
     _make_mega_glue,
     enter_table,
     exit_table,
+    gate_seg,
     make_adaptive_run_chunk,
     make_run_chunk_table,
     make_run_chunk_table_batched,
     make_table_step,
     make_table_step_parts,
+    step_tensor,
 )
 from particlerobotsimulations_torch.models.placement import resolve_params
 from particlerobotsimulations_torch.ops.megakernel import make_mega_span, mega_span_plain
@@ -149,10 +151,11 @@ def check_span_against_twin(p, card):
     ts = enter_table(p, sim.state)
     ts = make_table_step_parts(p)[0](ts, *_gates(p, ts.step))
     tbl, strip = _make_mega_glue(p)[0](ts.fields)
+    first = step_tensor(ts.step + 1, card)
     n0 = kernels.LAUNCHES["mega_span"]
-    got = make_mega_span(p, _geometry(p)[2])(tbl, strip, ts.step + 1)
+    got = make_mega_span(p, _geometry(p)[2])(tbl, strip, first)
     assert kernels.LAUNCHES["mega_span"] == n0 + 1
-    want = mega_span_plain(p, tbl, strip, ts.step + 1)
+    want = mega_span_plain(p, tbl, strip, first)
     assert_span_close(p, got, want)
 
 
@@ -631,7 +634,7 @@ def test_batched_mega_span_equals_single_launches(card):
     assert len({first for _, _, first in ins}) == 1
     tbl = torch.stack([t for t, _, _ in ins])
     strip = torch.stack([s for _, s, _ in ins])
-    first = ins[0][2]
+    first = step_tensor(ins[0][2], card)
     g, cs, n_pad = p.resolved_grid_dim(), p.storage_capacity(), _geometry(p)[2]
     plan = kernels.mega_plan(cs, g, n_pad, p.has_payload, scenes=3)
     lib = kernels.library_mega_plan(cs, g, n_pad, p.has_payload, scenes=3)
@@ -993,3 +996,229 @@ def test_table_chunk_reads_nothing_from_the_card(card, kind):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert state.step == 1200 and bool(torch.isfinite(state.pos).all())
+
+
+# ------------------------------------------ the compiled small-scene paths
+
+class EagerBlock:
+    """Stands in for ``engine_table._CapturedBlock``: the same runner, its
+    captured blocks run eagerly."""
+
+    def __init__(self, block, carry):
+        self.block = block
+
+    def __call__(self, carry, step):
+        return self.block(carry, step_tensor(step, next(iter(carry.values())).device))
+
+
+def eager_runner(make, monkeypatch):
+    """A runner built and first run with its blocks eager: returns
+    ``make()``'s runner and a callable that runs it under the swap."""
+    from particlerobotsimulations_torch import engine_table
+
+    run = make()
+
+    def call(*args):
+        with monkeypatch.context() as m:
+            m.setattr(engine_table, "_CapturedBlock", EagerBlock)
+            return run(*args)
+
+    return call
+
+
+# 300 bots on DENSE with the centroid every 100 steps and the noisy phase
+# law every 150: 32-step blocks between eager gated steps and ragged ends
+SMALL_SCENE = dict(n_cells=300, n_dead=0, seed=5, config=pt.Config.HEX, light_x=-2.0,
+                   light_y=4.0, force_backend=pt.ForceBackend.DENSE, phase_std=0.5,
+                   centroid_int=1.0, phase_update_interval=1.5)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_dense_graph_equals_eager(card, batched, monkeypatch):
+    """Two 170-step chunks of the per-bot runner, its ungated blocks
+    replayed from a CUDA graph after the first, equal the same runner with
+    eager blocks and a plain loop of ``make_step`` bit for bit; batched:
+    three scenes in lockstep."""
+    from particlerobotsimulations_torch.engine import (
+        make_run_chunk,
+        make_run_chunk_batched,
+        make_step,
+        make_step_batched,
+    )
+
+    p = pt.SimParams(**SMALL_SCENE).validate()
+
+    def fresh():
+        if batched:
+            return make_batch_state(p, [0, 1, 2], card)
+        return pt.Simulation(p, device=card).state
+
+    make = make_run_chunk_batched if batched else make_run_chunk
+    graph, eager = make(p, card), eager_runner(lambda: make(p, card), monkeypatch)
+    got, ref = fresh(), fresh()
+    for _ in range(2):
+        got, ref = graph(got, 170), eager(ref, 170)
+    step = (make_step_batched if batched else make_step)(p, card)
+    want = fresh()
+    for _ in range(340):
+        want = step(want)
+    for k in CHUNK_FIELDS:
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert got.step == want.step == 340
+
+
+def reference_span_chunk(p, state, n_steps):
+    """The span path with each segment's flag read before the next segment
+    is enqueued (``bool(ok_all.item())``), every piece eager: (state,
+    redos)."""
+    from particlerobotsimulations_torch import rng
+    from particlerobotsimulations_torch.engine_table import _smart_rebuild
+
+    step = make_table_step(p)
+    step_pre, step_post = make_table_step_parts(p)
+    k, seg = max(1, p.resolved_slot_rebuild_steps()), gate_seg(p)
+    bps = seg // k
+    mega = make_mega_span(p, _geometry(p)[2])
+    mega_pack, mega_unpack, incremental_packed = _make_mega_glue(p)
+    redos = 0
+
+    def regular(ts, n):
+        for j in range(n):
+            ts = step(ts, *_gates(p, ts.step), j % k == k - 1)
+        return ts
+
+    ts = enter_table(p, state)
+    for _ in range(n_steps // seg):
+        entry = (dict(ts.fields), ts.origin, ts.step, ts.centroid_ring,
+                 rng.snapshot(ts.generator))
+        for _ in range(k - 1):
+            ts = step(ts, *_gates(p, ts.step), False)
+        ts = _smart_rebuild(p, step_pre(ts, *_gates(p, ts.step)))
+        tbl, strip = mega_pack(ts.fields)
+        ok_all = torch.ones((), dtype=torch.bool, device=tbl.device)
+        first = ts.step + 1
+        for b in range(bps - 1):
+            tbl, strip = mega(tbl, strip, first + b * k)
+            tbl, ok = incremental_packed(tbl, ts.origin)
+            ok_all = ok_all & ok.all()
+        if bool(ok_all.item()):
+            ts = step_post(ts.replace(fields=mega_unpack(tbl, strip),
+                                      step=first + (bps - 1) * k - 1))
+            continue
+        redos += 1
+        fields, origin, step0, ring, snap = entry
+        rng.restore(ts.generator, snap)
+        ts = regular(ts.replace(fields=fields, origin=origin, step=step0, centroid_ring=ring),
+                     seg)
+    return exit_table(p, regular(ts, n_steps % seg)), redos
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_lagged_span_chunk_equals_one_read_per_segment(card, batched):
+    """128 HEX bots, 12-step segments (two spans each), one bot kicked to
+    60 u/s so that span rebuilds refuse: a 48-step seg-aligned chunk of
+    the runner (spans from a CUDA graph, each flag read one segment
+    behind) equals the one-read-per-segment reference bit for bit, with
+    equal launches, rebuilds and redos; batched: the kick in scene 1 of
+    two."""
+    from particlerobotsimulations_torch.state import (
+        batch_state_from_arrays,
+        batch_state_to_arrays,
+    )
+
+    p = pt.SimParams(n_cells=128, n_dead=0, seed=3, config=pt.Config.HEX,
+                     force_backend=pt.ForceBackend.PALLAS, light_x=-5.0, phase_std=0.5,
+                     centroid_int=0.12, phase_update_interval=0.24,
+                     slot_rebuild_steps=4).validate()
+    if batched:
+        arrays = batch_state_to_arrays(make_batch_state(p, [2, 3], "cpu"))
+        arrays["vel"][1, 7, 0] += 60.0
+        arrays["seed"] = np.array([2, 3])
+
+        def fresh():
+            return batch_state_from_arrays(p, arrays, card)
+    else:
+        arrays = state_to_arrays(pt.Simulation(p, device="cpu").state)
+        arrays["vel"][7, 0] += 60.0
+
+        def fresh():
+            return state_from_arrays(p, arrays, card)
+
+    run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
+    runs = []
+    for chunk in (lambda: run(fresh(), 48, True), lambda: reference_span_chunk(p, fresh(), 48)):
+        reset_counts()
+        out = chunk()
+        runs.append((out, dict(kernels.LAUNCHES), dict(REBUILDS)))
+    (got, g_launch, g_reb), ((want, redos), r_launch, r_reb) = runs
+    for k in CHUNK_FIELDS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert run.redos == redos >= 1 and run.discarded >= 1
+    assert (g_launch, g_reb) == (r_launch, r_reb)
+    assert g_launch["mega_span_batched" if batched else "mega_span"] > 0
+
+
+def test_mega_span_replays_at_the_step_it_reads(card):
+    """Kernel 3 captured in a CUDA graph with its step tensor, replayed
+    after the tensor is refilled, equals a direct launch at the new step
+    bit for bit (the time enters through the radius law), and its twin
+    within chip_smoke.py's tolerances."""
+    p = pt.SimParams(n_cells=1000, n_dead=0, seed=3, config=pt.Config.HEX,
+                     light_x=-5.0).validate()
+    tbl, strip, first = band_span_inputs(p, card, 3)
+    obs = kernels.obstacle_buffers(p, card)
+    step = step_tensor(first, card)
+    kernels.mega_span_cuda(p, tbl, strip, step, *obs)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        out = kernels.mega_span_cuda(p, tbl, strip, step, *obs)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    results = []
+    for s in (first, first + 37):
+        step.fill_(s)
+        graph.replay()
+        direct = kernels.mega_span_cuda(p, tbl, strip, step_tensor(s, card), *obs)
+        assert bitwise(out[0], direct[0]) and bitwise(out[1], direct[1]), s
+        assert_span_close(p, direct, mega_span_plain(p, tbl, strip, step_tensor(s, card)))
+        results.append(direct[0].clone())
+    assert not torch.equal(results[0], results[1])
+
+
+@pytest.mark.parametrize("kind", ["dense", "dense_batched", "span", "span_batched"])
+def test_small_chunk_reads_nothing_from_the_card(card, kind):
+    """A warm chunk of the per-bot runner (DENSE) and of the span path
+    (graphs captured) under ``torch.cuda.set_sync_debug_mode("error")``:
+    nothing in it waits for the card, the span path's one-segment-behind
+    reads aside (an event's wait, which the mode allows)."""
+    from particlerobotsimulations_torch.engine import make_run_chunk, make_run_chunk_batched
+
+    if kind.startswith("dense"):
+        p = pt.SimParams(**SMALL_SCENE).validate()
+        n = 200
+    else:
+        p = pt.SimParams(n_cells=1000, n_dead=0, seed=3, config=pt.Config.HEX,
+                         light_x=-5.0).validate()
+        n = 2 * gate_seg(p)
+    if kind.endswith("batched"):
+        state = make_batch_state(p, [0, 1], card)
+        run = make_run_chunk_batched(p, card)
+    else:
+        state = pt.Simulation(p, device=card).state
+        run = make_run_chunk(p, card)
+    if kind.startswith("span"):
+        assert run.path_info["use_mega"]
+    for _ in range(2):
+        state = run(state, n, True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = run(state, n, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert state.step == 3 * n and bool(torch.isfinite(state.pos).all())
