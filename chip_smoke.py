@@ -178,7 +178,28 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    ``torch.profiler``, the card's name and power limit) for DENSE at 300
    and 500 bots and the band's span and regular paths, and the per-bot
    runner at 8 against 32 steps per block.  The graph runs' launches are
-   added to the kernels' counts.
+   added to the kernels' counts;
+18. the sharded loop's compiled chunk: its ungated K-step blocks replay
+   from CUDA graphs and a chunk reads nothing from the card (the rebuild
+   decision a device select, the stats device counters read at the exit).
+   Graph against eager (the runner with ``engine_table._CapturedBlock``
+   swapped for the eager block), bit for bit with equal launches and
+   equal ``fallbacks`` and ``spill_rows_max`` per chunk: bench.py's 10k
+   workload on ``LocalRing(4)`` (G=64) from placement, 1,200 steps across
+   the centroid gate at 1,000; 100,000 HEX bots with 8 spill rows, 200
+   steps (none parked); the forced fallback (64 bots at 50 u/s, every
+   chunk falls back); dp x tp, 4 seeds x 4 shards, 400 steps, on one ring
+   and on two data places of 4 shards (the places interleaved).  One
+   more chunk of each graph runner under
+   ``torch.cuda.set_sync_debug_mode("error")``, its stats read after.
+   The select (both rebuilds) against the incremental rebuild alone per
+   rebuild at G=64 and at 100k, with the exact rebuild's device time by
+   op; eager against graph in turns under the profiler (wall, device
+   us/step, the card's name and power limit) at 10k and in dp x tp on one
+   ring and on the two data places.  The
+   graph runs' launches are added to the kernels' counts.  (Phase 14's
+   dp x tp run and its lockstep replays run their blocks eagerly: a graph
+   replays its rebuilds without the decision hook they record.)
 
 The four kernels are timed per launch from replays of a CUDA graph of
 20 launches, so their wrappers' host-side checks stay out of the time
@@ -1111,23 +1132,14 @@ def timed_sharded(run, p, n_steps):
 
 
 def single_with_fallbacks(run, state, n_steps):
-    """(final state, exact global rebuilds) of ``n_steps`` of a single-table
-    loop, counted by wrapping ``engine_table._rebuild_fields``, which only
-    its incremental rebuild's fallback calls."""
-    from particlerobotsimulations_torch import engine_table
-
-    inner, calls = engine_table._rebuild_fields, [0]
-
-    def counted(*args):
-        calls[0] += 1
-        return inner(*args)
-
-    engine_table._rebuild_fields = counted
-    try:
-        out = run(state, n_steps)
-    finally:
-        engine_table._rebuild_fields = inner
-    return out, calls[0]
+    """(final state, exact rebuilds taken) of ``n_steps`` of a single-table
+    loop: since the rebuild choice became a device select (every rebuild
+    runs both rebuilds), the exact choices are counted on the device
+    (``engine_table.REBUILDS``), through the graphs' replays too."""
+    for k in REBUILDS:
+        REBUILDS[k] = 0
+    out = run(state, n_steps)
+    return out, REBUILDS["exact"]
 
 
 def auto_100k(base) -> str:
@@ -2424,8 +2436,11 @@ MESH_PLACES = 4
 
 def record_decisions():
     """(decisions, restore): wraps ``spatial_table._all_ok`` so that every
-    rebuild decision the sharded loops take is appended to ``decisions``;
-    ``restore()`` puts the function back."""
+    rebuild decision the sharded loops take (a 0-dim bool tensor on the
+    card) is appended to ``decisions``; ``restore()`` puts the function
+    back.  A CUDA graph replays its captured rebuilds without calling the
+    function, so a run that records or replays decisions runs its blocks
+    eagerly (:func:`eager_blocks`)."""
     from particlerobotsimulations_torch.parallel import spatial_table
 
     inner, seen = spatial_table._all_ok, []
@@ -2543,7 +2558,9 @@ def dp_tp_kernel_checks(p, state):
 
 def dp_tp_phase():
     """The dp x tp table loop on bench.py's 10k workload, B = 4 seeds x D =
-    4 shards (G=64), 200 steps, the counters reset just before: exactly one
+    4 shards (G=64), 200 steps with its blocks eager (so that every
+    rebuild's decision is recorded; phase 18 holds the graphed blocks to
+    the eager ones), the counters reset just before: exactly one
     kernel-4 launch per step and one padded kernel-2 launch per rebuild for
     all 16 blocks; each scene bit for bit (its centroid ring within a
     reordered sum's bound) its lockstep replay, the scene alone through the
@@ -2565,7 +2582,8 @@ def dp_tp_phase():
     reset_counts()
     t0 = time.perf_counter()
     try:
-        out, stats = run(batch, n_steps)
+        with eager_blocks(True):
+            out, stats = run(batch, n_steps)
         torch.cuda.synchronize()
     finally:
         restore()
@@ -2575,8 +2593,9 @@ def dp_tp_phase():
     want.update(stencil_forces_ext_batched=n_steps, compact_padded_batched=n_steps // k)
     if launches != want:
         fail(f"dp x tp launches {launches}, want {want}")
-    if len(decisions) != n_steps // k or stats["fallbacks"] != decisions.count(False):
-        fail(f"dp x tp: {len(decisions)} decisions, stats {stats}")
+    taken = [bool(d) for d in decisions]
+    if len(taken) != n_steps // k or stats["fallbacks"] != taken.count(False):
+        fail(f"dp x tp: {len(taken)} decisions, stats {stats}")
     if not np.isfinite(out.pos.cpu().numpy()).all():
         fail("dp x tp: non-finite state")
 
@@ -2588,7 +2607,8 @@ def dp_tp_phase():
         restore = replay_decisions(decisions)
         t0 = time.perf_counter()
         try:
-            one = single(scene, n_steps)
+            with eager_blocks(True):
+                one = single(scene, n_steps)
             torch.cuda.synchronize()
         finally:
             restore()
@@ -3437,9 +3457,191 @@ def small_scene_phase(smi) -> dict:
     return total
 
 
-def make_advance(run, aligned):
-    """``advance(state, n)``: one chunk of ``run``; a fresh runner's first
-    call builds its graphs."""
+# ------------------------- phase 18: the sharded loop's compiled chunk
+
+# graph against eager, chunk lengths: the 10k sharded loop from placement
+# (the gates at 0, the centroid gate at 1,000), 100,000 HEX bots with 8
+# spill rows, the forced-fallback scene (64 bots at 50 u/s), dp x tp (4
+# seeds x 4 shards) on one ring and on two data places of 4 shards
+SHARD_CHUNKS_10K = (600, 600)
+SHARD_CHUNKS_100K = (100, 100)
+SHARD_CHUNKS_FALLBACK = (16, 16)
+SHARD_CHUNKS_DPTP = (200, 200)
+# (timed, traced) steps of each eager / graph turn: 10k, dp x tp
+SHARD_PROFILE_STEPS, DPTP_PROFILE_STEPS = (1000, 200), (400, 100)
+
+
+def sharded_chunks(make_runner, state, chunks, eager):
+    """A fresh sharded runner (``with_stats``) over ``chunks`` from a copy of
+    ``state``, its ungated blocks eager or replayed from graphs, the
+    counters reset just before: (runner, state, launches, each chunk's
+    stats, wall s)."""
+    with eager_blocks(eager):
+        run = make_runner()
+        state = clone_state(state)
+        reset_counts()
+        stats = []
+        t0 = time.perf_counter()
+        for n in chunks:
+            state, st = run(state, n)
+            stats.append(st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return run, state, dict(kernels.LAUNCHES), stats, wall
+
+
+def sharded_graph_vs_eager(name, make_runner, state, chunks, total):
+    """``chunks`` through an eager and a graph run of one sharded runner
+    kind from one state: bit for bit, with equal launches and equal
+    ``fallbacks`` and ``spill_rows_max`` per chunk; then one chunk of the
+    warm graph runner under ``set_sync_debug_mode("error")``, its blocks
+    drained there and its stats read after.  Adds the graph run's launches
+    to ``total``; returns (text, the graph run's end state, its stats per
+    chunk)."""
+    _, e_state, e_launch, e_stats, e_wall = sharded_chunks(make_runner, state, chunks, True)
+    run, g_state, g_launch, g_stats, g_wall = sharded_chunks(make_runner, state, chunks, False)
+    if not states_equal(e_state, g_state):
+        bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e_state, k), getattr(g_state, k))]
+        fail(f"{name}: graph run differs from the eager run in {bad}")
+    if (e_launch, e_stats) != (g_launch, g_stats):
+        fail(f"{name}: eager launches {e_launch} stats {e_stats}, graph {g_launch} {g_stats}")
+    for k, v in g_launch.items():
+        total[k] = total.get(k, 0) + v
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        result = engine_table.drain(run.blocks(g_state, chunks[-1]))
+    except RuntimeError as err:
+        fail(f"{name}: a chunk waited for the card: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out, free_stats = run.read_stats(result)
+    if not bool(torch.isfinite(out.pos).all()):
+        fail(f"{name}: non-finite state after the sync-free chunk")
+    steps = sum(chunks)
+    used = {k: v for k, v in g_launch.items() if v}
+    return (f"{name}: {steps} steps in chunks {list(chunks)}, graph == eager bit for bit, "
+            f"launches {used}, stats per chunk {g_stats}; wall {e_wall * 1e6 / steps:.1f} "
+            f"us/step eager, {g_wall * 1e6 / steps:.1f} graph (first chunk captures); "
+            f"sync-free chunk ok ({free_stats})"), g_state, g_stats
+
+
+def sharded_select_cost(p, state) -> str:
+    """The sharded rebuild with its device select against the incremental
+    rebuild alone, on ``state``'s table split over a ``LocalRing`` after
+    one step's integrate: per-rebuild device times in a CUDA graph, their
+    difference (what the exact rebuild and the select add to each
+    rebuild), and the exact rebuild's device time by op."""
+    run, p = make_sharded_table_run(p, LocalRing(N_SHARDS, "cuda"))
+    pre, _ = make_table_step_parts(p)
+    ts = pre(enter_table(p, state), False, False, False)
+    f = run.parts["split_local"](ts.fields)
+    sel = graph_ms(lambda: run.parts["rebuild"](f, ts.origin), launches=10)
+    inc = graph_ms(lambda: run.parts["incremental"](f, ts.origin), launches=10)
+    return (f"G={p.resolved_grid_dim()} Cs={p.storage_capacity()}: select {sel * 1e3:.1f} us, "
+            f"incremental alone {inc * 1e3:.1f} us, select adds {(sel - inc) * 1e3:.1f} us "
+            f"per rebuild; the exact rebuild's device time by op: {exact_rebuild_ops(p, ts)}")
+
+
+def sharded_compiled_phase(smi) -> dict:
+    """Phase 18: the sharded loop's ungated K-step blocks from CUDA graphs,
+    held bit for bit to the eager blocks at 10k, at 100k with spill rows,
+    in the forced-fallback scene, in dp x tp on one ring and on two data
+    places; sync-free chunks of each; the select's cost at G=64 and at
+    100k; eager against graph in turns under the profiler at 10k and in dp
+    x tp on one ring and on two data places.  Returns the graph runs'
+    launches."""
+    from particlerobotsimulations_torch.parallel.mesh import Mesh
+    from particlerobotsimulations_torch.parallel.spatial_table import (
+        make_sharded_table_run_batched,
+    )
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    total: dict = {}
+    base = resolve_params(bench_params().validate())
+    ring = LocalRing(N_SHARDS, "cuda")
+    p10 = resolve_tp_params(base, N_SHARDS)
+    k = max(1, p10.resolved_slot_rebuild_steps())
+    gates = gate_counts(p10, 0, sum(SHARD_CHUNKS_10K))
+    if gates["centroid"] < 2:
+        fail(f"phase 18 10k chunks cross no centroid gate ({gates})")
+    s10 = pt.Simulation(p10, device="cuda").state
+    t0 = time.perf_counter()
+    text, _, _ = sharded_graph_vs_eager(
+        f"10k HEX LocalRing({N_SHARDS}) G={p10.resolved_grid_dim()} K={k}, gates {gates}",
+        lambda: make_sharded_table_run(p10, ring, with_stats=True)[0], s10,
+        SHARD_CHUNKS_10K, total)
+    print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    p100 = resolve_tp_params(
+        resolve_params(bench_params().replace(n_cells=GRAPH_N_100K, overflow_slots=8).validate()),
+        N_SHARDS)
+    s100 = pt.Simulation(p100, device="cuda").state
+    text, end100, _ = sharded_graph_vs_eager(
+        f"100k HEX with 8 spill rows (G={p100.resolved_grid_dim()}, Cs={p100.storage_capacity()})",
+        lambda: make_sharded_table_run(p100, ring, with_stats=True)[0], s100,
+        SHARD_CHUNKS_100K, total)
+    if cell_overflow(p100, end100, cap=p100.storage_capacity()):
+        fail("phase 18 100k: bots parked beyond the spill rows")
+    print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    pf = resolve_tp_params(base.replace(n_cells=64, phase_std=0.0, light_x=-5.0), N_SHARDS)
+    sf = state_from_arrays(pf, jittered_arrays(pf, (50.0, 0.0)), "cuda")
+    text, _, fb_stats = sharded_graph_vs_eager(
+        "forced fallback 64 bots 50 u/s",
+        lambda: make_sharded_table_run(pf, ring, with_stats=True)[0], sf,
+        SHARD_CHUNKS_FALLBACK, total)
+    if not all(st["fallbacks"] for st in fb_stats):
+        fail(f"phase 18 forced fallback: a chunk took no fallback: {fb_stats}")
+    print(f"phase 18 {text}", flush=True)
+
+    seeds = list(DPTP_SEEDS)
+    batch = make_batch_state(p10, seeds, "cuda")
+    t0 = time.perf_counter()
+    text, _, _ = sharded_graph_vs_eager(
+        f"dp x tp {len(seeds)} seeds x {N_SHARDS} shards",
+        lambda: make_sharded_table_run_batched(p10, ring, with_stats=True)[0], batch,
+        SHARD_CHUNKS_DPTP, total)
+    print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    mesh = Mesh(np.array(["cuda"] * (2 * N_SHARDS), dtype=object).reshape(2, N_SHARDS),
+                ("data", "bots"))
+    t0 = time.perf_counter()
+    text, _, _ = sharded_graph_vs_eager(
+        f"dp x tp {len(seeds)} seeds on Mesh(['cuda'] * 2) x {N_SHARDS} shards (interleaved)",
+        lambda: make_sharded_table_run_batched(p10, mesh=mesh, with_stats=True)[0], batch,
+        SHARD_CHUNKS_DPTP, total)
+    print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    print(f"phase 18 select {sharded_select_cost(p10, s10)}", flush=True)
+    print(f"phase 18 select {sharded_select_cost(p100, s100)}", flush=True)
+
+    t0 = time.perf_counter()
+    print("phase 18 " + timed_turns(
+        f"10k HEX sharded LocalRing({N_SHARDS}) K={k}, eager against graph", {
+            "eager": (True, make_advance(make_sharded_table_run(p10, ring)[0])),
+            "graph": (False, make_advance(make_sharded_table_run(p10, ring)[0])),
+        }, s10, SHARD_PROFILE_STEPS, smi), flush=True)
+    print("phase 18 " + timed_turns(
+        f"dp x tp {len(seeds)} seeds x {N_SHARDS} shards, eager against graph (per batched step)", {
+            "eager": (True, make_advance(make_sharded_table_run_batched(p10, ring)[0])),
+            "graph": (False, make_advance(make_sharded_table_run_batched(p10, ring)[0])),
+        }, batch, DPTP_PROFILE_STEPS, smi), flush=True)
+    print("phase 18 " + timed_turns(
+        f"dp x tp {len(seeds)} seeds on Mesh(['cuda'] * 2) x {N_SHARDS} shards, eager against "
+        "graph (per batched step)", {
+            "eager": (True, make_advance(make_sharded_table_run_batched(p10, mesh=mesh)[0])),
+            "graph": (False, make_advance(make_sharded_table_run_batched(p10, mesh=mesh)[0])),
+        }, batch, DPTP_PROFILE_STEPS, smi) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return total
+
+
+def make_advance(run, aligned=None):
+    """``advance(state, n)``: one chunk of ``run`` (``aligned`` passed on
+    where given: the table runners take it); a fresh runner's first call
+    builds its graphs."""
+    if aligned is None:
+        return lambda st, n: run(st, n)
     return lambda st, n: run(st, n, aligned)
 
 
@@ -3700,6 +3902,13 @@ def main() -> int:
     launches17 = small_scene_phase(smi)
     print(f"phase 17 took {time.perf_counter() - t17:.1f} s; launches {launches17}")
 
+    # 18. the sharded loop's compiled chunk: graph against eager on five
+    #     scenes (the counters reset just before each run), sync-free
+    #     chunks, the select's cost, the profiled turns
+    t18 = time.perf_counter()
+    launches18 = sharded_compiled_phase(smi)
+    print(f"phase 18 took {time.perf_counter() - t18:.1f} s; launches {launches18}")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -3757,7 +3966,8 @@ def main() -> int:
     ]}
     for entry in record["kernels"]:
         entry["launches"] += (launches15.get(entry["name"], 0) + launches16.get(entry["name"], 0)
-                              + launches17.get(entry["name"], 0))
+                              + launches17.get(entry["name"], 0)
+                              + launches18.get(entry["name"], 0))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -676,9 +676,10 @@ def drain(blocks):
             return stop.value
 
 
-def interleave(iterators) -> list:
+def interleaved(iterators):
     """Advance block iterators (one per place, each a runner's ``blocks``)
-    one block at a time, in turn, until every one has ended; returns their
+    one block at a time, in turn, until every one has ended, yielding
+    after each block: one block iterator of them all, whose value is their
     final states in order.  Every place's chunk is enqueued block by block
     beside the others', and nothing is read back from any place before all
     are enqueued (the loops read nothing inside a chunk)."""
@@ -692,7 +693,14 @@ def interleave(iterators) -> list:
             except StopIteration as stop:
                 out[i] = stop.value
                 live.remove(i)
+            else:
+                yield
     return out
+
+
+def interleave(iterators) -> list:
+    """:func:`interleaved` run to its end: the places' final states."""
+    return drain(interleaved(iterators))
 
 
 class _CapturedBlock:

@@ -170,10 +170,13 @@ def _occupied_lanes(occupied: torch.Tensor) -> torch.Tensor:
     """The lanes, in order, that the twins compute for (..., C, L)
     occupancy: every lane that holds an occupied row in any block, and
     unoccupied ones up to a multiple of LANE_PAD (or all L).  A lane left
-    out holds no target, so its sums are zero."""
+    out holds no target, so its sums are zero.  The count stays a tensor
+    (a mask picks the lanes), so the CPU loops convert no tensor to a
+    Python value."""
     occ = occupied.reshape(-1, occupied.shape[-1]).any(dim=0)
-    n = min(occ.numel(), -(-int(occ.sum()) // LANE_PAD) * LANE_PAD)
-    return torch.sort(torch.argsort(~occ, stable=True)[:n]).values
+    lanes = torch.arange(occ.numel(), device=occ.device)
+    n = torch.div(occ.sum() + (LANE_PAD - 1), LANE_PAD, rounding_mode="floor") * LANE_PAD
+    return torch.sort(torch.argsort(~occ, stable=True)[lanes < n]).values
 
 
 def stencil_forces_plain(params: SimParams, tables: dict):

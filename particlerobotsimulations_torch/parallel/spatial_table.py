@@ -14,9 +14,11 @@ per-step work is local except:
   ``ops/table_rebuild.compact_padded``) sees the neighbour halos, so a row
   that drifts across a shard boundary is dropped by its owner and placed by
   the neighbour in the same pass.  The preconditions are ANDed over the
-  ring (a ring-wide min, read on the host once per rebuild) and any
-  failure takes the exact global rebuild (all-gather, argsort) on every
-  shard — the single-table loop's fallback contract;
+  ring (a ring-wide min that stays on the device) and any failure takes
+  the exact global rebuild (all-gather, argsort) on every shard — the
+  single-table loop's fallback contract.  Both rebuilds run and every
+  plane takes one of them by a select on the device, as the JAX package's
+  ``lax.cond`` decides inside its compiled chunk;
 * **reductions** — a ring-wide min for the phase law's light distance, a
   ring-wide sum for the centroid, an all-gathered ``topk`` for dead-cell
   injection.
@@ -37,6 +39,22 @@ Cs*L0 + n_pad)``: the ring shifts and reduces on the leading axis as for
 one scene, kernels 4 and 2 take all S x B blocks in one launch each, and a
 rebuild takes one decision for every shard and scene (:func:`_all_ok`).
 
+Like the JAX package's jitted chunk, a chunk reads nothing from the
+device between its entry and its exit: the rebuild decision is a
+select, the sim time comes from a device step (``engine_table.sim_time``),
+and the ``with_stats`` counters are device counters read once, at the
+exit.  The gates stay host decisions on the host step.  The chunk is a
+block iterator (``run_chunk.blocks``, the table loop's shape): each
+ungated K-step block (K - 1 plain steps, then the rebuild step, none of
+which fires a gate) on a :class:`~.ring.LocalRing` on the card replays
+from a CUDA graph, captured once per carry layout after an eager run
+(``engine_table._graphed``); gated steps, the ragged remainder and the
+chunk's entry and exit run eagerly, and so does every block on the CPU,
+through the same code.  A :class:`~.ring.DistRing` runs the same
+read-free blocks eagerly: NCCL enqueues its collectives on the stream, so
+nothing is read there either, but capturing them into a graph can only
+be tested with a card per rank.
+
 Random draws: phase noise and dead-injection scores are drawn for the
 whole ``(total_ext,)`` table layout from the run's draw source (``rng``),
 as the single-table loop draws them, and each shard takes its own rows: centre
@@ -54,16 +72,22 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..config import Control, SimParams
+from ..config import SimParams
+from ..engine import _step_gates
 from ..engine_table import (
     MOVE_FIELDS,
     TABLE_FIELDS,
     _derived_rows,
     _exact_rebuild,
-    _gates,
     _geometry,
+    _graphed,
+    _one_chunk_at_a_time,
+    drain,
     enter_table,
     exit_table,
+    interleaved,
+    sim_time,
+    step_tensor,
 )
 from ..ops.forces import friction_velocity_update_xy, obstacle_forces_xy
 from ..ops.integrate import radius_integrate_planes
@@ -94,13 +118,14 @@ def resolve_tp_params(params: SimParams, n_shards: int) -> SimParams:
     return params.replace(grid_dim=g)
 
 
-def _all_ok(ring, ok_local: torch.Tensor) -> bool:
-    """The rebuild decision: whether every shard's (and every scene's)
-    incremental-compaction preconditions held.  ``ok_local`` is one 0-dim
-    flag for all the shards and scenes this process holds; the ring-wide
-    min is read on the host, once per rebuild."""
+def _all_ok(ring, ok_local: torch.Tensor) -> torch.Tensor:
+    """The rebuild decision, a 0-dim bool tensor on the ring's device:
+    whether every shard's (and every scene's) incremental-compaction
+    preconditions held.  ``ok_local`` is one 0-dim flag for all the shards
+    and scenes this process holds; the ring-wide min (the JAX package's
+    ``pmin``) stays on the device."""
     S = ring.shard_ids().numel()
-    return bool(ring.pmin(ok_local.to(torch.int32).expand(S)) > 0)
+    return ring.pmin(ok_local.to(torch.int32).expand(S)) > 0
 
 
 def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = False,
@@ -117,7 +142,15 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
     ``fallbacks``, how many rebuilds took the exact global fallback, and
     ``spill_rows_max``, the largest number of occupied overflow-spill rows
     over all shards (and scenes) at the end of a step (0 without spill
-    rows)."""
+    rows).  Both are counted on the device and read once, at the chunk's
+    exit.
+
+    ``run_chunk.blocks(state, n_steps)`` is the chunk as a block iterator
+    (see the module docstring): ``run_chunk`` drains it, and the dp x tp
+    mesh entry interleaves several (``engine_table.interleaved``).  It returns
+    what ``run_chunk`` returns, with the stats' counters still on the
+    device; ``run_chunk.read_stats`` reads them.  A runner advances one
+    chunk at a time (its graphs hold that chunk's carry)."""
     ring = ring if ring is not None else LocalRing(DEFAULT_SHARDS, device)
     D = ring.n_shards
     params = resolve_tp_params(params, D)
@@ -168,10 +201,9 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             for j, k in enumerate(TABLE_FIELDS)
         }
 
-    def sharded_rebuild(f, origin):
-        """(f, origin, ok): the incremental compaction with neighbour
-        halos, or the exact global rebuild when any shard's (any scene's)
-        preconditions fail."""
+    def incremental(f, origin):
+        """(fields, ok): the incremental compaction with neighbour halos,
+        and whether every shard's (every scene's) preconditions held."""
         lead = f["val"].shape[1:-1]
         planes = torch.stack([f[k][..., :C] for k in MOVE_FIELDS], dim=-2)
         planes = planes.view((S,) + lead + (nf, cs, L0))
@@ -183,29 +215,46 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         )
         padded = halo_exchange(torch.cat([planes, dxf[..., None, :, :], dyf[..., None, :, :]], dim=-3))
         new_planes, incoming = compact_padded(params, padded, H, L0)
+        inc = dict(f)
+        for j, k in enumerate(MOVE_FIELDS):
+            inc[k] = torch.cat(
+                [new_planes[..., j, :, :].reshape((S,) + lead + (C,)), f[k][..., C:]], dim=-1
+            )
         # the flags already cover every shard and scene this process holds
-        if _all_ok(ring, ~(moved_far | torch.any(incoming > cs) | edge)):
-            for j, k in enumerate(MOVE_FIELDS):
-                f[k] = torch.cat(
-                    [new_planes[..., j, :, :].reshape((S,) + lead + (C,)), f[k][..., C:]], dim=-1
-                )
-            return _derived_rows(params, f), origin, True
-        gf, origin = _exact_rebuild(params, join_global(f))
-        return split_local(gf), origin, False
+        return _derived_rows(params, inc), _all_ok(
+            ring, ~(moved_far | torch.any(incoming > cs) | edge))
 
-    def step_local(f, ts, rebuild):
+    def sharded_rebuild(f, origin):
+        """(f, origin, ok): the incremental compaction where ``ok``, else
+        the exact global rebuild.  Both run; every plane and the origin
+        take the chosen one's values by a select on the 0-dim ``ok``."""
+        inc, ok = incremental(f, origin)
+        gf, exact_origin = _exact_rebuild(params, join_global(f))
+        exact = split_local(gf)
+        return (
+            {k: torch.where(ok, inc[k], exact[k]) for k in TABLE_FIELDS},
+            torch.where(ok, origin, exact_origin),
+            ok,
+        )
+
+    no_gates = (False, False, False)
+
+    def step_local(f, origin, time, rebuild, ts=None, gates=no_gates):
         """One physics step on the shard-local fields, in the single-table
-        loop's op order; returns (f, rebuild ok)."""
-        step, gen = ts.step, ts.generator
-        time = float(f32(step) * f32(dt))
+        loop's op order: (f, origin, the rebuild's ``ok`` or None).
+        ``time`` is the step's sim time, a 0-dim float32 device tensor;
+        ``gates`` the step's (dead, cog, phase) host decisions.  Only a
+        gated step reads ``ts`` (its host step and draw source) and the
+        centroid gate writes ``ts.centroid_ring`` in place."""
+        dead_g, cog_g, phase_g = gates
         dev = f["val"].device
         lead = f["val"].shape[1:-1]
         val = f["val"] > 0.5
-        dead_g, cog_g, phase_g = _gates(params, step)
 
         # 1. dead injection: a topk over the all-gathered centre scores and
         #    the strip's
-        if params.n_dead > 0 and dead_g:
+        if dead_g:
+            step, gen = ts.step, ts.generator
             alive = val & (f["dead"] < 0.5)
             scores = local(rng.uniform(gen, step, lead + (total + n_pad,), dev))
             scores = torch.where(alive, scores, torch.full_like(scores, float("inf")))
@@ -227,12 +276,12 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
                 + torch.sum(f[k][0, ..., C:] * f["val"][0, ..., C:], dim=-1)
                 for k in ("px", "py")
             ]
-            idx = (step // params.centroid_steps_interval) % params.centroid_steps
+            idx = (ts.step // params.centroid_steps_interval) % params.centroid_steps
             ts.centroid_ring[..., idx, :] = torch.stack(cxy, dim=-1) / f32(params.n_cells)
 
         # 3. phase law: the ring-wide min light distance of the centres and
         #    the strip's own min
-        if params.control == Control.LIGHT_WAVE and phase_g:
+        if phase_g:
             pos = torch.stack([f["px"], f["py"]], dim=-1)
             dist = light_distance(params, pos)
             inf = torch.full_like(dist, float("inf"))
@@ -242,7 +291,7 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             )
             phase = update_phase(no_noise, pos, f["phase"], val, None, min_d=dmin[..., None])
             if params.phase_std:
-                noise = local(rng.normal(gen, step, lead + (total + n_pad,), dev))
+                noise = local(rng.normal(ts.generator, ts.step, lead + (total + n_pad,), dev))
                 phase = torch.where(val, phase + f32(params.phase_std) * noise, phase)
             f["phase"] = phase
 
@@ -250,9 +299,9 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         f = radius_integrate_planes(params, f, time)
 
         # 6. slot rebuild (between integrate and collide)
-        ok = True
+        ok = None
         if rebuild:
-            f, ts.origin, ok = sharded_rebuild(f, ts.origin)
+            f, origin, ok = sharded_rebuild(f, origin)
 
         # 7. collide: halo exchange + the non-Newton extended force pass on
         #    the force-visible slots (kernel 4: one launch for every shard
@@ -289,30 +338,102 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         val_r = f["val"] > 0.5
         f["vx"] = torch.where(val_r, nvx, zero)
         f["vy"] = torch.where(val_r, nvy, zero)
-        ts.step = step + 1
-        return f, ok
+        return f, origin, ok
 
-    def run_chunk(state: SimState, n_steps: int):
+    def carry_step(carry, time, rebuild, ts=None, gates=no_gates):
+        """:func:`step_local` on a chunk's carry (the planes, ``origin``
+        and, with stats, the device counters ``fallbacks`` and
+        ``spill_rows_max``); returns the new carry."""
+        f = {k: carry[k] for k in TABLE_FIELDS}
+        f, origin, ok = step_local(f, carry["origin"], time, rebuild, ts, gates)
+        out = {**f, "origin": origin}
+        if with_stats:
+            fallbacks, spill = carry["fallbacks"], carry["spill_rows_max"]
+            if ok is not None:
+                # the JAX chunk's stats[0] + (1 - rb_ok)
+                fallbacks = fallbacks + (~ok).to(torch.int64)
+            out["fallbacks"] = fallbacks
+            if cs > cap:
+                rows = f["val"][..., :C].unflatten(-1, (cs, L0))[..., cap:, :] > 0.5
+                spill = torch.maximum(spill, ring.psum(rows.flatten(1).sum(dim=1)))
+            out["spill_rows_max"] = spill
+        return out
+
+    def block(carry, step0):
+        """The ungated block from the 0-dim int64 device step ``step0``:
+        K - 1 plain steps, then the step with the rebuild."""
+        for j in range(k_rb):
+            carry = carry_step(carry, sim_time(step0 + j, dt), j == k_rb - 1)
+        return carry
+
+    graphs: dict = {}
+    capture = isinstance(ring, LocalRing)
+
+    def ungated_block(carry, step: int):
+        """:func:`block` at the host step ``step``: on a LocalRing on the
+        card replayed from a CUDA graph (keyed by the carry's device and
+        layout), else eagerly."""
+        if capture:
+            key = ("block", ring.device, tuple(carry["val"].shape))
+            return _graphed(graphs, key, block, carry, step)
+        return block(carry, step_tensor(step, ring.device))
+
+    def gated(s: int) -> bool:
+        return any(_step_gates(params, s))
+
+    @_one_chunk_at_a_time
+    def blocks(state: SimState, n_steps: int):
+        """The chunk as a block iterator: enqueues it a block at a time
+        (an ungated K-step block, or one gated or ragged step), yields
+        after each, and returns the final state, with ``with_stats`` as
+        ``(state, stats)`` whose counters are still 0-dim device tensors
+        (:func:`run_chunk` reads them)."""
         if state.device != ring.device:
             raise ValueError(f"state on {state.device}, ring on {ring.device}")
         ts = enter_table(params, state)
-        f = split_local(ts.fields)
-        fallbacks = 0
-        spill_max = torch.zeros((), dtype=torch.int64, device=ring.device)
-        for j in range(n_steps):
-            # the single-table schedule: chunk-relative for K <= 8, absolute
-            # above (engine_table.make_run_chunk_table)
-            rebuild = ts.step % k_rb == k_rb - 1 if k_rb > 8 else j % k_rb == k_rb - 1
-            f, ok = step_local(f, ts, rebuild)
-            fallbacks += not ok
-            if with_stats and cs > cap:
-                rows = f["val"][..., :C].unflatten(-1, (cs, L0))[..., cap:, :] > 0.5
-                spill_max = torch.maximum(spill_max, ring.psum(rows.flatten(1).sum(dim=1)))
-        out = exit_table(params, ts.replace(fields=join_global(f)))
+        carry = {**split_local(ts.fields), "origin": ts.origin}
         if with_stats:
-            return out, {"fallbacks": fallbacks, "spill_rows_max": int(spill_max)}
+            carry["fallbacks"] = torch.zeros((), dtype=torch.int64, device=ring.device)
+            carry["spill_rows_max"] = torch.zeros((), dtype=torch.int64, device=ring.device)
+        j = 0
+        while j < n_steps:
+            # the single-table schedule: chunk-relative for K <= 8, absolute
+            # above (engine_table.make_run_chunk_table); the ragged tail
+            # has no rebuild
+            s = ts.step
+            if ((j if k_rb <= 8 else s) % k_rb == 0 and j + k_rb <= n_steps
+                    and not any(gated(s + i) for i in range(k_rb))):
+                carry = ungated_block(carry, s)
+                ts.step, j = s + k_rb, j + k_rb
+            else:
+                rebuild = s % k_rb == k_rb - 1 if k_rb > 8 else j % k_rb == k_rb - 1
+                carry = carry_step(carry, sim_time(step_tensor(s, ring.device), dt), rebuild,
+                                   ts, _step_gates(params, s))
+                ts.step, j = s + 1, j + 1
+            yield
+        f = {k: carry[k] for k in TABLE_FIELDS}
+        out = exit_table(params, ts.replace(fields=join_global(f), origin=carry["origin"]))
+        if with_stats:
+            return out, {k: carry[k] for k in ("fallbacks", "spill_rows_max")}
         return out
 
+    def run_chunk(state: SimState, n_steps: int):
+        return read_stats(drain(blocks(state, n_steps)))
+
+    def read_stats(result):
+        """A chunk's result with its device counters read (the only read
+        of the chunk, at its exit)."""
+        if not with_stats:
+            return result
+        out, stats = result
+        return out, {k: int(v) for k, v in stats.items()}
+
+    run_chunk.blocks = blocks
+    run_chunk.read_stats = read_stats
+    # the pieces a measurement times alone: a whole table's fields to this
+    # process's shards, the incremental rebuild, the rebuild with its select
+    run_chunk.parts = {"split_local": split_local, "incremental": incremental,
+                       "rebuild": sharded_rebuild}
     return run_chunk, params
 
 
@@ -327,7 +448,7 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
     n_pad)``, so the ring shifts and reduces on the leading axis as for
     one scene, and kernel 4 and kernel 2's padded form each launch once per
     step / rebuild for all S x B blocks.  A rebuild takes one decision for
-    every shard and scene (one ring-wide min, one host read): the
+    every shard and scene (one ring-wide min, on the device): the
     incremental compaction when every scene's preconditions held, else the
     exact global rebuild for every scene — the batched table loop's
     all-scenes rule (``engine_table._smart_rebuild``), where the JAX
@@ -336,19 +457,29 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
     With a ``mesh`` (``parallel/mesh.Mesh`` with axes ``("data",
     "bots")``), each place of the data axis runs its scene group
     (``sweep.shard_batch``) on a ``LocalRing`` of the bots axis' size on
-    that place's device, and decides its rebuilds for its own scenes;
-    ``run_chunk`` returns the batch in scene order on the first place.
-    ``with_stats`` adds the stats of :func:`make_sharded_table_run`, summed
-    (``fallbacks``) and maxed (``spill_rows_max``) over the groups."""
+    that place's device, and decides its rebuilds for its own scenes; the
+    places' chunks advance block by block in turn
+    (``engine_table.interleaved``), so every place's chunk is enqueued
+    before any is read, and ``run_chunk`` returns the batch in scene order
+    on the first place.  ``with_stats`` adds the stats of
+    :func:`make_sharded_table_run`, summed (``fallbacks``) and maxed
+    (``spill_rows_max``) over the groups.  ``run_chunk.blocks`` and
+    ``run_chunk.read_stats`` are as the single-scene runner's: on a ring
+    its own, with a mesh the places' blocks interleaved."""
     if mesh is None:
         ring = ring if ring is not None else LocalRing(DEFAULT_SHARDS, device)
         run, params = make_sharded_table_run(params, ring, with_stats)
 
-        def run_chunk(batch_state: SimState, n_steps: int):
+        def blocks(batch_state: SimState, n_steps: int):
             if batch_state.pos.dim() != 3:
                 raise ValueError("the dp x tp loop takes a batched state (B, n_pad, 2)")
-            return run(batch_state, n_steps)
+            return run.blocks(batch_state, n_steps)
 
+        def run_chunk(batch_state: SimState, n_steps: int):
+            return run.read_stats(drain(blocks(batch_state, n_steps)))
+
+        run_chunk.blocks = blocks
+        run_chunk.read_stats = run.read_stats
         return run_chunk, params
 
     from .sweep import gather_batch, shard_batch
@@ -357,14 +488,26 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
     runs = [make_sharded_table_run(params, LocalRing(mesh.shape["bots"], dev), with_stats)
             for dev in places]
     params = runs[0][1]
+    runs = [run for run, _ in runs]
 
-    def run_mesh(batch_state: SimState, n_steps: int):
+    def blocks(batch_state: SimState, n_steps: int):
+        """The places' chunks as one block iterator (``interleaved``): it
+        returns what ``run_chunk`` returns, with the stats' counters still
+        on the device."""
         groups = shard_batch(batch_state, mesh)
-        outs = [run(gs, n_steps) for gs, (run, _) in zip(groups, runs)]
+        outs = yield from interleaved(run.blocks(gs, n_steps) for gs, run in zip(groups, runs))
         if not with_stats:
             return gather_batch(outs)
-        stats = {"fallbacks": sum(s["fallbacks"] for _, s in outs),
-                 "spill_rows_max": max(s["spill_rows_max"] for _, s in outs)}
+        dev = outs[0][0].device
+        stats = {
+            "fallbacks": sum(s["fallbacks"].to(dev) for _, s in outs),
+            "spill_rows_max": torch.stack([s["spill_rows_max"].to(dev) for _, s in outs]).amax(),
+        }
         return gather_batch([o for o, _ in outs]), stats
 
+    def run_mesh(batch_state: SimState, n_steps: int):
+        return runs[0].read_stats(drain(blocks(batch_state, n_steps)))
+
+    run_mesh.blocks = blocks
+    run_mesh.read_stats = runs[0].read_stats
     return run_mesh, params

@@ -20,6 +20,7 @@ from particlerobotsimulations_torch.engine_table import (
     _gates,
     _geometry,
     _make_mega_glue,
+    drain,
     enter_table,
     exit_table,
     gate_seg,
@@ -1222,3 +1223,78 @@ def test_small_chunk_reads_nothing_from_the_card(card, kind):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert state.step == 3 * n and bool(torch.isfinite(state.pos).all())
+
+
+# ------------------------------------------ the sharded loop's compiled chunk
+
+# 300 bots on 4 shards (G=32), K=4, the noisy phase law every 20 steps and
+# the centroid every 30: ungated 4-step blocks between eager gated steps
+SHARDED_SCENE = dict(n_cells=300, n_dead=0, seed=3, config=pt.Config.HEX, light_x=-5.0,
+                     force_backend=pt.ForceBackend.PALLAS, phase_std=0.5,
+                     slot_rebuild_steps=4, centroid_int=0.3, phase_update_interval=0.2)
+
+
+def sharded_runner(kind, card, with_stats=False):
+    """(runner, fresh-state function) of the sharded loop on the card: one
+    scene on ``LocalRing(4)``, two scenes on it (dp x tp), or two scenes on
+    two data places of two shards each."""
+    from particlerobotsimulations_torch.parallel.mesh import Mesh
+    from particlerobotsimulations_torch.parallel.spatial_table import (
+        make_sharded_table_run_batched,
+    )
+
+    p = pt.SimParams(**SHARDED_SCENE)
+    if kind == "single":
+        run, p2 = make_sharded_table_run(p, LocalRing(4, card), with_stats)
+        return run, lambda: pt.Simulation(p2, device=card).state
+    if kind == "batched":
+        run, p2 = make_sharded_table_run_batched(p, LocalRing(4, card), with_stats=with_stats)
+    else:
+        mesh = Mesh(np.array([card] * 4, dtype=object).reshape(2, 2), ("data", "bots"))
+        run, p2 = make_sharded_table_run_batched(p, mesh=mesh, with_stats=with_stats)
+    return run, lambda: make_batch_state(p2, [0, 1], card)
+
+
+@pytest.mark.parametrize("kind", ["single", "batched", "mesh"])
+def test_sharded_graph_equals_eager(card, kind, monkeypatch):
+    """Two 46-step chunks of the sharded loop, its ungated K-step blocks
+    replayed from a CUDA graph after the first, equal the same runner with
+    eager blocks bit for bit, with equal launches and stats."""
+    results = []
+    for eager in (True, False):
+        run, fresh = sharded_runner(kind, card, with_stats=True)
+        call = eager_runner(lambda run=run: run, monkeypatch) if eager else run
+        reset_counts()
+        state, stats = fresh(), []
+        for _ in range(2):
+            state, st = call(state, 46)
+            stats.append(st)
+        torch.cuda.synchronize()
+        results.append((state, stats, dict(kernels.LAUNCHES)))
+    (e_state, e_stats, e_launch), (g_state, g_stats, g_launch) = results
+    assert (e_stats, e_launch) == (g_stats, g_launch)
+    name = "stencil_forces_ext" if kind == "single" else "stencil_forces_ext_batched"
+    assert g_launch[name] == 92 * (2 if kind == "mesh" else 1)
+    for k in CHUNK_FIELDS:
+        assert torch.equal(getattr(g_state, k), getattr(e_state, k)), k
+    assert g_state.step == 92
+
+
+@pytest.mark.parametrize("kind", ["single", "batched", "mesh"])
+def test_sharded_chunk_reads_nothing_from_the_card(card, kind):
+    """A warm chunk of the sharded loop (graphs captured) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing between its entry
+    and its exit waits for the card; its stats are read after."""
+    run, fresh = sharded_runner(kind, card, with_stats=True)
+    state = fresh()
+    for _ in range(2):
+        state, _ = run(state, 46)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        result = drain(run.blocks(state, 46))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    state, stats = run.read_stats(result)
+    assert state.step == 138 and bool(torch.isfinite(state.pos).all())
+    assert set(stats) == {"fallbacks", "spill_rows_max"}

@@ -456,9 +456,11 @@ def test_sharded_entry_points_refuse():
 
 @pytest.fixture
 def decisions(monkeypatch):
-    """The sharded loops' rebuild decisions, recorded in order; a test sets
-    ``replay`` to a list to make the loops take those decisions instead
-    (a lockstep replay: one scene alone taking its batch's decisions)."""
+    """The sharded loops' rebuild decisions, recorded in order as the 0-dim
+    bool tensors the loops select on; a test sets ``replay`` to a list of
+    them to make the loops take those decisions instead (a lockstep
+    replay: one scene alone taking its batch's decisions).  The CPU loops
+    run every block eagerly, so every rebuild calls the hook."""
     rec = {"seen": [], "replay": None}
     real = t_st._all_ok
 
@@ -533,7 +535,8 @@ def test_dp_tp_table_loop_matches_jax_and_lockstep(case, decisions, jax_dp_tp):
     assert p2 == tp
     out, stats = run(batch_state_from_arrays(tp, a, "cpu"), 10)
     seen = list(decisions["seen"])
-    assert len(seen) == 2 and stats["fallbacks"] == seen.count(False)
+    assert all(torch.is_tensor(d) and d.dtype == torch.bool and d.dim() == 0 for d in seen)
+    assert len(seen) == 2 and stats["fallbacks"] == sum(not bool(d) for d in seen)
     assert stats["fallbacks"] == (2 if case == "fallback" else 0)
     got = batch_state_to_arrays(out)
     for b in range(2):
