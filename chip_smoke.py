@@ -145,17 +145,21 @@ table-resident loop, and the same workload cut to 1000 bots (light at
 16. the graphed chunk: the table runners replay their ungated K-step
    blocks from CUDA graphs.  Three scenes run graph against eager (the
    same runner with ``engine_table._CapturedBlock`` swapped for the eager
-   block), bit for bit with equal launch and rebuild counts: bench.py's
-   10k workload from phase 4's state through the adaptive runner (4
-   seg-aligned chunks of 600 steps, a probe segment then K-step blocks;
-   a fixed K=8 run is added when the probe kept K=4), 100,000 HEX bots
-   from placement without spill rows (400 steps: most rebuilds exact, so
-   the select takes the exact rebuild) and eight 10k seeds batched (400
-   steps).  One more chunk of each graph runner runs under
-   ``torch.cuda.set_sync_debug_mode("error")``.  The device-side
-   rebuild choice is timed against the incremental rebuild alone at 10k
-   and 100k; eager against graph at 10k (wall, device us/step and busy
-   share under ``torch.profiler``, in turns); and the bench's
+   block), bit for bit with equal rebuild counts and equal launches
+   apart from ``cond_set`` (each graph rebuild is a conditional node, each
+   eager one a select; ``cond_set`` counts one launch per replayed
+   rebuild): bench.py's 10k workload from phase 4's state through the
+   adaptive runner (4 seg-aligned chunks of 600 steps, a probe segment
+   then K-step blocks; a fixed K=8 run is added when the probe kept K=4),
+   100,000 HEX bots from placement without spill rows (400 steps: most
+   rebuilds exact, so both branches run inside the graphs) and eight 10k
+   seeds batched (400 steps).  One more chunk of each graph runner runs
+   under ``torch.cuda.set_sync_debug_mode("error")``.  The rebuild is
+   timed per branch (its node with the incremental taken, and with the
+   exact taken by a bot moved two cells) against the incremental rebuild
+   alone and the select at 10k and 100k; eager against graph at 10k
+   (wall, device us/step and busy share under ``torch.profiler``, in
+   turns); and the bench's
    multi-place branch on ``Mesh(["cuda"] * 2)``: dispatch interleaved,
    each scene bit for bit its solo run.  The graph runs' and the bench's
    launches are added to the kernels' counts;
@@ -183,28 +187,41 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    from CUDA graphs and a chunk reads nothing from the card (the rebuild
    decision a device select, the stats device counters read at the exit).
    Graph against eager (the runner with ``engine_table._CapturedBlock``
-   swapped for the eager block), bit for bit with equal launches and
-   equal ``fallbacks`` and ``spill_rows_max`` per chunk: bench.py's 10k
-   workload on ``LocalRing(4)`` (G=64) from placement, 1,200 steps across
+   swapped for the eager block), bit for bit with equal launches (apart
+   from ``cond_set``, as in phase 16) and equal ``fallbacks`` and
+   ``spill_rows_max`` per chunk: bench.py's 10k workload on
+   ``LocalRing(4)`` (G=64) from placement, 1,200 steps across
    the centroid gate at 1,000; 100,000 HEX bots with 8 spill rows, 200
    steps (none parked); the forced fallback (64 bots at 50 u/s, every
    chunk falls back); dp x tp, 4 seeds x 4 shards, 400 steps, on one ring
    and on two data places of 4 shards (the places interleaved).  One
    more chunk of each graph runner under
    ``torch.cuda.set_sync_debug_mode("error")``, its stats read after.
-   The select (both rebuilds) against the incremental rebuild alone per
-   rebuild at G=64 and at 100k, with the exact rebuild's device time by
+   The rebuild per branch against the incremental rebuild alone and the
+   select at G=64 and at 100k, with the exact rebuild's device time by
    op; eager against graph in turns under the profiler (wall, device
    us/step, the card's name and power limit) at 10k and in dp x tp on one
    ring and on the two data places.  The
    graph runs' launches are added to the kernels' counts.  (Phase 14's
    dp x tp run and its lockstep replays run their blocks eagerly: a graph
    replays its rebuilds without the decision hook they record.)
+19. the rebuild's conditional node (``csrc/graph_cond.cu``, kernel
+   ``cond_set``; ``ops/cond.py``): the captures of phases 16 and 18's
+   graph runs on seven scenes (10k adaptive, 100k without spill rows,
+   eight 10k seeds, 10k sharded, 100k sharded with spill rows, 64 bots
+   at 50 u/s, dp x tp) each held one conditional node per K-step block
+   with a body and no select, the 100k table took both branches inside
+   its replays and the 50 u/s scene the exact one; ``cond_set`` with
+   its node against the select at the 10k table (the incremental and the
+   exact branch, bit for bit); its time per cond in a graph of 20 (body
+   not taken and taken) against the select's ``torch.where``; and 10k
+   K=8 eager against graph when phase 16's probe kept K=4.
 
 The four kernels are timed per launch from replays of a CUDA graph of
 20 launches, so their wrappers' host-side checks stay out of the time
 (kernel 3 also per wrapper call); the plain twins are timed per call
-with CUDA events.
+with CUDA events.  ``cond_set`` is timed per cond (the kernel and its
+node) in a graph of 20.
 
 Any failure raises and exits non-zero.  The last two lines are the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -368,18 +385,22 @@ def median_ms(fn, launches: int = 20, reps: int = 5) -> float:
 
 
 def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
-    """Device time of one launch of the kernel that ``fn`` wraps, in ms:
-    ``launches`` calls captured in one CUDA graph, CUDA events around each
-    replay, divided by the count; the median of ``reps`` replays, after a
-    warm-up.  The replay runs no Python, so the wrapper's host-side checks
+    """Device time of one call of ``fn`` in ms: ``launches`` calls captured
+    in one CUDA graph (an ``engine_table._CapturedBlock``, so a rebuild's
+    cond becomes its conditional node), CUDA events around each replay,
+    divided by the count; the median of ``reps`` replays, after a
+    warm-up.  The replay runs no Python, so a wrapper's host-side checks
     do not enter the time as they do in :func:`median_ms`."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+
+    def block(carry, step):
         for _ in range(launches):
             fn()
+        return {}
+
+    graph = engine_table._CapturedBlock(block, {"x": torch.zeros(1, device="cuda")}).graph
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -759,14 +780,11 @@ def band_main_path():
     # the prefix rebuild and bps-1 span rebuilds through kernel 2, bps-1
     # spans; a redone segment drops its last post and adds seg regular
     # steps with seg/k rebuilds
-    want = {name: 0 for name in kernels.LAUNCHES}
-    want.update({
+    check_launches(f"1000-bot scene ({r} redos)", launches, {
         "mega_span": n_segs * (bps - 1),
         "compact": n_segs * bps + r * bps,
         "stencil_forces": n_segs * k + r * (seg - 1),
     })
-    if launches != want:
-        fail(f"1000-bot scene launches {launches}, want {want} ({r} redos)")
     return sim, launches, r, wall * 1e6 / n_steps, sim.params.n_cells * n_steps / wall
 
 
@@ -1304,10 +1322,8 @@ def sharded_phase():
     n_steps = 1000
     k = max(1, p.resolved_slot_rebuild_steps())
     out, stats, us_s, launches = timed_sharded(run, p, n_steps)
-    want = {name: 0 for name in kernels.LAUNCHES}
-    want.update(stencil_forces_ext=n_steps, compact_padded=n_steps // k)
-    if launches != want:
-        fail(f"10k sharded launches {launches}, want {want}")
+    check_launches("10k sharded", launches,
+                   {"stencil_forces_ext": n_steps, "compact_padded": n_steps // k})
     if not np.isfinite(out.pos.cpu().numpy()).all() or cell_overflow(p, out):
         fail("10k sharded: non-finite state or cell overflow")
     single = make_run_chunk_table(p)
@@ -1826,11 +1842,19 @@ def sweep_vs_sequential(name, params, n_steps, record_every, strategy):
     return b_state, b_launch, counts, text
 
 
-def check_sweep_launches(name, launches, want) -> None:
-    full = {k: 0 for k in kernels.LAUNCHES}
+# the kernel-2 launches: one per rebuild, whichever path it took
+COMPACTIONS = ("compact", "compact_batched", "compact_padded", "compact_padded_batched")
+
+
+def check_launches(name, launches, want) -> None:
+    """``launches`` equal ``want`` (zero where not named) apart from
+    ``cond_set``, which a graph launches once for each rebuild it replays
+    (an eager rebuild selects): at most one per compaction."""
+    full = {k: 0 for k in kernels.LAUNCHES if k != "cond_set"}
     full.update(want)
-    if launches != full:
-        fail(f"{name}: launches {launches}, want {full}")
+    got = {k: v for k, v in launches.items() if k != "cond_set"}
+    if got != full or not 0 <= launches["cond_set"] <= sum(launches[k] for k in COMPACTIONS):
+        fail(f"{name}: launches {launches}, want {full} and cond_set at most one per rebuild")
 
 
 def batched_kernel_checks(p10, state10, pb, state_b):
@@ -1966,7 +1990,7 @@ def sweep_phase():
     rebuilds = (n10 // rec10) * (rec10 // k)
     if (rep["steps"], rep["rebuilds"], rep["spans"]) != (n10, rebuilds, 0):
         fail(f"10k sweep: the replay took {rep}, want {n10} steps and {rebuilds} rebuilds")
-    check_sweep_launches("10k sweep", launch, {
+    check_launches("10k sweep", launch, {
         "stencil_forces_batched": n10, "compact_batched": rebuilds,
     })
     for key in counts:
@@ -1979,7 +2003,7 @@ def sweep_phase():
         fail("example.cfg sweep: not DENSE batched under AUTO")
     t0 = time.perf_counter()
     _, launch, _, text = sweep_vs_sequential("dense", pe, 200, 100, None)
-    check_sweep_launches("example.cfg sweep", launch, {})
+    check_launches("example.cfg sweep", launch, {})
     print(f"phase 12 sweep example.cfg {text}; {time.perf_counter() - t0:.1f} s")
 
     # the band scene forced batched: the batched span path
@@ -2001,7 +2025,7 @@ def sweep_phase():
     }
     if (rep["spans"], rep["rebuilds"], rep["steps"]) != tuple(want.values()):
         fail(f"band sweep: the replay took {rep}, want {want}")
-    check_sweep_launches("band sweep", launch, want)
+    check_launches("band sweep", launch, want)
     for key in counts:
         counts[key] += launch[key]
     print(f"phase 12 sweep {text}; launches {launch}; {time.perf_counter() - t0:.1f} s")
@@ -2768,9 +2792,12 @@ def profiling_checks(total: dict, device="cuda") -> None:
     rebuilds = REBUILDS["incremental"] + REBUILDS["exact"]
     if t.backend != "PALLAS" or t.n_bots != bench_params().n_cells or not t.particle_steps_per_sec > 0:
         fail(f"measure_throughput at 10k: {t}")
+    # cond_set: one launch for each rebuild a graph replayed
     if part["stencil_forces"] != steps or part["compact"] != rebuilds or not (
         steps // 8 <= rebuilds <= steps // 4
-    ) or any(v for k, v in part.items() if k not in ("stencil_forces", "compact")):
+    ) or part["cond_set"] > rebuilds or any(
+        v for k, v in part.items() if k not in ("stencil_forces", "compact", "cond_set")
+    ):
         fail(f"measure_throughput launches {part}, rebuilds {dict(REBUILDS)} over {steps} steps")
     print(f"phase 15a call overhead {overhead * 1e6:.1f} us; measure_throughput 10k HEX "
           f"{1 + P15_REPS} chunks of {P15_STEPS} steps: {t.ms_per_step:.3f} ms/step, "
@@ -2927,14 +2954,101 @@ class EagerBlock:
         return self.block(carry, step_tensor(step, next(iter(carry.values())).device))
 
 
-def chunks_run(make_runner, state, chunks, aligned, eager):
+class CountedBlock(engine_table._CapturedBlock):
+    """``engine_table._CapturedBlock`` that keeps count, for the graph runs
+    held against eager ones: its replays, the rebuild choices they took
+    (summed on the device, no host read: ``REBUILDS``' device counter
+    before and after each replay, and for the sharded loop, which counts
+    its fallbacks in its carry, the carry's ``fallbacks`` before and after
+    a replay of its one rebuild), and the selects (``torch.where`` on a
+    0-dim condition) its capture made.  ``MADE`` lists the blocks
+    captured."""
+
+    MADE: list = []
+
+    def __init__(self, block, carry):
+        real = torch.where
+        self.selects = 0
+
+        def spy(cond, *args, **kw):
+            if torch.is_tensor(cond) and cond.dim() == 0 and args:
+                self.selects += 1
+            return real(cond, *args, **kw)
+
+        torch.where = spy
+        try:
+            super().__init__(block, carry)
+        finally:
+            torch.where = real
+        self.replays = 0
+        self.taken = torch.zeros(2, dtype=torch.int64, device=self.step.device)
+        CountedBlock.MADE.append(self)
+
+    def __call__(self, carry, step):
+        counter = REBUILDS.counter(self.step.device)
+        before = counter.clone()
+        fallbacks = carry["fallbacks"].clone() if "fallbacks" in carry else None
+        out = super().__call__(carry, step)
+        self.taken += counter - before
+        if fallbacks is not None and self.launches.get("cond_set") == 1:
+            exact = out["fallbacks"] - fallbacks
+            self.taken += torch.stack([1 - exact, exact])
+        self.replays += 1
+        return out
+
+
+# each graph-against-eager scene's conditional nodes, for phase 19
+NODE_SCENES: list = []
+
+
+def node_record(name, blocks, launches) -> dict:
+    """What a graph run's counted blocks captured and replayed, checked:
+    each capture made no select and holds one conditional node per
+    ``cond_set`` launch, each with a body; the run's ``cond_set`` launches
+    are one per replayed rebuild.  Appended to ``NODE_SCENES``."""
+    rec = {"name": name, "graphs": len(blocks), "conditional": [], "body_nodes": [],
+           "top_nodes": [], "replays": sum(b.replays for b in blocks)}
+    for b in blocks:
+        n = b.launches.get("cond_set", 0)
+        if b.selects:
+            fail(f"{name}: a capture made {b.selects} selects")
+        if n and (b.nodes is None or b.nodes["conditional"] != n or b.nodes["body_nodes"] < 1):
+            fail(f"{name}: {n} cond_set launches in a capture with nodes {b.nodes}")
+        if b.nodes:
+            rec["conditional"].append(b.nodes["conditional"])
+            rec["body_nodes"].append(b.nodes["body_nodes"])
+            rec["top_nodes"].append(b.nodes["nodes"])
+    want = sum(b.replays * b.launches.get("cond_set", 0) for b in blocks)
+    if launches.get("cond_set", 0) != want:
+        fail(f"{name}: cond_set launched {launches.get('cond_set')} times, its graphs "
+             f"replayed {want} rebuilds")
+    taken = sum((b.taken for b in blocks), torch.zeros(2, dtype=torch.int64, device="cuda"))
+    rec["replayed_rebuilds"] = dict(zip(REBUILDS.KEYS, taken.tolist()))
+    NODE_SCENES.append(rec)
+    return rec
+
+
+def node_text(rec) -> str:
+    if not rec["conditional"]:
+        return f"no rebuild in its {rec['graphs']} graphs, no conditional node"
+    return (f"conditional nodes per graph {sorted(set(rec['conditional']))} in "
+            f"{len(rec['conditional'])} of {rec['graphs']} graphs (body nodes "
+            f"{sorted(set(rec['body_nodes']))}, top-level nodes {sorted(set(rec['top_nodes']))}), "
+            f"rebuilds inside {rec['replays']} replays {rec['replayed_rebuilds']}")
+
+
+def without_cond_set(launches) -> dict:
+    """Launch counts apart from ``cond_set``, which only a graph's
+    conditional node launches (an eager rebuild selects)."""
+    return {k: v for k, v in launches.items() if k != "cond_set"}
+
+
+def chunks_run(make_runner, state, chunks, aligned, eager, count=True):
     """A fresh runner's ``chunks`` from a copy of ``state``, with its K-step
-    blocks eager or replayed from graphs, the counters reset just before:
-    (runner, state, launches, rebuilds, wall s, live K after each chunk)."""
-    captured = engine_table._CapturedBlock
-    if eager:
-        engine_table._CapturedBlock = EagerBlock
-    try:
+    blocks eager or replayed from graphs (counted where ``count``), the
+    counters reset just before: (runner, state, launches, rebuilds, wall s,
+    live K after each chunk, the counted blocks)."""
+    with eager_blocks(eager, count) as blocks:
         run = make_runner()
         state = clone_state(state)
         reset_counts()
@@ -2945,9 +3059,7 @@ def chunks_run(make_runner, state, chunks, aligned, eager):
             ks.append(getattr(run, "live", {}).get("k"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return run, state, dict(kernels.LAUNCHES), dict(REBUILDS), wall, ks
-    finally:
-        engine_table._CapturedBlock = captured
+        return run, state, dict(kernels.LAUNCHES), dict(REBUILDS), wall, ks, blocks
 
 
 def sync_free_chunk(name, run, state, n, aligned):
@@ -2971,45 +3083,87 @@ def graph_vs_eager(name, make_runner, state, chunks, aligned, total):
     state: bit for bit, with equal launch and rebuild counts, then one
     sync-free chunk of the graph runner.  Adds the graph run's launches to
     ``total``; returns (text, live Ks)."""
-    _, e_state, e_launch, e_reb, e_wall, ks = chunks_run(make_runner, state, chunks, aligned, True)
-    run, g_state, g_launch, g_reb, g_wall, g_ks = chunks_run(make_runner, state, chunks, aligned,
-                                                            False)
+    _, e_state, e_launch, e_reb, e_wall, ks, _ = chunks_run(make_runner, state, chunks, aligned,
+                                                           True)
+    run, g_state, g_launch, g_reb, g_wall, g_ks, blocks = chunks_run(make_runner, state, chunks,
+                                                                     aligned, False)
     if not states_equal(e_state, g_state):
         bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e_state, k), getattr(g_state, k))]
         fail(f"{name}: graph run differs from the eager run in {bad}")
-    if (e_launch, e_reb, ks) != (g_launch, g_reb, g_ks):
+    if (without_cond_set(e_launch), e_reb, ks) != (without_cond_set(g_launch), g_reb, g_ks) \
+            or e_launch["cond_set"]:
         fail(f"{name}: eager launches {e_launch} rebuilds {e_reb} K {ks}, "
              f"graph {g_launch} {g_reb} {g_ks}")
+    rec = node_record(name, blocks, g_launch)
     for k, v in g_launch.items():
         total[k] = total.get(k, 0) + v
     sync_free_chunk(name, run, g_state, chunks[-1], aligned)
     steps = sum(chunks)
     used = {k: v for k, v in g_launch.items() if v}
-    return (f"{name}: {steps} steps, graph == eager bit for bit, launches {used}, "
-            f"rebuilds {g_reb}, live K {g_ks}; wall {e_wall * 1e6 / steps:.1f} us/step eager, "
-            f"{g_wall * 1e6 / steps:.1f} graph (first chunk captures); sync-free chunk ok"), g_ks
+    return (f"{name}: {steps} steps, graph (node) == eager (select) bit for bit, launches "
+            f"{used}, rebuilds {g_reb}, live K {g_ks}; {node_text(rec)}; wall "
+            f"{e_wall * 1e6 / steps:.1f} us/step eager, {g_wall * 1e6 / steps:.1f} graph (first "
+            f"chunk captures); sync-free chunk ok"), g_ks
 
 
-def select_cost(p, state) -> str:
-    """The device-side rebuild choice against the incremental rebuild alone
-    on ``state``'s table after one step's integrate: per-rebuild device
-    times in a CUDA graph, and their difference (what the exact rebuild and
-    the select add to each rebuild)."""
-    from particlerobotsimulations_torch.engine_table import _derived_rows, _smart_rebuild
+def far_fields(p, fields: dict) -> dict:
+    """``fields`` with one occupied table row moved two cells in x: the
+    incremental rebuild's >1-cell precondition fails."""
+    total = p.resolved_grid_dim() ** 2 * p.storage_capacity()
+    rows = torch.nonzero(fields["val"][..., :total] > 0.5)
+    px = fields["px"].clone()
+    px[tuple(rows[len(rows) // 2])] += np.float32(2.0) * np.float32(p.cutoff())
+    return {**fields, "px": px}
+
+
+def branch_costs(inc_only, select, chosen, chosen_far) -> str:
+    """A rebuild's per-rebuild device costs in us, each in a graph: the
+    incremental alone, the select as the loop made it before the node
+    (both rebuilds and a ``torch.where`` per plane), and the rebuild
+    through its conditional node with the incremental taken and with the
+    exact taken."""
+    t = {k: graph_ms(fn, launches=10) * 1e3
+         for k, fn in (("incremental", inc_only), ("select", select), ("node_inc", chosen),
+                       ("node_exact", chosen_far))}
+    return (f"incremental alone {t['incremental']:.1f} us, node with the incremental taken "
+            f"{t['node_inc']:.1f} (+{t['node_inc'] - t['incremental']:.1f}), with the exact "
+            f"taken {t['node_exact']:.1f} (+{t['node_exact'] - t['incremental']:.1f}), the "
+            f"select {t['select']:.1f} (+{t['select'] - t['incremental']:.1f}) per rebuild")
+
+
+def rebuild_cost(p, state) -> str:
+    """The rebuild through its conditional node against the incremental
+    rebuild alone and against the select on ``state``'s table after one
+    step's integrate, the exact branch forced by a bot moved two cells:
+    per-rebuild device times in a graph, and the exact rebuild's device
+    time by op."""
+    from particlerobotsimulations_torch.engine_table import (
+        _derived_rows,
+        _exact_rebuild,
+        _smart_rebuild,
+    )
     from particlerobotsimulations_torch.ops.table_rebuild import incremental_rebuild
 
     pre, _ = make_table_step_parts(p)
     ts = pre(enter_table(p, state), False, False, False)
+    far = ts.replace(fields=far_fields(p, ts.fields))
 
     def inc_only():
         moved, ok = incremental_rebuild(p, ts.fields, MOVE_FIELDS, ts.origin)
         return _derived_rows(p, {**ts.fields, **moved}), ok
 
-    sel = graph_ms(lambda: _smart_rebuild(p, ts), launches=10)
-    inc = graph_ms(inc_only, launches=10)
-    return (f"select {sel * 1e3:.1f} us, incremental alone {inc * 1e3:.1f} us, "
-            f"select adds {(sel - inc) * 1e3:.1f} us per rebuild; the exact rebuild's "
-            f"device time by op: {exact_rebuild_ops(p, ts)}")
+    def select():
+        moved, ok = incremental_rebuild(p, ts.fields, MOVE_FIELDS, ts.origin)
+        ok = ok.all()
+        REBUILDS.add(ok)
+        inc = _derived_rows(p, {**ts.fields, **moved})
+        exact, origin = _exact_rebuild(p, ts.fields)
+        return ({k: torch.where(ok, inc[k], exact[k]) for k in TABLE_FIELDS},
+                torch.where(ok, ts.origin, origin))
+
+    text = branch_costs(inc_only, select, lambda: _smart_rebuild(p, ts),
+                        lambda: _smart_rebuild(p, far))
+    return f"{text}; the exact rebuild's device time by op: {exact_rebuild_ops(p, ts)}"
 
 
 def exact_rebuild_ops(p, ts, calls: int = 10, top: int = 6) -> str:
@@ -3044,7 +3198,7 @@ def profiled_modes(p, state, k) -> str:
     out = []
     for mode in ("eager", "graph", "graph", "eager"):
         run, st, *_ = chunks_run(lambda: make_run_chunk_table(pk), state, [200], False,
-                                 mode == "eager")
+                                 mode == "eager", count=False)
         captured = engine_table._CapturedBlock
         if mode == "eager":
             engine_table._CapturedBlock = EagerBlock
@@ -3128,11 +3282,12 @@ def two_place_bench(total) -> str:
             f"{ {k: v for k, v in part.items() if v} }")
 
 
-def graph_phase(main_state) -> dict:
-    """Phase 16: the ungated K-step blocks from CUDA graphs, held bit for
-    bit to the eager blocks on three scenes, sync-free chunks, the select's
-    cost, eager against graph profiled at 10k, and the two-place bench.
-    Returns the graph runs' launches."""
+def graph_phase(main_state) -> tuple:
+    """Phase 16: the ungated K-step blocks from CUDA graphs (each rebuild
+    through its conditional node), held bit for bit to the eager blocks
+    (the select) on three scenes, sync-free chunks, the rebuild's cost by
+    branch, eager against graph profiled at 10k, and the two-place bench.
+    Returns the graph runs' launches and the adaptive runner's live K."""
     from particlerobotsimulations_torch.engine import make_run_chunk, make_run_chunk_batched
     from particlerobotsimulations_torch.parallel.sweep import make_batch_state
 
@@ -3149,7 +3304,7 @@ def graph_phase(main_state) -> dict:
                                  [GRAPH_CHUNK_10K] * 2, False, total)
         print(f"phase 16 {text}", flush=True)
     k_live = 8 if 8 in ks else 4
-    print(f"phase 16 10k {select_cost(p10, main_state)}", flush=True)
+    print(f"phase 16 10k rebuild cost: {rebuild_cost(p10, main_state)}", flush=True)
     print(f"phase 16 10k eager against graph, {GRAPH_PROFILE_STEPS} steps each "
           f"(eager, graph, graph, eager): {profiled_modes(p10, main_state, k_live)}", flush=True)
 
@@ -3161,7 +3316,8 @@ def graph_phase(main_state) -> dict:
     text, _ = graph_vs_eager("100k HEX", lambda: make_run_chunk_table(p100), s100,
                              [GRAPH_CHUNK_100K] * GRAPH_CHUNKS_100K, False, total)
     print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    print(f"phase 16 100k G={p100.resolved_grid_dim()} {select_cost(p100, s100)}", flush=True)
+    print(f"phase 16 100k G={p100.resolved_grid_dim()} rebuild cost: {rebuild_cost(p100, s100)}",
+          flush=True)
 
     t0 = time.perf_counter()
     batch = make_batch_state(p10, list(GRAPH_SEEDS), "cuda")
@@ -3172,7 +3328,7 @@ def graph_phase(main_state) -> dict:
 
     t0 = time.perf_counter()
     print(f"phase 16 {two_place_bench(total)} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    return total
+    return total, k_live
 
 
 # ------------------------------- phase 17: the compiled small-scene paths
@@ -3190,19 +3346,21 @@ SMALL_PROFILE_STEPS, BAND_PROFILE_STEPS = (400, 50), (400, 200)
 BLOCK_CHOICES = (8, 32)
 
 
-def eager_blocks(on: bool):
+def eager_blocks(on: bool, count: bool = False):
     """A context in which the runners built and first run inside it take
-    :class:`EagerBlock` for ``engine_table._CapturedBlock`` (``on``), or
-    the CUDA graphs (not ``on``)."""
+    :class:`EagerBlock` for ``engine_table._CapturedBlock`` (``on``), else
+    :class:`CountedBlock` (``count``) or the CUDA graphs as they are; it
+    yields the list of the counted blocks captured."""
     from contextlib import contextmanager
 
     @contextmanager
     def swap():
         captured = engine_table._CapturedBlock
-        if on:
-            engine_table._CapturedBlock = EagerBlock
+        CountedBlock.MADE = []
+        if on or count:
+            engine_table._CapturedBlock = EagerBlock if on else CountedBlock
         try:
-            yield
+            yield CountedBlock.MADE
         finally:
             engine_table._CapturedBlock = captured
 
@@ -3290,15 +3448,16 @@ def span_vs_reference(name, p, state, chunks, total):
     from particlerobotsimulations_torch.engine_table import make_run_chunk_table_batched
 
     batched = state.pos.dim() == 3
-    run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
-    if not run.path_info["use_mega"]:
-        fail(f"{name}: not on the span path")
-    reset_counts()
-    t0 = time.perf_counter()
-    got = clone_state(state)
-    for n in chunks:
-        got = run(got, n, True)
-    torch.cuda.synchronize()
+    with eager_blocks(False, True) as blocks:
+        run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
+        if not run.path_info["use_mega"]:
+            fail(f"{name}: not on the span path")
+        reset_counts()
+        t0 = time.perf_counter()
+        got = clone_state(state)
+        for n in chunks:
+            got = run(got, n, True)
+        torch.cuda.synchronize()
     g_wall, g_launch, g_reb = time.perf_counter() - t0, dict(kernels.LAUNCHES), dict(REBUILDS)
     reset_counts()
     t0 = time.perf_counter()
@@ -3311,9 +3470,13 @@ def span_vs_reference(name, p, state, chunks, total):
     if not (states_equal(got, want) and generators_equal(got, want)):
         bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(got, k), getattr(want, k))]
         fail(f"{name}: the lagged span path differs from the reference in {bad}")
-    if (g_launch, g_reb, run.redos) != (r_launch, r_reb, redos):
+    # a redone segment's ungated blocks replay their rebuilds through
+    # conditional nodes; the reference selects
+    if (without_cond_set(g_launch), g_reb, run.redos) != (without_cond_set(r_launch), r_reb,
+                                                          redos) or r_launch["cond_set"]:
         fail(f"{name}: launches {g_launch} rebuilds {g_reb} redos {run.redos}, "
              f"reference {r_launch} {r_reb} {redos}")
+    node_record(name, blocks, g_launch)
     for k, v in g_launch.items():
         total[k] = total.get(k, 0) + v
     discarded, dropped = run.discarded, dict(run.discarded_launches)
@@ -3473,10 +3636,10 @@ SHARD_PROFILE_STEPS, DPTP_PROFILE_STEPS = (1000, 200), (400, 100)
 
 def sharded_chunks(make_runner, state, chunks, eager):
     """A fresh sharded runner (``with_stats``) over ``chunks`` from a copy of
-    ``state``, its ungated blocks eager or replayed from graphs, the
-    counters reset just before: (runner, state, launches, each chunk's
-    stats, wall s)."""
-    with eager_blocks(eager):
+    ``state``, its ungated blocks eager or replayed from graphs (counted),
+    the counters reset just before: (runner, state, launches, each chunk's
+    stats, wall s, the counted blocks)."""
+    with eager_blocks(eager, True) as blocks:
         run = make_runner()
         state = clone_state(state)
         reset_counts()
@@ -3487,7 +3650,7 @@ def sharded_chunks(make_runner, state, chunks, eager):
             stats.append(st)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return run, state, dict(kernels.LAUNCHES), stats, wall
+    return run, state, dict(kernels.LAUNCHES), stats, wall, blocks
 
 
 def sharded_graph_vs_eager(name, make_runner, state, chunks, total):
@@ -3498,13 +3661,16 @@ def sharded_graph_vs_eager(name, make_runner, state, chunks, total):
     drained there and its stats read after.  Adds the graph run's launches
     to ``total``; returns (text, the graph run's end state, its stats per
     chunk)."""
-    _, e_state, e_launch, e_stats, e_wall = sharded_chunks(make_runner, state, chunks, True)
-    run, g_state, g_launch, g_stats, g_wall = sharded_chunks(make_runner, state, chunks, False)
+    _, e_state, e_launch, e_stats, e_wall, _ = sharded_chunks(make_runner, state, chunks, True)
+    run, g_state, g_launch, g_stats, g_wall, blocks = sharded_chunks(make_runner, state, chunks,
+                                                                     False)
     if not states_equal(e_state, g_state):
         bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e_state, k), getattr(g_state, k))]
         fail(f"{name}: graph run differs from the eager run in {bad}")
-    if (e_launch, e_stats) != (g_launch, g_stats):
+    if (without_cond_set(e_launch), e_stats) != (without_cond_set(g_launch), g_stats) \
+            or e_launch["cond_set"]:
         fail(f"{name}: eager launches {e_launch} stats {e_stats}, graph {g_launch} {g_stats}")
+    rec = node_record(name, blocks, g_launch)
     for k, v in g_launch.items():
         total[k] = total.get(k, 0) + v
     torch.cuda.synchronize()
@@ -3520,27 +3686,39 @@ def sharded_graph_vs_eager(name, make_runner, state, chunks, total):
         fail(f"{name}: non-finite state after the sync-free chunk")
     steps = sum(chunks)
     used = {k: v for k, v in g_launch.items() if v}
-    return (f"{name}: {steps} steps in chunks {list(chunks)}, graph == eager bit for bit, "
-            f"launches {used}, stats per chunk {g_stats}; wall {e_wall * 1e6 / steps:.1f} "
-            f"us/step eager, {g_wall * 1e6 / steps:.1f} graph (first chunk captures); "
-            f"sync-free chunk ok ({free_stats})"), g_state, g_stats
+    return (f"{name}: {steps} steps in chunks {list(chunks)}, graph (node) == eager (select) "
+            f"bit for bit, launches {used}, stats per chunk {g_stats}; {node_text(rec)}; wall "
+            f"{e_wall * 1e6 / steps:.1f} us/step eager, {g_wall * 1e6 / steps:.1f} graph (first "
+            f"chunk captures); sync-free chunk ok ({free_stats})"), g_state, g_stats
 
 
-def sharded_select_cost(p, state) -> str:
-    """The sharded rebuild with its device select against the incremental
-    rebuild alone, on ``state``'s table split over a ``LocalRing`` after
-    one step's integrate: per-rebuild device times in a CUDA graph, their
-    difference (what the exact rebuild and the select add to each
-    rebuild), and the exact rebuild's device time by op."""
+def sharded_rebuild_cost(p, state) -> str:
+    """The sharded rebuild through its conditional node against the
+    incremental rebuild alone and against the select, on ``state``'s table
+    split over a ``LocalRing`` after one step's integrate, the exact branch
+    forced by a bot moved two cells: per-rebuild device times in a graph,
+    and the exact rebuild's device time by op."""
+    from particlerobotsimulations_torch.engine_table import _exact_rebuild
+
     run, p = make_sharded_table_run(p, LocalRing(N_SHARDS, "cuda"))
+    parts = run.parts
     pre, _ = make_table_step_parts(p)
     ts = pre(enter_table(p, state), False, False, False)
-    f = run.parts["split_local"](ts.fields)
-    sel = graph_ms(lambda: run.parts["rebuild"](f, ts.origin), launches=10)
-    inc = graph_ms(lambda: run.parts["incremental"](f, ts.origin), launches=10)
-    return (f"G={p.resolved_grid_dim()} Cs={p.storage_capacity()}: select {sel * 1e3:.1f} us, "
-            f"incremental alone {inc * 1e3:.1f} us, select adds {(sel - inc) * 1e3:.1f} us "
-            f"per rebuild; the exact rebuild's device time by op: {exact_rebuild_ops(p, ts)}")
+    f = parts["split_local"](ts.fields)
+    far = parts["split_local"](far_fields(p, ts.fields))
+
+    def select():
+        inc, ok = parts["incremental"](f, ts.origin)
+        gf, origin = _exact_rebuild(p, parts["join_global"](f))
+        exact = parts["split_local"](gf)
+        return ({k: torch.where(ok, inc[k], exact[k]) for k in TABLE_FIELDS},
+                torch.where(ok, ts.origin, origin))
+
+    text = branch_costs(lambda: parts["incremental"](f, ts.origin), select,
+                        lambda: parts["rebuild"](f, ts.origin),
+                        lambda: parts["rebuild"](far, ts.origin))
+    return (f"G={p.resolved_grid_dim()} Cs={p.storage_capacity()}: {text}; the exact rebuild's "
+            f"device time by op: {exact_rebuild_ops(p, ts)}")
 
 
 def sharded_compiled_phase(smi) -> dict:
@@ -3613,8 +3791,8 @@ def sharded_compiled_phase(smi) -> dict:
         SHARD_CHUNKS_DPTP, total)
     print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    print(f"phase 18 select {sharded_select_cost(p10, s10)}", flush=True)
-    print(f"phase 18 select {sharded_select_cost(p100, s100)}", flush=True)
+    print(f"phase 18 rebuild cost {sharded_rebuild_cost(p10, s10)}", flush=True)
+    print(f"phase 18 rebuild cost {sharded_rebuild_cost(p100, s100)}", flush=True)
 
     t0 = time.perf_counter()
     print("phase 18 " + timed_turns(
@@ -3634,6 +3812,123 @@ def sharded_compiled_phase(smi) -> dict:
             "graph": (False, make_advance(make_sharded_table_run_batched(p10, mesh=mesh)[0])),
         }, batch, DPTP_PROFILE_STEPS, smi) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
     return total
+
+
+# ------------------------------- phase 19: the rebuild's conditional node
+
+# the scenes phases 16 and 18 hold graph (a conditional node per rebuild)
+# against eager (the select), by the names those phases give them
+COND_SCENES = {
+    "10k adaptive": lambda n: n.startswith("10k adaptive"),
+    "100k at G=160 without spill rows": lambda n: n == "100k HEX",
+    "eight 10k seeds batched": lambda n: n.endswith("seeds x 10k batched"),
+    "10k sharded on LocalRing(4)": lambda n: n.startswith("10k HEX LocalRing"),
+    "100k sharded with 8 spill rows": lambda n: n.startswith("100k HEX with 8 spill rows"),
+    "64 bots at 50 u/s": lambda n: n.startswith("forced fallback"),
+    "dp x tp 4 x 4": lambda n: n.startswith("dp x tp") and "Mesh" not in n,
+}
+# conds per graph in the cond_set timing
+COND_TIMING_CONDS = 20
+
+
+def node_scenes() -> str:
+    """Phases 16 and 18's node records of the COND_SCENES, checked: each
+    scene's graphs hold one conditional node per K-step block (one rebuild
+    each) with a body, replayed at least once; the 100k table without
+    spill rows took both branches inside its replays and the 50 u/s scene
+    the exact one."""
+    out = []
+    for label, match in COND_SCENES.items():
+        recs = [r for r in NODE_SCENES if match(r["name"])]
+        if not recs:
+            fail(f"phase 19: no graph-against-eager record of {label}")
+        rec = recs[0]
+        taken = rec["replayed_rebuilds"]
+        if not rec["conditional"] or set(rec["conditional"]) != {1} or min(rec["body_nodes"]) < 1 \
+                or rec["replays"] < 1:
+            fail(f"phase 19 {label}: node record {rec}")
+        if label.startswith("100k at") and not (taken["incremental"] and taken["exact"]):
+            fail(f"phase 19 {label}: both branches did not run inside the replays: {taken}")
+        if label.startswith("64 bots") and not taken["exact"]:
+            fail(f"phase 19 {label}: no exact rebuild inside the replays: {taken}")
+        out.append(f"{label}: {node_text(rec)}")
+    return " | ".join(out)
+
+
+def cond_set_check(p, state) -> tuple:
+    """Kernel ``cond_set`` with its node against the plain select at the
+    main path's shapes: the 10k table rebuild (``_choose_rebuild``) after
+    one step's integrate, captured with its node and replayed, against the
+    eager select on the same carry, once with the incremental branch
+    taken and once with the exact (a bot moved two cells): bit for bit.
+    Returns (max |diff|, text)."""
+    from particlerobotsimulations_torch.engine_table import _choose_rebuild
+
+    pre, _ = make_table_step_parts(p)
+    ts = pre(enter_table(p, state), False, False, False)
+    err, seen = 0.0, []
+    for want_ok, t in ((True, ts), (False, ts.replace(fields=far_fields(p, ts.fields)))):
+        def block(carry, step, t=t):
+            got, ok = _choose_rebuild(p, t)
+            return {**{f"r_{k}": v for k, v in got.fields.items()}, "r_origin": got.origin,
+                    "r_ok": ok}
+
+        eager = block(None, None)
+        graph = engine_table._CapturedBlock(block, {"x": torch.zeros(1, device="cuda")})
+        out = graph(graph.carry, 0)
+        torch.cuda.synchronize()
+        if bool(out["r_ok"]) != want_ok or bool(eager["r_ok"]) != want_ok:
+            fail(f"cond_set check: ok {bool(out['r_ok'])} / {bool(eager['r_ok'])}, want {want_ok}")
+        if graph.nodes is None or graph.nodes["conditional"] != 1:
+            fail(f"cond_set check: nodes {graph.nodes}")
+        for k, v in eager.items():
+            if k != "r_ok":
+                err = max(err, float((out[k] - v).abs().max()))
+                if not torch.equal(out[k], v):
+                    fail(f"cond_set check: the node's {k} differs from the select's")
+        seen.append(f"{'incremental' if want_ok else 'exact'} taken, graph nodes {graph.nodes}")
+    return err, "; ".join(seen)
+
+
+def cond_phase(p10, main_state, k_live, smi) -> tuple:
+    """Phase 19: the conditional nodes of phases 16 and 18's graphs,
+    kernel ``cond_set`` against the select at the main path's shapes, its
+    time per cond (the kernel and the node, the body not taken, and
+    taken) against the select's, and the 10k K=8 table loop eager against
+    graph when phase 16's probe kept K=4.  Returns (the kernel's record
+    without its launches, text lines)."""
+    from particlerobotsimulations_torch.ops.cond import cond
+
+    lines = [f"phase 19 nodes: {node_scenes()}"]
+    err, text = cond_set_check(p10, main_state)
+    x = torch.ones(1, device="cuda")
+    y = torch.zeros(1, device="cuda")
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def one():
+        cond(ok, lambda o: {"y": y}, lambda o: {"y": o["x"]}, {"x": x})
+
+    ms = graph_ms(one, launches=COND_TIMING_CONDS)
+    ok.fill_(False)
+    taken_ms = graph_ms(one, launches=COND_TIMING_CONDS)
+    plain_ms = graph_ms(lambda: torch.where(ok, y, x), launches=COND_TIMING_CONDS)
+    # one byte read (ok) and one operation; the handle is no memory write
+    b = bound(1, 1)
+    lines.append(
+        f"phase 19 cond_set vs the select at 10k G={p10.resolved_grid_dim()}: bit for bit "
+        f"(max|diff| {err:.1e}); {text} | per cond in a graph of {COND_TIMING_CONDS}: "
+        f"{ms * 1e3:.2f} us with the body not taken, {taken_ms * 1e3:.2f} with a one-copy body "
+        f"taken; the select torch.where on the same inputs {plain_ms * 1e3:.2f} us; bound "
+        f"(ms, by) {b}")
+    if k_live != 8:
+        lines.append(f"phase 19 10k K=8 eager against graph ({smi}), {GRAPH_PROFILE_STEPS} steps "
+                     f"each (eager, graph, graph, eager): {profiled_modes(p10, main_state, 8)}")
+    row = {"name": "cond_set", "route": "cuda",
+           "source": "particlerobotsimulations_torch/csrc/graph_cond.cu",
+           "replaces": "particlerobotsimulations_tpu/engine_table.py:274",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    return row, lines
 
 
 def make_advance(run, aligned=None):
@@ -3765,7 +4060,8 @@ def main() -> int:
         fail("main path: non-finite positions or velocities")
     if health["cell_overflow"] != 0:
         fail(f"main path: {health['cell_overflow']} bots over cell capacity")
-    if not (launches["stencil_forces"] > 0 and launches["compact"] > 0):
+    if not (launches["stencil_forces"] > 0 and launches["compact"] > 0
+            and 0 < launches["cond_set"] <= launches["compact"]):
         fail(f"main path did not launch every kernel: {launches}")
     if launches["mega_span"]:
         fail(f"the 10k table is not in the span band: {launches}")
@@ -3892,7 +4188,7 @@ def main() -> int:
     #     counters reset just before each run), sync-free chunks, the
     #     two-place bench
     t16 = time.perf_counter()
-    launches16 = graph_phase(main_state)
+    launches16, k_live = graph_phase(main_state)
     print(f"phase 16 took {time.perf_counter() - t16:.1f} s; launches {launches16}")
 
     # 17. the compiled small-scene paths: the per-bot runner's graph against
@@ -3908,6 +4204,15 @@ def main() -> int:
     t18 = time.perf_counter()
     launches18 = sharded_compiled_phase(smi)
     print(f"phase 18 took {time.perf_counter() - t18:.1f} s; launches {launches18}")
+
+    # 19. the rebuild's conditional node: the nodes of phases 16 and 18's
+    #     graphs, cond_set against the select, its time
+    t19 = time.perf_counter()
+    cond_row, lines19 = cond_phase(resolve_params(bench_params().validate()), main_state,
+                                   k_live, smi)
+    for line in lines19:
+        print(line, flush=True)
+    print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
 
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
@@ -3937,6 +4242,7 @@ def main() -> int:
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+        {**cond_row, "launches": launches["cond_set"] + launches13.get("cond_set", 0)},
     ] + record9 + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep_,
          "launches": sweep_counts[name], "max_abs_err": kc[name]["err"],

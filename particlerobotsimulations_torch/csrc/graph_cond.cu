@@ -1,0 +1,177 @@
+// The incremental-or-exact rebuild choice inside a CUDA graph: kernel
+// cond_set and the host entry points that build a conditional IF node.
+//
+// Replaces no pallas_call.  It carries the JAX package's lax.cond
+// (particlerobotsimulations_tpu/engine_table.py:274 _smart_rebuild, :299
+// _smart_rebuild_batched, parallel/spatial_table.py:189 take_inc /
+// take_exact) into the port's CUDA graphs.  A captured rebuild enqueues
+// the incremental compaction, writes its result into the output buffers,
+// then cond_set and an IF node whose body graph holds the exact rebuild
+// (which overwrites the same buffers).  cond_set reads the device flag
+// `ok` and sets the node's handle to !ok, so a replay runs the body only
+// when a precondition of the incremental rebuild failed, and the host
+// reads nothing.  The plain form beside it (ops/cond.py) runs both
+// branches and selects with torch.where.
+//
+// What bounds it on the card: launch latency.  One thread reads one byte
+// and sets one handle (1 byte in, nothing written to memory); the cost is
+// the launch and the node's evaluation, a few microseconds, paid once per
+// rebuild.  The design keeps it at one launch: the predicate is computed
+// by the rebuild's own ops, and cond_set only hands it to the node.
+//
+// Entry points (plain C, each returns a cudaError_t; `stream` is a
+// cudaStream_t that a CUDA graph capture is under way on, as a pointer):
+//   pbot_cond_handle      a conditional handle in the graph `stream` is
+//                         capturing (default 0, reset at every launch)
+//   pbot_cond_set         enqueue cond_set(handle, ok) on `stream`
+//   pbot_cond_node        add an IF node on the capture's current
+//                         dependencies, make it the capture's sole
+//                         dependency, hand back its body graph
+//   pbot_cond_body_begin  begin capturing a stream into that body graph
+//   pbot_cond_body_end    end that capture
+//   pbot_capture_graph    the graph `stream` is capturing
+//   pbot_graph_nodes      a graph's nodes by type
+//
+// Conditional nodes need CUDA 12.3 or later where the library is built
+// and where it runs.  CUDA 13 added the edge-data argument to three of
+// the calls; both forms build.
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <vector>
+
+namespace {
+
+__global__ void cond_set(cudaGraphConditionalHandle handle, const bool* ok) {
+  // the body (the exact rebuild) runs where the value is non-zero
+  cudaGraphSetConditional(handle, *ok ? 0u : 1u);
+}
+
+cudaError_t capture_info(cudaStream_t stream, cudaGraph_t* graph,
+                         const cudaGraphNode_t** deps, size_t* n_deps) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+#if CUDART_VERSION >= 13000
+  cudaError_t err =
+      cudaStreamGetCaptureInfo(stream, &status, nullptr, graph, deps, nullptr, n_deps);
+#else
+  cudaError_t err = cudaStreamGetCaptureInfo(stream, &status, nullptr, graph, deps, n_deps);
+#endif
+  if (err != cudaSuccess) return err;
+  return status == cudaStreamCaptureStatusActive ? cudaSuccess : cudaErrorIllegalState;
+}
+
+}  // namespace
+
+extern "C" int pbot_cond_handle(void* stream, unsigned long long* handle) {
+  cudaGraph_t graph = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n = 0;
+  cudaError_t err = capture_info(static_cast<cudaStream_t>(stream), &graph, &deps, &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaGraphConditionalHandle h = 0;
+  err = cudaGraphConditionalHandleCreate(&h, graph, 0, cudaGraphCondAssignDefault);
+  *handle = h;
+  return static_cast<int>(err);
+}
+
+extern "C" int pbot_cond_set(unsigned long long handle, const void* ok, void* stream) {
+  cond_set<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      handle, static_cast<const bool*>(ok));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pbot_cond_node(void* stream, unsigned long long handle, void** body) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGraph_t graph = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n = 0;
+  cudaError_t err = capture_info(s, &graph, &deps, &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = handle;
+  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.size = 1;
+  cudaGraphNode_t node = nullptr;
+#if CUDART_VERSION >= 13000
+  err = cudaGraphAddNode(&node, graph, deps, nullptr, n, &params);
+#else
+  err = cudaGraphAddNode(&node, graph, deps, n, &params);
+#endif
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *body = params.conditional.phGraph_out[0];
+#if CUDART_VERSION >= 13000
+  err = cudaStreamUpdateCaptureDependencies(s, &node, nullptr, 1,
+                                            cudaStreamSetCaptureDependencies);
+#else
+  err = cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies);
+#endif
+  return static_cast<int>(err);
+}
+
+extern "C" int pbot_cond_body_begin(void* stream, void* body) {
+  return static_cast<int>(cudaStreamBeginCaptureToGraph(
+      static_cast<cudaStream_t>(stream), static_cast<cudaGraph_t>(body), nullptr, nullptr, 0,
+      cudaStreamCaptureModeThreadLocal));
+}
+
+extern "C" int pbot_cond_body_end(void* stream, void* body) {
+  cudaGraph_t got = nullptr;
+  cudaError_t err = cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &got);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return got == static_cast<cudaGraph_t>(body) ? 0 : static_cast<int>(cudaErrorIllegalState);
+}
+
+extern "C" int pbot_capture_graph(void* stream, void** graph) {
+  cudaGraph_t g = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n = 0;
+  cudaError_t err = capture_info(static_cast<cudaStream_t>(stream), &g, &deps, &n);
+  *graph = g;
+  return static_cast<int>(err);
+}
+
+// out: [nodes, kernel nodes, memcpy and memset nodes, conditional nodes].
+// Through the CUDA low-level API's cuGraphGetNodes / cuGraphNodeGetType:
+// the runtime's cudaGraphGetNodes and cudaGraphNodeGetType return
+// cudaErrorUnknown on a graph that holds a conditional node (CUDA 12.9
+// runtime).  A CUresult error comes back as 100000 + its value.
+extern "C" int pbot_graph_nodes(void* graph, int* out) {
+  using GetNodes = CUresult (*)(CUgraph, CUgraphNode*, size_t*);
+  using GetType = CUresult (*)(CUgraphNode, CUgraphNodeType*);
+  void* get_nodes = nullptr;
+  void* get_type = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion("cuGraphGetNodes", &get_nodes, 12030,
+                                                     cudaEnableDefault, &found);
+  if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+    err = cudaGetDriverEntryPointByVersion("cuGraphNodeGetType", &get_type, 12030,
+                                           cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint("cuGraphGetNodes", &get_nodes, cudaEnableDefault,
+                                            &found);
+  if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+    err = cudaGetDriverEntryPoint("cuGraphNodeGetType", &get_type, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (found != cudaDriverEntryPointSuccess) return static_cast<int>(cudaErrorNotSupported);
+  CUgraph g = static_cast<CUgraph>(graph);
+  size_t n = 0;
+  CUresult res = reinterpret_cast<GetNodes>(get_nodes)(g, nullptr, &n);
+  std::vector<CUgraphNode> nodes(n);
+  if (res == CUDA_SUCCESS && n) res = reinterpret_cast<GetNodes>(get_nodes)(g, nodes.data(), &n);
+  if (res != CUDA_SUCCESS) return 100000 + static_cast<int>(res);
+  out[0] = static_cast<int>(n);
+  out[1] = out[2] = out[3] = 0;
+  for (CUgraphNode node : nodes) {
+    CUgraphNodeType type;
+    res = reinterpret_cast<GetType>(get_type)(node, &type);
+    if (res != CUDA_SUCCESS) return 100000 + static_cast<int>(res);
+    if (type == CU_GRAPH_NODE_TYPE_KERNEL) ++out[1];
+    if (type == CU_GRAPH_NODE_TYPE_MEMCPY || type == CU_GRAPH_NODE_TYPE_MEMSET) ++out[2];
+    if (type == CU_GRAPH_NODE_TYPE_CONDITIONAL) ++out[3];
+  }
+  return 0;
+}

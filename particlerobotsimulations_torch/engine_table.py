@@ -25,12 +25,15 @@ A Python loop over steps, with every gate decided from the host-side step
 counter, fires the same gates and rebuilds on the same steps as the JAX
 loop's segment scan.  Like the JAX package's jitted chunk, a chunk waits
 for nothing it has just enqueued: the rebuild's incremental-or-exact
-choice is a select on the device, the rebuild counts (:data:`REBUILDS`)
-are device counters, and the sim time is a device scalar.  On the card
-the ungated K-step blocks (the JAX loop's ``plain_u`` scan) replay from a
-CUDA graph captured once per runner and carry layout; the other steps run
-eagerly.  Small tables (``ops/megakernel.mega_eligible``) run the ungated
-part of each gate segment through the megakernel span path: one launch
+choice is made on the device (``ops/cond.cond``, the JAX package's
+``lax.cond``), the rebuild counts (:data:`REBUILDS`) are device counters,
+and the sim time is a device scalar.  On the card the ungated K-step
+blocks (the JAX loop's ``plain_u`` scan) replay from a CUDA graph captured
+once per runner and carry layout, where a conditional node runs the exact
+rebuild only when the incremental one's preconditions failed; the other
+steps run eagerly, where both rebuilds run and a select keeps one.
+Small tables (``ops/megakernel.mega_eligible``) run the ungated part of
+each gate segment through the megakernel span path: one launch
 of kernel 3 per rebuild block, with the slot rebuild between spans, the
 spans of a segment replayed from a CUDA graph, and the whole segment
 redone on the regular path when a rebuild's preconditions fail.  That
@@ -363,25 +366,31 @@ def _choose_rebuild(params: SimParams, ts: TableState):
     plane.  Falls back to the argsort rebuild when a precondition fails (a
     >1-cell move, a cell over capacity, or occupied edge columns).  The
     choice is made on the device, as the JAX package's ``lax.cond`` makes
-    it: both rebuilds run, and every field plane and the origin take the
-    incremental result where ``ok`` holds, else the exact one
-    (``torch.where`` on a 0-dim ``ok``), so the host reads nothing.  A
-    batched carry (a leading scene axis) is decided once for every scene
-    (the JAX package's ``_smart_rebuild_batched``): one kernel-2 launch
-    compacts every scene, and its result is taken for all of them only when
-    every scene's preconditions held; else every scene takes the exact
-    rebuild, vmapped."""
+    it (``ops/cond.cond``), so the host reads nothing: in a captured CUDA
+    graph a conditional node runs the exact rebuild only where ``ok`` is
+    False; eagerly both rebuilds run and every field plane and the origin
+    take the incremental result where ``ok`` holds, else the exact one (a
+    select on the 0-dim ``ok``).  A batched carry (a leading scene axis)
+    is decided once for every scene (the JAX package's
+    ``_smart_rebuild_batched``): one kernel-2 launch compacts every scene,
+    and its result is taken for all of them only when every scene's
+    preconditions held; else every scene takes the exact rebuild,
+    vmapped."""
+    from .ops.cond import cond
     from .ops.table_rebuild import incremental_rebuild
 
     moved, ok = incremental_rebuild(params, ts.fields, MOVE_FIELDS, ts.origin)
     ok = ok.all()
     REBUILDS.add(ok)
     inc = _derived_rows(params, {**ts.fields, **moved})
-    exact, origin = _exact_rebuild(params, ts.fields)
-    return ts.replace(
-        fields={kf: torch.where(ok, inc[kf], exact[kf]) for kf in TABLE_FIELDS},
-        origin=torch.where(ok, ts.origin, origin),
-    ), ok
+    inc = {**{kf: inc[kf] for kf in TABLE_FIELDS}, "origin": ts.origin}
+
+    def take_exact(carry: dict) -> dict:
+        exact, origin = _exact_rebuild(params, {kf: carry[kf] for kf in TABLE_FIELDS})
+        return {**exact, "origin": origin}
+
+    out = cond(ok, lambda carry: inc, take_exact, {**ts.fields, "origin": ts.origin})
+    return ts.replace(fields={kf: out[kf] for kf in TABLE_FIELDS}, origin=out["origin"]), ok
 
 
 def _inject_dead_table(params: SimParams, f: dict, generator, step: int) -> torch.Tensor:
@@ -725,30 +734,45 @@ class _CapturedBlock:
     this device.  Python's cyclic garbage collector is held off during
     the capture: a runner no longer referenced (runners hold reference
     cycles) that it freed mid-capture would destroy its graphs there, and
-    that voids the capture.  A failed capture raises."""
+    that voids the capture.  A failed capture raises.
+
+    The capture is registered for ``ops/cond.cond``: each slot rebuild in
+    the block becomes the incremental rebuild, kernel ``cond_set`` and a
+    conditional IF node whose body holds the exact rebuild.  ``nodes``
+    holds the captured graph's node counts by type with its bodies' nodes
+    (``GraphCapture.node_counts``) when the block made a node, else
+    None."""
 
     def __init__(self, block, carry: dict):
+        from .ops.cond import GraphCapture, capturing
+
         dev = next(iter(carry.values())).device
         self.carry = {n: torch.empty_like(v) for n, v in carry.items()}
         self.outputs = {}
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.nodes = None
         REBUILDS.counter(dev)
         before = dict(kernels.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
+        capture = GraphCapture(dev)
         collecting = gc.isenabled()
         gc.disable()
         try:
             with torch.cuda.device(dev), torch.cuda.stream(stream):
-                self.graph.capture_begin()
+                pool = torch.cuda.graph_pool_handle()
+                self.graph.capture_begin(pool=pool)
                 try:
-                    out = block(dict(self.carry), self.step)
+                    with capturing(capture, pool):
+                        out = block(dict(self.carry), self.step)
                     for n, v in out.items():
                         if n not in self.carry:
                             self.outputs[n] = v
                         elif v is not self.carry[n]:
                             self.carry[n].copy_(v)
+                    if capture.bodies:
+                        self.nodes = capture.node_counts(stream)
                 except BaseException:
                     # the capture is void: end it, and raise what voided it
                     try:

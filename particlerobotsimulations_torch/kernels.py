@@ -22,6 +22,11 @@ of scenes); a single scene is the same entry point with one scene.  Kernels
 4 and 2's padded form take the dp x tp loop's shard-major (S, B, ...)
 stacks as S x B blocks in one launch (``stencil_forces_ext_batched_cuda``,
 ``compact_padded_batched_cuda``), each block as its own single launch.
+``csrc/graph_cond.cu`` replaces no ``pallas_call``: its kernel ``cond_set``
+and host entry points (:func:`cond_node`, :func:`begin_body`,
+:func:`end_body`) build the conditional IF node through which
+``ops/cond.py`` carries the JAX package's incremental-or-exact
+``lax.cond`` into a captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ LAUNCHES = {
     "stencil_forces_ext": 0, "compact_padded": 0,
     "stencil_forces_batched": 0, "compact_batched": 0, "mega_span_batched": 0,
     "stencil_forces_ext_batched": 0, "compact_padded_batched": 0,
+    "cond_set": 0,
 }
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -83,6 +89,7 @@ _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
+_ull = ctypes.c_ulonglong
 
 
 def _nvcc() -> str:
@@ -130,6 +137,13 @@ SIGNATURES = {
     "pbot_stencil_forces_plan": [_i] * 5 + [_vp],
     "pbot_compact_plan": [_i] * 3 + [_vp],
     "pbot_mega_span_plan": [_i] * 5 + [_vp],
+    "pbot_cond_handle": [_vp, _vp],
+    "pbot_cond_set": [_ull, _vp, _vp],
+    "pbot_cond_node": [_vp, _ull, _vp],
+    "pbot_cond_body_begin": [_vp, _vp],
+    "pbot_cond_body_end": [_vp, _vp],
+    "pbot_capture_graph": [_vp, _vp],
+    "pbot_graph_nodes": [_vp, _vp],
 }
 
 
@@ -331,7 +345,7 @@ def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+        raise RuntimeError(f"{what}: CUDA call failed with error {err}")
 
 
 def _stream(t: torch.Tensor):
@@ -652,3 +666,52 @@ def _launch_mega(params, tbl, strip, step, rects, circles, scenes: int, what: st
     _raise_on(err, what)
     LAUNCHES[what] += 1
     return tbl_out, strip_out
+
+
+def cond_node(ok: torch.Tensor) -> int:
+    """On the current stream of ``ok``'s card, which a CUDA graph capture
+    is under way on: create a conditional handle in the captured graph,
+    enqueue kernel ``cond_set`` (the handle := ``not ok``), add an IF node
+    after it and make the node the capture's sole dependency.  Returns the
+    node's body graph (a ``cudaGraph_t`` as an int), which a replay runs
+    only where ``ok`` is False.  ``ok`` is a 0-dim bool CUDA tensor that
+    the graph's earlier nodes write.  Raises if a step fails (no capture
+    under way, a CUDA installation without conditional nodes)."""
+    if ok.device.type != "cuda" or ok.dtype != torch.bool or ok.dim() != 0:
+        raise ValueError(f"ok: expected a 0-dim bool CUDA tensor, got {ok.dtype} "
+                         f"{tuple(ok.shape)} on {ok.device}")
+    lib = build()
+    stream = _stream(ok)
+    handle = _ull()
+    _raise_on(lib.pbot_cond_handle(stream, ctypes.byref(handle)), "conditional handle")
+    _raise_on(lib.pbot_cond_set(handle, ok.data_ptr(), stream), "cond_set")
+    LAUNCHES["cond_set"] += 1
+    body = _vp()
+    _raise_on(lib.pbot_cond_node(stream, handle, ctypes.byref(body)), "conditional node")
+    return body.value
+
+
+def begin_body(stream: torch.cuda.Stream, body: int) -> None:
+    """Begin capturing ``stream`` into the body graph of :func:`cond_node`."""
+    _raise_on(build().pbot_cond_body_begin(stream.cuda_stream, body), "body capture")
+
+
+def end_body(stream: torch.cuda.Stream, body: int) -> None:
+    """End :func:`begin_body`'s capture; raises if it was invalidated."""
+    _raise_on(build().pbot_cond_body_end(stream.cuda_stream, body), "body capture")
+
+
+def capture_graph(stream: torch.cuda.Stream) -> int:
+    """The ``cudaGraph_t`` (as an int) that ``stream`` is capturing into."""
+    graph = _vp()
+    _raise_on(build().pbot_capture_graph(stream.cuda_stream, ctypes.byref(graph)),
+              "capture graph")
+    return graph.value
+
+
+def graph_nodes(graph: int) -> dict:
+    """A graph's nodes by type (its own, not its bodies'): ``nodes``,
+    ``kernels``, ``copies`` (memcpy and memset) and ``conditional``."""
+    out = (ctypes.c_int * 4)()
+    _raise_on(build().pbot_graph_nodes(graph, out), "graph nodes")
+    return dict(zip(("nodes", "kernels", "copies", "conditional"), out))

@@ -16,9 +16,11 @@ per-step work is local except:
   the neighbour in the same pass.  The preconditions are ANDed over the
   ring (a ring-wide min that stays on the device) and any failure takes
   the exact global rebuild (all-gather, argsort) on every shard — the
-  single-table loop's fallback contract.  Both rebuilds run and every
-  plane takes one of them by a select on the device, as the JAX package's
-  ``lax.cond`` decides inside its compiled chunk;
+  single-table loop's fallback contract.  The choice is made on the
+  device, as the JAX package's ``lax.cond`` makes it inside its compiled
+  chunk (``ops/cond.cond``): in a captured CUDA graph a conditional node
+  runs the all-gather, the exact rebuild and the split only on a
+  fallback; eagerly both rebuilds run and a select keeps one;
 * **reductions** — a ring-wide min for the phase law's light distance, a
   ring-wide sum for the centroid, an all-gathered ``topk`` for dead-cell
   injection.
@@ -40,8 +42,8 @@ one scene, kernels 4 and 2 take all S x B blocks in one launch each, and a
 rebuild takes one decision for every shard and scene (:func:`_all_ok`).
 
 Like the JAX package's jitted chunk, a chunk reads nothing from the
-device between its entry and its exit: the rebuild decision is a
-select, the sim time comes from a device step (``engine_table.sim_time``),
+device between its entry and its exit: the rebuild decision stays on the
+device, the sim time comes from a device step (``engine_table.sim_time``),
 and the ``with_stats`` counters are device counters read once, at the
 exit.  The gates stay host decisions on the host step.  The chunk is a
 block iterator (``run_chunk.blocks``, the table loop's shape): each
@@ -89,6 +91,7 @@ from ..engine_table import (
     sim_time,
     step_tensor,
 )
+from ..ops.cond import cond
 from ..ops.forces import friction_velocity_update_xy, obstacle_forces_xy
 from ..ops.integrate import radius_integrate_planes
 from ..ops.pallas_stencil import FIELDS as KERNEL_FIELDS
@@ -226,16 +229,21 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
 
     def sharded_rebuild(f, origin):
         """(f, origin, ok): the incremental compaction where ``ok``, else
-        the exact global rebuild.  Both run; every plane and the origin
-        take the chosen one's values by a select on the 0-dim ``ok``."""
+        the exact global rebuild (the all-gather, the argsort rebuild and
+        the split), chosen on the device by ``ops/cond.cond``: in a
+        captured CUDA graph a conditional node runs the exact branch only
+        where ``ok`` is False; eagerly both run and a select on the 0-dim
+        ``ok`` keeps one (the JAX package's ``lax.cond`` of ``take_inc``
+        and ``take_exact``)."""
         inc, ok = incremental(f, origin)
-        gf, exact_origin = _exact_rebuild(params, join_global(f))
-        exact = split_local(gf)
-        return (
-            {k: torch.where(ok, inc[k], exact[k]) for k in TABLE_FIELDS},
-            torch.where(ok, origin, exact_origin),
-            ok,
-        )
+        inc = {**{k: inc[k] for k in TABLE_FIELDS}, "origin": origin}
+
+        def take_exact(carry):
+            gf, exact_origin = _exact_rebuild(params, join_global(carry))
+            return {**split_local(gf), "origin": exact_origin}
+
+        out = cond(ok, lambda carry: inc, take_exact, {**f, "origin": origin})
+        return {k: out[k] for k in TABLE_FIELDS}, out["origin"], ok
 
     no_gates = (False, False, False)
 
@@ -431,9 +439,10 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
     run_chunk.blocks = blocks
     run_chunk.read_stats = read_stats
     # the pieces a measurement times alone: a whole table's fields to this
-    # process's shards, the incremental rebuild, the rebuild with its select
-    run_chunk.parts = {"split_local": split_local, "incremental": incremental,
-                       "rebuild": sharded_rebuild}
+    # process's shards and back, the incremental rebuild, the rebuild with
+    # its choice
+    run_chunk.parts = {"split_local": split_local, "join_global": join_global,
+                       "incremental": incremental, "rebuild": sharded_rebuild}
     return run_chunk, params
 
 

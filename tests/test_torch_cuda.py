@@ -12,8 +12,9 @@ import pytest
 import torch
 
 import particlerobotsimulations_torch as pt
-from particlerobotsimulations_torch import kernels
+from particlerobotsimulations_torch import engine_table, kernels
 from particlerobotsimulations_torch.engine_table import (
+    MOVE_FIELDS,
     N_TF,
     REBUILDS,
     TABLE_FIELDS,
@@ -813,7 +814,8 @@ def test_dp_tp_table_loop_on_card_matches_cpu(card):
     a = batch_state_to_arrays(run_c(batch_state_from_arrays(p2, arrays, card), 12))
     dl = {k: kernels.LAUNCHES[k] - n0[k] for k in n0}
     assert dl["stencil_forces_ext_batched"] == 12 and dl["compact_padded_batched"] == 3
-    assert sum(dl.values()) == 15
+    # the replayed ungated block rebuilds through its conditional node
+    assert sum(without_cond_set(dl).values()) == 15 and dl["cond_set"] <= 3
     b = batch_state_to_arrays(run_h(batch_state_from_arrays(p2, arrays, "cpu"), 12))
     np.testing.assert_allclose(a["pos"], b["pos"], atol=1e-5)
     np.testing.assert_allclose(a["vel"], b["vel"], atol=1e-4)
@@ -932,6 +934,62 @@ def reset_counts():
         REBUILDS[k] = 0
 
 
+class CountedBlock(engine_table._CapturedBlock):
+    """``engine_table._CapturedBlock`` that keeps its replays and counts
+    the selects (``torch.where`` on a 0-dim condition) its capture made."""
+
+    made: list = []
+
+    def __init__(self, block, carry):
+        real = torch.where
+        self.selects = 0
+
+        def spy(cond, *args, **kw):
+            if torch.is_tensor(cond) and cond.dim() == 0 and args:
+                self.selects += 1
+            return real(cond, *args, **kw)
+
+        torch.where = spy
+        try:
+            super().__init__(block, carry)
+        finally:
+            torch.where = real
+        self.replays = 0
+        CountedBlock.made.append(self)
+
+    def __call__(self, carry, step):
+        self.replays += 1
+        return super().__call__(carry, step)
+
+
+def counted_blocks(monkeypatch) -> list:
+    """Make the runners take :class:`CountedBlock`; returns the list of
+    the blocks they capture."""
+    CountedBlock.made = []
+    monkeypatch.setattr(engine_table, "_CapturedBlock", CountedBlock)
+    return CountedBlock.made
+
+
+def replayed_conds(blocks) -> int:
+    """``cond_set`` launches the blocks' replays made, after checking each
+    capture: one conditional node per ``cond_set``, a body with nodes, and
+    no select left."""
+    for b in blocks:
+        n = b.launches.get("cond_set", 0)
+        assert b.selects == 0
+        if n:
+            assert b.nodes["conditional"] == n and b.nodes["body_nodes"] > 0, b.nodes
+        else:
+            assert b.nodes is None
+    return sum(b.replays * b.launches.get("cond_set", 0) for b in blocks)
+
+
+def without_cond_set(launches) -> dict:
+    """The launch counts apart from ``cond_set``, which only a graph's
+    conditional node launches (an eager rebuild selects)."""
+    return {k: v for k, v in launches.items() if k != "cond_set"}
+
+
 def eager_table_loop(p, state, n_steps):
     """``n_steps`` of ``make_table_step``, one call a step, on the regular
     schedule (chunk-relative rebuilds) between chunk entry and exit: the
@@ -945,10 +1003,12 @@ def eager_table_loop(p, state, n_steps):
 
 
 @pytest.mark.parametrize("batched", [False, True])
-def test_graph_loop_equals_eager_step_loop(card, batched):
+def test_graph_loop_equals_eager_step_loop(card, batched, monkeypatch):
     """Two 62-step chunks of the table runner (ungated K-step blocks
-    replayed from a CUDA graph after the first) equal the eager step loop
-    bit for bit, with equal launch and rebuild counts; batched: three
+    replayed from a CUDA graph after the first, each rebuild through its
+    conditional node) equal the eager step loop (the select) bit for bit,
+    with equal rebuild counts and equal launches apart from ``cond_set``,
+    which the graphs launch once per replayed rebuild; batched: three
     scenes in lockstep."""
     p = resolve_params(pt.SimParams(**GRAPH_SCENE).validate())
 
@@ -957,6 +1017,7 @@ def test_graph_loop_equals_eager_step_loop(card, batched):
             return make_batch_state(p, [0, 1, 2], card)
         return pt.Simulation(p, device=card).state
 
+    blocks = counted_blocks(monkeypatch)
     run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
     reset_counts()
     got = fresh()
@@ -967,7 +1028,10 @@ def test_graph_loop_equals_eager_step_loop(card, batched):
     want = fresh()
     for _ in range(2):
         want = eager_table_loop(p, want, 62)
-    assert (dict(kernels.LAUNCHES), dict(REBUILDS)) == counts
+    assert (without_cond_set(kernels.LAUNCHES), dict(REBUILDS)) == (
+        without_cond_set(counts[0]), counts[1])
+    assert kernels.LAUNCHES["cond_set"] == 0
+    assert counts[0]["cond_set"] == replayed_conds(blocks) > 0
     assert sum(counts[1].values()) == 2 * 15
     for k in CHUNK_FIELDS:
         assert torch.equal(getattr(got, k), getattr(want, k)), k
@@ -1116,7 +1180,7 @@ def reference_span_chunk(p, state, n_steps):
 
 
 @pytest.mark.parametrize("batched", [False, True])
-def test_lagged_span_chunk_equals_one_read_per_segment(card, batched):
+def test_lagged_span_chunk_equals_one_read_per_segment(card, batched, monkeypatch):
     """128 HEX bots, 12-step segments (two spans each), one bot kicked to
     60 u/s so that span rebuilds refuse: a 48-step seg-aligned chunk of
     the runner (spans from a CUDA graph, each flag read one segment
@@ -1146,6 +1210,7 @@ def test_lagged_span_chunk_equals_one_read_per_segment(card, batched):
         def fresh():
             return state_from_arrays(p, arrays, card)
 
+    blocks = counted_blocks(monkeypatch)
     run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
     runs = []
     for chunk in (lambda: run(fresh(), 48, True), lambda: reference_span_chunk(p, fresh(), 48)):
@@ -1156,7 +1221,10 @@ def test_lagged_span_chunk_equals_one_read_per_segment(card, batched):
     for k in CHUNK_FIELDS:
         assert torch.equal(getattr(got, k), getattr(want, k)), k
     assert run.redos == redos >= 1 and run.discarded >= 1
-    assert (g_launch, g_reb) == (r_launch, r_reb)
+    # the redone segments' ungated blocks replay their rebuilds through
+    # conditional nodes; the reference selects
+    assert (without_cond_set(g_launch), g_reb) == (without_cond_set(r_launch), r_reb)
+    assert g_launch["cond_set"] == replayed_conds(blocks) and r_launch["cond_set"] == 0
     assert g_launch["mega_span_batched" if batched else "mega_span"] > 0
 
 
@@ -1258,10 +1326,13 @@ def sharded_runner(kind, card, with_stats=False):
 @pytest.mark.parametrize("kind", ["single", "batched", "mesh"])
 def test_sharded_graph_equals_eager(card, kind, monkeypatch):
     """Two 46-step chunks of the sharded loop, its ungated K-step blocks
-    replayed from a CUDA graph after the first, equal the same runner with
-    eager blocks bit for bit, with equal launches and stats."""
+    replayed from a CUDA graph after the first (each rebuild through its
+    conditional node), equal the same runner with eager blocks (the
+    select) bit for bit, with equal stats and equal launches apart from
+    ``cond_set``, launched once per replayed rebuild."""
     results = []
     for eager in (True, False):
+        blocks = [] if eager else counted_blocks(monkeypatch)
         run, fresh = sharded_runner(kind, card, with_stats=True)
         call = eager_runner(lambda run=run: run, monkeypatch) if eager else run
         reset_counts()
@@ -1272,7 +1343,8 @@ def test_sharded_graph_equals_eager(card, kind, monkeypatch):
         torch.cuda.synchronize()
         results.append((state, stats, dict(kernels.LAUNCHES)))
     (e_state, e_stats, e_launch), (g_state, g_stats, g_launch) = results
-    assert (e_stats, e_launch) == (g_stats, g_launch)
+    assert (e_stats, without_cond_set(e_launch)) == (g_stats, without_cond_set(g_launch))
+    assert e_launch["cond_set"] == 0 and g_launch["cond_set"] == replayed_conds(blocks) > 0
     name = "stencil_forces_ext" if kind == "single" else "stencil_forces_ext_batched"
     assert g_launch[name] == 92 * (2 if kind == "mesh" else 1)
     for k in CHUNK_FIELDS:
@@ -1298,3 +1370,163 @@ def test_sharded_chunk_reads_nothing_from_the_card(card, kind):
     state, stats = run.read_stats(result)
     assert state.step == 138 and bool(torch.isfinite(state.pos).all())
     assert set(stats) == {"fallbacks", "spill_rows_max"}
+
+
+# ------------------------------------------- the rebuild's conditional node
+
+def rebuild_carry(p, card, far: bool):
+    """A 2,000-bot table carry on the card after 2 steps and the third's
+    integrate (where a rebuild runs) as a dict of planes and the origin;
+    ``far`` moves one bot two cells (the incremental rebuild refuses)."""
+    sim = pt.Simulation(p, device=card)
+    ts = enter_table(p, sim.state)
+    step = make_table_step(p)
+    for _ in range(2):
+        ts = step(ts, False, False, False, False)
+    pre, _ = make_table_step_parts(p)
+    ts = pre(ts, False, False, False)
+    carry = {**ts.fields, "origin": ts.origin}
+    if far:
+        g, cs = p.resolved_grid_dim(), p.storage_capacity()
+        rows = torch.nonzero(carry["val"][: g * g * cs] > 0.5).flatten()
+        px = carry["px"].clone()
+        px[rows[len(rows) // 2]] += np.float32(2.0) * np.float32(p.cutoff())
+        carry["px"] = px
+    return carry
+
+
+def toggled_rebuild(p):
+    """``block(carry, step)`` for ``_CapturedBlock``: the rebuild's two
+    branches chosen by the carry's ``ok`` (set from outside the graph)
+    through ``ops/cond.cond``; the results as outputs named ``r_*``."""
+    from particlerobotsimulations_torch.engine_table import _derived_rows, _exact_rebuild
+    from particlerobotsimulations_torch.ops.cond import cond
+    from particlerobotsimulations_torch.ops.table_rebuild import incremental_rebuild
+
+    def block(carry, step):
+        fields = {k: carry[k] for k in TABLE_FIELDS}
+        moved, _ = incremental_rebuild(p, fields, MOVE_FIELDS, carry["origin"])
+        inc = {**_derived_rows(p, {**fields, **moved}), "origin": carry["origin"]}
+
+        def take_exact(c):
+            exact, origin = _exact_rebuild(p, {k: c[k] for k in TABLE_FIELDS})
+            return {**exact, "origin": origin}
+
+        out = cond(carry["ok"], lambda c: inc, take_exact, {**fields, "origin": carry["origin"]})
+        return {f"r_{k}": v for k, v in out.items()}
+
+    return block
+
+
+def test_conditional_node_fires_on_alternate_replays(card):
+    """A captured rebuild whose ``ok`` is toggled from outside the graph
+    before each replay: each replay equals the eager select on the same
+    carry and ``ok`` bit for bit (the incremental branch, then the exact
+    one, in turns), the capture holds one conditional node, and each
+    replay launches ``cond_set`` once."""
+    p = resolve_params(pt.SimParams(**GRAPH_SCENE).validate())
+    block = toggled_rebuild(p)
+    # a bot two cells away: the incremental result drops it, so the two
+    # branches differ
+    carry = {**rebuild_carry(p, card, far=True), "ok": torch.ones((), dtype=torch.bool,
+                                                                   device=card)}
+    block(carry, step_tensor(0, card))  # the eager warm-up
+    graph = engine_table._CapturedBlock(block, carry)
+    assert graph.nodes["conditional"] == 1 and graph.nodes["body_nodes"] > 0
+    assert graph.launches == {"compact": 1, "cond_set": 1}
+    for i in range(6):
+        carry["ok"] = torch.full((), i % 2 == 0, dtype=torch.bool, device=card)
+        n0 = kernels.LAUNCHES["cond_set"]
+        got = graph(carry, 0)
+        assert kernels.LAUNCHES["cond_set"] == n0 + 1
+        want = block(carry, step_tensor(0, card))
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (i, k)
+    other = block({**carry, "ok": ~carry["ok"]}, None)
+    assert not all(torch.equal(other[k], v) for k, v in want.items())
+
+
+@pytest.mark.parametrize("kind", ["table", "batched", "sharded", "dp_tp"])
+def test_cond_set_counted_once_per_replayed_rebuild(card, kind, monkeypatch):
+    """Two 46-step chunks of each loop whose ungated blocks rebuild:
+    ``cond_set`` counts one launch per rebuild its graphs replayed, each
+    capture holds one conditional node per rebuild and no select, and
+    the chunk's results equal the runner with eager blocks (the select)."""
+    from particlerobotsimulations_torch.parallel.spatial_table import (
+        make_sharded_table_run_batched,
+    )
+
+    def runner():
+        if kind in ("table", "batched"):
+            p = resolve_params(pt.SimParams(**GRAPH_SCENE).validate())
+            if kind == "table":
+                return (make_run_chunk_table(p), lambda: pt.Simulation(p, device=card).state,
+                        lambda r, s: r(s, 46))
+            return (make_run_chunk_table_batched(p), lambda: make_batch_state(p, [0, 1], card),
+                    lambda r, s: r(s, 46))
+        p = pt.SimParams(**SHARDED_SCENE)
+        if kind == "sharded":
+            run, p2 = make_sharded_table_run(p, LocalRing(4, card))
+            return run, lambda: pt.Simulation(p2, device=card).state, lambda r, s: r(s, 46)
+        run, p2 = make_sharded_table_run_batched(p, LocalRing(4, card))
+        return run, lambda: make_batch_state(p2, [0, 1], card), lambda r, s: r(s, 46)
+
+    results = []
+    for eager in (True, False):
+        with monkeypatch.context() as m:
+            blocks = [] if eager else counted_blocks(m)
+            if eager:
+                m.setattr(engine_table, "_CapturedBlock", EagerBlock)
+            run, fresh, advance = runner()
+            reset_counts()
+            state = fresh()
+            for _ in range(2):
+                state = advance(run, state)
+            torch.cuda.synchronize()
+            results.append((state, dict(kernels.LAUNCHES), blocks))
+    (e_state, e_launch, _), (g_state, g_launch, blocks) = results
+    assert without_cond_set(e_launch) == without_cond_set(g_launch)
+    conds = replayed_conds(blocks)
+    assert g_launch["cond_set"] == conds > 0 and e_launch["cond_set"] == 0
+    assert any(b.nodes for b in blocks)
+    for k in CHUNK_FIELDS:
+        assert torch.equal(getattr(g_state, k), getattr(e_state, k)), k
+
+
+def test_conditional_body_allocates_only_from_the_graph_pool(card):
+    """Every allocation that capturing a rebuild with its conditional node
+    makes (the main stream's and the body's, on its own stream) lies in
+    the graph's private pool, and 100 replays change no memory
+    statistic."""
+    p = resolve_params(pt.SimParams(**GRAPH_SCENE).validate())
+    block = toggled_rebuild(p)
+    carry = {**rebuild_carry(p, card, far=True), "ok": torch.zeros((), dtype=torch.bool,
+                                                                   device=card)}
+    block(carry, step_tensor(0, card))
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=200_000)
+    try:
+        graph = engine_table._CapturedBlock(block, carry)
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    pool = tuple(graph.graph.pool())
+    own = {t.data_ptr() for t in graph.carry.values()} | {graph.step.data_ptr()}
+    segments = [(s["address"], s["address"] + s["total_size"], tuple(s["segment_pool_id"]))
+                for s in snap["segments"]]
+    trace = snap["device_traces"][card.index if card.index is not None else 0]
+    allocs = [e for e in trace if e["action"] == "alloc" and e["addr"] not in own]
+    assert allocs
+    for e in allocs:
+        (seg_pool,) = [sp for lo, hi, sp in segments if lo <= e["addr"] < hi]
+        assert seg_pool == pool, e
+    assert len({e["stream"] for e in allocs}) >= 2  # the body allocated on its stream
+    keys = ("allocated_bytes.all.current", "reserved_bytes.all.current", "segment.all.current")
+    graph(carry, 0)
+    torch.cuda.synchronize()
+    before = {k: torch.cuda.memory_stats()[k] for k in keys}
+    for i in range(100):
+        carry["ok"].fill_(i % 2 == 0)
+        graph(carry, 0)
+    torch.cuda.synchronize()
+    assert {k: torch.cuda.memory_stats()[k] for k in keys} == before
