@@ -142,8 +142,11 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    backend, table and rebuilds); and ``--from-json`` on
    ``docs/parity/parity.json``, whose verdicts it must reproduce.  Their
    launches are added to the kernels' counts;
-16. the graphed chunk: the table runners replay their ungated K-step
-   blocks from CUDA graphs.  Three scenes run graph against eager (the
+16. the graphed chunk: the table runners replay every K-step block,
+   gated or not (its draws taken before it and fed in), and the adaptive
+   probe's segment from CUDA graphs; only the dead-injection step and a
+   chunk's ragged tail run eagerly, and each chunk's eager steps are held
+   to that.  Three scenes run graph against eager (the
    same runner with ``engine_table._CapturedBlock`` swapped for the eager
    block), bit for bit with equal rebuild counts and equal launches
    apart from ``cond_set`` (each graph rebuild is a conditional node, each
@@ -164,27 +167,33 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    each scene bit for bit its solo run.  The graph runs' and the bench's
    launches are added to the kernels' counts;
 17. the compiled small-scene paths: the per-bot runner (DENSE, AUTO's
-   choice on the card up to 640 bots) replays its ungated blocks of
-   ``engine.BLOCK_STEPS`` steps from CUDA graphs, and the span path
-   replays each segment's spans from a graph and reads its adopt-or-redo
-   flag one segment behind.  Graph against eager (the runner with
+   choice on the card up to 640 bots) replays a block from each gate, of
+   at most ``engine.BLOCK_STEPS`` steps, from CUDA graphs, and the span
+   path runs each segment as one graph that decides its adopt-or-redo on
+   the card (an IF node with an else branch: the closing post, or the
+   regular segment redone from the segment's entry with its rebuilds'
+   nodes nested in the body).  Graph against eager (the runner with
    ``engine_table._CapturedBlock`` swapped for the eager block), bit for
    bit with equal counts: ``examples/example.cfg`` (300 bots) and
    ``examples/example_obstacle.cfg`` (500 bots), 2,000 steps each from
    placement (a phase gate included), and eight seeds of example.cfg
    batched (400 steps); the span path against the reference kept here
-   (every segment's flag read before the next is enqueued), bit for bit
-   with equal launches, rebuilds and redos: the 1,000-bot band, 2,000
-   seg-aligned steps, and its eight seeds batched under phase noise, 800
-   steps (redos and dropped segments printed).  One more chunk of each
+   (every segment's flag read on the host before the next is enqueued),
+   bit for bit with equal launches, rebuilds and redos: the 1,000-bot
+   band, 2,000 seg-aligned steps, its eight seeds batched under phase
+   noise, 800 steps (redos printed), and the band with its span rebuilds
+   failed on the card in alternate segments (a device flag set before
+   each); the segment graphs' nodes (nested bodies included) and their
+   capture and instantiation time are printed.  Each chunk's eager steps
+   are held to the dead step and the ragged tail.  One more chunk of each
    runner under ``torch.cuda.set_sync_debug_mode("error")``.  Eager
    against graph in turns (wall, device us/step and busy share under
    ``torch.profiler``, the card's name and power limit) for DENSE at 300
    and 500 bots and the band's span and regular paths, and the per-bot
    runner at 8 against 32 steps per block.  The graph runs' launches are
    added to the kernels' counts;
-18. the sharded loop's compiled chunk: its ungated K-step blocks replay
-   from CUDA graphs and a chunk reads nothing from the card (the rebuild
+18. the sharded loop's compiled chunk: its K-step blocks, gated or not,
+   replay from CUDA graphs and a chunk reads nothing from the card (the rebuild
    decision a device select, the stats device counters read at the exit).
    Graph against eager (the runner with ``engine_table._CapturedBlock``
    swapped for the eager block), bit for bit with equal launches (apart
@@ -2938,13 +2947,13 @@ GRAPH_CHUNK_10K, GRAPH_CHUNKS_10K = 600, 4
 GRAPH_N_100K, GRAPH_CHUNK_100K, GRAPH_CHUNKS_100K = 100_000, 200, 2
 GRAPH_SEEDS, GRAPH_CHUNK_BATCH, GRAPH_CHUNKS_BATCH = tuple(range(8)), 200, 2
 # the profiled eager-vs-graph comparison at 10k, and the two-place bench
-GRAPH_PROFILE_STEPS, BENCH2_STEPS = 800, 400
+GRAPH_PROFILE_STEPS, BENCH2_STEPS = 600, 400
 
 
 class EagerBlock:
     """Stands in for ``engine_table._CapturedBlock`` in phases 16 and 17's
     eager runs: the same runner, its captured blocks (the table loop's
-    ungated K-step blocks, the span path's spans, the per-bot runner's
+    K-step blocks, the span path's segments, the per-bot runner's
     ungated blocks) run eagerly where the graph runs replay them."""
 
     def __init__(self, block, carry):
@@ -3003,11 +3012,14 @@ NODE_SCENES: list = []
 
 def node_record(name, blocks, launches) -> dict:
     """What a graph run's counted blocks captured and replayed, checked:
-    each capture made no select and holds one conditional node per
-    ``cond_set`` launch, each with a body; the run's ``cond_set`` launches
-    are one per replayed rebuild.  Appended to ``NODE_SCENES``."""
+    each capture made no select and holds one top-level conditional node
+    per top-level ``cond_set`` launch, each with a body; the run's
+    ``cond_set`` launches are one per cond its replays ran (those of a
+    redone span segment's rebuilds, inside its redo body, included).
+    Appended to ``NODE_SCENES``."""
     rec = {"name": name, "graphs": len(blocks), "conditional": [], "body_nodes": [],
-           "top_nodes": [], "replays": sum(b.replays for b in blocks)}
+           "top_nodes": [], "replays": sum(b.replays for b in blocks),
+           "capture_s": [b.seconds for b in blocks]}
     for b in blocks:
         n = b.launches.get("cond_set", 0)
         if b.selects:
@@ -3018,7 +3030,8 @@ def node_record(name, blocks, launches) -> dict:
             rec["conditional"].append(b.nodes["conditional"])
             rec["body_nodes"].append(b.nodes["body_nodes"])
             rec["top_nodes"].append(b.nodes["nodes"])
-    want = sum(b.replays * b.launches.get("cond_set", 0) for b in blocks)
+    want = sum(b.replays * b.launches.get("cond_set", 0)
+               + sum(c.get("cond_set", 0) * int(t) for c, t in b.counted) for b in blocks)
     if launches.get("cond_set", 0) != want:
         fail(f"{name}: cond_set launched {launches.get('cond_set')} times, its graphs "
              f"replayed {want} rebuilds")
@@ -3043,23 +3056,63 @@ def without_cond_set(launches) -> dict:
     return {k: v for k, v in launches.items() if k != "cond_set"}
 
 
+def expected_eager(kind, p, start, n, aligned=False) -> int:
+    """The steps of a chunk of ``n`` from ``start`` that run eagerly by
+    design: the dead-injection step (on the span path the segment holding
+    it) and the ragged tail, the steps after the last block (table loops:
+    ``n % K``, K <= 8; the per-bot runner: the rest of the stretch from its
+    last gate, or the step after the dead one, past whole blocks).
+    ``kind``: "table", "span" or "bot"."""
+    from particlerobotsimulations_torch.engine import BLOCK_STEPS
+    from particlerobotsimulations_torch.engine_table import _step_gates
+
+    end = start + n
+    dead = p.n_dead > 0 and start <= p.dead_step < end
+    if kind == "bot":
+        bounds = [start] + [s for s in range(start, end) if any(_step_gates(p, s))]
+        last = max(bounds + ([p.dead_step + 1] if dead else []))
+        return int(dead) + (end - last) % BLOCK_STEPS
+    k = max(1, p.resolved_slot_rebuild_steps())
+    if kind == "span" and aligned:
+        seg = gate_seg(p)
+        spans_end = start + n // seg * seg
+        dead_seg = p.n_dead > 0 and start <= p.dead_step < spans_end
+        return seg * int(dead_seg) + int(dead and not dead_seg) + (end - spans_end) % k
+    return int(dead) + n % k
+
+
 def chunks_run(make_runner, state, chunks, aligned, eager, count=True):
-    """A fresh runner's ``chunks`` from a copy of ``state``, with its K-step
-    blocks eager or replayed from graphs (counted where ``count``), the
-    counters reset just before: (runner, state, launches, rebuilds, wall s,
-    live K after each chunk, the counted blocks)."""
+    """A fresh runner's ``chunks`` from a copy of ``state``, with its blocks
+    eager or replayed from graphs (counted where ``count``), the counters
+    reset just before: (runner, state, launches, rebuilds, wall s, live K
+    after each chunk, the counted blocks, (start step, steps, eager
+    steps) of each chunk)."""
     with eager_blocks(eager, count) as blocks:
         run = make_runner()
         state = clone_state(state)
         reset_counts()
-        ks = []
+        ks, eager_steps = [], []
         t0 = time.perf_counter()
         for n in chunks:
+            start = state.step
             state = run(state, n, aligned)
             ks.append(getattr(run, "live", {}).get("k"))
+            eager_steps.append((start, n, run.eager_steps))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return run, state, dict(kernels.LAUNCHES), dict(REBUILDS), wall, ks, blocks
+        return (run, state, dict(kernels.LAUNCHES), dict(REBUILDS), wall, ks, blocks,
+                eager_steps)
+
+
+def check_eager(name, kind, p, eager_steps, aligned=False) -> str:
+    """Each chunk's eager steps against :func:`expected_eager`; the text
+    that reports them."""
+    got = [e for _, _, e in eager_steps]
+    want = [expected_eager(kind, p, s, n, aligned) for s, n, _ in eager_steps]
+    if got != want:
+        fail(f"{name}: eager steps per chunk {got}, by design (the dead step and the "
+             f"ragged tail) {want}")
+    return f"eager steps per chunk {got} (the dead step and the ragged tail only)"
 
 
 def sync_free_chunk(name, run, state, n, aligned):
@@ -3078,15 +3131,16 @@ def sync_free_chunk(name, run, state, n, aligned):
         fail(f"{name}: non-finite state after the sync-free chunk")
 
 
-def graph_vs_eager(name, make_runner, state, chunks, aligned, total):
+def graph_vs_eager(name, make_runner, state, chunks, aligned, total, kind="table", p=None):
     """``chunks`` through eager and graph runs of one runner kind from one
-    state: bit for bit, with equal launch and rebuild counts, then one
-    sync-free chunk of the graph runner.  Adds the graph run's launches to
-    ``total``; returns (text, live Ks)."""
-    _, e_state, e_launch, e_reb, e_wall, ks, _ = chunks_run(make_runner, state, chunks, aligned,
-                                                           True)
-    run, g_state, g_launch, g_reb, g_wall, g_ks, blocks = chunks_run(make_runner, state, chunks,
-                                                                     aligned, False)
+    state: bit for bit, with equal launch and rebuild counts, each chunk's
+    eager steps those of :func:`expected_eager` (``kind``, params ``p``),
+    then one sync-free chunk of the graph runner.  Adds the graph run's
+    launches to ``total``; returns (text, live Ks)."""
+    _, e_state, e_launch, e_reb, e_wall, ks, _, _ = chunks_run(make_runner, state, chunks,
+                                                               aligned, True)
+    run, g_state, g_launch, g_reb, g_wall, g_ks, blocks, g_eager = chunks_run(
+        make_runner, state, chunks, aligned, False)
     if not states_equal(e_state, g_state):
         bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e_state, k), getattr(g_state, k))]
         fail(f"{name}: graph run differs from the eager run in {bad}")
@@ -3094,6 +3148,7 @@ def graph_vs_eager(name, make_runner, state, chunks, aligned, total):
             or e_launch["cond_set"]:
         fail(f"{name}: eager launches {e_launch} rebuilds {e_reb} K {ks}, "
              f"graph {g_launch} {g_reb} {g_ks}")
+    eager_text = check_eager(name, kind, p, g_eager, aligned) if p is not None else ""
     rec = node_record(name, blocks, g_launch)
     for k, v in g_launch.items():
         total[k] = total.get(k, 0) + v
@@ -3101,7 +3156,8 @@ def graph_vs_eager(name, make_runner, state, chunks, aligned, total):
     steps = sum(chunks)
     used = {k: v for k, v in g_launch.items() if v}
     return (f"{name}: {steps} steps, graph (node) == eager (select) bit for bit, launches "
-            f"{used}, rebuilds {g_reb}, live K {g_ks}; {node_text(rec)}; wall "
+            f"{used}, rebuilds {g_reb}, live K {g_ks}; {len(blocks)} graphs (gate patterns "
+            f"and layouts), {eager_text}; {node_text(rec)}; wall "
             f"{e_wall * 1e6 / steps:.1f} us/step eager, {g_wall * 1e6 / steps:.1f} graph (first "
             f"chunk captures); sync-free chunk ok"), g_ks
 
@@ -3191,31 +3247,24 @@ def exact_rebuild_ops(p, ts, calls: int = 10, top: int = 6) -> str:
 
 def profiled_modes(p, state, k) -> str:
     """Eager against graph in one call at 10k on the K-step table loop
-    (unaligned chunks: gated blocks eager, the others replayed): wall
-    us/step of an unprofiled chunk after a warm-up chunk, then the
-    profiler's busy share and device us/step over another."""
+    (unaligned chunks): a 200-step warm-up chunk from ``state``, then a
+    window of GRAPH_PROFILE_STEPS from its end run once (it captures every
+    gate pattern of the window), again with its wall us/step unprofiled,
+    and once more under the profiler: busy share and device us/step."""
     pk = p.replace(slot_rebuild_steps=k).validate()
     out = []
     for mode in ("eager", "graph", "graph", "eager"):
-        run, st, *_ = chunks_run(lambda: make_run_chunk_table(pk), state, [200], False,
-                                 mode == "eager", count=False)
-        captured = engine_table._CapturedBlock
-        if mode == "eager":
-            engine_table._CapturedBlock = EagerBlock
-        try:
+        with eager_blocks(mode == "eager"):
+            run = make_run_chunk_table(pk)
+            start = run(clone_state(state), 200, False)
+            run(clone_state(start), GRAPH_PROFILE_STEPS, False)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            st = run(st, GRAPH_PROFILE_STEPS, False)
+            run(clone_state(start), GRAPH_PROFILE_STEPS, False)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6 / GRAPH_PROFILE_STEPS
-            holder = {"st": st}
-
-            def more():
-                holder["st"] = run(holder["st"], GRAPH_PROFILE_STEPS, False)
-
-            share = busy_share(more, GRAPH_PROFILE_STEPS)
-        finally:
-            engine_table._CapturedBlock = captured
+            share = busy_share(lambda: run(clone_state(start), GRAPH_PROFILE_STEPS, False),
+                               GRAPH_PROFILE_STEPS)
         # the profiler's own host work stretches the profiled wall: the
         # device time over the unprofiled wall is the share without it
         dev = re.search(r"\(([0-9.]+) device us/step", share)
@@ -3295,13 +3344,13 @@ def graph_phase(main_state) -> tuple:
     p10 = resolve_params(bench_params().validate())
     t0 = time.perf_counter()
     text, ks = graph_vs_eager("10k adaptive", lambda: make_run_chunk(p10, "cuda"), main_state,
-                              [GRAPH_CHUNK_10K] * GRAPH_CHUNKS_10K, True, total)
+                              [GRAPH_CHUNK_10K] * GRAPH_CHUNKS_10K, True, total, p=p10)
     print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
     if 8 not in ks:
         p8 = p10.replace(slot_rebuild_steps=8).validate()
         text, _ = graph_vs_eager("10k K=8 (the probe kept K=4)",
                                  lambda: make_run_chunk_table(p8), main_state,
-                                 [GRAPH_CHUNK_10K] * 2, False, total)
+                                 [GRAPH_CHUNK_10K] * 2, False, total, p=p8)
         print(f"phase 16 {text}", flush=True)
     k_live = 8 if 8 in ks else 4
     print(f"phase 16 10k rebuild cost: {rebuild_cost(p10, main_state)}", flush=True)
@@ -3314,7 +3363,7 @@ def graph_phase(main_state) -> tuple:
         fail(f"100k scene: {p100.resolved_overflow_slots()} spill rows, want none")
     s100 = pt.Simulation(p100, device="cuda").state
     text, _ = graph_vs_eager("100k HEX", lambda: make_run_chunk_table(p100), s100,
-                             [GRAPH_CHUNK_100K] * GRAPH_CHUNKS_100K, False, total)
+                             [GRAPH_CHUNK_100K] * GRAPH_CHUNKS_100K, False, total, p=p100)
     print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
     print(f"phase 16 100k G={p100.resolved_grid_dim()} rebuild cost: {rebuild_cost(p100, s100)}",
           flush=True)
@@ -3323,7 +3372,7 @@ def graph_phase(main_state) -> tuple:
     batch = make_batch_state(p10, list(GRAPH_SEEDS), "cuda")
     text, _ = graph_vs_eager(f"{len(GRAPH_SEEDS)} seeds x 10k batched",
                              lambda: make_run_chunk_batched(p10, "cuda"), batch,
-                             [GRAPH_CHUNK_BATCH] * GRAPH_CHUNKS_BATCH, True, total)
+                             [GRAPH_CHUNK_BATCH] * GRAPH_CHUNKS_BATCH, True, total, p=p10)
     print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -3340,10 +3389,14 @@ def graph_phase(main_state) -> tuple:
 SMALL_CFGS, SMALL_CHUNKS = ("example.cfg", "example_obstacle.cfg"), (1000, 1000)
 SMALL_SEEDS, SMALL_BATCH_CHUNKS = tuple(range(8)), (200, 200)
 BAND_CHUNKS, BAND_BATCH_CHUNKS = (1000, 1000), (400, 400)
+# the forced failure: one segment per chunk, the spans' rebuilds failed
+# where False (the device flag of forced_glue)
+BAND_FORCED = (True, False) * 4
 # (timed, traced) steps of each turn: DENSE, the band
 SMALL_PROFILE_STEPS, BAND_PROFILE_STEPS = (400, 50), (400, 200)
-# the per-bot runner's block lengths phase 17 times against each other
-BLOCK_CHOICES = (8, 32)
+# the per-bot runner's block lengths phase 17 times against each other,
+# over this many steps (after as many from placement)
+BLOCK_CHOICES, BLOCK_CHOICE_STEPS = (8, 32), 600
 
 
 def eager_blocks(on: bool, count: bool = False):
@@ -3367,13 +3420,13 @@ def eager_blocks(on: bool, count: bool = False):
     return swap()
 
 
-def reference_span_chunk(p, state, n_steps):
-    """The span path as it was before the decision went one segment
-    behind: every piece eager, each segment's flag read (``bool(ok_all.
-    item())``) before the next segment is enqueued, a failed segment
-    redone on the regular path from its entry.  The regular steps run one
-    at a time (bit for bit the runner's graphed blocks, phase 16).
-    Returns (state, redos)."""
+def reference_span_chunk(p, state, n_steps, glue=None):
+    """The span path with its decision on the host: every piece eager,
+    each segment's flag read (``bool(ok_all.item())``) before the next
+    segment is enqueued, a failed segment redone on the regular path from
+    its entry (the draw source restored).  The regular steps run one at a
+    time (bit for bit the runner's graphed blocks, phase 16).  ``glue``:
+    ``_make_mega_glue`` or a stand-in.  Returns (state, redos)."""
     from particlerobotsimulations_torch import rng
     from particlerobotsimulations_torch.engine_table import _geometry, _smart_rebuild
     from particlerobotsimulations_torch.ops.megakernel import make_mega_span
@@ -3384,7 +3437,7 @@ def reference_span_chunk(p, state, n_steps):
     seg = gate_seg(p)
     bps = seg // k
     mega = make_mega_span(p, _geometry(p)[2])
-    mega_pack, mega_unpack, incremental_packed = _make_mega_glue(p)
+    mega_pack, mega_unpack, incremental_packed = (glue or _make_mega_glue)(p)
     redos = 0
 
     def regular(ts, n):
@@ -3439,83 +3492,129 @@ def gate_counts(p, start, n) -> dict:
     return dict(zip(("dead", "centroid", "phase"), fired))
 
 
-def span_vs_reference(name, p, state, chunks, total):
-    """``chunks`` of the span path's runner (the spans from a CUDA graph,
-    each segment's flag read one segment behind) against
+def forced_glue(flag):
+    """A stand-in for ``_make_mega_glue`` whose span rebuilds' ``ok`` is
+    ANDed with the 0-dim bool device tensor ``flag``: set from outside a
+    graph before a replay, it fails the segment's spans on the card."""
+    def glue(params):
+        pack, unpack, inc = _make_mega_glue(params)
+
+        def forced(tbl, origin):
+            new, ok = inc(tbl, origin)
+            return new, ok & flag
+
+        return pack, unpack, forced
+
+    return glue
+
+
+def span_vs_reference(name, p, state, chunks, total, flags=None):
+    """``chunks`` of the span path's runner (each segment one CUDA graph
+    that decides its adopt-or-redo with a conditional node) against
     :func:`reference_span_chunk` from one state: bit for bit, generators
-    included, with equal launches, rebuilds and redos; then one sync-free
-    chunk of the runner.  Adds the runner's launches to ``total``."""
+    included, with equal launches (apart from ``cond_set``), rebuilds and
+    redos, and each chunk's eager steps those of :func:`expected_eager`;
+    then one sync-free chunk of the runner.  With ``flags`` (one bool per
+    one-segment chunk) both runs AND the span rebuilds' ``ok`` with a
+    device flag set to the chunk's before it (:func:`forced_glue`).
+    Prints the segment graphs' nodes (top level, and in their bodies,
+    nested ones included) and their capture + instantiate time.  Adds the
+    runner's launches to ``total``."""
     from particlerobotsimulations_torch.engine_table import make_run_chunk_table_batched
 
     batched = state.pos.dim() == 3
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+    glue = forced_glue(flag) if flags is not None else None
+    if flags is not None:
+        chunks = [gate_seg(p)] * len(flags)
+    real = engine_table._make_mega_glue
     with eager_blocks(False, True) as blocks:
-        run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
+        engine_table._make_mega_glue = glue or real
+        try:
+            run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
+        finally:
+            engine_table._make_mega_glue = real
         if not run.path_info["use_mega"]:
             fail(f"{name}: not on the span path")
         reset_counts()
         t0 = time.perf_counter()
-        got = clone_state(state)
-        for n in chunks:
+        got, eager_steps = clone_state(state), []
+        for i, n in enumerate(chunks):
+            if flags is not None:
+                flag.fill_(flags[i])
+            start = got.step
             got = run(got, n, True)
+            eager_steps.append((start, n, run.eager_steps))
         torch.cuda.synchronize()
     g_wall, g_launch, g_reb = time.perf_counter() - t0, dict(kernels.LAUNCHES), dict(REBUILDS)
+    g_redos = run.redos
     reset_counts()
     t0 = time.perf_counter()
     want, redos = clone_state(state), 0
-    for n in chunks:
-        want, r = reference_span_chunk(p, want, n)
+    for i, n in enumerate(chunks):
+        if flags is not None:
+            flag.fill_(flags[i])
+        want, r = reference_span_chunk(p, want, n, glue)
         redos += r
     torch.cuda.synchronize()
     r_wall, r_launch, r_reb = time.perf_counter() - t0, dict(kernels.LAUNCHES), dict(REBUILDS)
     if not (states_equal(got, want) and generators_equal(got, want)):
         bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(got, k), getattr(want, k))]
-        fail(f"{name}: the lagged span path differs from the reference in {bad}")
-    # a redone segment's ungated blocks replay their rebuilds through
-    # conditional nodes; the reference selects
-    if (without_cond_set(g_launch), g_reb, run.redos) != (without_cond_set(r_launch), r_reb,
-                                                          redos) or r_launch["cond_set"]:
-        fail(f"{name}: launches {g_launch} rebuilds {g_reb} redos {run.redos}, "
+        fail(f"{name}: the span path differs from the reference in {bad}")
+    # the graphs' rebuilds (and the redone segments' inside their bodies)
+    # go through conditional nodes; the reference selects
+    if (without_cond_set(g_launch), g_reb, g_redos) != (without_cond_set(r_launch), r_reb,
+                                                        redos) or r_launch["cond_set"]:
+        fail(f"{name}: launches {g_launch} rebuilds {g_reb} redos {g_redos}, "
              f"reference {r_launch} {r_reb} {redos}")
+    if flags is not None and redos != flags.count(False):
+        fail(f"{name}: {redos} redos under {flags.count(False)} forced failures")
+    eager_text = check_eager(name, "span", p, eager_steps, aligned=True)
     node_record(name, blocks, g_launch)
+    segs = [b for b in blocks if b.counted]
+    if not segs:
+        fail(f"{name}: no segment graph with a counted redo body")
+    seg_text = ", ".join(
+        f"{b.nodes['nodes']} top-level nodes ({b.nodes['conditional']} conditional), "
+        f"{b.nodes['body_nodes']} in bodies, captured and instantiated in {b.seconds:.2f} s, "
+        f"{b.replays} replays" for b in segs)
     for k, v in g_launch.items():
         total[k] = total.get(k, 0) + v
-    discarded, dropped = run.discarded, dict(run.discarded_launches)
-    sync_free_chunk(name, run, got, chunks[-1], True)
+    if flags is None:
+        sync_free_chunk(name, run, got, chunks[-1], True)
     steps = sum(chunks)
-    return (f"{name}: {steps} seg-aligned steps, lagged == reference bit for bit, launches "
-            f"{ {k: v for k, v in g_launch.items() if v} }, rebuilds {g_reb}, redos {redos}, "
-            f"discarded segments {discarded} (their launches {dropped}); wall "
-            f"{r_wall * 1e6 / steps:.1f} us/step reference, {g_wall * 1e6 / steps:.1f} lagged "
-            f"(first chunk captures); sync-free chunk ok")
+    return (f"{name}: {steps} seg-aligned steps, the in-graph decision == reference bit for "
+            f"bit, launches {({k: v for k, v in g_launch.items() if v})}, rebuilds {g_reb}, "
+            f"redos {redos}, {eager_text}; segment graphs: {seg_text}; wall "
+            f"{r_wall * 1e6 / steps:.1f} us/step reference, {g_wall * 1e6 / steps:.1f} graph "
+            f"(first chunk captures)" + ("; sync-free chunk ok" if flags is None else ""))
 
 
 def timed_turns(name, modes, state, steps, smi) -> str:
     """Two ways of running one scene, taken in turns (a, b, b, a), each
-    from a copy of ``state``: a warm-up chunk of ``n`` steps (it captures
-    the graphs), the wall of an unprofiled chunk of ``n``, then
-    :func:`busy_share` of ``n_traced`` more, the device alone traced.
-    ``steps``: (n, n_traced); ``modes``: {label: (eager, advance(state, n)
-    -> state)}."""
+    from a copy of ``state``: a warm-up chunk of ``n`` steps, then the
+    next ``n`` steps run once (it captures the graphs of every gate
+    pattern in that window), again with their wall unprofiled, then
+    :func:`busy_share` of their first ``n_traced`` steps, the device alone
+    traced; an eager turn's blocks stay eager throughout.  ``steps``: (n,
+    n_traced); ``modes``: {label: (eager, advance(state, n) -> state)}."""
     n, n_traced = steps
     labels = list(modes)
     out = []
     for label in (labels[0], labels[1], labels[1], labels[0]):
         eager, advance = modes[label]
         with eager_blocks(eager):
-            st = advance(clone_state(state), n)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = advance(st, n)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e6 / n
-        if not bool(torch.isfinite(st.pos).all()):
-            fail(f"{name} {label}: non-finite state")
-        holder = {"st": st}
-
-        def more():
-            holder["st"] = advance(holder["st"], n_traced)
-
-        share = busy_share(more, n_traced, host_ops=False)
+            start = advance(clone_state(state), n)
+            advance(clone_state(start), n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = advance(clone_state(start), n)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6 / n
+            if not bool(torch.isfinite(st.pos).all()):
+                fail(f"{name} {label}: non-finite state")
+            share = busy_share(lambda: advance(clone_state(start), n_traced), n_traced,
+                               host_ops=False)
         dev = re.search(r"\(([0-9.]+) device us/step", share)
         plain = f", device over unprofiled wall {float(dev.group(1)) / wall:.4f}" if dev else ""
         out.append(f"{label} {wall:.1f} us/step wall{plain}, profiled busy share {share}")
@@ -3525,8 +3624,9 @@ def timed_turns(name, modes, state, steps, smi) -> str:
 
 def block_choice(p, state, smi) -> str:
     """Wall us/step of the per-bot runner at each of BLOCK_CHOICES steps
-    per block, in turns (8, 32, 32, 8): 1,000 steps from placement (the
-    graphs captured), then 1,000 timed (a centroid and a phase gate)."""
+    per block, in turns (8, 32, 32, 8): BLOCK_CHOICE_STEPS from
+    placement, the next BLOCK_CHOICE_STEPS once (the graphs of that
+    window captured), then that window again, timed."""
     from particlerobotsimulations_torch import engine
     from particlerobotsimulations_torch.engine import make_run_chunk
 
@@ -3536,12 +3636,13 @@ def block_choice(p, state, smi) -> str:
         for b in (BLOCK_CHOICES[0], BLOCK_CHOICES[1], BLOCK_CHOICES[1], BLOCK_CHOICES[0]):
             engine.BLOCK_STEPS = b
             run = make_run_chunk(p, "cuda")
-            st = run(clone_state(state), 1000)
+            start = run(clone_state(state), BLOCK_CHOICE_STEPS)
+            run(clone_state(start), BLOCK_CHOICE_STEPS)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            st = run(st, 1000)
+            run(clone_state(start), BLOCK_CHOICE_STEPS)
             torch.cuda.synchronize()
-            times[b].append((time.perf_counter() - t0) * 1e3)
+            times[b].append((time.perf_counter() - t0) * 1e6 / BLOCK_CHOICE_STEPS)
     finally:
         engine.BLOCK_STEPS = keep
     return (f"{p.n_cells} bots DENSE, steps per block {BLOCK_CHOICES[0]} against "
@@ -3551,13 +3652,15 @@ def block_choice(p, state, smi) -> str:
 
 
 def small_scene_phase(smi) -> dict:
-    """Phase 17: the per-bot runner's blocks from CUDA graphs held bit for
-    bit to the eager blocks on example.cfg and example_obstacle.cfg (AUTO:
-    DENSE) and eight example.cfg seeds batched; the span path with its
-    spans graphed and its decision one segment behind held to the
-    reference on the 1,000-bot band, one scene and eight seeds batched;
-    sync-free chunks of each runner; eager against graph in turns under
-    the profiler; the block length's choice.  Returns the launches of the
+    """Phase 17: the per-bot runner's blocks (gated ones included) from
+    CUDA graphs held bit for bit to the eager blocks on example.cfg and
+    example_obstacle.cfg (AUTO: DENSE) and eight example.cfg seeds
+    batched; the span path, each segment one graph deciding its
+    adopt-or-redo on the card, held to the reference on the 1,000-bot
+    band, one scene, eight seeds batched (with redos) and a failure forced
+    on the card in alternate segments; eager steps per chunk; sync-free
+    chunks of each runner; eager against graph in turns under the
+    profiler; the block length's choice.  Returns the launches of the
     graph runs."""
     from particlerobotsimulations_torch.engine import make_run_chunk, make_run_chunk_batched
     from particlerobotsimulations_torch.parallel.sweep import make_batch_state
@@ -3576,7 +3679,7 @@ def small_scene_phase(smi) -> dict:
             fail(f"{name}: the run passes no phase gate ({gates})")
         text, _ = graph_vs_eager(f"{name} {p.n_cells} bots DENSE",
                                  lambda p=p: make_run_chunk(p, "cuda"), state,
-                                 list(SMALL_CHUNKS), False, total)
+                                 list(SMALL_CHUNKS), False, total, kind="bot", p=p)
         print(f"phase 17a {text}; gates {gates} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -3584,7 +3687,7 @@ def small_scene_phase(smi) -> dict:
     batch = make_batch_state(pe, list(SMALL_SEEDS), "cuda")
     text, _ = graph_vs_eager(f"{len(SMALL_SEEDS)} seeds of example.cfg batched DENSE",
                              lambda: make_run_chunk_batched(pe, "cuda"), batch,
-                             list(SMALL_BATCH_CHUNKS), False, total)
+                             list(SMALL_BATCH_CHUNKS), False, total, kind="bot", p=pe)
     print(f"phase 17b {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -3596,6 +3699,10 @@ def small_scene_phase(smi) -> dict:
     bb = make_batch_state(pb, list(SMALL_SEEDS), "cuda")
     print(f"phase 17c {span_vs_reference('band 8 seeds batched', pb, bb, BAND_BATCH_CHUNKS, total)}"
           f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    text = span_vs_reference("band 1000 HEX, span rebuilds failed on the card in alternate "
+                             "segments", pb, sb, None, total, flags=list(BAND_FORCED))
+    print(f"phase 17c {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     for name in SMALL_CFGS:
@@ -3631,45 +3738,51 @@ SHARD_CHUNKS_100K = (100, 100)
 SHARD_CHUNKS_FALLBACK = (16, 16)
 SHARD_CHUNKS_DPTP = (200, 200)
 # (timed, traced) steps of each eager / graph turn: 10k, dp x tp
-SHARD_PROFILE_STEPS, DPTP_PROFILE_STEPS = (1000, 200), (400, 100)
+SHARD_PROFILE_STEPS, DPTP_PROFILE_STEPS = (600, 200), (400, 100)
 
 
 def sharded_chunks(make_runner, state, chunks, eager):
     """A fresh sharded runner (``with_stats``) over ``chunks`` from a copy of
-    ``state``, its ungated blocks eager or replayed from graphs (counted),
-    the counters reset just before: (runner, state, launches, each chunk's
-    stats, wall s, the counted blocks)."""
+    ``state``, its blocks eager or replayed from graphs (counted), the
+    counters reset just before: (runner, state, launches, each chunk's
+    stats, wall s, the counted blocks, (start step, steps, eager steps) of
+    each chunk)."""
     with eager_blocks(eager, True) as blocks:
         run = make_runner()
         state = clone_state(state)
         reset_counts()
-        stats = []
+        stats, eager_steps = [], []
         t0 = time.perf_counter()
         for n in chunks:
+            start = state.step
             state, st = run(state, n)
             stats.append(st)
+            eager_steps.append((start, n, run.eager_steps))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return run, state, dict(kernels.LAUNCHES), stats, wall, blocks
+    return run, state, dict(kernels.LAUNCHES), stats, wall, blocks, eager_steps
 
 
-def sharded_graph_vs_eager(name, make_runner, state, chunks, total):
+def sharded_graph_vs_eager(name, make_runner, state, chunks, total, p):
     """``chunks`` through an eager and a graph run of one sharded runner
     kind from one state: bit for bit, with equal launches and equal
-    ``fallbacks`` and ``spill_rows_max`` per chunk; then one chunk of the
+    ``fallbacks`` and ``spill_rows_max`` per chunk, each chunk's eager
+    steps those of :func:`expected_eager` (params ``p``); then one chunk of the
     warm graph runner under ``set_sync_debug_mode("error")``, its blocks
     drained there and its stats read after.  Adds the graph run's launches
     to ``total``; returns (text, the graph run's end state, its stats per
     chunk)."""
-    _, e_state, e_launch, e_stats, e_wall, _ = sharded_chunks(make_runner, state, chunks, True)
-    run, g_state, g_launch, g_stats, g_wall, blocks = sharded_chunks(make_runner, state, chunks,
-                                                                     False)
+    _, e_state, e_launch, e_stats, e_wall, _, _ = sharded_chunks(make_runner, state, chunks,
+                                                                 True)
+    run, g_state, g_launch, g_stats, g_wall, blocks, g_eager = sharded_chunks(
+        make_runner, state, chunks, False)
     if not states_equal(e_state, g_state):
         bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e_state, k), getattr(g_state, k))]
         fail(f"{name}: graph run differs from the eager run in {bad}")
     if (without_cond_set(e_launch), e_stats) != (without_cond_set(g_launch), g_stats) \
             or e_launch["cond_set"]:
         fail(f"{name}: eager launches {e_launch} stats {e_stats}, graph {g_launch} {g_stats}")
+    eager_text = check_eager(name, "table", p, g_eager)
     rec = node_record(name, blocks, g_launch)
     for k, v in g_launch.items():
         total[k] = total.get(k, 0) + v
@@ -3687,7 +3800,8 @@ def sharded_graph_vs_eager(name, make_runner, state, chunks, total):
     steps = sum(chunks)
     used = {k: v for k, v in g_launch.items() if v}
     return (f"{name}: {steps} steps in chunks {list(chunks)}, graph (node) == eager (select) "
-            f"bit for bit, launches {used}, stats per chunk {g_stats}; {node_text(rec)}; wall "
+            f"bit for bit, launches {used}, stats per chunk {g_stats}; {len(blocks)} graphs, "
+            f"{eager_text}; {node_text(rec)}; wall "
             f"{e_wall * 1e6 / steps:.1f} us/step eager, {g_wall * 1e6 / steps:.1f} graph (first "
             f"chunk captures); sync-free chunk ok ({free_stats})"), g_state, g_stats
 
@@ -3748,7 +3862,7 @@ def sharded_compiled_phase(smi) -> dict:
     text, _, _ = sharded_graph_vs_eager(
         f"10k HEX LocalRing({N_SHARDS}) G={p10.resolved_grid_dim()} K={k}, gates {gates}",
         lambda: make_sharded_table_run(p10, ring, with_stats=True)[0], s10,
-        SHARD_CHUNKS_10K, total)
+        SHARD_CHUNKS_10K, total, p10)
     print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -3759,7 +3873,7 @@ def sharded_compiled_phase(smi) -> dict:
     text, end100, _ = sharded_graph_vs_eager(
         f"100k HEX with 8 spill rows (G={p100.resolved_grid_dim()}, Cs={p100.storage_capacity()})",
         lambda: make_sharded_table_run(p100, ring, with_stats=True)[0], s100,
-        SHARD_CHUNKS_100K, total)
+        SHARD_CHUNKS_100K, total, p100)
     if cell_overflow(p100, end100, cap=p100.storage_capacity()):
         fail("phase 18 100k: bots parked beyond the spill rows")
     print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -3769,7 +3883,7 @@ def sharded_compiled_phase(smi) -> dict:
     text, _, fb_stats = sharded_graph_vs_eager(
         "forced fallback 64 bots 50 u/s",
         lambda: make_sharded_table_run(pf, ring, with_stats=True)[0], sf,
-        SHARD_CHUNKS_FALLBACK, total)
+        SHARD_CHUNKS_FALLBACK, total, pf)
     if not all(st["fallbacks"] for st in fb_stats):
         fail(f"phase 18 forced fallback: a chunk took no fallback: {fb_stats}")
     print(f"phase 18 {text}", flush=True)
@@ -3780,7 +3894,7 @@ def sharded_compiled_phase(smi) -> dict:
     text, _, _ = sharded_graph_vs_eager(
         f"dp x tp {len(seeds)} seeds x {N_SHARDS} shards",
         lambda: make_sharded_table_run_batched(p10, ring, with_stats=True)[0], batch,
-        SHARD_CHUNKS_DPTP, total)
+        SHARD_CHUNKS_DPTP, total, p10)
     print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
     mesh = Mesh(np.array(["cuda"] * (2 * N_SHARDS), dtype=object).reshape(2, N_SHARDS),
                 ("data", "bots"))
@@ -3788,7 +3902,7 @@ def sharded_compiled_phase(smi) -> dict:
     text, _, _ = sharded_graph_vs_eager(
         f"dp x tp {len(seeds)} seeds on Mesh(['cuda'] * 2) x {N_SHARDS} shards (interleaved)",
         lambda: make_sharded_table_run_batched(p10, mesh=mesh, with_stats=True)[0], batch,
-        SHARD_CHUNKS_DPTP, total)
+        SHARD_CHUNKS_DPTP, total, p10)
     print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     print(f"phase 18 rebuild cost {sharded_rebuild_cost(p10, s10)}", flush=True)

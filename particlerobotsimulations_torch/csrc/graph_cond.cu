@@ -1,17 +1,25 @@
-// The incremental-or-exact rebuild choice inside a CUDA graph: kernel
-// cond_set and the host entry points that build a conditional IF node.
+// The JAX package's lax.conds inside a CUDA graph: kernel cond_set and
+// the host entry points that build a conditional IF node.
 //
-// Replaces no pallas_call.  It carries the JAX package's lax.cond
+// Replaces no pallas_call.  It carries two lax.conds of the JAX package
+// into the port's CUDA graphs.  (1) The incremental-or-exact slot rebuild
 // (particlerobotsimulations_tpu/engine_table.py:274 _smart_rebuild, :299
 // _smart_rebuild_batched, parallel/spatial_table.py:189 take_inc /
-// take_exact) into the port's CUDA graphs.  A captured rebuild enqueues
-// the incremental compaction, writes its result into the output buffers,
-// then cond_set and an IF node whose body graph holds the exact rebuild
-// (which overwrites the same buffers).  cond_set reads the device flag
-// `ok` and sets the node's handle to !ok, so a replay runs the body only
-// when a precondition of the incremental rebuild failed, and the host
-// reads nothing.  The plain form beside it (ops/cond.py) runs both
-// branches and selects with torch.where.
+// take_exact): a captured rebuild enqueues the incremental compaction,
+// writes its result into the output buffers, then cond_set and an IF
+// node whose body graph holds the exact rebuild (which overwrites the
+// same buffers).  (2) The span segment's adopt-or-redo (engine_table.py
+// :908 and :1370): an IF node with an else branch, whose bodies are the
+// regular segment redone from the segment's entry and the closing post
+// that adopts the spans.  Nodes nest: the redo body runs the redone
+// segment's ungated blocks under a WHILE node (JAX's lax.scan inside
+// regular_seg), one block captured once, and the rebuilds are IF nodes
+// inside.  cond_set reads the device flag `ok` and sets the node's handle
+// to !ok, so a replay runs an IF node's first body only when `ok` is
+// false (and the else body only when it holds), and a WHILE body until a
+// cond_set at its end reads a true `ok`; the host reads nothing.  The
+// plain forms beside them (ops/cond.py) run both branches and select with
+// torch.where, read the flag, or loop on the host.
 //
 // What bounds it on the card: launch latency.  One thread reads one byte
 // and sets one handle (1 byte in, nothing written to memory); the cost is
@@ -24,16 +32,18 @@
 //   pbot_cond_handle      a conditional handle in the graph `stream` is
 //                         capturing (default 0, reset at every launch)
 //   pbot_cond_set         enqueue cond_set(handle, ok) on `stream`
-//   pbot_cond_node        add an IF node on the capture's current
-//                         dependencies, make it the capture's sole
-//                         dependency, hand back its body graph
+//   pbot_cond_node        add an IF node (size 1), an IF node with an
+//                         else branch (size 2) or a WHILE node (loop) on
+//                         the capture's current dependencies, make it the
+//                         capture's sole dependency, hand back its body
+//                         graphs
 //   pbot_cond_body_begin  begin capturing a stream into that body graph
 //   pbot_cond_body_end    end that capture
 //   pbot_capture_graph    the graph `stream` is capturing
 //   pbot_graph_nodes      a graph's nodes by type
 //
 // Conditional nodes need CUDA 12.3 or later where the library is built
-// and where it runs.  CUDA 13 added the edge-data argument to three of
+// and where it runs, their else branch CUDA 12.8.  CUDA 13 added the edge-data argument to three of
 // the calls; both forms build.
 
 #include <cuda.h>
@@ -81,8 +91,15 @@ extern "C" int pbot_cond_set(unsigned long long handle, const void* ok, void* st
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int pbot_cond_node(void* stream, unsigned long long handle, void** body) {
+extern "C" int pbot_cond_node(void* stream, unsigned long long handle, int loop, int size,
+                              void** bodies) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (size < 1 || size > 2 || (loop && size != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+#if CUDART_VERSION < 12080
+  // the IF node's else branch came with CUDA 12.8
+  if (size == 2) return static_cast<int>(cudaErrorNotSupported);
+#endif
   cudaGraph_t graph = nullptr;
   const cudaGraphNode_t* deps = nullptr;
   size_t n = 0;
@@ -91,8 +108,8 @@ extern "C" int pbot_cond_node(void* stream, unsigned long long handle, void** bo
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
-  params.conditional.type = cudaGraphCondTypeIf;
-  params.conditional.size = 1;
+  params.conditional.type = loop ? cudaGraphCondTypeWhile : cudaGraphCondTypeIf;
+  params.conditional.size = static_cast<unsigned int>(size);
   cudaGraphNode_t node = nullptr;
 #if CUDART_VERSION >= 13000
   err = cudaGraphAddNode(&node, graph, deps, nullptr, n, &params);
@@ -100,7 +117,7 @@ extern "C" int pbot_cond_node(void* stream, unsigned long long handle, void** bo
   err = cudaGraphAddNode(&node, graph, deps, n, &params);
 #endif
   if (err != cudaSuccess) return static_cast<int>(err);
-  *body = params.conditional.phGraph_out[0];
+  for (int i = 0; i < size; ++i) bodies[i] = params.conditional.phGraph_out[i];
 #if CUDART_VERSION >= 13000
   err = cudaStreamUpdateCaptureDependencies(s, &node, nullptr, 1,
                                             cudaStreamSetCaptureDependencies);

@@ -20,11 +20,11 @@ Port of ``particlerobotsimulations_tpu.engine`` — ``Particlebot::update``
 (``ops/pallas_stencil.pallas_stencil_collide``: kernel 1 on the card, with
 an optional reused slot assignment).  :func:`make_run_chunk` sends the
 PALLAS backend to the table-resident loop (``engine_table.py``) and the
-others to the per-bot block runner: gated steps one at a time, ungated
-stretches as blocks of :data:`BLOCK_STEPS` steps that the card replays
-from CUDA graphs, the sim time a device scalar, nothing read inside a
-chunk (the JAX package's scanned chunk).  The random draws go through
-``rng.py`` with the step they are drawn for.  :func:`make_run_chunk_batched`
+others to the per-bot block runner: from each gate, blocks of up to
+:data:`BLOCK_STEPS` steps that the card replays from CUDA graphs (the
+gated step's draws taken beforehand and fed in), the sim time a device
+scalar, nothing read inside a chunk (the JAX package's scanned chunk).
+The random draws go through ``rng.py`` with the step they are drawn for.  :func:`make_run_chunk_batched`
 runs a batch of scenes in lockstep (the seed sweep): PALLAS through the
 batched table loop, the other backends through the same block runner on
 :func:`make_step_batched`, the per-scene step vmapped over the scene
@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from . import rng
-from .config import Control, ForceBackend, SimParams
+from .config import ForceBackend, SimParams
 from .ops.actuation import update_radius
 from .ops.forces import dense_collide
 from .ops.grid import cellgrid_collide
@@ -53,9 +53,12 @@ from .ops.pallas_stencil import make_diff_pallas_collide, pallas_stencil_collide
 from .ops.phase import update_phase
 from .ops.stencil import stencil_collide
 from .engine_table import (
-    _gates,
+    NO_GATES,
+    _draws,
     _graphed,
     _one_chunk_at_a_time,
+    _ring_write,
+    _step_gates,
     drain,
     make_adaptive_run_chunk,
     make_run_chunk_table,
@@ -67,16 +70,12 @@ from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
 
 f32 = np.float32
 
-# steps per block of the per-bot chunk runner: an ungated stretch of the
-# DENSE, STENCIL or CELLGRID loop runs as blocks of this many steps, each
-# replayed on the card from one CUDA graph.  8 beat 32 at 500 DENSE bots
-# (chip_smoke.py phase 17, PERF.md): a gate interval of L steps leaves
-# (L - 1) mod 8 of them eager, and a replay's host cost is small beside 8
-# steps
+# steps per block of the per-bot chunk runner: a stretch between gates of
+# the DENSE, STENCIL or CELLGRID loop runs as blocks of this many steps
+# and one shorter block, each replayed on the card from one CUDA graph.
+# 8 beat 32 at 500 DENSE bots (chip_smoke.py phase 17, PERF.md): a
+# replay's host cost is small beside 8 steps
 BLOCK_STEPS = 8
-
-# what an ungated step changes: the other arrays pass through it
-_UNGATED_OUT = ("pos", "vel", "rad", "abs_force_a", "abs_force_r")
 
 
 _COLLIDES = {
@@ -95,27 +94,6 @@ def _inject_dead(params: SimParams, dead, mask, scores) -> torch.Tensor:
     )
     kill = torch.topk(-scores, params.n_dead).indices
     return dead.index_fill(0, kill, True)
-
-
-def _step_gates(params: SimParams, step: int) -> tuple:
-    """(dead, cog, phase) gate decisions for a step counter, the phase gate
-    only under the light-wave controller (FIXED_PHASE keeps scripted
-    offsets)."""
-    dead_gate, cog_gate, phase_gate = _gates(params, step)
-    return dead_gate, cog_gate, phase_gate and params.control == Control.LIGHT_WAVE
-
-
-def _draws(params: SimParams, source, step: int, gates: tuple, shape: tuple,
-           device) -> dict:
-    """The step's random draws, in the order the step consumes them: dead
-    scores, then phase noise."""
-    dead_gate, _, phase_gate = gates
-    out = {}
-    if dead_gate:
-        out["scores"] = rng.uniform(source, step, shape, device)
-    if phase_gate and params.phase_std:
-        out["noise"] = rng.normal(source, step, shape, device)
-    return out
 
 
 def _collide_fn(params: SimParams, backend: ForceBackend, differentiable: bool):
@@ -145,7 +123,6 @@ def _make_body(params: SimParams, backend: ForceBackend, differentiable: bool = 
     tensor it refills; the host ``step`` serves the gated branches."""
     collide = _collide_fn(params, backend, differentiable)
     dt = params.timestep
-    cog_steps = params.centroid_steps_interval
 
     def body(arrays: dict, draws: dict, step: int, gates: tuple, slot=None,
              step_t: torch.Tensor | None = None) -> dict:
@@ -156,7 +133,9 @@ def _make_body(params: SimParams, backend: ForceBackend, differentiable: bool = 
         n_pad = pos.shape[-2]
         mask = active_mask(params, n_pad, dev)
         payload = payload_mask(params, n_pad, dev)
-        time = sim_time(step_tensor(step, dev) if step_t is None else step_t, dt)
+        if step_t is None:
+            step_t = step_tensor(step, dev)
+        time = sim_time(step_t, dt)
         dead_gate, cog_gate, phase_gate = gates
 
         # 1. dead-cell injection (one-shot)
@@ -164,16 +143,14 @@ def _make_body(params: SimParams, backend: ForceBackend, differentiable: bool = 
             dead = _inject_dead(params, dead, mask, draws["scores"])
 
         # 2. centroid ring buffer (reference ring index:
-        #    (int)(time / centroid_int) % centroid_steps), written out of
-        #    place
+        #    (int)(time / centroid_int) % centroid_steps, of the step
+        #    tensor), written out of place
         if cog_gate:
             zero = torch.zeros((), dtype=torch.float32, device=dev)
             centroid = torch.sum(
                 torch.where(mask[:, None], pos, zero), dim=0
             ) / f32(params.n_cells)
-            row = torch.arange(ring.shape[-2], device=dev)[:, None]
-            idx = (step // cog_steps) % params.centroid_steps
-            ring = torch.where(row == idx, centroid[None, :], ring)
+            ring = _ring_write(params, ring, step_t, centroid)
 
         # 3. phase controller
         if phase_gate:
@@ -279,63 +256,92 @@ def make_run_chunk(params: SimParams, device="cuda"):
     return _step_runner(params, device, batched=False)
 
 
+def bot_pieces(params: SimParams, start: int, n: int, block_steps: int) -> list:
+    """The per-bot runner's schedule of ``n`` steps from step ``start``:
+    ``[(gates, length, eager)]``.  A piece starts at each gated step
+    (``gates`` are its first step's; the others fire none) and runs to the
+    next gated step, at most ``block_steps`` steps: a stretch of L steps
+    between gates is ``L // block_steps`` whole blocks and one short block.
+    The dead-injection step is a piece of its own; it and the ragged tail
+    (a last piece shorter than ``block_steps``) are the pieces to run
+    eagerly."""
+    pieces, j = [], 0
+    while j < n:
+        s = start + j
+        gates = _step_gates(params, s)
+        length = 1
+        if not gates[0]:
+            while (length < block_steps and j + length < n
+                   and not any(_step_gates(params, s + length))):
+                length += 1
+        eager = gates[0] or (j + length == n and length < block_steps)
+        pieces.append((gates, length, eager))
+        j += length
+    return pieces
+
+
 def _step_runner(params: SimParams, device, batched: bool):
     """The per-bot chunk runner of DENSE, STENCIL or CELLGRID, on one scene
     or (``batched``) on a batch in lockstep (:func:`make_step_batched`'s).
 
     Like the JAX package's scanned chunk it reads nothing from the device.
-    Gated steps (dead injection, centroid or phase gate: the steps that
-    draw or write the ring) and the ragged end of the chunk run eagerly,
-    one at a time; every stretch of :data:`BLOCK_STEPS` steps that fires
-    no gate runs as one block, whose sim times come from a device step
-    tensor.  On the card each block replays a CUDA graph
-    (``engine_table._CapturedBlock``) captured once per runner and carry
-    layout after the first block ran eagerly; a failed capture raises.  On
-    the CPU every block runs eagerly, through the same code.
-    ``run_chunk.blocks(state, n_steps, seg_aligned=False)`` yields after
-    each step or block (``seg_aligned`` is taken for the table runners'
-    signature, and changes nothing here).  A runner advances one chunk at
-    a time (its graphs hold that chunk's carry)."""
-    eager_step = (make_step_batched if batched else make_step)(params, device)
+    The chunk runs as :func:`bot_pieces`: a block starts at each gated
+    step (dead injection aside), its first step fires the gates with the
+    draws taken just before the block (``_draws``, fed in with the carry)
+    and its other steps fire none, its sim times and centroid row come
+    from a device step tensor.  On the card each block replays a CUDA
+    graph (``engine_table._CapturedBlock``, through ``_graphed``) captured
+    once per runner, carry layout, first-step gates and length; a failed
+    capture raises.  The dead-injection step and the
+    ragged tail run eagerly, and on the CPU every block does, through the
+    same code.  ``run_chunk.blocks(state, n_steps, seg_aligned=False)``
+    yields after each piece (``seg_aligned`` is taken for the table
+    runners' signature, and changes nothing here);
+    ``run_chunk.eager_steps`` counts the last chunk's eager steps.  A
+    runner advances one chunk at a time (its graphs hold that chunk's
+    carry)."""
     body = _make_body(params, params.resolved_backend(device))
-    no_gates = (False, False, False)
+    graphs: dict = {}
+    fns: dict = {}
 
-    def ungated(arrays: dict, step_t: torch.Tensor) -> dict:
+    def step(arrays: dict, draws: dict, gates: tuple, step_t: torch.Tensor) -> dict:
         if batched:
             return torch.func.vmap(functools.partial(
-                body, step=None, gates=no_gates, step_t=step_t))(arrays, {})
-        return body(arrays, {}, None, no_gates, step_t=step_t)
+                body, step=None, gates=gates, step_t=step_t))(arrays, draws)
+        return body(arrays, draws, None, gates, step_t=step_t)
 
-    def block(carry: dict, step0: torch.Tensor) -> dict:
-        arrays = dict(carry)
-        for j in range(BLOCK_STEPS):
-            out = ungated(arrays, step0 + j)
-            arrays.update({k: out[k] for k in _UNGATED_OUT})
-        return {k: arrays[k] for k in _UNGATED_OUT}
+    def piece(gates: tuple, length: int):
+        if (gates, length) not in fns:
+            def block(carry: dict, step0: torch.Tensor) -> dict:
+                arrays = {k: carry[k] for k in ARRAY_FIELDS}
+                draws = {k: carry[k] for k in ("scores", "noise") if k in carry}
+                for j in range(length):
+                    arrays = step(arrays, draws if j == 0 else {},
+                                  gates if j == 0 else NO_GATES, step0 + j)
+                return arrays
 
-    def gated(s: int) -> bool:
-        return any(_step_gates(params, s))
-
-    graphs: dict = {}
+            fns[gates, length] = block
+        return fns[gates, length]
 
     @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
-        j, on_card = 0, state.device.type == "cuda"
-        graphed = False
-        while j < n_steps:
+        dev, graphed, eager_steps = state.device, False, 0
+        shape = (state.pos.shape[0], state.n_pad) if batched else (state.n_pad,)
+        for gates, length, eager in bot_pieces(params, state.step, n_steps, BLOCK_STEPS):
             s = state.step
-            if j + BLOCK_STEPS <= n_steps and not any(
-                    gated(s + i) for i in range(BLOCK_STEPS)):
-                arrays = {k: getattr(state, k) for k in ARRAY_FIELDS}
-                out = _graphed(graphs, (state.device, tuple(state.pos.shape)), block,
-                               arrays, s)
-                state = state.replace(step=s + BLOCK_STEPS, **out)
-                graphed = graphed or on_card
-                j += BLOCK_STEPS
+            carry = {k: getattr(state, k) for k in ARRAY_FIELDS}
+            carry.update(_draws(params, state.generator, s, gates, shape, dev))
+            block = piece(gates, length)
+            if eager:
+                out = block(carry, step_tensor(s, dev))
+                eager_steps += length
             else:
-                state = eager_step(state)
-                j += 1
+                out = _graphed(graphs, ("bot", dev, tuple(state.pos.shape), gates, length),
+                               block, carry, s)
+                graphed = graphed or dev.type == "cuda"
+            state = state.replace(step=s + length, **{k: out[k] for k in ARRAY_FIELDS})
             yield
+        run_chunk.eager_steps = eager_steps
         if graphed:
             # arrays may sit in a graph's buffers, which the runner's next
             # chunk overwrites
@@ -346,6 +352,7 @@ def _step_runner(params: SimParams, device, batched: bool):
         return drain(blocks(state, n_steps, seg_aligned))
 
     run_chunk.blocks = blocks
+    run_chunk.eager_steps = 0
     return run_chunk
 
 

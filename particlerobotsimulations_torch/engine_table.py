@@ -27,20 +27,23 @@ loop's segment scan.  Like the JAX package's jitted chunk, a chunk waits
 for nothing it has just enqueued: the rebuild's incremental-or-exact
 choice is made on the device (``ops/cond.cond``, the JAX package's
 ``lax.cond``), the rebuild counts (:data:`REBUILDS`) are device counters,
-and the sim time is a device scalar.  On the card the ungated K-step
-blocks (the JAX loop's ``plain_u`` scan) replay from a CUDA graph captured
-once per runner and carry layout, where a conditional node runs the exact
-rebuild only when the incremental one's preconditions failed; the other
-steps run eagerly, where both rebuilds run and a select keeps one.
-Small tables (``ops/megakernel.mega_eligible``) run the ungated part of
-each gate segment through the megakernel span path: one launch
-of kernel 3 per rebuild block, with the slot rebuild between spans, the
-spans of a segment replayed from a CUDA graph, and the whole segment
-redone on the regular path when a rebuild's preconditions fail.  That
-decision (the JAX loop's ``lax.cond``) is read one segment behind: the
-next segment is enqueued before the flag is waited for.  Not carried over
-from the JAX loop: its TPU schedule machinery (traced conds, deferred
-fallback groups, block unrolling) and the ``PBOT_*`` switches.
+and the sim time and the centroid ring's row come from a device step.  On
+the card every K-step block (the JAX loop's gated first block and
+``plain_u`` scans) replays from a CUDA graph captured once per runner,
+carry layout and gate pattern, the gated steps' draws taken beforehand
+and fed in with the carry; a conditional node runs the exact rebuild only
+when the incremental one's preconditions failed.  Only the
+dead-injection step and a chunk's ragged tail run eagerly (as every step
+does on the CPU), where a rebuild runs both branches and a select keeps
+one.  Small tables
+(``ops/megakernel.mega_eligible``) run each gate segment through the
+megakernel span path: one launch of kernel 3 per rebuild block, with the
+slot rebuild between spans, the whole segment one CUDA graph, and the
+segment redone on the regular path from its entry when a rebuild's
+preconditions fail.  That decision (the JAX loop's ``lax.cond``) is a
+conditional node too, so the host reads nothing inside a chunk.  Not
+carried over from the JAX loop: its TPU schedule machinery (traced conds,
+deferred fallback groups, block unrolling) and the ``PBOT_*`` switches.
 
 :func:`make_run_chunk_table_batched` runs a batch of scenes in lockstep
 (the seed sweep) with the same step on ``(B, rows)`` field planes: the
@@ -58,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import math
+import time
 from collections.abc import MutableMapping
 
 import numpy as np
@@ -393,12 +397,12 @@ def _choose_rebuild(params: SimParams, ts: TableState):
     return ts.replace(fields={kf: out[kf] for kf in TABLE_FIELDS}, origin=out["origin"]), ok
 
 
-def _inject_dead_table(params: SimParams, f: dict, generator, step: int) -> torch.Tensor:
+def _inject_dead_table(params: SimParams, f: dict, source, step: int) -> torch.Tensor:
     """Kill n_dead occupied, not-yet-dead rows (cf. engine._inject_dead):
     one score per table and parking row, of each scene on a leading scene
-    axis."""
+    axis, drawn from ``source`` for ``step``."""
     alive = (f["val"] > 0.5) & (f["dead"] < 0.5)
-    scores = rng.uniform(generator, step, f["dead"].shape, f["dead"].device)
+    scores = rng.uniform(source, step, f["dead"].shape, f["dead"].device)
     scores = torch.where(alive, scores, torch.full_like(scores, float("inf")))
     kill = torch.topk(-scores, params.n_dead, dim=-1).indices
     return f["dead"].scatter(-1, kill, 1.0)
@@ -411,6 +415,45 @@ def _gates(params: SimParams, step: int):
         step % params.centroid_steps_interval == 0,
         step % params.phase_update_steps == 0,
     )
+
+
+def _step_gates(params: SimParams, step: int) -> tuple:
+    """(dead, cog, phase) gate decisions for a step counter, the phase gate
+    only under the light-wave controller (FIXED_PHASE keeps scripted
+    offsets): the gates that change what a step does."""
+    dead_gate, cog_gate, phase_gate = _gates(params, step)
+    return dead_gate, cog_gate, phase_gate and params.control == Control.LIGHT_WAVE
+
+
+NO_GATES = (False, False, False)
+
+
+def _draws(params: SimParams, source, step: int, gates: tuple, shape: tuple,
+           device) -> dict:
+    """A step's random draws of ``shape`` (a per-bot layout, or the table
+    loops' ``([B,] total_ext)``), taken beforehand in the order the step
+    consumes them: dead scores where the dead gate fires, then phase noise
+    where the phase law draws it.  ``gates`` are :func:`_step_gates`'.  Fed
+    back in (``rng.Drawn``), they give the values and leave the source in
+    the state of the step drawing them itself."""
+    dead_gate, _, phase_gate = gates
+    out = {}
+    if dead_gate:
+        out["scores"] = rng.uniform(source, step, shape, device)
+    if phase_gate and params.phase_std:
+        out["noise"] = rng.normal(source, step, shape, device)
+    return out
+
+
+def _ring_write(params: SimParams, ring: torch.Tensor, step_t: torch.Tensor,
+                centroid: torch.Tensor) -> torch.Tensor:
+    """``ring`` with the centroid written out of place into the row of the
+    0-dim int64 step ``step_t`` (the reference's ``(int)(time /
+    centroid_int) % centroid_steps``): a select on the device, so that a
+    CUDA graph writes the row of whatever step it replays at."""
+    idx = (step_t // params.centroid_steps_interval) % params.centroid_steps
+    rows = torch.arange(ring.shape[-2], device=ring.device)
+    return torch.where((rows == idx)[:, None], centroid[..., None, :], ring)
 
 
 def gate_seg(params: SimParams) -> int:
@@ -507,16 +550,19 @@ def _make_mega_glue(params: SimParams):
 def make_table_step_parts(params: SimParams, phase_fn=None):
     """(step_pre, step_post): the physics step split around the rebuild.
 
-    ``step_pre(ts, dead_gate, cog_gate, phase_gate, time=None)`` runs dead
-    injection, centroid ring, phase, radius and integrate (the step counter
-    is NOT bumped); ``step_post(ts)`` runs collide + obstacles + friction
-    and bumps the counter.  Gates are host bools; ``time`` is the step's
-    sim time as a 0-dim float32 device tensor (:func:`sim_time`), by
-    default made from ``ts.step`` (the K-step block passes its own, from
-    a step tensor a CUDA graph replay reads).  Both take a single scene's
-    carry or a batched one (a leading scene axis on every field, the
-    batched loop's): every op is elementwise or reduces the last axis, and
-    kernel 1 takes every scene in one launch.
+    ``step_pre(ts, dead_gate, cog_gate, phase_gate, step_t=None,
+    source=None)`` runs dead injection, centroid ring, phase, radius and
+    integrate (the step counter is NOT bumped); ``step_post(ts)`` runs
+    collide + obstacles + friction and bumps the counter.  Gates are host
+    bools; ``step_t`` is the step as a 0-dim int64 device tensor, by
+    default made from ``ts.step`` (a CUDA graph's block passes its own,
+    which a replay refills): the sim time (:func:`sim_time`) and the
+    centroid ring's row come from it.  ``source`` is the draw source, by
+    default ``ts.generator``; a block passes ``rng.Drawn`` of the step's
+    draws taken beforehand (:func:`_draws`).  Both take a single
+    scene's carry or a batched one (a leading scene axis on every field,
+    the batched loop's): every op is elementwise or reduces the last axis,
+    and kernel 1 takes every scene in one launch.
 
     ``phase_fn`` (optional) replaces the phase-gate body: called as
     ``phase_fn(fields, val_mask, source, step) -> new phase plane`` inside
@@ -538,34 +584,35 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
         ("afac",) if params.has_payload else ()
     )
 
-    def step_pre(ts: TableState, dead_gate: bool, cog_gate: bool,
-                 phase_gate: bool, time: torch.Tensor | None = None) -> TableState:
+    def step_pre(ts: TableState, dead_gate: bool, cog_gate: bool, phase_gate: bool,
+                 step_t: torch.Tensor | None = None, source=None) -> TableState:
         f = dict(ts.fields)
-        if time is None:
-            time = sim_time(step_tensor(ts.step, f["px"].device), dt)
+        if step_t is None:
+            step_t = step_tensor(ts.step, f["px"].device)
+        if source is None:
+            source = ts.generator
+        time = sim_time(step_t, dt)
         val = f["val"] > 0.5
 
         # 1. dead-cell injection (one-shot)
         if params.n_dead > 0 and dead_gate:
-            f["dead"] = _inject_dead_table(params, f, ts.generator, ts.step)
+            f["dead"] = _inject_dead_table(params, f, source, ts.step)
 
         # 2. centroid ring (pre-integrate positions), written out of place
         ring = ts.centroid_ring
         if cog_gate:
             cx = torch.sum(f["px"] * f["val"], dim=-1) / f32(params.n_cells)
             cy = torch.sum(f["py"] * f["val"], dim=-1) / f32(params.n_cells)
-            idx = (ts.step // params.centroid_steps_interval) % params.centroid_steps
-            ring = ring.clone()
-            ring[..., idx, :] = torch.stack([cx, cy], dim=-1)
+            ring = _ring_write(params, ring, step_t, torch.stack([cx, cy], dim=-1))
 
         # 3. phase controller
         if params.control == Control.LIGHT_WAVE and phase_gate:
             if phase_fn is not None:
-                f["phase"] = phase_fn(f, val, ts.generator, ts.step)
+                f["phase"] = phase_fn(f, val, source, ts.step)
             else:
                 pos_t = torch.stack([f["px"], f["py"]], dim=-1)
                 f["phase"] = update_phase(
-                    params, pos_t, f["phase"], val, ts.generator, step=ts.step
+                    params, pos_t, f["phase"], val, source, step=ts.step
                 )
 
         # 4+5. radius controller (previous step's force magnitudes) +
@@ -613,17 +660,18 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
 
 
 def make_table_step(params: SimParams, phase_fn=None):
-    """``step(ts, dead_gate, cog_gate, phase_gate, rebuild, time=None) ->
-    ts``: one physics step; the slot rebuild (when ``rebuild``) sits after
-    integrate and before collide, so the one-step-lag force carry is
-    already consumed and collide sees the freshest assignment.  A batched
-    carry's rebuild is decided for all scenes at once
-    (:func:`_smart_rebuild`).  ``time``: as ``step_pre`` takes it."""
+    """``step(ts, dead_gate, cog_gate, phase_gate, rebuild, step_t=None,
+    source=None) -> ts``: one physics step; the slot rebuild (when
+    ``rebuild``) sits after integrate and before collide, so the one-step-
+    lag force carry is already consumed and collide sees the freshest
+    assignment.  A batched carry's rebuild is decided for all scenes at
+    once (:func:`_smart_rebuild`).  ``step_t``, ``source``: as ``step_pre``
+    takes them."""
     params = params.validate()
     step_pre, step_post = make_table_step_parts(params, phase_fn)
 
-    def step(ts, dead_gate, cog_gate, phase_gate, rebuild, time=None):
-        ts = step_pre(ts, dead_gate, cog_gate, phase_gate, time)
+    def step(ts, dead_gate, cog_gate, phase_gate, rebuild, step_t=None, source=None):
+        ts = step_pre(ts, dead_gate, cog_gate, phase_gate, step_t, source)
         if rebuild:
             ts = _smart_rebuild(params, ts)
         return step_post(ts)
@@ -645,18 +693,16 @@ def make_run_chunk_table(params: SimParams, phase_fn=None):
     chunk (entry step a multiple of ``gate_seg``) runs each whole gate
     segment with ``seg // K > 1`` as: the gated first block minus its last
     post, ``seg // K - 1`` megakernel spans each followed by the
-    unconditional incremental rebuild, and the last post.  The rebuilds'
-    ``ok`` flags are ANDed on the device and read one segment behind (the
-    next segment is enqueued first); when one failed, the segment is
-    redone on the regular per-step path from its entry state (fields,
-    origin, centroid ring and the draw source's state, ``rng.snapshot``),
-    which then takes the exact fallback where it is due, and the segment
-    enqueued after it is dropped and enqueued again.  ``run_chunk.redos``
-    counts those redos, ``run_chunk.discarded`` the dropped segments and
-    ``run_chunk.discarded_launches`` their launches, which
-    ``kernels.LAUNCHES`` does not keep.  The span path rebuilds on the same steps as the
-    regular schedule; unaligned chunks and remainder steps run the regular
-    path, so ``seg_aligned=False`` is the A/B of the regular schedule."""
+    unconditional incremental rebuild, and then, where every span rebuild's
+    ``ok`` held, the last post; where one failed, the segment redone on
+    the regular per-step path from its entry (fields, origin, centroid
+    ring, and the draws of its first step, taken once before it), which
+    takes the exact fallback where it is due: the JAX loop's
+    ``lax.cond(okall, adopt, regular_seg)``.  ``run_chunk.redos`` counts
+    the redone segments (a device count, read when asked).  The span path
+    rebuilds on the same steps as the regular schedule; unaligned chunks
+    and remainder steps run the regular path, so ``seg_aligned=False`` is
+    the A/B of the regular schedule."""
     return _make_table_runner(params, phase_fn)
 
 
@@ -670,7 +716,7 @@ def make_run_chunk_table_batched(params: SimParams):
     incremental result for all scenes or the exact rebuild for all);
     on a mega-eligible table each span launches kernel 3 once, one cluster
     per scene, and a segment is redone on the regular batched path, from
-    its entry state and every scene's draw state, when any scene's span
+    its entry state and every scene's draws, when any scene's span
     rebuild failed."""
     return _make_table_runner(params, None)
 
@@ -717,31 +763,39 @@ class _CapturedBlock:
     it on a carry of the layout it was captured for.
 
     ``block(carry, step) -> outputs`` takes a dict of named tensors and a
-    0-dim int64 step tensor (the block's sim times are made from it) and
-    returns a dict.  The carry lives in static buffers beside the step
-    tensor.  A call copies in the carry entries the caller holds that are
-    not the buffers already (after a replay they are, until an eager step
-    replaces some), fills the step, replays, and returns the carry on the
-    buffers together with the other outputs: an output named as a carry
-    entry is copied back into that entry's buffer at the end of the
-    captured block, any other output (a flag, say) stays in the memory
+    0-dim int64 step tensor (the block's sim times and centroid rows are
+    made from it) and returns a dict.  The carry lives in static buffers
+    beside the step tensor; a gated block's draws, taken before each call,
+    are carry entries too.  A call copies in the carry entries the caller
+    holds that are not the buffers already (after a replay they are, until
+    an eager step replaces some), fills the step, replays, and returns the
+    carry on the buffers together with the other outputs: an output named
+    as a carry entry is copied back into that entry's buffer at the end of
+    the captured block, any other output (a flag, say) stays in the memory
     capture gave it, which every replay rewrites.  The kernel wrappers
-    count their launches while the block is captured; those counts are
-    taken back and added again at every replay, so ``kernels.LAUNCHES``
-    counts what ran.  The caller has run the block eagerly on the card
-    first: that warm-up grants each kernel its shared memory at these
-    sizes, which capture may not do, and creates the rebuild counter on
-    this device.  Python's cyclic garbage collector is held off during
-    the capture: a runner no longer referenced (runners hold reference
-    cycles) that it freed mid-capture would destroy its graphs there, and
-    that voids the capture.  A failed capture raises.
+    count their launches while the block is captured; those that every
+    replay runs are taken back and added again at every replay, and those
+    of a conditional node's body are counted per run of the body
+    (``ops/cond``), so ``kernels.LAUNCHES`` counts what ran.  The caller
+    has run the block eagerly on the card first: that warm-up grants each
+    kernel its shared memory at these sizes, which capture may not do, and
+    creates the rebuild counter on this device.  Python's cyclic garbage
+    collector is held off during the capture: a runner no longer
+    referenced (runners hold reference cycles) that it freed mid-capture
+    would destroy its graphs there, and that voids the capture.  A failed
+    capture raises.
 
-    The capture is registered for ``ops/cond.cond``: each slot rebuild in
-    the block becomes the incremental rebuild, kernel ``cond_set`` and a
-    conditional IF node whose body holds the exact rebuild.  ``nodes``
-    holds the captured graph's node counts by type with its bodies' nodes
-    (``GraphCapture.node_counts``) when the block made a node, else
-    None."""
+    The capture is registered for ``ops/cond``: each slot rebuild in the
+    block becomes the incremental rebuild, kernel ``cond_set`` and a
+    conditional IF node whose body holds the exact rebuild, and a span
+    segment's adopt-or-redo an IF node with an else branch, whose redo
+    body holds the rebuilds' nodes in turn.  ``nodes`` holds the captured
+    graph's node counts by type with its bodies' nodes
+    (``GraphCapture.node_counts``) when the block made a node, else None;
+    ``counted`` the launches of its bodies per run, each beside the
+    device counter the body increments (one of ``counters``, made outside
+    the graph's pool); ``seconds`` the time the capture and the graph's
+    instantiation took."""
 
     def __init__(self, block, carry: dict):
         from .ops.cond import GraphCapture, capturing
@@ -752,7 +806,8 @@ class _CapturedBlock:
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
         self.nodes = None
         REBUILDS.counter(dev)
-        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        before = kernels.LAUNCHES.host_counts()
         self.graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -784,9 +839,13 @@ class _CapturedBlock:
         finally:
             if collecting:
                 gc.enable()
+        after = kernels.LAUNCHES.host_counts()
+        kernels.LAUNCHES.restore(before)
+        self.launches = {n: c - before[n] for n, c in after.items() if c != before[n]}
+        capture.finish()
+        self.counted, self.counters = capture.counted, capture.counters
         torch.cuda.current_stream(dev).wait_stream(stream)
-        self.launches = {n: c - before[n] for n, c in kernels.LAUNCHES.items() if c != before[n]}
-        kernels.LAUNCHES.update(before)
+        self.seconds = time.perf_counter() - t0
 
     def __call__(self, carry: dict, step: int) -> dict:
         for n, v in carry.items():
@@ -795,24 +854,31 @@ class _CapturedBlock:
         self.step.fill_(step)
         self.graph.replay()
         for n, c in self.launches.items():
-            kernels.LAUNCHES[n] += c
+            kernels.LAUNCHES.count(n, c)
         return {**self.carry, **self.outputs}
 
 
-def _graphed(graphs: dict, key, block, carry: dict, step: int) -> dict:
+def _graphed(graphs: dict, key: tuple, block, carry: dict, step: int) -> dict:
     """``block(carry, step)`` (as :class:`_CapturedBlock` takes it) at the
     host step ``step``: eagerly off the card; on the card replayed from the
-    graph ``graphs[key]``, which the first call of a ``key`` captures after
-    running the block eagerly.  ``key`` names the block and the carry's
-    device and layout."""
+    graph ``graphs[key]``, which the first call of a ``key`` captures.
+    ``key`` is ``(kind, device, layout, ...)``: the kind of block, the
+    carry's device and layout, and what else tells its graphs apart (a
+    gate pattern, say).  The first block of a kind, device and layout runs
+    eagerly before its capture (the warm-up :class:`_CapturedBlock`
+    needs); a later key of the same three is captured at once and
+    replayed, so that a new gate pattern reads nothing either."""
     dev = next(iter(carry.values())).device
     if dev.type != "cuda":
         return block(carry, step_tensor(step, dev))
-    if key in graphs:
-        return graphs[key](carry, step)
-    out = block(carry, step_tensor(step, dev))
-    graphs[key] = _CapturedBlock(block, carry)
-    return out
+    if key not in graphs:
+        if any(k[:3] == key[:3] for k in graphs):
+            graphs[key] = _CapturedBlock(block, carry)
+        else:
+            out = block(carry, step_tensor(step, dev))
+            graphs[key] = _CapturedBlock(block, carry)
+            return out
+    return graphs[key](carry, step)
 
 
 def _one_chunk_at_a_time(blocks):
@@ -832,24 +898,150 @@ def _one_chunk_at_a_time(blocks):
     return guarded
 
 
-def _launch_delta(before: dict) -> dict:
-    return {n: c - before[n] for n, c in kernels.LAUNCHES.items() if c != before[n]}
+def table_pieces(params: SimParams, k: int, start: int, n: int) -> list:
+    """The regular schedule of ``n`` steps from step ``start`` cut into
+    pieces: ``[(pattern, eager)]``, each pattern a tuple of ``(gates,
+    rebuild)`` per step (``gates`` as :func:`_step_gates` gives them).  A
+    piece ends with each rebuild step (chunk-relative ``j % k == k - 1``
+    for ``k <= 8``, else ``step % k == k - 1``); the dead-injection step
+    is a piece of its own, and it and the ragged tail (the steps after the
+    last rebuild, fewer than ``k``) are the pieces to run eagerly.  Every
+    other piece is a block that a CUDA graph replays on the card, captured
+    once per pattern (the JAX loop's gated first block and ``plain_u``
+    blocks)."""
+    pieces, cur = [], []
+    for j in range(n):
+        s = start + j
+        gates = _step_gates(params, s)
+        rebuild = s % k == k - 1 if k > 8 else j % k == k - 1
+        if gates[0]:
+            if cur:
+                pieces.append((tuple(cur), False))
+                cur = []
+            pieces.append((((gates, rebuild),), True))
+            continue
+        cur.append((gates, rebuild))
+        if rebuild:
+            pieces.append((tuple(cur), False))
+            cur = []
+    if cur:
+        pieces.append((tuple(cur), True))
+    return pieces
 
 
-@dataclasses.dataclass
-class _Segment:
-    """A span-path gate segment enqueued before its spans' rebuilds were
-    known to hold: its entry (to redo it from), its end carry, its flag on
-    the way to the host, the launches of its closing post (dropped with
-    it on a redo), the launches of the whole segment and its rebuild's
-    choice (both dropped when it was speculated on a segment redone)."""
+def _carry_of(ts: TableState) -> dict:
+    return {**ts.fields, "origin": ts.origin, "centroid_ring": ts.centroid_ring}
 
-    entry: tuple
-    out: TableState
-    flag: "_HostValue"
-    post_launches: dict
-    launches: dict
-    rebuild_ok: torch.Tensor
+
+def _with_carry(ts: TableState, out: dict, steps: int) -> TableState:
+    return ts.replace(fields={kf: out[kf] for kf in TABLE_FIELDS}, origin=out["origin"],
+                      centroid_ring=out["centroid_ring"], step=ts.step + steps)
+
+
+def _drawn(carry: dict, j: int):
+    """The draws of a block's step ``j`` that its carry holds."""
+    return rng.Drawn(carry.get(f"scores{j}"), carry.get(f"noise{j}"))
+
+
+def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
+    """The regular schedule's pieces (:func:`table_pieces`) of a single or
+    batched table carry: ``(piece, advance)``.
+
+    ``piece(pattern, probe)`` is the block function of a pattern
+    (``block(carry, step0) -> carry``, as :class:`_CapturedBlock` takes
+    it): its steps in turn, each gated step drawing from the carry's draws
+    (``scores{j}``, ``noise{j}``); with ``probe``, the carry's running
+    maximum ``pm`` takes :func:`neighbor_rel_speed_bound` after each
+    rebuild.  ``piece.host["step"]`` is the host step the next block
+    starts at, for the carry's bookkeeping (the device step decides).  ``advance(ts, n, pm=None)`` enqueues ``n`` steps piece by
+    piece, yielding after each, and returns ``(ts, pm, eager steps)``: it
+    takes each piece's draws from the carry's source just before the
+    piece, in step order (the draw source's call order stays the eager
+    one), then replays the piece's graph on the card (``_graphed``, keyed
+    by device, layout and pattern) or runs it eagerly (the eager pieces,
+    and everything off the card)."""
+    step = make_table_step(params, phase_fn)
+    k = max(1, params.resolved_slot_rebuild_steps())
+    graphs: dict = {}
+    fns: dict = {}
+    # the host step of the block being run or captured: bookkeeping only
+    # (a replay reads its step from the device)
+    host = {"step": 0}
+
+    def piece(pattern: tuple, with_pm: bool):
+        if (pattern, with_pm) in fns:
+            return fns[pattern, with_pm]
+
+        def block(carry: dict, step0: torch.Tensor) -> dict:
+            ts = TableState({kf: carry[kf] for kf in TABLE_FIELDS}, carry["origin"],
+                            host["step"], None, carry["centroid_ring"])
+            pm = carry.get("pm")
+            for j, (gates, rebuild) in enumerate(pattern):
+                ts = step(ts, *gates, rebuild, step_t=step0 + j, source=_drawn(carry, j))
+                if with_pm and rebuild:
+                    pm = torch.maximum(pm, neighbor_rel_speed_bound(params, ts.fields))
+            out = _carry_of(ts)
+            if with_pm:
+                out["pm"] = pm
+            return out
+
+        fns[pattern, with_pm] = block
+        return block
+
+    def advance(ts: TableState, n: int, pm=None):
+        eager_steps = 0
+        dev = ts.origin.device
+        for pattern, eager in table_pieces(params, k, ts.step, n):
+            carry = _carry_of(ts)
+            if pm is not None:
+                carry["pm"] = pm
+            for j, (gates, _) in enumerate(pattern):
+                for name, v in _draws(params, ts.generator, ts.step + j, gates,
+                                           ts.fields["dead"].shape, dev).items():
+                    carry[f"{name}{j}"] = v
+            block = piece(pattern, pm is not None)
+            host["step"] = ts.step
+            if eager:
+                out = block(carry, step_tensor(ts.step, dev))
+                eager_steps += len(pattern)
+            else:
+                key = ("piece", dev, tuple(ts.origin.shape), pattern, pm is not None)
+                out = _graphed(graphs, key, block, carry, ts.step)
+            ts, pm = _with_carry(ts, out, len(pattern)), out.get("pm")
+            yield
+        return ts, pm, eager_steps
+
+    piece.host = host
+    return piece, advance
+
+
+class _TableRunner:
+    """A table-loop chunk runner: ``runner(state, n_steps, seg_aligned=
+    False) -> state``; ``runner.blocks`` is the chunk as a block iterator,
+    ``runner.path_info`` its schedule, ``runner.eager_steps`` how many
+    steps of the last chunk ran eagerly by design (the dead-injection
+    step, the ragged tail, a span segment holding the dead step), and
+    ``runner.redos`` how many span segments it redid (a device count,
+    read when asked)."""
+
+    def __init__(self, path_info: dict):
+        self.path_info = path_info
+        self.eager_steps = 0
+        self.blocks = None
+        self._redo_counts: dict = {}  # device -> 0-dim int64
+
+    def redo_counter(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        if device not in self._redo_counts:
+            self._redo_counts[device] = torch.zeros((), dtype=torch.int64, device=device)
+        return self._redo_counts[device]
+
+    @property
+    def redos(self) -> int:
+        return sum(int(c) for c in self._redo_counts.values())
+
+    def __call__(self, state: SimState, n_steps: int, seg_aligned: bool = False):
+        return drain(self.blocks(state, n_steps, seg_aligned))
 
 
 def _make_table_runner(params: SimParams, phase_fn):
@@ -857,42 +1049,39 @@ def _make_table_runner(params: SimParams, phase_fn):
     dispatches on the rank of what it is given.
 
     ``run_chunk.blocks(state, n_steps, seg_aligned=False)`` is the chunk
-    as a block iterator: it enqueues the chunk a block at a time (an
-    ungated K-step block, a gated or ragged step, a span segment), yields
-    after each, and returns the final state; ``run_chunk`` drains it and
-    the multi-place loops :func:`interleave` several.  An ungated block
-    (K steps, none of which fires a gate, ending in the rebuild step: the
-    JAX package's ``plain_u`` scan) on a CUDA carry runs from a CUDA graph
-    (:class:`_CapturedBlock`), captured on the first such block after it
-    ran eagerly, once per carry layout, and replayed after that; so do
-    the ``bps - 1`` spans of a span-path segment with their rebuilds.  A
-    failed capture raises.  On the CPU every block runs eagerly, through
-    the same code.  Gated steps, the ragged remainder, chunk entry and
-    exit, and the span segment's gated first block and closing post run
-    eagerly.  A runner advances one chunk at a time (its graphs hold that
-    chunk's carry).
+    as a block iterator: it enqueues the chunk a piece at a time (a K-step
+    block, gated or not, a dead-injection step, the ragged tail, a span
+    segment), yields after each, and returns the final state;
+    ``run_chunk`` drains it and the multi-place loops :func:`interleave`
+    several.  Each block (:func:`table_pieces`: the JAX package's gated
+    first block and ``plain_u`` scans) on a CUDA carry runs from a CUDA
+    graph (:class:`_CapturedBlock`, through :func:`_graphed`), captured
+    once per carry layout and gate pattern and replayed after that, with
+    the gated steps' draws taken just before and copied into the carry;
+    so does each span segment, once per layout and first-step gates.  A
+    failed capture raises.  On the CPU every piece runs eagerly, through
+    the same code.  The dead-injection step (or the span segment holding
+    it), the ragged tail, and chunk entry and exit run eagerly.  A runner
+    advances one chunk at a time (its graphs hold that chunk's carry).
 
-    The span path decides a segment's adopt-or-redo one segment behind:
-    segment s's flag (the AND of its span rebuilds' ``ok``) is copied to
-    the host as soon as it is enqueued (:class:`_HostValue`), segment s + 1
-    is enqueued from s's end carry, and only then is s's flag read.  When
-    it failed, s's post and the speculated s + 1 are dropped (their
-    launches move from ``kernels.LAUNCHES`` to ``run_chunk.
-    discarded_launches``, s + 1's rebuild count is taken back from
-    :data:`REBUILDS`, ``run_chunk.discarded`` counts the dropped
-    segments), s is redone on the regular path from its entry (fields,
-    origin, step, centroid ring and the draw source's state), and s + 1
-    is enqueued again from there.  The last segment's flag is read at the
-    end of the segments.  So a chunk's results, ``redos``, ``REBUILDS``
-    and ``LAUNCHES`` are those of reading each flag before the next
-    segment."""
+    A span segment is one graph: the gated first block minus its last
+    post, the spans with their rebuilds and the AND of their ``ok``, and
+    then ``ops/cond.branch`` on it: an IF node with an else branch whose
+    bodies are the closing post (adopt) and the regular segment from the
+    segment's entry with the same draws (redo: the gated first block, then
+    the ungated blocks under a WHILE node, ``ops/cond.repeat``, one block
+    captured once; its rebuilds are nodes nested in the bodies), which
+    also adds one to the runner's device redo counter.  So the card
+    decides, and the host reads nothing.  Eagerly (the CPU, a runner's
+    first segment on a layout, before its capture, and the segment
+    holding the dead step) the branch reads the flag and runs one body:
+    the one-read-per-segment path."""
     params = params.validate()
-    step = make_table_step(params, phase_fn)
     step_pre, step_post = make_table_step_parts(params, phase_fn)
     k = max(1, params.resolved_slot_rebuild_steps())
     seg = gate_seg(params)
-    dt = params.timestep
 
+    from .ops.cond import branch, repeat
     from .ops.megakernel import make_mega_span, mega_eligible
 
     use_mega = mega_eligible(params)
@@ -900,148 +1089,99 @@ def _make_table_runner(params: SimParams, phase_fn):
     if use_mega:
         mega = make_mega_span(params, _geometry(params)[2])
         mega_pack, mega_unpack, incremental_packed = _make_mega_glue(params)
-
-    def gated(s: int) -> bool:
-        dead, cog, phase = _gates(params, s)
-        return dead or cog or (phase and params.control == Control.LIGHT_WAVE)
-
-    def block(ts: TableState, step0: torch.Tensor) -> TableState:
-        """The ungated block from step ``ts.step`` (``step0``, on the
-        device): K - 1 plain steps, then the step with the rebuild."""
-        for j in range(k):
-            ts = step(ts, False, False, False, j == k - 1, time=sim_time(step0 + j, dt))
-        return ts
-
+    piece, advance = _make_piece_runner(params, phase_fn)
+    runner = _TableRunner({"use_mega": use_mega, "gate_seg": seg, "slot_rebuild_steps": k})
     graphs: dict = {}
+    seg_fns: dict = {}
+    outputs = (*TABLE_FIELDS, "origin", "centroid_ring")
 
-    def ungated_block(ts: TableState) -> TableState:
-        def on_carry(carry: dict, step0: torch.Tensor) -> dict:
-            # no gate fires: the host step, the draw source and the ring
-            # are bookkeeping only
-            out = block(ts.replace(fields={kf: carry[kf] for kf in TABLE_FIELDS},
-                                   origin=carry["origin"]), step0)
-            return {**out.fields, "origin": out.origin}
+    def span_segment(first_gates: tuple):
+        """The block function of a span segment whose first step fires
+        ``first_gates`` (see :func:`_make_table_runner`)."""
+        if first_gates in seg_fns:
+            return seg_fns[first_gates]
+        gates_at = [first_gates] + [NO_GATES] * (seg - 1)
+        first_block = piece(tuple((gates_at[j], j == k - 1) for j in range(k)), False)
+        plain_block = piece(tuple((NO_GATES, j == k - 1) for j in range(k)), False)
 
-        out = _graphed(graphs, ("block", ts.origin.device, tuple(ts.origin.shape)), on_carry,
-                       {**ts.fields, "origin": ts.origin}, ts.step)
-        return ts.replace(fields={kf: out[kf] for kf in TABLE_FIELDS}, origin=out["origin"],
-                          step=ts.step + k)
+        def block(carry: dict, step0: torch.Tensor) -> dict:
+            src, s0 = _drawn(carry, 0), piece.host["step"]
+            ts = TableState({kf: carry[kf] for kf in TABLE_FIELDS}, carry["origin"], s0, None,
+                            carry["centroid_ring"])
+            for j in range(k - 1):
+                ts = step_post(step_pre(ts, *gates_at[j], step0 + j, src))
+            ts, _ = _choose_rebuild(params, step_pre(ts, *gates_at[k - 1], step0 + k - 1, src))
+            tbl, strip = mega_pack(ts.fields)
+            first = step0 + k
+            ok_all = None
+            for b in range(bps - 1):
+                tbl, strip = mega(tbl, strip, first + b * k)
+                tbl, ok = incremental_packed(tbl, ts.origin)
+                ok_all = ok.all() if ok_all is None else ok_all & ok.all()
+            mid = ts
 
-    def regular(ts: TableState, n: int):
-        """``n`` steps on the regular schedule, block by block."""
-        j = 0
-        while j < n:
-            if ((j if k <= 8 else ts.step) % k == 0 and j + k <= n
-                    and not any(gated(ts.step + i) for i in range(k))):
-                ts = ungated_block(ts)
-                j += k
-            else:
-                rebuild = ts.step % k == k - 1 if k > 8 else j % k == k - 1
-                ts = step(ts, *_gates(params, ts.step), rebuild)
-                j += 1
-            yield
-        return ts
+            def adopt(_):
+                # the last span ended mid-step step0 + seg - 1, after pre +
+                # rebuild: its post completes the segment
+                end = step_post(mid.replace(fields=mega_unpack(tbl, strip)))
+                return _carry_of(end)
 
-    def spans(carry: dict, first: torch.Tensor) -> dict:
-        """The ``bps - 1`` spans of a segment from mid-step ``first - 1``,
-        each followed by the unconditional incremental rebuild: the planes
-        after the last, and the AND of the rebuilds' ``ok`` (of every
-        scene of a batch)."""
-        tbl, strip, ok_all = carry["tbl"], carry["strip"], None
-        for b in range(bps - 1):
-            tbl, strip = mega(tbl, strip, first + b * k)
-            tbl, ok = incremental_packed(tbl, carry["origin"])
-            ok_all = ok.all() if ok_all is None else ok_all & ok.all()
-        return {"tbl": tbl, "strip": strip, "ok": ok_all}
+            def redo(entry: dict) -> dict:
+                # the JAX loop's regular_seg: the gated first block, then
+                # the ungated blocks as one loop (a WHILE node in a graph)
+                runner.redo_counter(step0.device).add_(1)
+                out = first_block(entry, step0)
+                return repeat(bps - 1, plain_block, {n: out[n] for n in outputs},
+                              step0 + k, k)
 
-    def launch_seg(ts: TableState) -> _Segment:
-        """Enqueue one gate segment through the span path, reading
-        nothing: the gated first block minus its last post (that post
-        belongs to an ungated step and opens the first span), the spans,
-        and the last span's closing post."""
-        before = dict(kernels.LAUNCHES)
-        entry = (
-            dict(ts.fields), ts.origin, ts.step, ts.centroid_ring,
-            rng.snapshot(ts.generator),
-        )
-        for _ in range(k - 1):
-            ts = step(ts, *_gates(params, ts.step), False)
-        ts, rebuild_ok = _choose_rebuild(params, step_pre(ts, *_gates(params, ts.step)))
-        tbl, strip = mega_pack(ts.fields)
-        first = ts.step + 1
-        out = _graphed(graphs, ("spans", tbl.device, tuple(tbl.shape)), spans,
-                       {"tbl": tbl, "strip": strip, "origin": ts.origin}, first)
-        flag = _HostValue(out["ok"])
-        # the last span ended mid-step first + (bps-1)*k - 1, after pre +
-        # rebuild: its post completes the segment
-        mid = ts.replace(fields=mega_unpack(out["tbl"], out["strip"]),
-                         step=first + (bps - 1) * k - 1)
-        before_post = dict(kernels.LAUNCHES)
-        end = step_post(mid)
-        return _Segment(entry, end, flag, _launch_delta(before_post), _launch_delta(before),
-                        rebuild_ok)
+            return branch(ok_all, adopt, redo, carry, outputs)
 
-    def drop(failed: _Segment, speculated: _Segment | None) -> None:
-        """Take back what the kept schedule does not run: the failed
-        segment's post, and the segment enqueued from its end carry."""
-        gone = [failed.post_launches]
-        if speculated is not None:
-            gone.append(speculated.launches)
-            REBUILDS.add(speculated.rebuild_ok, sign=-1)
-            run_chunk.discarded += 1
-        for launches in gone:
-            for n, c in launches.items():
-                kernels.LAUNCHES[n] -= c
-                run_chunk.discarded_launches[n] = run_chunk.discarded_launches.get(n, 0) + c
-
-    def redo(ts: TableState, entry: tuple) -> TableState:
-        """The segment from ``entry`` on the regular path, which takes the
-        exact fallback where it is due."""
-        run_chunk.redos += 1
-        fields, origin, step0, ring, snap = entry
-        rng.restore(ts.generator, snap)
-        ts = ts.replace(fields=fields, origin=origin, step=step0, centroid_ring=ring)
-        return drain(regular(ts, seg))
+        seg_fns[first_gates] = block
+        return block
 
     def span_segments(ts: TableState, n_segs: int):
-        """``n_segs`` gate segments through the span path, each decided one
-        segment behind (see the runner's docstring); yields after each."""
-        pending = None
-        for s in range(n_segs + 1):
-            cur = launch_seg(ts) if s < n_segs else None
-            if pending is not None and not pending.flag.read():
-                drop(pending, cur)
-                ts = redo(ts, pending.entry)
-                cur = launch_seg(ts) if s < n_segs else None
-            if cur is not None:
-                ts = cur.out
-                yield
-            pending = cur
-        return ts
+        """``n_segs`` gate segments through the span path, one piece each;
+        yields after each, returns ``(ts, eager steps)``."""
+        eager_steps = 0
+        dev = ts.origin.device
+        for _ in range(n_segs):
+            gates = _step_gates(params, ts.step)
+            carry = _carry_of(ts)
+            for name, v in _draws(params, ts.generator, ts.step, gates,
+                                       ts.fields["dead"].shape, dev).items():
+                carry[f"{name}0"] = v
+            runner.redo_counter(dev)
+            block = span_segment(gates)
+            piece.host["step"] = ts.step
+            if gates[0]:
+                out = block(carry, step_tensor(ts.step, dev))
+                eager_steps += seg
+            else:
+                key = ("segment", dev, tuple(ts.origin.shape), gates)
+                out = _graphed(graphs, key, block, carry, ts.step)
+            ts = _with_carry(ts, out, seg)
+            yield
+        return ts, eager_steps
 
     @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         ts = enter_table(params, state)
-        n_segs = 0
+        n_segs, eager_steps = 0, 0
         if use_mega and seg_aligned and bps > 1:
             n_segs = n_steps // seg
-            ts = yield from span_segments(ts, n_segs)
-        ts = yield from regular(ts, n_steps - n_segs * seg)
-        return exit_table(params, ts)
+            ts, eager_steps = yield from span_segments(ts, n_segs)
+        ts, _, more = yield from advance(ts, n_steps - n_segs * seg)
+        runner.eager_steps = eager_steps + more
+        return _exit(params, ts)
 
-    def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
-        return drain(blocks(state, n_steps, seg_aligned))
+    runner.blocks = blocks
+    return runner
 
-    run_chunk.blocks = blocks
-    run_chunk.redos = 0
-    run_chunk.discarded = 0
-    run_chunk.discarded_launches = {}
-    run_chunk.path_info = {
-        "use_mega": use_mega,
-        "gate_seg": seg,
-        "slot_rebuild_steps": k,
-    }
-    return run_chunk
+
+def _exit(params: SimParams, ts: TableState) -> SimState:
+    """:func:`exit_table` with the centroid ring off the carry's buffers
+    (a graph's, which the runner's next chunk overwrites)."""
+    return exit_table(params, ts.replace(centroid_ring=ts.centroid_ring.clone()))
 
 
 # Missed-magnet-force budget for the speed-certified cadence: an uncovered
@@ -1108,9 +1248,13 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
     gate segment (``gate_seg(params)`` steps, the chunk runner's schedule)
     while taking the max of :func:`neighbor_rel_speed_bound` at entry and
     right after every slot rebuild.  ``probe_max`` stays on the device.
-    Callers enter on a segment boundary."""
+    Callers enter on a segment boundary.  The segment runs as the table
+    loop's pieces (its gated first block, then ungated K-step blocks, each
+    from a CUDA graph on the card), the running maximum a carry entry
+    that each block updates after its rebuild; ``probe_chunk.eager_steps``
+    counts the steps of the last call that ran eagerly (a dead-injection
+    step)."""
     params = params.validate()
-    step = make_table_step(params, phase_fn)
     k = max(1, params.resolved_slot_rebuild_steps())
     seg = gate_seg(params)
     if seg <= 0 or seg % k:
@@ -1118,16 +1262,15 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
             "probe chunk requires the gate-segment schedule (gate_seg > 0 "
             f"and k | seg; got seg={seg}, k={k})"
         )
+    _, advance = _make_piece_runner(params, phase_fn)
 
     def probe_chunk(state: SimState):
         ts = enter_table(params, state)
         pm = neighbor_rel_speed_bound(params, ts.fields)
-        for j in range(seg):
-            ts = step(ts, *_gates(params, ts.step), j % k == k - 1)
-            if j % k == k - 1:
-                pm = torch.maximum(pm, neighbor_rel_speed_bound(params, ts.fields))
-        return exit_table(params, ts), pm
+        ts, pm, probe_chunk.eager_steps = drain(advance(ts, seg, pm))
+        return _exit(params, ts), pm
 
+    probe_chunk.eager_steps = 0
     return probe_chunk
 
 
@@ -1167,7 +1310,8 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     ragged chunks) run the base K=4 path.  ``runner.blocks`` is the chunk
     as a block iterator (the table runner's); ``runner.live["k"]`` /
     ``runner.last_probe`` expose the live cadence and the last bound
-    read."""
+    read, ``runner.eager_steps`` the steps of the last chunk that ran
+    eagerly by design (the probe's and the table runner's)."""
     base = params.validate()
     p4 = base.replace(slot_rebuild_steps=4)
     p8 = base.replace(slot_rebuild_steps=8)
@@ -1192,18 +1336,24 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
 
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         if not seg_ok or not seg_aligned or n_steps < seg or n_steps % seg:
-            return (yield from get_runner(4).blocks(state, n_steps, seg_aligned))
+            state = yield from get_runner(4).blocks(state, n_steps, seg_aligned)
+            runner.eager_steps = get_runner(4).eager_steps
+            return state
         if runner._pending is not None:
             # the previous chunk's probe, computed long ago on the device
             pm = runner._pending.read()
             runner.last_probe = pm
             live["k"] = 8 if pm <= bound8 else 4
-        state, pm = get_probe(live["k"])(state)
+        probe = get_probe(live["k"])
+        state, pm = probe(state)
         runner._pending = _HostValue(pm)
+        runner.eager_steps = probe.eager_steps
         yield
         rest = n_steps - seg
         if rest:
-            state = yield from get_runner(live["k"]).blocks(state, rest, True)
+            inner = get_runner(live["k"])
+            state = yield from inner.blocks(state, rest, True)
+            runner.eager_steps += inner.eager_steps
         return state
 
     def runner(state: SimState, n_steps: int, seg_aligned: bool = False):
@@ -1212,6 +1362,7 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     runner.blocks = blocks
     runner.live = live
     runner.last_probe = None
+    runner.eager_steps = 0
     runner._pending = None
     runner.path_info = {"adaptive": True, "gate_seg": seg, "bound8": bound8}
     return runner

@@ -23,10 +23,12 @@ of scenes); a single scene is the same entry point with one scene.  Kernels
 stacks as S x B blocks in one launch (``stencil_forces_ext_batched_cuda``,
 ``compact_padded_batched_cuda``), each block as its own single launch.
 ``csrc/graph_cond.cu`` replaces no ``pallas_call``: its kernel ``cond_set``
-and host entry points (:func:`cond_node`, :func:`begin_body`,
-:func:`end_body`) build the conditional IF node through which
-``ops/cond.py`` carries the JAX package's incremental-or-exact
-``lax.cond`` into a captured CUDA graph.
+and host entry points (:func:`cond_node`, :func:`while_node`,
+:func:`set_conditional`, :func:`begin_body`, :func:`end_body`) build the
+conditional IF and WHILE nodes through which ``ops/cond.py`` carries the
+JAX package's ``lax.cond`` s (the incremental-or-exact rebuild, the span
+segment's adopt-or-redo) and the redone segment's ``lax.scan`` into a
+captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections.abc import MutableMapping
 from pathlib import Path
 
 import numpy as np
@@ -43,15 +46,70 @@ import torch
 
 from .config import SimParams, padded_n
 
-# launches per kernel; the main path's callers read these to show that a
-# run went through the kernels
-LAUNCHES = {
-    "stencil_forces": 0, "compact": 0, "mega_span": 0,
-    "stencil_forces_ext": 0, "compact_padded": 0,
-    "stencil_forces_batched": 0, "compact_batched": 0, "mega_span_batched": 0,
-    "stencil_forces_ext_batched": 0, "compact_padded_batched": 0,
-    "cond_set": 0,
-}
+class LaunchCounts(MutableMapping):
+    """Launches per kernel: the main path's callers read these to show
+    that a run went through the kernels.
+
+    A wrapper counts its launch on the host (:meth:`count`, no read).  A
+    CUDA graph replay counts the launches it always runs the same way; a
+    conditional node's body runs only on the replays that take it, so its
+    launches are counted per run of a 0-dim int64 device counter that the
+    body increments (:meth:`defer`), and settled when a count is read:
+    reading a count that a body holds copies those counters to the host
+    (it waits for the card), as reading ``engine_table.REBUILDS`` does.
+    Setting a count (to 0, say) sets what it reads from then on."""
+
+    def __init__(self, names):
+        self._host = dict.fromkeys(names, 0)
+        self._deferred = []  # (launches per run of the counter, counter)
+
+    def count(self, name: str, n: int = 1) -> None:
+        self._host[name] += n
+
+    def defer(self, launches: dict, counter) -> None:
+        """Count ``launches`` once more each time ``counter`` grows by 1."""
+        if any(launches.values()):
+            self._deferred.append((dict(launches), counter))
+
+    def host_counts(self) -> dict:
+        """The counts on the host, deferred counts left out (no read)."""
+        return dict(self._host)
+
+    def restore(self, host: dict) -> None:
+        """Put back counts :meth:`host_counts` took (no read)."""
+        self._host.update(host)
+
+    def _settled(self, name: str) -> int:
+        return sum(c[name] * int(t) for c, t in self._deferred if c.get(name))
+
+    def __getitem__(self, name: str) -> int:
+        return self._host[name] + self._settled(name)
+
+    def __setitem__(self, name: str, value: int) -> None:
+        if name not in self._host:
+            raise KeyError(name)
+        self._host[name] = int(value) - self._settled(name)
+
+    def __delitem__(self, name):
+        raise TypeError("the launch counts have fixed keys")
+
+    def __iter__(self):
+        return iter(self._host)
+
+    def __len__(self) -> int:
+        return len(self._host)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+LAUNCHES = LaunchCounts((
+    "stencil_forces", "compact", "mega_span",
+    "stencil_forces_ext", "compact_padded",
+    "stencil_forces_batched", "compact_batched", "mega_span_batched",
+    "stencil_forces_ext_batched", "compact_padded_batched",
+    "cond_set",
+))
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -139,7 +197,7 @@ SIGNATURES = {
     "pbot_mega_span_plan": [_i] * 5 + [_vp],
     "pbot_cond_handle": [_vp, _vp],
     "pbot_cond_set": [_ull, _vp, _vp],
-    "pbot_cond_node": [_vp, _ull, _vp],
+    "pbot_cond_node": [_vp, _ull, _i, _i, _vp],
     "pbot_cond_body_begin": [_vp, _vp],
     "pbot_cond_body_end": [_vp, _vp],
     "pbot_capture_graph": [_vp, _vp],
@@ -374,7 +432,7 @@ def _launch_stencil(params: SimParams, tables: dict, scenes: int, sstride: int,
         scenes, cap, g, sstride, *pair_constants(params), _stream(out),
     )
     _raise_on(err, what)
-    LAUNCHES[what] += 1
+    LAUNCHES.count(what)
 
 
 def stencil_forces_cuda(params: SimParams, tables: dict):
@@ -436,7 +494,7 @@ def _launch_compact(params: SimParams, planes: torch.Tensor, scenes: int, what: 
         scenes, nfp - 2, cs, g, _stream(out),
     )
     _raise_on(err, what)
-    LAUNCHES[what] += 1
+    LAUNCHES.count(what)
     return out, incoming
 
 
@@ -500,7 +558,7 @@ def _launch_compact_padded(params, planes_padded, pad_lanes: int, out_lanes: int
         s, nfp - 2, cs, g, pad_lanes, out_lanes, _stream(out),
     )
     _raise_on(err, what)
-    LAUNCHES[what] += 1
+    LAUNCHES.count(what)
     return out, incoming
 
 
@@ -570,7 +628,7 @@ def _launch_stencil_ext(params, tables_ext, center_start: int, center_lanes: int
         *pair_constants(params), _stream(out),
     )
     _raise_on(err, what)
-    LAUNCHES[what] += 1
+    LAUNCHES.count(what)
     return out[0], out[1], out[2], out[3]
 
 
@@ -664,31 +722,63 @@ def _launch_mega(params, tbl, strip, step, rects, circles, scenes: int, what: st
         int(params.has_payload), _stream(tbl_out),
     )
     _raise_on(err, what)
-    LAUNCHES[what] += 1
+    LAUNCHES.count(what)
     return tbl_out, strip_out
 
 
-def cond_node(ok: torch.Tensor) -> int:
+def cond_node(ok: torch.Tensor, bodies: int = 1) -> list:
     """On the current stream of ``ok``'s card, which a CUDA graph capture
-    is under way on: create a conditional handle in the captured graph,
-    enqueue kernel ``cond_set`` (the handle := ``not ok``), add an IF node
-    after it and make the node the capture's sole dependency.  Returns the
-    node's body graph (a ``cudaGraph_t`` as an int), which a replay runs
-    only where ``ok`` is False.  ``ok`` is a 0-dim bool CUDA tensor that
-    the graph's earlier nodes write.  Raises if a step fails (no capture
-    under way, a CUDA installation without conditional nodes)."""
+    is under way on (into a graph or into a conditional node's body
+    graph): create a conditional handle in the graph being captured,
+    enqueue kernel ``cond_set`` (the handle := ``not ok``), add a
+    conditional IF node after it and make the node the capture's sole
+    dependency.  Returns the node's body graphs (``cudaGraph_t`` s as
+    ints): with ``bodies=1`` the one a replay runs only where ``ok`` is
+    False; with ``bodies=2`` (an IF node with an else branch) that one and
+    the one a replay runs only where ``ok`` holds.  ``ok`` is a 0-dim bool
+    CUDA tensor that the graph's earlier nodes write.  Raises if a step
+    fails (no capture under way, a CUDA installation without conditional
+    nodes, or without their else branch)."""
+    if bodies not in (1, 2):
+        raise ValueError(f"bodies: expected 1 or 2, got {bodies}")
+    return _conditional(ok, False, bodies)[1]
+
+
+def while_node(stop: torch.Tensor) -> tuple:
+    """As :func:`cond_node`, a conditional WHILE node: the handle :=
+    ``not stop`` before it, and its body runs again while the handle is
+    non-zero, which the body sets at its end (:func:`set_conditional`).
+    Returns (the handle, the body graph)."""
+    handle, (body,) = _conditional(stop, True, 1)
+    return handle, body
+
+
+def set_conditional(handle: int, stop: torch.Tensor) -> None:
+    """Enqueue kernel ``cond_set`` (the handle := ``not stop``) on the
+    current stream of ``stop``'s card, inside the capture of a WHILE
+    node's body."""
+    _check_flag(stop)
+    _raise_on(build().pbot_cond_set(handle, stop.data_ptr(), _stream(stop)), "cond_set")
+    LAUNCHES.count("cond_set")
+
+
+def _check_flag(ok: torch.Tensor) -> None:
     if ok.device.type != "cuda" or ok.dtype != torch.bool or ok.dim() != 0:
-        raise ValueError(f"ok: expected a 0-dim bool CUDA tensor, got {ok.dtype} "
+        raise ValueError(f"expected a 0-dim bool CUDA tensor, got {ok.dtype} "
                          f"{tuple(ok.shape)} on {ok.device}")
+
+
+def _conditional(ok: torch.Tensor, loop: bool, bodies: int) -> tuple:
+    _check_flag(ok)
     lib = build()
     stream = _stream(ok)
     handle = _ull()
     _raise_on(lib.pbot_cond_handle(stream, ctypes.byref(handle)), "conditional handle")
     _raise_on(lib.pbot_cond_set(handle, ok.data_ptr(), stream), "cond_set")
-    LAUNCHES["cond_set"] += 1
-    body = _vp()
-    _raise_on(lib.pbot_cond_node(stream, handle, ctypes.byref(body)), "conditional node")
-    return body.value
+    LAUNCHES.count("cond_set")
+    out = (_vp * bodies)()
+    _raise_on(lib.pbot_cond_node(stream, handle, int(loop), bodies, out), "conditional node")
+    return handle.value, list(out)
 
 
 def begin_body(stream: torch.cuda.Stream, body: int) -> None:

@@ -43,16 +43,17 @@ rebuild takes one decision for every shard and scene (:func:`_all_ok`).
 
 Like the JAX package's jitted chunk, a chunk reads nothing from the
 device between its entry and its exit: the rebuild decision stays on the
-device, the sim time comes from a device step (``engine_table.sim_time``),
-and the ``with_stats`` counters are device counters read once, at the
-exit.  The gates stay host decisions on the host step.  The chunk is a
-block iterator (``run_chunk.blocks``, the table loop's shape): each
-ungated K-step block (K - 1 plain steps, then the rebuild step, none of
-which fires a gate) on a :class:`~.ring.LocalRing` on the card replays
-from a CUDA graph, captured once per carry layout after an eager run
-(``engine_table._graphed``); gated steps, the ragged remainder and the
-chunk's entry and exit run eagerly, and so does every block on the CPU,
-through the same code.  A :class:`~.ring.DistRing` runs the same
+device, the sim time and the centroid ring's row come from a device step
+(``engine_table.sim_time``), and the ``with_stats`` counters are device
+counters read once, at the exit.  The gates stay host decisions on the
+host step.  The chunk is a block iterator (``run_chunk.blocks``, the
+table loop's shape, cut by ``engine_table.table_pieces``): each K-step
+block (its gated steps' draws taken just before it and fed in with the
+carry) on a :class:`~.ring.LocalRing` on the card replays from a CUDA
+graph, captured once per carry layout and gate pattern after an eager run
+(``engine_table._graphed``); the dead-injection step, the ragged tail and
+the chunk's entry and exit run eagerly, and so does every block on the
+CPU, through the same code.  A :class:`~.ring.DistRing` runs the same
 read-free blocks eagerly: NCCL enqueues its collectives on the stream, so
 nothing is read there either, but capturing them into a graph can only
 be tested with a card per rank.
@@ -75,21 +76,25 @@ import torch
 
 from .. import rng
 from ..config import SimParams
-from ..engine import _step_gates
 from ..engine_table import (
     MOVE_FIELDS,
+    NO_GATES,
     TABLE_FIELDS,
     _derived_rows,
+    _draws,
+    _drawn,
     _exact_rebuild,
     _geometry,
     _graphed,
     _one_chunk_at_a_time,
+    _ring_write,
     drain,
     enter_table,
     exit_table,
     interleaved,
     sim_time,
     step_tensor,
+    table_pieces,
 )
 from ..ops.cond import cond
 from ..ops.forces import friction_velocity_update_xy, obstacle_forces_xy
@@ -245,26 +250,25 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         out = cond(ok, lambda carry: inc, take_exact, {**f, "origin": origin})
         return {k: out[k] for k in TABLE_FIELDS}, out["origin"], ok
 
-    no_gates = (False, False, False)
-
-    def step_local(f, origin, time, rebuild, ts=None, gates=no_gates):
+    def step_local(f, origin, ring_t, step_t, rebuild, gates=NO_GATES, source=None):
         """One physics step on the shard-local fields, in the single-table
-        loop's op order: (f, origin, the rebuild's ``ok`` or None).
-        ``time`` is the step's sim time, a 0-dim float32 device tensor;
-        ``gates`` the step's (dead, cog, phase) host decisions.  Only a
-        gated step reads ``ts`` (its host step and draw source) and the
-        centroid gate writes ``ts.centroid_ring`` in place."""
+        loop's op order: (f, origin, centroid ring, the rebuild's ``ok``
+        or None).  ``step_t`` is the step, a 0-dim int64 device tensor
+        (the sim time and the ring's row come from it); ``gates`` the
+        step's (dead, cog, phase) host decisions; ``source`` (a gated
+        step's) returns its draws in the single-table layout
+        (``rng.Drawn``), which each shard cuts to its own rows."""
         dead_g, cog_g, phase_g = gates
         dev = f["val"].device
         lead = f["val"].shape[1:-1]
         val = f["val"] > 0.5
+        time = sim_time(step_t, dt)
 
         # 1. dead injection: a topk over the all-gathered centre scores and
         #    the strip's
         if dead_g:
-            step, gen = ts.step, ts.generator
             alive = val & (f["dead"] < 0.5)
-            scores = local(rng.uniform(gen, step, lead + (total + n_pad,), dev))
+            scores = local(rng.uniform(source, None, lead + (total + n_pad,), dev))
             scores = torch.where(alive, scores, torch.full_like(scores, float("inf")))
             centres = ring.all_gather(scores[..., :C]).movedim(0, -2).flatten(-2)
             gall = torch.cat([centres, scores[0, ..., C:]], dim=-1)
@@ -284,8 +288,8 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
                 + torch.sum(f[k][0, ..., C:] * f["val"][0, ..., C:], dim=-1)
                 for k in ("px", "py")
             ]
-            idx = (ts.step // params.centroid_steps_interval) % params.centroid_steps
-            ts.centroid_ring[..., idx, :] = torch.stack(cxy, dim=-1) / f32(params.n_cells)
+            ring_t = _ring_write(params, ring_t, step_t,
+                                 torch.stack(cxy, dim=-1) / f32(params.n_cells))
 
         # 3. phase law: the ring-wide min light distance of the centres and
         #    the strip's own min
@@ -299,7 +303,7 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             )
             phase = update_phase(no_noise, pos, f["phase"], val, None, min_d=dmin[..., None])
             if params.phase_std:
-                noise = local(rng.normal(ts.generator, ts.step, lead + (total + n_pad,), dev))
+                noise = local(rng.normal(source, None, lead + (total + n_pad,), dev))
                 phase = torch.where(val, phase + f32(params.phase_std) * noise, phase)
             f["phase"] = phase
 
@@ -346,15 +350,16 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         val_r = f["val"] > 0.5
         f["vx"] = torch.where(val_r, nvx, zero)
         f["vy"] = torch.where(val_r, nvy, zero)
-        return f, origin, ok
+        return f, origin, ring_t, ok
 
-    def carry_step(carry, time, rebuild, ts=None, gates=no_gates):
-        """:func:`step_local` on a chunk's carry (the planes, ``origin``
-        and, with stats, the device counters ``fallbacks`` and
-        ``spill_rows_max``); returns the new carry."""
+    def carry_step(carry, step_t, rebuild, gates=NO_GATES, source=None):
+        """:func:`step_local` on a chunk's carry (the planes, ``origin``,
+        ``centroid_ring`` and, with stats, the device counters
+        ``fallbacks`` and ``spill_rows_max``); returns the new carry."""
         f = {k: carry[k] for k in TABLE_FIELDS}
-        f, origin, ok = step_local(f, carry["origin"], time, rebuild, ts, gates)
-        out = {**f, "origin": origin}
+        f, origin, ring_t, ok = step_local(f, carry["origin"], carry["centroid_ring"], step_t,
+                                           rebuild, gates, source)
+        out = {**f, "origin": origin, "centroid_ring": ring_t}
         if with_stats:
             fallbacks, spill = carry["fallbacks"], carry["spill_rows_max"]
             if ok is not None:
@@ -367,60 +372,68 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             out["spill_rows_max"] = spill
         return out
 
-    def block(carry, step0):
-        """The ungated block from the 0-dim int64 device step ``step0``:
-        K - 1 plain steps, then the step with the rebuild."""
-        for j in range(k_rb):
-            carry = carry_step(carry, sim_time(step0 + j, dt), j == k_rb - 1)
-        return carry
+    fns: dict = {}
+
+    def piece(pattern: tuple):
+        """The block function of a piece (``engine_table.table_pieces``):
+        its steps in turn from the 0-dim int64 device step ``step0``, each
+        gated step drawing from the carry's draws."""
+        if pattern not in fns:
+            def block(carry, step0):
+                for j, (gates, rebuild) in enumerate(pattern):
+                    carry = {**carry, **carry_step(carry, step0 + j, rebuild, gates,
+                                                   _drawn(carry, j))}
+                return carry
+
+            fns[pattern] = block
+        return fns[pattern]
 
     graphs: dict = {}
     capture = isinstance(ring, LocalRing)
 
-    def ungated_block(carry, step: int):
-        """:func:`block` at the host step ``step``: on a LocalRing on the
-        card replayed from a CUDA graph (keyed by the carry's device and
-        layout), else eagerly."""
-        if capture:
-            key = ("block", ring.device, tuple(carry["val"].shape))
-            return _graphed(graphs, key, block, carry, step)
-        return block(carry, step_tensor(step, ring.device))
-
-    def gated(s: int) -> bool:
-        return any(_step_gates(params, s))
-
     @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int):
-        """The chunk as a block iterator: enqueues it a block at a time
-        (an ungated K-step block, or one gated or ragged step), yields
-        after each, and returns the final state, with ``with_stats`` as
-        ``(state, stats)`` whose counters are still 0-dim device tensors
-        (:func:`run_chunk` reads them)."""
+        """The chunk as a block iterator: enqueues it a piece at a time (a
+        K-step block, gated or not, the dead-injection step, the ragged
+        tail), yields after each, and returns the final state, with
+        ``with_stats`` as ``(state, stats)`` whose counters are still
+        0-dim device tensors (:func:`run_chunk` reads them)."""
         if state.device != ring.device:
             raise ValueError(f"state on {state.device}, ring on {ring.device}")
         ts = enter_table(params, state)
-        carry = {**split_local(ts.fields), "origin": ts.origin}
+        carry = {**split_local(ts.fields), "origin": ts.origin,
+                 "centroid_ring": ts.centroid_ring}
         if with_stats:
             carry["fallbacks"] = torch.zeros((), dtype=torch.int64, device=ring.device)
             carry["spill_rows_max"] = torch.zeros((), dtype=torch.int64, device=ring.device)
-        j = 0
-        while j < n_steps:
-            # the single-table schedule: chunk-relative for K <= 8, absolute
-            # above (engine_table.make_run_chunk_table); the ragged tail
-            # has no rebuild
+        names = tuple(carry)
+        eager_steps = 0
+        # the single-table schedule: chunk-relative for K <= 8, absolute
+        # above (engine_table.make_run_chunk_table); the ragged tail has no
+        # rebuild
+        for pattern, eager in table_pieces(params, k_rb, ts.step, n_steps):
             s = ts.step
-            if ((j if k_rb <= 8 else s) % k_rb == 0 and j + k_rb <= n_steps
-                    and not any(gated(s + i) for i in range(k_rb))):
-                carry = ungated_block(carry, s)
-                ts.step, j = s + k_rb, j + k_rb
+            step_in = dict(carry)
+            for j, (gates, _) in enumerate(pattern):
+                for name, v in _draws(params, ts.generator, s + j, gates,
+                                           ts.fields["dead"].shape, ring.device).items():
+                    step_in[f"{name}{j}"] = v
+            block = piece(pattern)
+            if eager or not capture:
+                # a DistRing runs every block eagerly: NCCL enqueues its
+                # collectives, nothing is read
+                out = block(step_in, step_tensor(s, ring.device))
+                eager_steps += len(pattern) if eager else 0
             else:
-                rebuild = s % k_rb == k_rb - 1 if k_rb > 8 else j % k_rb == k_rb - 1
-                carry = carry_step(carry, sim_time(step_tensor(s, ring.device), dt), rebuild,
-                                   ts, _step_gates(params, s))
-                ts.step, j = s + 1, j + 1
+                key = ("piece", ring.device, tuple(carry["val"].shape), pattern)
+                out = _graphed(graphs, key, block, step_in, s)
+            carry = {k: out[k] for k in names}
+            ts.step = s + len(pattern)
             yield
+        run_chunk.eager_steps = eager_steps
         f = {k: carry[k] for k in TABLE_FIELDS}
-        out = exit_table(params, ts.replace(fields=join_global(f), origin=carry["origin"]))
+        out = exit_table(params, ts.replace(fields=join_global(f), origin=carry["origin"],
+                                            centroid_ring=carry["centroid_ring"].clone()))
         if with_stats:
             return out, {k: carry[k] for k in ("fallbacks", "spill_rows_max")}
         return out
@@ -438,6 +451,7 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
 
     run_chunk.blocks = blocks
     run_chunk.read_stats = read_stats
+    run_chunk.eager_steps = 0
     # the pieces a measurement times alone: a whole table's fields to this
     # process's shards and back, the incremental rebuild, the rebuild with
     # its choice
@@ -482,13 +496,14 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
         def blocks(batch_state: SimState, n_steps: int):
             if batch_state.pos.dim() != 3:
                 raise ValueError("the dp x tp loop takes a batched state (B, n_pad, 2)")
-            return run.blocks(batch_state, n_steps)
+            return counted(run, run_chunk, run.blocks(batch_state, n_steps))
 
         def run_chunk(batch_state: SimState, n_steps: int):
             return run.read_stats(drain(blocks(batch_state, n_steps)))
 
         run_chunk.blocks = blocks
         run_chunk.read_stats = run.read_stats
+        run_chunk.eager_steps = 0
         return run_chunk, params
 
     from .sweep import gather_batch, shard_batch
@@ -505,6 +520,8 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
         on the device."""
         groups = shard_batch(batch_state, mesh)
         outs = yield from interleaved(run.blocks(gs, n_steps) for gs, run in zip(groups, runs))
+        # every place runs the same schedule
+        run_mesh.eager_steps = runs[0].eager_steps
         if not with_stats:
             return gather_batch(outs)
         dev = outs[0][0].device
@@ -519,4 +536,13 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
 
     run_mesh.blocks = blocks
     run_mesh.read_stats = runs[0].read_stats
+    run_mesh.eager_steps = 0
     return run_mesh, params
+
+
+def counted(inner, outer, blocks):
+    """``blocks`` (a block iterator of the runner ``inner``) that sets
+    ``outer.eager_steps`` to the inner runner's when it ends."""
+    out = yield from blocks
+    outer.eager_steps = inner.eager_steps
+    return out

@@ -9,8 +9,11 @@ what comes back:
 
 * a ``torch.Generator`` (the default, seeded from ``params.seed``) is drawn
   from in call order: ``torch.rand`` and ``torch.randn`` of the shape, the
-  step ignored.  A span redo that replays a segment restores its state
-  (:func:`snapshot` / :func:`restore`), so the replay draws the same values;
+  step ignored.  The loops take a block's draws before the block, in the
+  order its steps would draw them, and feed them in (:class:`Drawn`), so
+  a CUDA graph replays gated steps and a span segment's redo takes the
+  same values again; :func:`snapshot` / :func:`restore` let a caller that
+  redoes steps by drawing again (a reference loop) draw the same values;
 * any other object is a step-keyed provider (:class:`StepDraws`): its
   values depend only on the step and the shape, so a replay draws the same
   values with nothing to restore.  The tests hand in one that returns the

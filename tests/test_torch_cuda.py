@@ -971,9 +971,10 @@ def counted_blocks(monkeypatch) -> list:
 
 
 def replayed_conds(blocks) -> int:
-    """``cond_set`` launches the blocks' replays made, after checking each
-    capture: one conditional node per ``cond_set``, a body with nodes, and
-    no select left."""
+    """``cond_set`` launches the blocks' replays made (those of the
+    bodies that ran included: a redone span segment's rebuilds), after
+    checking each capture: one top-level conditional node per top-level
+    ``cond_set``, a body with nodes, and no select left."""
     for b in blocks:
         n = b.launches.get("cond_set", 0)
         assert b.selects == 0
@@ -981,7 +982,8 @@ def replayed_conds(blocks) -> int:
             assert b.nodes["conditional"] == n and b.nodes["body_nodes"] > 0, b.nodes
         else:
             assert b.nodes is None
-    return sum(b.replays * b.launches.get("cond_set", 0) for b in blocks)
+    return sum(b.replays * b.launches.get("cond_set", 0)
+               + sum(c.get("cond_set", 0) * int(t) for c, t in b.counted) for b in blocks)
 
 
 def without_cond_set(launches) -> dict:
@@ -1133,10 +1135,10 @@ def test_dense_graph_equals_eager(card, batched, monkeypatch):
     assert got.step == want.step == 340
 
 
-def reference_span_chunk(p, state, n_steps):
+def reference_span_chunk(p, state, n_steps, glue=None):
     """The span path with each segment's flag read before the next segment
     is enqueued (``bool(ok_all.item())``), every piece eager: (state,
-    redos)."""
+    redos).  ``glue``: ``_make_mega_glue`` or a stand-in for it."""
     from particlerobotsimulations_torch import rng
     from particlerobotsimulations_torch.engine_table import _smart_rebuild
 
@@ -1145,7 +1147,7 @@ def reference_span_chunk(p, state, n_steps):
     k, seg = max(1, p.resolved_slot_rebuild_steps()), gate_seg(p)
     bps = seg // k
     mega = make_mega_span(p, _geometry(p)[2])
-    mega_pack, mega_unpack, incremental_packed = _make_mega_glue(p)
+    mega_pack, mega_unpack, incremental_packed = (glue or _make_mega_glue)(p)
     redos = 0
 
     def regular(ts, n):
@@ -1183,10 +1185,10 @@ def reference_span_chunk(p, state, n_steps):
 def test_lagged_span_chunk_equals_one_read_per_segment(card, batched, monkeypatch):
     """128 HEX bots, 12-step segments (two spans each), one bot kicked to
     60 u/s so that span rebuilds refuse: a 48-step seg-aligned chunk of
-    the runner (spans from a CUDA graph, each flag read one segment
-    behind) equals the one-read-per-segment reference bit for bit, with
-    equal launches, rebuilds and redos; batched: the kick in scene 1 of
-    two."""
+    the runner (each segment one CUDA graph that decides its
+    adopt-or-redo with a conditional node) equals the one-read-per-segment
+    reference bit for bit, with equal launches, rebuilds and redos;
+    batched: the kick in scene 1 of two."""
     from particlerobotsimulations_torch.state import (
         batch_state_from_arrays,
         batch_state_to_arrays,
@@ -1220,12 +1222,113 @@ def test_lagged_span_chunk_equals_one_read_per_segment(card, batched, monkeypatc
     (got, g_launch, g_reb), ((want, redos), r_launch, r_reb) = runs
     for k in CHUNK_FIELDS:
         assert torch.equal(getattr(got, k), getattr(want, k)), k
-    assert run.redos == redos >= 1 and run.discarded >= 1
-    # the redone segments' ungated blocks replay their rebuilds through
-    # conditional nodes; the reference selects
+    assert run.redos == redos >= 1
+    # the redone segments' blocks replay their rebuilds through conditional
+    # nodes; the reference selects
     assert (without_cond_set(g_launch), g_reb) == (without_cond_set(r_launch), r_reb)
     assert g_launch["cond_set"] == replayed_conds(blocks) and r_launch["cond_set"] == 0
     assert g_launch["mega_span_batched" if batched else "mega_span"] > 0
+
+
+SPAN_SCENE = dict(n_cells=128, n_dead=0, seed=3, config=pt.Config.HEX,
+                  force_backend=pt.ForceBackend.PALLAS, light_x=-5.0, phase_std=0.5,
+                  centroid_int=0.12, phase_update_interval=0.24, slot_rebuild_steps=4)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_segment_graph_redoes_when_forced_on_alternate_replays(card, batched, monkeypatch):
+    """The span rebuilds' ``ok`` ANDed with a device flag that is set from
+    outside the graphs before each 12-step segment, false on alternate
+    ones: eight segments of the runner (each one CUDA graph once its gate
+    pattern was seen) equal the one-read-per-segment reference under the
+    same flags bit for bit, generators included, with equal redos,
+    rebuilds and launches apart from ``cond_set``: the redo body's
+    launches count only on the replays that took it."""
+    p = pt.SimParams(**SPAN_SCENE).validate()
+    flag = torch.ones((), dtype=torch.bool, device=card)
+    real = engine_table._make_mega_glue
+
+    def glue(params):
+        pack, unpack, inc = real(params)
+
+        def forced(tbl, origin):
+            new, ok = inc(tbl, origin)
+            return new, ok & flag
+
+        return pack, unpack, forced
+
+    monkeypatch.setattr(engine_table, "_make_mega_glue", glue)
+    blocks = counted_blocks(monkeypatch)
+    run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
+    fresh = ((lambda: make_batch_state(p, [2, 3], card)) if batched
+             else (lambda: pt.Simulation(p, device=card).state))
+    seg = gate_seg(p)
+    outs = []
+    for graph in (True, False):
+        reset_counts()
+        state, redos = fresh(), 0
+        for i in range(8):
+            flag.fill_(i % 2 == 1)
+            if graph:
+                state = run(state, seg, True)
+            else:
+                state, r = reference_span_chunk(p, state, seg, glue)
+                redos += r
+        torch.cuda.synchronize()
+        outs.append((state, redos, dict(kernels.LAUNCHES), dict(REBUILDS)))
+    (got, _, g_launch, g_reb), (want, redos, r_launch, r_reb) = outs
+    for k in CHUNK_FIELDS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    gens = (lambda s: s.generator.sources) if batched else (lambda s: [s.generator])
+    for a, b in zip(gens(got), gens(want)):
+        assert torch.equal(a.get_state(), b.get_state())
+    assert run.redos == redos == 4
+    assert (without_cond_set(g_launch), g_reb) == (without_cond_set(r_launch), r_reb)
+    assert g_launch["cond_set"] == replayed_conds(blocks) and r_launch["cond_set"] == 0
+    segments = [b for b in blocks if b.counted]
+    assert segments and sum(b.replays for b in segments) >= 6
+    assert all(b.nodes["conditional"] == 2 for b in segments)
+
+
+@pytest.mark.parametrize("source", ["generator", "scenes"])
+def test_gated_block_graph_equals_eager(card, source, monkeypatch):
+    """Two 46-step chunks of the table runner with every gate firing (the
+    centroid every 4 steps, the noisy phase law every 6, three bots killed
+    at step 5): its gated and ungated blocks replayed from CUDA graphs,
+    their draws fed in, equal the runner with eager blocks bit for bit,
+    the draw sources' states included, on a ``torch.Generator`` and on a
+    batch's ``SceneDraws``."""
+    p = resolve_params(pt.SimParams(**dict(GRAPH_SCENE, n_dead=3, time_to_dead=0.05,
+                                           centroid_int=0.04,
+                                           phase_update_interval=0.06)).validate())
+    batched = source == "scenes"
+    make = make_run_chunk_table_batched if batched else make_run_chunk_table
+
+    def fresh():
+        return make_batch_state(p, [0, 1], card) if batched else pt.Simulation(
+            p, device=card).state
+
+    results = []
+    for eager in (True, False):
+        blocks = [] if eager else counted_blocks(monkeypatch)
+        run = make(p)
+        call = eager_runner(lambda run=run: run, monkeypatch) if eager else run
+        reset_counts()
+        state = fresh()
+        for _ in range(2):
+            state = call(state, 46)
+        torch.cuda.synchronize()
+        results.append((state, dict(kernels.LAUNCHES), dict(REBUILDS), blocks, run))
+    (e_state, e_launch, e_reb, _, _), (g_state, g_launch, g_reb, blocks, run) = results
+    assert (without_cond_set(e_launch), e_reb) == (without_cond_set(g_launch), g_reb)
+    assert g_launch["cond_set"] == replayed_conds(blocks) > 0
+    assert len(blocks) >= 3 and run.eager_steps == 2
+    for k in CHUNK_FIELDS:
+        assert torch.equal(getattr(g_state, k), getattr(e_state, k)), k
+    gens = (lambda s: s.generator.sources) if batched else (lambda s: [s.generator])
+    for a, b in zip(gens(g_state), gens(e_state)):
+        assert torch.equal(a.get_state(), b.get_state())
+    assert int(g_state.dead[..., : p.n_cells].sum()) == 3 * (2 if batched else 1)
 
 
 def test_mega_span_replays_at_the_step_it_reads(card):
@@ -1262,8 +1365,9 @@ def test_mega_span_replays_at_the_step_it_reads(card):
 def test_small_chunk_reads_nothing_from_the_card(card, kind):
     """A warm chunk of the per-bot runner (DENSE) and of the span path
     (graphs captured) under ``torch.cuda.set_sync_debug_mode("error")``:
-    nothing in it waits for the card, the span path's one-segment-behind
-    reads aside (an event's wait, which the mode allows)."""
+    nothing in it waits for the card, the span path's adopt-or-redo
+    included (a conditional node; a segment whose gate pattern is new in
+    the chunk is captured there and replayed, not run eagerly)."""
     from particlerobotsimulations_torch.engine import make_run_chunk, make_run_chunk_batched
 
     if kind.startswith("dense"):
@@ -1496,7 +1600,8 @@ def test_cond_set_counted_once_per_replayed_rebuild(card, kind, monkeypatch):
 def test_conditional_body_allocates_only_from_the_graph_pool(card):
     """Every allocation that capturing a rebuild with its conditional node
     makes (the main stream's and the body's, on its own stream) lies in
-    the graph's private pool, and 100 replays change no memory
+    the graph's private pool, but the block's own buffers (its carry, its
+    step, its bodies' counters), and 100 replays change no memory
     statistic."""
     p = resolve_params(pt.SimParams(**GRAPH_SCENE).validate())
     block = toggled_rebuild(p)
@@ -1511,7 +1616,8 @@ def test_conditional_body_allocates_only_from_the_graph_pool(card):
     finally:
         torch.cuda.memory._record_memory_history(enabled=None)
     pool = tuple(graph.graph.pool())
-    own = {t.data_ptr() for t in graph.carry.values()} | {graph.step.data_ptr()}
+    own = {t.data_ptr() for t in graph.carry.values()} | {graph.step.data_ptr(),
+                                                           graph.counters.data_ptr()}
     segments = [(s["address"], s["address"] + s["total_size"], tuple(s["segment_pool_id"]))
                 for s in snap["segments"]]
     trace = snap["device_traces"][card.index if card.index is not None else 0]
@@ -1530,3 +1636,54 @@ def test_conditional_body_allocates_only_from_the_graph_pool(card):
         graph(carry, 0)
     torch.cuda.synchronize()
     assert {k: torch.cuda.memory_stats()[k] for k in keys} == before
+
+
+class PoolCheckedBlock(engine_table._CapturedBlock):
+    """``engine_table._CapturedBlock`` whose capture records the allocator's
+    trace: ``allocs`` lists (address, stream, the address's pool) of every
+    allocation it made but the block's own buffers."""
+
+    made: list = []
+
+    def __init__(self, block, carry):
+        torch.cuda.synchronize()
+        torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+        try:
+            dev = next(iter(carry.values())).device
+            index = dev.index if dev.index is not None else 0
+            first = len(torch.cuda.memory._snapshot()["device_traces"][index])
+            super().__init__(block, carry)
+            snap = torch.cuda.memory._snapshot()
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+        own = {t.data_ptr() for t in self.carry.values()} | {self.step.data_ptr(),
+                                                             self.counters.data_ptr()}
+        segments = [(s["address"], s["address"] + s["total_size"], tuple(s["segment_pool_id"]))
+                    for s in snap["segments"]]
+        self.allocs = [
+            (e["addr"], e["stream"],
+             [sp for lo, hi, sp in segments if lo <= e["addr"] < hi][0])
+            for e in snap["device_traces"][index][first:]
+            if e["action"] == "alloc" and e["addr"] not in own
+        ]
+        PoolCheckedBlock.made.append(self)
+
+
+def test_nested_bodies_allocate_only_from_the_graph_pool(card, monkeypatch):
+    """A span runner's segment graphs, whose redo body holds the rebuilds'
+    conditional nodes (bodies two deep, each depth captured on its own
+    stream): every allocation their captures made lies in the graph's
+    private pool, on at least three streams."""
+    PoolCheckedBlock.made = []
+    monkeypatch.setattr(engine_table, "_CapturedBlock", PoolCheckedBlock)
+    p = pt.SimParams(**SPAN_SCENE).validate()
+    run = make_run_chunk_table(p)
+    state = run(pt.Simulation(p, device=card).state, 3 * gate_seg(p), True)
+    torch.cuda.synchronize()
+    segments = [b for b in PoolCheckedBlock.made if b.counted]
+    assert len(segments) == 2 and bool(torch.isfinite(state.pos).all())
+    for b in segments:
+        pool = tuple(b.graph.pool())
+        assert b.allocs and all(sp == pool for _, _, sp in b.allocs), b.allocs[:4]
+        assert len({stream for _, stream, _ in b.allocs}) >= 3
+        assert b.nodes["conditional"] == 2 and b.nodes["body_nodes"] > b.nodes["nodes"]

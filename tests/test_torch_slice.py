@@ -177,6 +177,7 @@ def test_adaptive_runner_switches_k_on_stubbed_probe(monkeypatch):
             probed.append(params.slot_rebuild_steps)
             pm = torch.tensor(next(values))
             return state.replace(step=state.step + 8), pm
+        probe.eager_steps = 0
         return probe
 
     monkeypatch.setattr(t_et, "make_probe_chunk", fake_make_probe_chunk)

@@ -1,13 +1,13 @@
 """PyTorch port, the compiled chunk of the small-scene paths, on the CPU.
 
 The per-bot chunk runner (DENSE, STENCIL, CELLGRID; ``engine.
-make_run_chunk`` and ``make_run_chunk_batched``) runs gated steps one at a
-time and every ungated stretch of ``engine.BLOCK_STEPS`` steps as one
-block, its sim times made on the device from a step tensor
-(``engine_table.sim_time``); on the card a block replays a CUDA graph, on
-the CPU it runs eagerly through the same code.  The span path
-(``engine_table.make_run_chunk_table`` on a mega-eligible table with
-``seg_aligned``) decides each segment's adopt-or-redo one segment behind,
+make_run_chunk`` and ``make_run_chunk_batched``) runs a block from each
+gated step, of at most ``engine.BLOCK_STEPS`` steps, its sim times made on
+the device from a step tensor (``engine_table.sim_time``); on the card a
+block replays a CUDA graph, on the CPU it runs eagerly through the same
+code.  The span path (``engine_table.make_run_chunk_table`` on a
+mega-eligible table with ``seg_aligned``) decides each segment's
+adopt-or-redo with ``ops/cond.branch`` (a conditional node on the card),
 and kernel 3 and its twin take the span's first step as a device tensor.
 
 Each is held here bit for bit against what it replaces, kept in this file:
@@ -173,18 +173,18 @@ def test_device_time_body_equals_host_float_body(backend, batched):
 # ------------------------------------------------ the per-bot block runner
 
 def schedule(p, start, n, block):
-    """The runner's blocks: ``block`` steps where none of them fires a gate
-    and the chunk has room, else one step."""
+    """The runner's pieces: from each gated step (the dead step alone) to
+    the next, at most ``block`` steps at a time."""
     out, j = [], 0
     while j < n:
         s = start + j
-        if j + block <= n and not any(any(t_engine._step_gates(p, s + i))
-                                      for i in range(block)):
-            out.append(block)
-            j += block
-        else:
-            out.append(1)
-            j += 1
+        length = 1
+        if not t_engine._step_gates(p, s)[0]:
+            while length < block and j + length < n and not any(
+                    t_engine._step_gates(p, s + length)):
+                length += 1
+        out.append(length)
+        j += length
     return out
 
 
@@ -202,13 +202,15 @@ RUNNER_CASES = {
 def test_block_runner_equals_make_step_loop(case, batched, monkeypatch):
     """The runner's ``blocks`` over a chunk from step 5 that ends ragged
     equals a plain loop of ``make_step`` (``make_step_batched``), bit for
-    bit, yielding once per block or eager step; at ``BLOCK_STEPS`` 4 and at
-    the module's own."""
+    bit, yielding once per piece (whole blocks, the short blocks before a
+    gate, the dead step, the ragged tail); at ``BLOCK_STEPS`` 4 and at the
+    module's own."""
     block, kw, start, n = RUNNER_CASES[case]
     monkeypatch.setattr(t_engine, "BLOCK_STEPS", block)
     p = gated_params("DENSE", **kw)
     want_blocks = schedule(p, start, n, block)
-    assert want_blocks.count(block) >= 2 and want_blocks[-1] == 1
+    assert want_blocks.count(block) >= 2 and want_blocks[-1] < block
+    assert any(1 < b < block for b in want_blocks[:-1])
     run = (t_engine.make_run_chunk_batched if batched else t_engine.make_run_chunk)(p, "cpu")
     state = fresh(p, batched).replace(step=start)
     gen, yields = run.blocks(state, n), 0
@@ -220,6 +222,8 @@ def test_block_runner_equals_make_step_loop(case, batched, monkeypatch):
             got = stop.value
             break
     assert yields == len(want_blocks)
+    assert run.eager_steps == want_blocks[-1] + (
+        start <= p.dead_step < start + n)
     step = (t_engine.make_step_batched if batched else t_engine.make_step)(p, "cpu")
     want = fresh(p, batched).replace(step=start)
     for _ in range(n):
@@ -398,11 +402,12 @@ def counted_run(fn):
 @pytest.mark.parametrize("batched", [False, True])
 def test_lagged_span_decision_equals_one_read_per_segment(batched, fail, forced_spans):
     """Four 12-step segments of the span path with the spans' rebuilds made
-    to fail in the segments ``fail``: the runner that reads each flag one
-    segment behind equals the one that reads it before the next segment,
-    bit for bit (every generator's state included), with equal redos,
-    rebuild counts and launch counts; the launches it dropped are the
-    failed segments' posts and the segments it had enqueued after them."""
+    to fail in the segments ``fail``: the runner, whose segment decides
+    its adopt-or-redo with ``ops/cond.branch`` (on the CPU its eager form,
+    through the code a captured segment runs), equals the one that reads
+    each flag before the next segment, bit for bit (every generator's
+    state included: a redo takes the segment's draws again), with equal
+    redos, rebuild counts and launch counts."""
     p = span_params()
     seg, k = t_et.gate_seg(p), p.resolved_slot_rebuild_steps()
     assert seg == forced_spans["seg"] == 12 and k == 4
@@ -421,20 +426,15 @@ def test_lagged_span_decision_equals_one_read_per_segment(batched, fail, forced_
         assert torch.equal(ga.get_state(), gb.get_state())
     assert run.redos == counts["redos"] == len(fail)
     assert (launches, rebuilds) == (w_launches, w_rebuilds)
-    # each failed segment but the last had the next one enqueued behind it
-    spec = sum(s < 3 for s in fail)
-    assert run.discarded == spec
-    bps = seg // k
-    dropped = {"stencil_forces": len(fail) + k * spec, "mega_span": (bps - 1) * spec}
-    assert run.discarded_launches == {n: c for n, c in dropped.items() if c}
+    assert run.eager_steps == (n_steps - 4 * seg) % k
     assert not np.array_equal(got.phase.numpy(), a_in.phase.numpy())
 
 
 def test_lagged_span_decision_on_a_real_failure():
     """A 60 u/s kick (one bot crosses several cells per rebuild window):
-    the span rebuilds refuse for real, and the lagged runner equals the
-    one-read-per-segment runner bit for bit, redos and rebuild counts
-    equal, over 36 seg-aligned steps in one chunk."""
+    the span rebuilds refuse for real, and the runner's segment decision
+    equals the one-read-per-segment runner bit for bit, redos and rebuild
+    counts equal, over 36 seg-aligned steps in one chunk."""
     p = span_params()
     arrays = state_to_arrays(pt.Simulation(p, device="cpu").state)
     arrays["vel"][7, 0] += 60.0
