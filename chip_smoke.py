@@ -119,10 +119,13 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    the dp x tp table loop on bench.py's workload, 4 seeds x 4 shards
    (G=64), 200 steps with the counters reset just before (one kernel-4
    launch per step and one padded kernel-2 launch per rebuild for all 16
-   blocks), each scene bit for bit its lockstep replay (alone through the
-   single-scene sharded loop, taking the batch's rebuild decisions) and
-   within phase 9's sharded tolerance of the unsharded batched loop, timed
-   beside both; kernels 4 and 2 (padded) at those 16 blocks in one launch
+   blocks; each scene decides its rebuilds alone, as in the JAX package),
+   each scene bit for bit its solo run (alone through the single-scene
+   sharded loop, deciding its own rebuilds), the batch on
+   ``Mesh(["cuda"] * 2)`` x 4 shards bit for bit the ring's, and, over the
+   steps before the first rebuild whose scenes decided apart, within phase
+   9's sharded tolerance of the unsharded batched loop, timed beside them, the card's
+   name and power limit beside the time; kernels 4 and 2 (padded) at those 16 blocks in one launch
    against the 16 single-block launches (bit for bit) and their twins,
    timed in a CUDA graph beside 4 launches of 4 shards; and ``run_sweep``
    of eight seeds of ``examples/example.cfg`` over ``Mesh(["cuda"] * 4)``
@@ -142,11 +145,11 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    backend, table and rebuilds); and ``--from-json`` on
    ``docs/parity/parity.json``, whose verdicts it must reproduce.  Their
    launches are added to the kernels' counts;
-16. the graphed chunk: the table runners replay every K-step block,
-   gated or not (its draws taken before it and fed in), and the adaptive
-   probe's segment from CUDA graphs; only the dead-injection step and a
-   chunk's ragged tail run eagerly, and each chunk's eager steps are held
-   to that.  Three scenes run graph against eager (the
+16. the graphed chunk: the table runners replay every block, K steps
+   gated or not (its draws taken before it and fed in, the dead step's
+   scores among them) or a chunk's ragged tail, and the adaptive probe's
+   segment from CUDA graphs; no step of a chunk runs eagerly, and each
+   chunk's eager steps are held to none.  Four scenes run graph against eager (the
    same runner with ``engine_table._CapturedBlock`` swapped for the eager
    block), bit for bit with equal rebuild counts and equal launches
    apart from ``cond_set`` (each graph rebuild is a conditional node, each
@@ -155,9 +158,13 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    adaptive runner (4 seg-aligned chunks of 600 steps, a probe segment
    then K-step blocks; a fixed K=8 run is added when the probe kept K=4),
    100,000 HEX bots from placement without spill rows (400 steps: most
-   rebuilds exact, so both branches run inside the graphs) and eight 10k
-   seeds batched (400 steps).  One more chunk of each graph runner runs
-   under ``torch.cuda.set_sync_debug_mode("error")``.  The rebuild is
+   rebuilds exact, so both branches run inside the graphs), eight 10k
+   seeds batched (400 steps), and the 10k table loop at K=4 with 2,000
+   bots killed mid-block at step 701 in a second chunk that ends in a
+   ragged tail.  Each graph run prints its captures' cost and the memory
+   it left reserved beside the eager run's.  The last chunk of each graph
+   runner runs again, from its start, under
+   ``torch.cuda.set_sync_debug_mode("error")``.  The rebuild is
    timed per branch (its node with the incremental taken, and with the
    exact taken by a bot moved two cells) against the incremental rebuild
    alone and the select at 10k and 100k; eager against graph at 10k
@@ -176,17 +183,22 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    ``engine_table._CapturedBlock`` swapped for the eager block), bit for
    bit with equal counts: ``examples/example.cfg`` (300 bots) and
    ``examples/example_obstacle.cfg`` (500 bots), 2,000 steps each from
-   placement (a phase gate included), and eight seeds of example.cfg
+   placement (a phase gate included), ``examples/example_dead_cells.cfg``
+   (100 bots) with its bots killed at step 1,203, off every gate, in a
+   second chunk that ends in a short block, and eight seeds of example.cfg
    batched (400 steps); the span path against the reference kept here
    (every segment's flag read on the host before the next is enqueued),
    bit for bit with equal launches, rebuilds and redos: the 1,000-bot
    band, 2,000 seg-aligned steps, its eight seeds batched under phase
-   noise, 800 steps (redos printed), and the band with its span rebuilds
+   noise, 800 steps (redos printed), the band with its span rebuilds
    failed on the card in alternate segments (a device flag set before
-   each); the segment graphs' nodes (nested bodies included) and their
-   capture and instantiation time are printed.  Each chunk's eager steps
-   are held to the dead step and the ragged tail.  One more chunk of each
-   runner under ``torch.cuda.set_sync_debug_mode("error")``.  Eager
+   each), and the band with 100 bots killed on the segment boundary at
+   step 600 (800 steps); the segment graphs' nodes (nested bodies
+   included) and their capture and instantiation time, and the memory
+   each graph run left reserved, are printed.  No chunk runs an eager
+   step.  The last chunk of each runner again, from its start, under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the dead segment
+   included).  Eager
    against graph in turns (wall, device us/step and busy share under
    ``torch.profiler``, the card's name and power limit) for DENSE at 300
    and 500 bots and the band's span and regular paths, and the per-bot
@@ -202,9 +214,13 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    ``LocalRing(4)`` (G=64) from placement, 1,200 steps across
    the centroid gate at 1,000; 100,000 HEX bots with 8 spill rows, 200
    steps (none parked); the forced fallback (64 bots at 50 u/s, every
-   chunk falls back); dp x tp, 4 seeds x 4 shards, 400 steps, on one ring
-   and on two data places of 4 shards (the places interleaved).  One
-   more chunk of each graph runner under
+   chunk falls back), and the same with 5 bots killed mid-block at step
+   21 in a second chunk that ends in a ragged tail (the all-gathered
+   ``topk`` captured); dp x tp, 4 seeds x 4 shards, 400 steps, on one ring
+   and on two data places of 4 shards (the places interleaved).  No
+   chunk runs an eager step; each graph run prints its captures' cost and
+   the memory it left reserved.  The last chunk of each graph runner
+   again, from its start, under
    ``torch.cuda.set_sync_debug_mode("error")``, its stats read after.
    The rebuild per branch against the incremental rebuild alone and the
    select at G=64 and at 100k, with the exact rebuild's device time by
@@ -212,8 +228,8 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    us/step, the card's name and power limit) at 10k and in dp x tp on one
    ring and on the two data places.  The
    graph runs' launches are added to the kernels' counts.  (Phase 14's
-   dp x tp run and its lockstep replays run their blocks eagerly: a graph
-   replays its rebuilds without the decision hook they record.)
+   dp x tp run records its decisions, so it runs its blocks eagerly: a
+   graph replays its rebuilds without the decision hook.)
 19. the rebuild's conditional node (``csrc/graph_cond.cu``, kernel
    ``cond_set``; ``ops/cond.py``): the captures of phases 16 and 18's
    graph runs on seven scenes (10k adaptive, 100k without spill rows,
@@ -2469,11 +2485,11 @@ MESH_PLACES = 4
 
 def record_decisions():
     """(decisions, restore): wraps ``spatial_table._all_ok`` so that every
-    rebuild decision the sharded loops take (a 0-dim bool tensor on the
-    card) is appended to ``decisions``; ``restore()`` puts the function
-    back.  A CUDA graph replays its captured rebuilds without calling the
-    function, so a run that records or replays decisions runs its blocks
-    eagerly (:func:`eager_blocks`)."""
+    rebuild decision the sharded loops take (a bool tensor on the card, one
+    flag per scene of a batch) is appended to ``decisions``; ``restore()``
+    puts the function back.  A CUDA graph replays its captured rebuilds
+    without calling the function, so a run that records decisions runs its
+    blocks eagerly (:func:`eager_blocks`)."""
     from particlerobotsimulations_torch.parallel import spatial_table
 
     inner, seen = spatial_table._all_ok, []
@@ -2485,28 +2501,6 @@ def record_decisions():
 
     spatial_table._all_ok = recording
     return seen, lambda: setattr(spatial_table, "_all_ok", inner)
-
-
-def replay_decisions(decisions):
-    """Makes the sharded loops take ``decisions`` in order (a lockstep
-    replay of a batch's rebuilds); returns the restore function."""
-    from particlerobotsimulations_torch.parallel import spatial_table
-
-    inner, todo = spatial_table._all_ok, list(decisions)
-
-    def replaying(ring, ok_local):
-        if not todo:
-            fail("lockstep replay: more rebuilds than the batch took")
-        return todo.pop(0)
-
-    spatial_table._all_ok = replaying
-
-    def restore():
-        spatial_table._all_ok = inner
-        if todo:
-            fail(f"lockstep replay: {len(todo)} of the batch's rebuilds not taken")
-
-    return restore
 
 
 def dp_tp_inputs(p, state):
@@ -2589,18 +2583,23 @@ def dp_tp_kernel_checks(p, state):
     }
 
 
-def dp_tp_phase():
+def dp_tp_phase(smi):
     """The dp x tp table loop on bench.py's 10k workload, B = 4 seeds x D =
     4 shards (G=64), 200 steps with its blocks eager (so that every
-    rebuild's decision is recorded; phase 18 holds the graphed blocks to
-    the eager ones), the counters reset just before: exactly one
+    rebuild's per-scene decisions are recorded; phase 18 holds the graphed
+    blocks to the eager ones), the counters reset just before: exactly one
     kernel-4 launch per step and one padded kernel-2 launch per rebuild for
-    all 16 blocks; each scene bit for bit (its centroid ring within a
-    reordered sum's bound) its lockstep replay, the scene alone through the
-    single-scene sharded loop taking the batch's rebuild decisions; each
-    scene within phase 9's sharded tolerance of the unsharded batched table
+    all 16 blocks, the fallbacks the recorded decisions' scene-rebuilds that
+    failed; each scene bit for bit (its centroid ring within a reordered
+    sum's bound) the scene alone through the single-scene sharded loop,
+    deciding its own rebuilds (graphed), with its own fallbacks; the batch
+    on ``Mesh(["cuda"] * 2)`` x 4 shards bit for bit the ring's; and, over
+    the steps before the first rebuild whose scenes decided apart (the
+    unsharded batched loop takes one decision for all scenes), each scene
+    within phase 9's sharded tolerance of the unsharded batched table
     loop.  Returns (launches, kernel checks, text)."""
     from particlerobotsimulations_torch.engine_table import make_run_chunk_table_batched
+    from particlerobotsimulations_torch.parallel.mesh import Mesh
     from particlerobotsimulations_torch.parallel.spatial_table import (
         make_sharded_table_run_batched,
     )
@@ -2626,53 +2625,82 @@ def dp_tp_phase():
     want.update(stencil_forces_ext_batched=n_steps, compact_padded_batched=n_steps // k)
     if launches != want:
         fail(f"dp x tp launches {launches}, want {want}")
-    taken = [bool(d) for d in decisions]
-    if len(taken) != n_steps // k or stats["fallbacks"] != taken.count(False):
-        fail(f"dp x tp: {len(taken)} decisions, stats {stats}")
+    taken = [d.tolist() for d in decisions]
+    if len(taken) != n_steps // k or any(len(t) != len(seeds) for t in taken) \
+            or stats["fallbacks"] != sum(t.count(False) for t in taken):
+        fail(f"dp x tp: decisions {taken}, stats {stats}")
     if not np.isfinite(out.pos.cpu().numpy()).all():
         fail("dp x tp: non-finite state")
 
     n = p.n_cells
-    single, _ = make_sharded_table_run(p, LocalRing(N_SHARDS, "cuda"))
-    same, ring_r, replay_s = 0, 0.0, 0.0
+    single, _ = make_sharded_table_run(p, LocalRing(N_SHARDS, "cuda"), with_stats=True)
+    ring_r, solo_s, solo_fb = 0.0, 0.0, []
     for b, seed in enumerate(seeds):
         scene = scene_state(make_batch_state(p, [seed], "cuda"), 0)
-        restore = replay_decisions(decisions)
         t0 = time.perf_counter()
-        try:
-            with eager_blocks(True):
-                one = single(scene, n_steps)
-            torch.cuda.synchronize()
-        finally:
-            restore()
-        replay_s += time.perf_counter() - t0
+        one, one_stats = single(scene, n_steps)
+        torch.cuda.synchronize()
+        solo_s += time.perf_counter() - t0
         eq, ring_b = scene_diff(scene_state(out, b), one, n)
-        if not (eq and ring_b <= 1.0):
-            fail(f"dp x tp scene {b} differs from its lockstep replay (ring {ring_b:.3f})")
-        same += 1
+        solo_fb.append(one_stats["fallbacks"])
+        if not (eq and ring_b <= 1.0) or one_stats["fallbacks"] != [t[b] for t in taken].count(
+                False):
+            fail(f"dp x tp scene {b} differs from its solo run (ring {ring_b:.3f}, fallbacks "
+                 f"{one_stats['fallbacks']})")
         ring_r = max(ring_r, ring_b)
 
+    mesh = Mesh(np.array(["cuda"] * (2 * N_SHARDS), dtype=object).reshape(2, N_SHARDS),
+                ("data", "bots"))
+    mrun, _ = make_sharded_table_run_batched(p, mesh=mesh, with_stats=True)
+    t0 = time.perf_counter()
+    mout, mstats = mrun(make_batch_state(p, seeds, "cuda"), n_steps)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    mesh_r = 0.0
+    for b in range(len(seeds)):
+        eq, ring_b = scene_diff(scene_state(mout, b), scene_state(out, b), n)
+        if not (eq and ring_b <= 1.0):
+            fail(f"dp x tp on the mesh: scene {b} differs from the ring's (ring {ring_b:.3f})")
+        mesh_r = max(mesh_r, ring_b)
+    if mstats != stats:
+        fail(f"dp x tp on the mesh: stats {mstats}, ring {stats}")
+
+    # the unsharded batched loop takes one decision for all scenes: held to
+    # it over the steps before the first rebuild whose scenes decided apart
+    mixed = [i for i, t in enumerate(taken) if len(set(t)) > 1]
+    same = (mixed[0] + 1) * k - 1 if mixed else n_steps
     t0 = time.perf_counter()
     ref = make_run_chunk_table_batched(p)(make_batch_state(p, seeds, "cuda"), n_steps)
     torch.cuda.synchronize()
     unsharded_s = time.perf_counter() - t0
-    dpos = float((out.pos[:, :n] - ref.pos[:, :n]).abs().max())
-    dvel = float((out.vel[:, :n] - ref.vel[:, :n]).abs().max())
+    if mixed:
+        ref = make_run_chunk_table_batched(p)(make_batch_state(p, seeds, "cuda"), same)
+        cut, _ = run(make_batch_state(p, seeds, "cuda"), same)
+    else:
+        cut = out
+    dpos = float((cut.pos[:, :n] - ref.pos[:, :n]).abs().max())
+    dvel = float((cut.vel[:, :n] - ref.vel[:, :n]).abs().max())
     if not (dpos <= TP_POS_ATOL and dvel <= TP_VEL_ATOL):
-        fail(f"dp x tp vs the unsharded batched loop: dpos {dpos} dvel {dvel}")
+        fail(f"dp x tp vs the unsharded batched loop over {same} steps: dpos {dpos} dvel {dvel}")
+    ref_text = (f"held to it over the {same} steps before the first rebuild whose scenes "
+                f"decided apart (of {len(mixed)} such rebuilds, from {mixed[:1]}): max |dpos| "
+                f"{dpos:.2e} |dvel| {dvel:.2e} (atol {TP_POS_ATOL}, {TP_VEL_ATOL})")
 
     kc = dp_tp_kernel_checks(p, out)
     b = len(seeds)
     text = (
         f"dp x tp 10k HEX, {b} seeds x {N_SHARDS} shards (G={p.resolved_grid_dim()}, "
-        f"K={k}), {n_steps} steps: {wall * 1e6 / n_steps:.1f} us per batched step "
-        f"({n * b * n_steps / wall:.4e} particle-steps/s), launches "
-        f"{ {key: v for key, v in launches.items() if v} }, {stats}; the {b} lockstep "
-        f"replays alone through the single-scene sharded loop {replay_s * 1e6 / (b * n_steps):.1f} "
-        f"us per scene-step; bit for bit in {same}/{b} scenes (ring at up to {ring_r:.3f} "
-        f"of its reorder bound); unsharded batched loop {unsharded_s * 1e6 / n_steps:.1f} us "
-        f"per batched step, max |dpos| {dpos:.2e} |dvel| {dvel:.2e} (atol {TP_POS_ATOL}, "
-        f"{TP_VEL_ATOL})"
+        f"K={k}), {n_steps} steps, blocks eager: {wall * 1e6 / n_steps:.1f} us per batched "
+        f"step ({smi}; {n * b * n_steps / wall:.4e} particle-steps/s), launches "
+        f"{ {key: v for key, v in launches.items() if v} }, {stats}, per-scene decisions "
+        f"taken {sum(t.count(True) for t in taken)} incremental / "
+        f"{sum(t.count(False) for t in taken)} exact; each scene alone through the "
+        f"single-scene sharded loop (graphed, its own decisions, fallbacks {solo_fb}) "
+        f"{solo_s * 1e6 / (b * n_steps):.1f} us per scene-step, bit for bit in {b}/{b} scenes "
+        f"(ring at up to {ring_r:.3f} of its reorder bound); on Mesh(['cuda'] * 2) x "
+        f"{N_SHARDS} shards (graphed) {mesh_s * 1e6 / n_steps:.1f} us per batched step, bit for "
+        f"bit the ring's (ring at up to {mesh_r:.3f}), stats equal; unsharded batched loop "
+        f"{unsharded_s * 1e6 / n_steps:.1f} us per batched step, {ref_text}"
     )
     return launches, kc, text
 
@@ -2722,7 +2750,7 @@ def mesh_sweep_phase() -> str:
     )
 
 
-def multi_device_phase():
+def multi_device_phase(smi):
     """Phase 14: the dry run over 8 places of the card, the dp x tp table
     loop, the mesh sweep.  Returns (dp x tp launches, kernel checks)."""
     from particlerobotsimulations_torch.dryrun import dryrun_multichip
@@ -2733,7 +2761,7 @@ def multi_device_phase():
     print(f"phase 14 dry run: {len(results)} certifications over 8 places of the card "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches, kc, text = dp_tp_phase()
+    launches, kc, text = dp_tp_phase(smi)
     print(f"phase 14 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
     for name, v in kc.items():
         print(
@@ -2946,6 +2974,9 @@ def measurement_phase(device="cuda") -> dict:
 GRAPH_CHUNK_10K, GRAPH_CHUNKS_10K = 600, 4
 GRAPH_N_100K, GRAPH_CHUNK_100K, GRAPH_CHUNKS_100K = 100_000, 200, 2
 GRAPH_SEEDS, GRAPH_CHUNK_BATCH, GRAPH_CHUNKS_BATCH = tuple(range(8)), 200, 2
+# the 10k table loop at K=4 with a fifth of the bots killed mid-block in
+# its second chunk, which ends in a ragged tail (598 = 149 blocks + 2)
+GRAPH_DEAD_10K, GRAPH_DEAD_STEP_10K, GRAPH_DEAD_CHUNKS_10K = 2000, 701, (600, 598)
 # the profiled eager-vs-graph comparison at 10k, and the two-place bench
 GRAPH_PROFILE_STEPS, BENCH2_STEPS = 600, 400
 
@@ -3000,7 +3031,8 @@ class CountedBlock(engine_table._CapturedBlock):
         out = super().__call__(carry, step)
         self.taken += counter - before
         if fallbacks is not None and self.launches.get("cond_set") == 1:
-            exact = out["fallbacks"] - fallbacks
+            # the node's body ran where any scene fell back
+            exact = (out["fallbacks"] > fallbacks).to(torch.int64)
             self.taken += torch.stack([1 - exact, exact])
         self.replays += 1
         return out
@@ -3056,68 +3088,72 @@ def without_cond_set(launches) -> dict:
     return {k: v for k, v in launches.items() if k != "cond_set"}
 
 
-def expected_eager(kind, p, start, n, aligned=False) -> int:
-    """The steps of a chunk of ``n`` from ``start`` that run eagerly by
-    design: the dead-injection step (on the span path the segment holding
-    it) and the ragged tail, the steps after the last block (table loops:
-    ``n % K``, K <= 8; the per-bot runner: the rest of the stretch from its
-    last gate, or the step after the dead one, past whole blocks).
-    ``kind``: "table", "span" or "bot"."""
-    from particlerobotsimulations_torch.engine import BLOCK_STEPS
-    from particlerobotsimulations_torch.engine_table import _step_gates
-
-    end = start + n
-    dead = p.n_dead > 0 and start <= p.dead_step < end
-    if kind == "bot":
-        bounds = [start] + [s for s in range(start, end) if any(_step_gates(p, s))]
-        last = max(bounds + ([p.dead_step + 1] if dead else []))
-        return int(dead) + (end - last) % BLOCK_STEPS
-    k = max(1, p.resolved_slot_rebuild_steps())
-    if kind == "span" and aligned:
-        seg = gate_seg(p)
-        spans_end = start + n // seg * seg
-        dead_seg = p.n_dead > 0 and start <= p.dead_step < spans_end
-        return seg * int(dead_seg) + int(dead and not dead_seg) + (end - spans_end) % k
-    return int(dead) + n % k
-
-
 def chunks_run(make_runner, state, chunks, aligned, eager, count=True):
     """A fresh runner's ``chunks`` from a copy of ``state``, with its blocks
     eager or replayed from graphs (counted where ``count``), the counters
-    reset just before: (runner, state, launches, rebuilds, wall s, live K
-    after each chunk, the counted blocks, (start step, steps, eager
-    steps) of each chunk)."""
+    reset just before: a record of the runner, its end state, launches,
+    rebuilds, wall s, live K after each chunk, the counted blocks, each
+    chunk's (start step, steps, eager steps), the state the last chunk
+    started from (a copy) and the memory the run left reserved on the
+    card (``torch.cuda.memory_reserved`` after it less before it, the
+    cache emptied first: a graph run's is mostly its graphs' pools)."""
+    from types import SimpleNamespace
+
     with eager_blocks(eager, count) as blocks:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
         run = make_runner()
         state = clone_state(state)
         reset_counts()
-        ks, eager_steps = [], []
+        ks, eager_steps, last_start = [], [], None
         t0 = time.perf_counter()
         for n in chunks:
             start = state.step
+            last_start = clone_state(state)
             state = run(state, n, aligned)
             ks.append(getattr(run, "live", {}).get("k"))
             eager_steps.append((start, n, run.eager_steps))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return (run, state, dict(kernels.LAUNCHES), dict(REBUILDS), wall, ks, blocks,
-                eager_steps)
+        return SimpleNamespace(
+            run=run, state=state, launches=dict(kernels.LAUNCHES), rebuilds=dict(REBUILDS),
+            wall=wall, ks=ks, blocks=blocks, eager_steps=eager_steps, last_start=last_start,
+            held=torch.cuda.memory_reserved() - reserved)
 
 
-def check_eager(name, kind, p, eager_steps, aligned=False) -> str:
-    """Each chunk's eager steps against :func:`expected_eager`; the text
-    that reports them."""
+def check_eager(name, eager_steps) -> str:
+    """Each chunk's eager steps, none by design on any path (every piece a
+    block or a span segment that a graph replays, the dead-injection step
+    and the ragged tail included); the text that reports them."""
     got = [e for _, _, e in eager_steps]
-    want = [expected_eager(kind, p, s, n, aligned) for s, n, _ in eager_steps]
-    if got != want:
-        fail(f"{name}: eager steps per chunk {got}, by design (the dead step and the "
-             f"ragged tail) {want}")
-    return f"eager steps per chunk {got} (the dead step and the ragged tail only)"
+    if any(got):
+        fail(f"{name}: eager steps per chunk {got}, by design none")
+    return f"eager steps per chunk {got}"
+
+
+def capture_text(blocks) -> str:
+    """The captures' cost: how many graphs, their capture + instantiate
+    seconds in all and at most."""
+    secs = [b.seconds for b in blocks]
+    if not secs:
+        return "no capture"
+    return (f"{len(secs)} captures in {sum(secs):.3f} s (at most {max(secs):.3f} s for "
+            f"one graph)")
+
+
+def memory_text(graph_held, eager_held) -> str:
+    """The memory a graph run left reserved beside an eager run's."""
+    return (f"memory reserved after the run +{graph_held / 2**20:.1f} MiB with graphs, "
+            f"+{eager_held / 2**20:.1f} MiB eager")
 
 
 def sync_free_chunk(name, run, state, n, aligned):
-    """One more chunk of a warm runner under ``set_sync_debug_mode("error")``:
-    nothing between its entry and exit may wait for the card."""
+    """The last chunk again, from a copy of the state it started from, on
+    the warm runner under ``set_sync_debug_mode("error")``: nothing between
+    its entry and exit may wait for the card (every gate pattern of the
+    chunk, a dead step and a ragged tail included, replays a graph
+    captured before)."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3131,35 +3167,35 @@ def sync_free_chunk(name, run, state, n, aligned):
         fail(f"{name}: non-finite state after the sync-free chunk")
 
 
-def graph_vs_eager(name, make_runner, state, chunks, aligned, total, kind="table", p=None):
+def graph_vs_eager(name, make_runner, state, chunks, aligned, total):
     """``chunks`` through eager and graph runs of one runner kind from one
-    state: bit for bit, with equal launch and rebuild counts, each chunk's
-    eager steps those of :func:`expected_eager` (``kind``, params ``p``),
-    then one sync-free chunk of the graph runner.  Adds the graph run's
-    launches to ``total``; returns (text, live Ks)."""
-    _, e_state, e_launch, e_reb, e_wall, ks, _, _ = chunks_run(make_runner, state, chunks,
-                                                               aligned, True)
-    run, g_state, g_launch, g_reb, g_wall, g_ks, blocks, g_eager = chunks_run(
-        make_runner, state, chunks, aligned, False)
-    if not states_equal(e_state, g_state):
-        bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e_state, k), getattr(g_state, k))]
+    state: bit for bit, with equal launch and rebuild counts, no eager
+    step in any chunk, then the last chunk again on the warm graph runner,
+    sync-free.  Adds the graph run's launches to ``total``; returns (text,
+    live Ks)."""
+    e = chunks_run(make_runner, state, chunks, aligned, True)
+    g = chunks_run(make_runner, state, chunks, aligned, False)
+    if not states_equal(e.state, g.state):
+        bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e.state, k),
+                                                          getattr(g.state, k))]
         fail(f"{name}: graph run differs from the eager run in {bad}")
-    if (without_cond_set(e_launch), e_reb, ks) != (without_cond_set(g_launch), g_reb, g_ks) \
-            or e_launch["cond_set"]:
-        fail(f"{name}: eager launches {e_launch} rebuilds {e_reb} K {ks}, "
-             f"graph {g_launch} {g_reb} {g_ks}")
-    eager_text = check_eager(name, kind, p, g_eager, aligned) if p is not None else ""
-    rec = node_record(name, blocks, g_launch)
-    for k, v in g_launch.items():
+    if (without_cond_set(e.launches), e.rebuilds, e.ks) != (
+            without_cond_set(g.launches), g.rebuilds, g.ks) or e.launches["cond_set"]:
+        fail(f"{name}: eager launches {e.launches} rebuilds {e.rebuilds} K {e.ks}, "
+             f"graph {g.launches} {g.rebuilds} {g.ks}")
+    eager_text = check_eager(name, g.eager_steps)
+    rec = node_record(name, g.blocks, g.launches)
+    for k, v in g.launches.items():
         total[k] = total.get(k, 0) + v
-    sync_free_chunk(name, run, g_state, chunks[-1], aligned)
+    sync_free_chunk(name, g.run, g.last_start, chunks[-1], aligned)
     steps = sum(chunks)
-    used = {k: v for k, v in g_launch.items() if v}
-    return (f"{name}: {steps} steps, graph (node) == eager (select) bit for bit, launches "
-            f"{used}, rebuilds {g_reb}, live K {g_ks}; {len(blocks)} graphs (gate patterns "
-            f"and layouts), {eager_text}; {node_text(rec)}; wall "
-            f"{e_wall * 1e6 / steps:.1f} us/step eager, {g_wall * 1e6 / steps:.1f} graph (first "
-            f"chunk captures); sync-free chunk ok"), g_ks
+    used = {k: v for k, v in g.launches.items() if v}
+    return (f"{name}: {steps} steps in chunks {list(chunks)}, graph (node) == eager (select) "
+            f"bit for bit, launches {used}, rebuilds {g.rebuilds}, live K {g.ks}; "
+            f"{len(g.blocks)} graphs (gate patterns and layouts), {capture_text(g.blocks)}, "
+            f"{memory_text(g.held, e.held)}; {eager_text}; {node_text(rec)}; wall "
+            f"{e.wall * 1e6 / steps:.1f} us/step eager, {g.wall * 1e6 / steps:.1f} graph (first "
+            f"chunk captures); sync-free chunk ok"), g.ks
 
 
 def far_fields(p, fields: dict) -> dict:
@@ -3344,13 +3380,13 @@ def graph_phase(main_state) -> tuple:
     p10 = resolve_params(bench_params().validate())
     t0 = time.perf_counter()
     text, ks = graph_vs_eager("10k adaptive", lambda: make_run_chunk(p10, "cuda"), main_state,
-                              [GRAPH_CHUNK_10K] * GRAPH_CHUNKS_10K, True, total, p=p10)
+                              [GRAPH_CHUNK_10K] * GRAPH_CHUNKS_10K, True, total)
     print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
     if 8 not in ks:
         p8 = p10.replace(slot_rebuild_steps=8).validate()
         text, _ = graph_vs_eager("10k K=8 (the probe kept K=4)",
                                  lambda: make_run_chunk_table(p8), main_state,
-                                 [GRAPH_CHUNK_10K] * 2, False, total, p=p8)
+                                 [GRAPH_CHUNK_10K] * 2, False, total)
         print(f"phase 16 {text}", flush=True)
     k_live = 8 if 8 in ks else 4
     print(f"phase 16 10k rebuild cost: {rebuild_cost(p10, main_state)}", flush=True)
@@ -3363,7 +3399,7 @@ def graph_phase(main_state) -> tuple:
         fail(f"100k scene: {p100.resolved_overflow_slots()} spill rows, want none")
     s100 = pt.Simulation(p100, device="cuda").state
     text, _ = graph_vs_eager("100k HEX", lambda: make_run_chunk_table(p100), s100,
-                             [GRAPH_CHUNK_100K] * GRAPH_CHUNKS_100K, False, total, p=p100)
+                             [GRAPH_CHUNK_100K] * GRAPH_CHUNKS_100K, False, total)
     print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
     print(f"phase 16 100k G={p100.resolved_grid_dim()} rebuild cost: {rebuild_cost(p100, s100)}",
           flush=True)
@@ -3372,7 +3408,18 @@ def graph_phase(main_state) -> tuple:
     batch = make_batch_state(p10, list(GRAPH_SEEDS), "cuda")
     text, _ = graph_vs_eager(f"{len(GRAPH_SEEDS)} seeds x 10k batched",
                              lambda: make_run_chunk_batched(p10, "cuda"), batch,
-                             [GRAPH_CHUNK_BATCH] * GRAPH_CHUNKS_BATCH, True, total, p=p10)
+                             [GRAPH_CHUNK_BATCH] * GRAPH_CHUNKS_BATCH, True, total)
+    print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    pd = p10.replace(slot_rebuild_steps=4, n_dead=GRAPH_DEAD_10K,
+                     time_to_dead=GRAPH_DEAD_STEP_10K * p10.timestep).validate()
+    if pd.dead_step != GRAPH_DEAD_STEP_10K or pd.dead_step % 4 == 0:
+        fail(f"10k dead scene: dead step {pd.dead_step}")
+    sd = pt.Simulation(pd, device="cuda").state
+    text, _ = graph_vs_eager(
+        f"10k K=4, {pd.n_dead} killed at step {pd.dead_step} (mid-block), ragged tail",
+        lambda: make_run_chunk_table(pd), sd, list(GRAPH_DEAD_CHUNKS_10K), False, total)
     print(f"phase 16 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -3387,8 +3434,14 @@ def graph_phase(main_state) -> tuple:
 # one scene in seg-aligned chunks and the eight-seed batch under phase
 # noise (it redoes segments); e: the profiled turns
 SMALL_CFGS, SMALL_CHUNKS = ("example.cfg", "example_obstacle.cfg"), (1000, 1000)
+# example_dead_cells.cfg (100 bots, 20 dead) with its bots killed at step
+# 1,203, off every gate, in a second chunk that ends in a short block
+SMALL_DEAD_CFG, SMALL_DEAD_STEP, SMALL_DEAD_CHUNKS = "example_dead_cells.cfg", 1203, (1000, 997)
 SMALL_SEEDS, SMALL_BATCH_CHUNKS = tuple(range(8)), (200, 200)
 BAND_CHUNKS, BAND_BATCH_CHUNKS = (1000, 1000), (400, 400)
+# the band with 100 bots killed on the segment boundary at step 600, in
+# its second chunk
+BAND_DEAD, BAND_DEAD_STEP, BAND_DEAD_CHUNKS = 100, 600, (400, 400)
 # the forced failure: one segment per chunk, the spans' rebuilds failed
 # where False (the device flag of forced_glue)
 BAND_FORCED = (True, False) * 4
@@ -3513,8 +3566,9 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
     that decides its adopt-or-redo with a conditional node) against
     :func:`reference_span_chunk` from one state: bit for bit, generators
     included, with equal launches (apart from ``cond_set``), rebuilds and
-    redos, and each chunk's eager steps those of :func:`expected_eager`;
-    then one sync-free chunk of the runner.  With ``flags`` (one bool per
+    redos, and no eager step in any chunk; then the last chunk again on
+    the warm runner, sync-free (a segment holding the dead step included,
+    where the last chunk holds it).  With ``flags`` (one bool per
     one-segment chunk) both runs AND the span rebuilds' ``ok`` with a
     device flag set to the chunk's before it (:func:`forced_glue`).
     Prints the segment graphs' nodes (top level, and in their bodies,
@@ -3529,6 +3583,9 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
         chunks = [gate_seg(p)] * len(flags)
     real = engine_table._make_mega_glue
     with eager_blocks(False, True) as blocks:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
         engine_table._make_mega_glue = glue or real
         try:
             run = (make_run_chunk_table_batched if batched else make_run_chunk_table)(p)
@@ -3543,9 +3600,11 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
             if flags is not None:
                 flag.fill_(flags[i])
             start = got.step
+            last_start = clone_state(got)
             got = run(got, n, True)
             eager_steps.append((start, n, run.eager_steps))
         torch.cuda.synchronize()
+        held = torch.cuda.memory_reserved() - reserved
     g_wall, g_launch, g_reb = time.perf_counter() - t0, dict(kernels.LAUNCHES), dict(REBUILDS)
     g_redos = run.redos
     reset_counts()
@@ -3569,7 +3628,7 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
              f"reference {r_launch} {r_reb} {redos}")
     if flags is not None and redos != flags.count(False):
         fail(f"{name}: {redos} redos under {flags.count(False)} forced failures")
-    eager_text = check_eager(name, "span", p, eager_steps, aligned=True)
+    eager_text = check_eager(name, eager_steps)
     node_record(name, blocks, g_launch)
     segs = [b for b in blocks if b.counted]
     if not segs:
@@ -3581,11 +3640,13 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
     for k, v in g_launch.items():
         total[k] = total.get(k, 0) + v
     if flags is None:
-        sync_free_chunk(name, run, got, chunks[-1], True)
+        sync_free_chunk(name, run, last_start, chunks[-1], True)
     steps = sum(chunks)
-    return (f"{name}: {steps} seg-aligned steps, the in-graph decision == reference bit for "
-            f"bit, launches {({k: v for k, v in g_launch.items() if v})}, rebuilds {g_reb}, "
-            f"redos {redos}, {eager_text}; segment graphs: {seg_text}; wall "
+    return (f"{name}: {steps} seg-aligned steps in chunks {list(chunks)}, the in-graph "
+            f"decision == reference bit for bit, launches "
+            f"{({k: v for k, v in g_launch.items() if v})}, rebuilds {g_reb}, redos {redos}, "
+            f"{eager_text}; {capture_text(blocks)}, memory reserved after the run "
+            f"+{held / 2**20:.1f} MiB; segment graphs: {seg_text}; wall "
             f"{r_wall * 1e6 / steps:.1f} us/step reference, {g_wall * 1e6 / steps:.1f} graph "
             f"(first chunk captures)" + ("; sync-free chunk ok" if flags is None else ""))
 
@@ -3662,24 +3723,33 @@ def small_scene_phase(smi) -> dict:
     chunks of each runner; eager against graph in turns under the
     profiler; the block length's choice.  Returns the launches of the
     graph runs."""
+    from particlerobotsimulations_torch import engine
     from particlerobotsimulations_torch.engine import make_run_chunk, make_run_chunk_batched
     from particlerobotsimulations_torch.parallel.sweep import make_batch_state
 
     total: dict = {}
     states = {}
-    for name in SMALL_CFGS:
+    for name, dead, chunks in [(c, False, SMALL_CHUNKS) for c in SMALL_CFGS] + [
+            (SMALL_DEAD_CFG, True, SMALL_DEAD_CHUNKS)]:
         t0 = time.perf_counter()
-        p = resolve_params(pt.load_cfg(os.path.join(ROOT, "examples", name)).validate())
+        q = pt.load_cfg(os.path.join(ROOT, "examples", name))
+        if dead:
+            q = q.replace(time_to_dead=SMALL_DEAD_STEP * q.timestep)
+        p = resolve_params(q.validate())
         if p.resolved_backend("cuda") != pt.ForceBackend.DENSE:
             fail(f"{name}: AUTO did not choose DENSE on the card")
         state = pt.Simulation(p, device="cuda").state
         states[name] = (p, state)
-        gates = gate_counts(p, 0, sum(SMALL_CHUNKS))
+        gates = gate_counts(p, 0, sum(chunks))
         if not gates["phase"] or (p.n_dead > 0 and not gates["dead"]):
             fail(f"{name}: the run passes no phase gate ({gates})")
-        text, _ = graph_vs_eager(f"{name} {p.n_cells} bots DENSE",
+        if dead and (p.dead_step != SMALL_DEAD_STEP or any(_gates(p, p.dead_step)[1:])
+                     or chunks[-1] % engine.BLOCK_STEPS == 0):
+            fail(f"{name}: dead step {p.dead_step} on a gate, or no short last block")
+        label = f" killed at step {p.dead_step}, short last block" if dead else ""
+        text, _ = graph_vs_eager(f"{name} {p.n_cells} bots DENSE{label}",
                                  lambda p=p: make_run_chunk(p, "cuda"), state,
-                                 list(SMALL_CHUNKS), False, total, kind="bot", p=p)
+                                 list(chunks), False, total)
         print(f"phase 17a {text}; gates {gates} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -3687,7 +3757,7 @@ def small_scene_phase(smi) -> dict:
     batch = make_batch_state(pe, list(SMALL_SEEDS), "cuda")
     text, _ = graph_vs_eager(f"{len(SMALL_SEEDS)} seeds of example.cfg batched DENSE",
                              lambda: make_run_chunk_batched(pe, "cuda"), batch,
-                             list(SMALL_BATCH_CHUNKS), False, total, kind="bot", p=pe)
+                             list(SMALL_BATCH_CHUNKS), False, total)
     print(f"phase 17b {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -3702,6 +3772,15 @@ def small_scene_phase(smi) -> dict:
     t0 = time.perf_counter()
     text = span_vs_reference("band 1000 HEX, span rebuilds failed on the card in alternate "
                              "segments", pb, sb, None, total, flags=list(BAND_FORCED))
+    print(f"phase 17c {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    pbd = pb.replace(n_dead=BAND_DEAD, time_to_dead=BAND_DEAD_STEP * pb.timestep).validate()
+    if pbd.dead_step != BAND_DEAD_STEP or gate_seg(pbd) != gate_seg(pb) or \
+            not BAND_DEAD_CHUNKS[0] < pbd.dead_step < sum(BAND_DEAD_CHUNKS):
+        fail(f"band dead scene: dead step {pbd.dead_step}, gate segment {gate_seg(pbd)}")
+    text = span_vs_reference(
+        f"band 1000 HEX, {pbd.n_dead} killed at step {pbd.dead_step} (a segment boundary)",
+        pbd, pt.Simulation(pbd, device="cuda").state, BAND_DEAD_CHUNKS, total)
     print(f"phase 17c {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -3736,6 +3815,9 @@ def small_scene_phase(smi) -> dict:
 SHARD_CHUNKS_10K = (600, 600)
 SHARD_CHUNKS_100K = (100, 100)
 SHARD_CHUNKS_FALLBACK = (16, 16)
+# the forced-fallback scene with 5 bots killed at step 21 (mid-block), in a
+# second chunk that ends in a ragged tail
+SHARD_DEAD, SHARD_DEAD_STEP, SHARD_DEAD_CHUNKS = 5, 21, (16, 15)
 SHARD_CHUNKS_DPTP = (200, 200)
 # (timed, traced) steps of each eager / graph turn: 10k, dp x tp
 SHARD_PROFILE_STEPS, DPTP_PROFILE_STEPS = (600, 200), (400, 100)
@@ -3744,66 +3826,74 @@ SHARD_PROFILE_STEPS, DPTP_PROFILE_STEPS = (600, 200), (400, 100)
 def sharded_chunks(make_runner, state, chunks, eager):
     """A fresh sharded runner (``with_stats``) over ``chunks`` from a copy of
     ``state``, its blocks eager or replayed from graphs (counted), the
-    counters reset just before: (runner, state, launches, each chunk's
-    stats, wall s, the counted blocks, (start step, steps, eager steps) of
-    each chunk)."""
+    counters reset just before: a record as :func:`chunks_run` gives it,
+    with each chunk's stats."""
+    from types import SimpleNamespace
+
     with eager_blocks(eager, True) as blocks:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
         run = make_runner()
         state = clone_state(state)
         reset_counts()
-        stats, eager_steps = [], []
+        stats, eager_steps, last_start = [], [], None
         t0 = time.perf_counter()
         for n in chunks:
             start = state.step
+            last_start = clone_state(state)
             state, st = run(state, n)
             stats.append(st)
             eager_steps.append((start, n, run.eager_steps))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return run, state, dict(kernels.LAUNCHES), stats, wall, blocks, eager_steps
+        held = torch.cuda.memory_reserved() - reserved
+    return SimpleNamespace(run=run, state=state, launches=dict(kernels.LAUNCHES), stats=stats,
+                           wall=wall, blocks=blocks, eager_steps=eager_steps,
+                           last_start=last_start, held=held)
 
 
-def sharded_graph_vs_eager(name, make_runner, state, chunks, total, p):
+def sharded_graph_vs_eager(name, make_runner, state, chunks, total):
     """``chunks`` through an eager and a graph run of one sharded runner
     kind from one state: bit for bit, with equal launches and equal
-    ``fallbacks`` and ``spill_rows_max`` per chunk, each chunk's eager
-    steps those of :func:`expected_eager` (params ``p``); then one chunk of the
-    warm graph runner under ``set_sync_debug_mode("error")``, its blocks
-    drained there and its stats read after.  Adds the graph run's launches
-    to ``total``; returns (text, the graph run's end state, its stats per
-    chunk)."""
-    _, e_state, e_launch, e_stats, e_wall, _, _ = sharded_chunks(make_runner, state, chunks,
-                                                                 True)
-    run, g_state, g_launch, g_stats, g_wall, blocks, g_eager = sharded_chunks(
-        make_runner, state, chunks, False)
-    if not states_equal(e_state, g_state):
-        bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e_state, k), getattr(g_state, k))]
+    ``fallbacks`` and ``spill_rows_max`` per chunk, no eager step in any
+    chunk; then the last chunk again on the warm graph runner under
+    ``set_sync_debug_mode("error")``, its blocks drained there and its
+    stats read after.  Adds the graph run's launches to ``total``; returns
+    (text, the graph run's end state, its stats per chunk)."""
+    e = sharded_chunks(make_runner, state, chunks, True)
+    g = sharded_chunks(make_runner, state, chunks, False)
+    if not states_equal(e.state, g.state):
+        bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(e.state, k),
+                                                          getattr(g.state, k))]
         fail(f"{name}: graph run differs from the eager run in {bad}")
-    if (without_cond_set(e_launch), e_stats) != (without_cond_set(g_launch), g_stats) \
-            or e_launch["cond_set"]:
-        fail(f"{name}: eager launches {e_launch} stats {e_stats}, graph {g_launch} {g_stats}")
-    eager_text = check_eager(name, "table", p, g_eager)
-    rec = node_record(name, blocks, g_launch)
-    for k, v in g_launch.items():
+    if (without_cond_set(e.launches), e.stats) != (without_cond_set(g.launches), g.stats) \
+            or e.launches["cond_set"]:
+        fail(f"{name}: eager launches {e.launches} stats {e.stats}, graph {g.launches} "
+             f"{g.stats}")
+    eager_text = check_eager(name, g.eager_steps)
+    rec = node_record(name, g.blocks, g.launches)
+    for k, v in g.launches.items():
         total[k] = total.get(k, 0) + v
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        result = engine_table.drain(run.blocks(g_state, chunks[-1]))
+        result = engine_table.drain(g.run.blocks(g.last_start, chunks[-1]))
     except RuntimeError as err:
         fail(f"{name}: a chunk waited for the card: {err}")
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    out, free_stats = run.read_stats(result)
+    out, free_stats = g.run.read_stats(result)
     if not bool(torch.isfinite(out.pos).all()):
         fail(f"{name}: non-finite state after the sync-free chunk")
     steps = sum(chunks)
-    used = {k: v for k, v in g_launch.items() if v}
+    used = {k: v for k, v in g.launches.items() if v}
     return (f"{name}: {steps} steps in chunks {list(chunks)}, graph (node) == eager (select) "
-            f"bit for bit, launches {used}, stats per chunk {g_stats}; {len(blocks)} graphs, "
-            f"{eager_text}; {node_text(rec)}; wall "
-            f"{e_wall * 1e6 / steps:.1f} us/step eager, {g_wall * 1e6 / steps:.1f} graph (first "
-            f"chunk captures); sync-free chunk ok ({free_stats})"), g_state, g_stats
+            f"bit for bit, launches {used}, stats per chunk {g.stats}; {len(g.blocks)} graphs, "
+            f"{capture_text(g.blocks)}, {memory_text(g.held, e.held)}; {eager_text}; "
+            f"{node_text(rec)}; wall {e.wall * 1e6 / steps:.1f} us/step eager, "
+            f"{g.wall * 1e6 / steps:.1f} graph (first chunk captures); sync-free chunk ok "
+            f"({free_stats})"), g.state, g.stats
 
 
 def sharded_rebuild_cost(p, state) -> str:
@@ -3862,7 +3952,7 @@ def sharded_compiled_phase(smi) -> dict:
     text, _, _ = sharded_graph_vs_eager(
         f"10k HEX LocalRing({N_SHARDS}) G={p10.resolved_grid_dim()} K={k}, gates {gates}",
         lambda: make_sharded_table_run(p10, ring, with_stats=True)[0], s10,
-        SHARD_CHUNKS_10K, total, p10)
+        SHARD_CHUNKS_10K, total)
     print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -3873,7 +3963,7 @@ def sharded_compiled_phase(smi) -> dict:
     text, end100, _ = sharded_graph_vs_eager(
         f"100k HEX with 8 spill rows (G={p100.resolved_grid_dim()}, Cs={p100.storage_capacity()})",
         lambda: make_sharded_table_run(p100, ring, with_stats=True)[0], s100,
-        SHARD_CHUNKS_100K, total, p100)
+        SHARD_CHUNKS_100K, total)
     if cell_overflow(p100, end100, cap=p100.storage_capacity()):
         fail("phase 18 100k: bots parked beyond the spill rows")
     print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -3883,9 +3973,22 @@ def sharded_compiled_phase(smi) -> dict:
     text, _, fb_stats = sharded_graph_vs_eager(
         "forced fallback 64 bots 50 u/s",
         lambda: make_sharded_table_run(pf, ring, with_stats=True)[0], sf,
-        SHARD_CHUNKS_FALLBACK, total, pf)
+        SHARD_CHUNKS_FALLBACK, total)
     if not all(st["fallbacks"] for st in fb_stats):
         fail(f"phase 18 forced fallback: a chunk took no fallback: {fb_stats}")
+    print(f"phase 18 {text}", flush=True)
+    pfd = pf.replace(n_dead=SHARD_DEAD, time_to_dead=SHARD_DEAD_STEP * pf.timestep).validate()
+    kf = max(1, pfd.resolved_slot_rebuild_steps())
+    if pfd.dead_step != SHARD_DEAD_STEP or (pfd.dead_step - SHARD_DEAD_CHUNKS[0]) % kf == 0 \
+            or SHARD_DEAD_CHUNKS[-1] % kf == 0:
+        fail(f"phase 18 dead scene: dead step {pfd.dead_step} at K={kf}")
+    sfd = state_from_arrays(pfd, jittered_arrays(pfd, (50.0, 0.0)), "cuda")
+    text, end_fd, _ = sharded_graph_vs_eager(
+        f"{pfd.n_dead} of 64 bots at 50 u/s killed at step {pfd.dead_step} (mid-block), "
+        f"ragged tail", lambda: make_sharded_table_run(pfd, ring, with_stats=True)[0], sfd,
+        SHARD_DEAD_CHUNKS, total)
+    if int(end_fd.dead[: pfd.n_cells].sum()) != pfd.n_dead:
+        fail(f"phase 18 dead scene: {int(end_fd.dead[: pfd.n_cells].sum())} dead")
     print(f"phase 18 {text}", flush=True)
 
     seeds = list(DPTP_SEEDS)
@@ -3894,7 +3997,7 @@ def sharded_compiled_phase(smi) -> dict:
     text, _, _ = sharded_graph_vs_eager(
         f"dp x tp {len(seeds)} seeds x {N_SHARDS} shards",
         lambda: make_sharded_table_run_batched(p10, ring, with_stats=True)[0], batch,
-        SHARD_CHUNKS_DPTP, total, p10)
+        SHARD_CHUNKS_DPTP, total)
     print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
     mesh = Mesh(np.array(["cuda"] * (2 * N_SHARDS), dtype=object).reshape(2, N_SHARDS),
                 ("data", "bots"))
@@ -3902,7 +4005,7 @@ def sharded_compiled_phase(smi) -> dict:
     text, _, _ = sharded_graph_vs_eager(
         f"dp x tp {len(seeds)} seeds on Mesh(['cuda'] * 2) x {N_SHARDS} shards (interleaved)",
         lambda: make_sharded_table_run_batched(p10, mesh=mesh, with_stats=True)[0], batch,
-        SHARD_CHUNKS_DPTP, total, p10)
+        SHARD_CHUNKS_DPTP, total)
     print(f"phase 18 {text} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     print(f"phase 18 rebuild cost {sharded_rebuild_cost(p10, s10)}", flush=True)
@@ -4289,7 +4392,7 @@ def main() -> int:
     # 14. the multi-device layer: the dry run, the dp x tp table loop (the
     #     counters reset just before), the mesh sweep
     t14 = time.perf_counter()
-    launches14, kc14 = multi_device_phase()
+    launches14, kc14 = multi_device_phase(smi)
     print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
 
     # 15. the measurement and parity layer: the profiling helpers, the

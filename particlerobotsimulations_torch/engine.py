@@ -258,24 +258,20 @@ def make_run_chunk(params: SimParams, device="cuda"):
 
 def bot_pieces(params: SimParams, start: int, n: int, block_steps: int) -> list:
     """The per-bot runner's schedule of ``n`` steps from step ``start``:
-    ``[(gates, length, eager)]``.  A piece starts at each gated step
-    (``gates`` are its first step's; the others fire none) and runs to the
-    next gated step, at most ``block_steps`` steps: a stretch of L steps
-    between gates is ``L // block_steps`` whole blocks and one short block.
-    The dead-injection step is a piece of its own; it and the ragged tail
-    (a last piece shorter than ``block_steps``) are the pieces to run
-    eagerly."""
+    ``[(gates, length)]``, each a block that a CUDA graph replays on the
+    card.  A block starts at each gated step, the dead injection's
+    included (``gates`` are its first step's; the others fire none), and
+    runs to the next gated step or the chunk's end, at most
+    ``block_steps`` steps: a stretch of L steps between gates is ``L //
+    block_steps`` whole blocks and one short block."""
     pieces, j = [], 0
     while j < n:
         s = start + j
-        gates = _step_gates(params, s)
         length = 1
-        if not gates[0]:
-            while (length < block_steps and j + length < n
-                   and not any(_step_gates(params, s + length))):
-                length += 1
-        eager = gates[0] or (j + length == n and length < block_steps)
-        pieces.append((gates, length, eager))
+        while (length < block_steps and j + length < n
+               and not any(_step_gates(params, s + length))):
+            length += 1
+        pieces.append((_step_gates(params, s), length))
         j += length
     return pieces
 
@@ -286,20 +282,21 @@ def _step_runner(params: SimParams, device, batched: bool):
 
     Like the JAX package's scanned chunk it reads nothing from the device.
     The chunk runs as :func:`bot_pieces`: a block starts at each gated
-    step (dead injection aside), its first step fires the gates with the
-    draws taken just before the block (``_draws``, fed in with the carry)
-    and its other steps fire none, its sim times and centroid row come
-    from a device step tensor.  On the card each block replays a CUDA
-    graph (``engine_table._CapturedBlock``, through ``_graphed``) captured
-    once per runner, carry layout, first-step gates and length; a failed
-    capture raises.  The dead-injection step and the
-    ragged tail run eagerly, and on the CPU every block does, through the
-    same code.  ``run_chunk.blocks(state, n_steps, seg_aligned=False)``
-    yields after each piece (``seg_aligned`` is taken for the table
-    runners' signature, and changes nothing here);
-    ``run_chunk.eager_steps`` counts the last chunk's eager steps.  A
-    runner advances one chunk at a time (its graphs hold that chunk's
-    carry)."""
+    step (the dead injection's too), its first step fires the gates with
+    the draws taken just before the block (``_draws``, fed in with the
+    carry: the dead step's scores, the phase noise) and its other steps
+    fire none, its sim times and centroid row come from a device step
+    tensor.  On the card each block, the chunk's last short one included,
+    replays a CUDA graph (``engine_table._CapturedBlock``, through
+    ``_graphed``) captured once per runner, carry layout, first-step gates
+    and length; a failed capture raises.  The runner's first block of a
+    layout runs eagerly before its capture, and on the CPU every block
+    does, through the same code.  ``run_chunk.blocks(state, n_steps,
+    seg_aligned=False)`` yields after each piece (``seg_aligned`` is taken
+    for the table runners' signature, and changes nothing here);
+    ``run_chunk.eager_steps`` is 0 (no step of a chunk runs eagerly by
+    design).  A runner advances one chunk at a time (its graphs hold that
+    chunk's carry)."""
     body = _make_body(params, params.resolved_backend(device))
     graphs: dict = {}
     fns: dict = {}
@@ -325,24 +322,17 @@ def _step_runner(params: SimParams, device, batched: bool):
 
     @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
-        dev, graphed, eager_steps = state.device, False, 0
+        dev = state.device
         shape = (state.pos.shape[0], state.n_pad) if batched else (state.n_pad,)
-        for gates, length, eager in bot_pieces(params, state.step, n_steps, BLOCK_STEPS):
+        for gates, length in bot_pieces(params, state.step, n_steps, BLOCK_STEPS):
             s = state.step
             carry = {k: getattr(state, k) for k in ARRAY_FIELDS}
             carry.update(_draws(params, state.generator, s, gates, shape, dev))
-            block = piece(gates, length)
-            if eager:
-                out = block(carry, step_tensor(s, dev))
-                eager_steps += length
-            else:
-                out = _graphed(graphs, ("bot", dev, tuple(state.pos.shape), gates, length),
-                               block, carry, s)
-                graphed = graphed or dev.type == "cuda"
+            out = _graphed(graphs, ("bot", dev, tuple(state.pos.shape), gates, length),
+                           piece(gates, length), carry, s)
             state = state.replace(step=s + length, **{k: out[k] for k in ARRAY_FIELDS})
             yield
-        run_chunk.eager_steps = eager_steps
-        if graphed:
+        if dev.type == "cuda":
             # arrays may sit in a graph's buffers, which the runner's next
             # chunk overwrites
             state = state.replace(**{k: getattr(state, k).clone() for k in ARRAY_FIELDS})

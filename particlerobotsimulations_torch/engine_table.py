@@ -28,14 +28,15 @@ for nothing it has just enqueued: the rebuild's incremental-or-exact
 choice is made on the device (``ops/cond.cond``, the JAX package's
 ``lax.cond``), the rebuild counts (:data:`REBUILDS`) are device counters,
 and the sim time and the centroid ring's row come from a device step.  On
-the card every K-step block (the JAX loop's gated first block and
-``plain_u`` scans) replays from a CUDA graph captured once per runner,
-carry layout and gate pattern, the gated steps' draws taken beforehand
-and fed in with the carry; a conditional node runs the exact rebuild only
-when the incremental one's preconditions failed.  Only the
-dead-injection step and a chunk's ragged tail run eagerly (as every step
-does on the CPU), where a rebuild runs both branches and a select keeps
-one.  Small tables
+the card every block (the JAX loop's gated first block, ``plain_u`` scans
+and remainder scan: K-step blocks, the dead-injection step's ``lax.cond``
+among their gates, and a chunk's ragged tail) replays from a CUDA graph
+captured once per runner, carry layout and gate pattern, the gated steps'
+draws taken beforehand and fed in with the carry; a conditional node runs the
+exact rebuild only when the incremental one's preconditions failed.  A
+runner's first block of a layout runs eagerly before its capture (as
+every step does on the CPU), where a rebuild runs both branches and a
+select keeps one.  Small tables
 (``ops/megakernel.mega_eligible``) run each gate segment through the
 megakernel span path: one launch of kernel 3 per rebuild block, with the
 slot rebuild between spans, the whole segment one CUDA graph, and the
@@ -124,10 +125,10 @@ class RebuildCounts(MutableMapping):
             self._counters[device] = torch.zeros(2, dtype=torch.int64, device=device)
         return self._counters[device]
 
-    def add(self, ok: torch.Tensor, sign: int = 1) -> None:
+    def add(self, ok: torch.Tensor) -> None:
         """Count one rebuild: incremental where the 0-dim bool ``ok``
-        holds, exact where it does not (``sign=-1`` takes one back)."""
-        self.counter(ok.device).add_(torch.stack([ok, ~ok]).to(torch.int64), alpha=sign)
+        holds, exact where it does not."""
+        self.counter(ok.device).add_(torch.stack([ok, ~ok]).to(torch.int64))
 
     def _index(self, key) -> int:
         if key not in self.KEYS:
@@ -900,32 +901,24 @@ def _one_chunk_at_a_time(blocks):
 
 def table_pieces(params: SimParams, k: int, start: int, n: int) -> list:
     """The regular schedule of ``n`` steps from step ``start`` cut into
-    pieces: ``[(pattern, eager)]``, each pattern a tuple of ``(gates,
-    rebuild)`` per step (``gates`` as :func:`_step_gates` gives them).  A
-    piece ends with each rebuild step (chunk-relative ``j % k == k - 1``
-    for ``k <= 8``, else ``step % k == k - 1``); the dead-injection step
-    is a piece of its own, and it and the ragged tail (the steps after the
-    last rebuild, fewer than ``k``) are the pieces to run eagerly.  Every
-    other piece is a block that a CUDA graph replays on the card, captured
-    once per pattern (the JAX loop's gated first block and ``plain_u``
-    blocks)."""
+    blocks: ``[pattern]``, each pattern a tuple of ``(gates, rebuild)`` per
+    step (``gates`` as :func:`_step_gates` gives them, the dead injection
+    among them).  A block ends with each rebuild step (chunk-relative ``j
+    % k == k - 1`` for ``k <= 8``, else ``step % k == k - 1``), and the
+    ragged tail (the steps after the last rebuild, fewer than ``k``) is a
+    block of its own length.  Every block is one that a CUDA graph replays
+    on the card, captured once per pattern (the JAX loop's gated first
+    block, ``plain_u`` blocks and remainder scan)."""
     pieces, cur = [], []
     for j in range(n):
         s = start + j
-        gates = _step_gates(params, s)
         rebuild = s % k == k - 1 if k > 8 else j % k == k - 1
-        if gates[0]:
-            if cur:
-                pieces.append((tuple(cur), False))
-                cur = []
-            pieces.append((((gates, rebuild),), True))
-            continue
-        cur.append((gates, rebuild))
+        cur.append((_step_gates(params, s), rebuild))
         if rebuild:
-            pieces.append((tuple(cur), False))
+            pieces.append(tuple(cur))
             cur = []
     if cur:
-        pieces.append((tuple(cur), True))
+        pieces.append(tuple(cur))
     return pieces
 
 
@@ -953,13 +946,14 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
     (``scores{j}``, ``noise{j}``); with ``probe``, the carry's running
     maximum ``pm`` takes :func:`neighbor_rel_speed_bound` after each
     rebuild.  ``piece.host["step"]`` is the host step the next block
-    starts at, for the carry's bookkeeping (the device step decides).  ``advance(ts, n, pm=None)`` enqueues ``n`` steps piece by
-    piece, yielding after each, and returns ``(ts, pm, eager steps)``: it
-    takes each piece's draws from the carry's source just before the
-    piece, in step order (the draw source's call order stays the eager
-    one), then replays the piece's graph on the card (``_graphed``, keyed
-    by device, layout and pattern) or runs it eagerly (the eager pieces,
-    and everything off the card)."""
+    starts at, for the carry's bookkeeping (the device step decides).
+    ``advance(ts, n, pm=None)`` enqueues ``n`` steps piece by piece,
+    yielding after each, and returns ``(ts, pm)``: it takes each piece's
+    draws from the carry's source just before the piece, in step order
+    (the draw source's call order stays the eager one), then replays the
+    piece's graph on the card (``_graphed``, keyed by device, layout and
+    pattern; the first piece of a layout runs eagerly before its capture)
+    or runs it eagerly off the card."""
     step = make_table_step(params, phase_fn)
     k = max(1, params.resolved_slot_rebuild_steps())
     graphs: dict = {}
@@ -989,9 +983,8 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
         return block
 
     def advance(ts: TableState, n: int, pm=None):
-        eager_steps = 0
         dev = ts.origin.device
-        for pattern, eager in table_pieces(params, k, ts.step, n):
+        for pattern in table_pieces(params, k, ts.step, n):
             carry = _carry_of(ts)
             if pm is not None:
                 carry["pm"] = pm
@@ -1001,15 +994,11 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
                     carry[f"{name}{j}"] = v
             block = piece(pattern, pm is not None)
             host["step"] = ts.step
-            if eager:
-                out = block(carry, step_tensor(ts.step, dev))
-                eager_steps += len(pattern)
-            else:
-                key = ("piece", dev, tuple(ts.origin.shape), pattern, pm is not None)
-                out = _graphed(graphs, key, block, carry, ts.step)
+            key = ("piece", dev, tuple(ts.origin.shape), pattern, pm is not None)
+            out = _graphed(graphs, key, block, carry, ts.step)
             ts, pm = _with_carry(ts, out, len(pattern)), out.get("pm")
             yield
-        return ts, pm, eager_steps
+        return ts, pm
 
     piece.host = host
     return piece, advance
@@ -1019,10 +1008,9 @@ class _TableRunner:
     """A table-loop chunk runner: ``runner(state, n_steps, seg_aligned=
     False) -> state``; ``runner.blocks`` is the chunk as a block iterator,
     ``runner.path_info`` its schedule, ``runner.eager_steps`` how many
-    steps of the last chunk ran eagerly by design (the dead-injection
-    step, the ragged tail, a span segment holding the dead step), and
-    ``runner.redos`` how many span segments it redid (a device count,
-    read when asked)."""
+    steps of a chunk run eagerly by design (0: every piece is a block a
+    graph replays on the card), and ``runner.redos`` how many span
+    segments it redid (a device count, read when asked)."""
 
     def __init__(self, path_info: dict):
         self.path_info = path_info
@@ -1050,19 +1038,22 @@ def _make_table_runner(params: SimParams, phase_fn):
 
     ``run_chunk.blocks(state, n_steps, seg_aligned=False)`` is the chunk
     as a block iterator: it enqueues the chunk a piece at a time (a K-step
-    block, gated or not, a dead-injection step, the ragged tail, a span
-    segment), yields after each, and returns the final state;
-    ``run_chunk`` drains it and the multi-place loops :func:`interleave`
-    several.  Each block (:func:`table_pieces`: the JAX package's gated
-    first block and ``plain_u`` scans) on a CUDA carry runs from a CUDA
-    graph (:class:`_CapturedBlock`, through :func:`_graphed`), captured
-    once per carry layout and gate pattern and replayed after that, with
-    the gated steps' draws taken just before and copied into the carry;
-    so does each span segment, once per layout and first-step gates.  A
-    failed capture raises.  On the CPU every piece runs eagerly, through
-    the same code.  The dead-injection step (or the span segment holding
-    it), the ragged tail, and chunk entry and exit run eagerly.  A runner
-    advances one chunk at a time (its graphs hold that chunk's carry).
+    block, gated or not, the dead-injection step among its gates, the
+    ragged tail, a span segment), yields after each, and returns the final
+    state; ``run_chunk`` drains it and the multi-place loops
+    :func:`interleave` several.  Each block (:func:`table_pieces`: the JAX
+    package's gated first block, ``plain_u`` scans and remainder scan) on
+    a CUDA carry runs from a CUDA graph (:class:`_CapturedBlock`, through
+    :func:`_graphed`), captured once per carry layout and gate pattern and
+    replayed after that, with the gated steps' draws (the dead step's
+    scores too) taken just before and copied into the carry; so does each
+    span segment, the one holding the dead step included, once per layout
+    and first-step gates.  A failed capture raises.  On the CPU every
+    piece runs eagerly, through the same code.  On the card what runs
+    eagerly is the chunk's entry and exit and a runner's first block (and
+    first span segment) of a layout, the warm-up before its capture.  A
+    runner advances one chunk at a time (its graphs hold that chunk's
+    carry).
 
     A span segment is one graph: the gated first block minus its last
     post, the spans with their rebuilds and the AND of their ``ok``, and
@@ -1072,10 +1063,11 @@ def _make_table_runner(params: SimParams, phase_fn):
     the ungated blocks under a WHILE node, ``ops/cond.repeat``, one block
     captured once; its rebuilds are nodes nested in the bodies), which
     also adds one to the runner's device redo counter.  So the card
-    decides, and the host reads nothing.  Eagerly (the CPU, a runner's
-    first segment on a layout, before its capture, and the segment
-    holding the dead step) the branch reads the flag and runs one body:
-    the one-read-per-segment path."""
+    decides, and the host reads nothing; a redo replays the gated first
+    block with the draws the segment was given, so it kills the same bots.
+    Eagerly (the CPU, a runner's first segment on a layout, before its
+    capture) the branch reads the flag and runs one body: the
+    one-read-per-segment path."""
     params = params.validate()
     step_pre, step_post = make_table_step_parts(params, phase_fn)
     k = max(1, params.resolved_slot_rebuild_steps())
@@ -1140,9 +1132,9 @@ def _make_table_runner(params: SimParams, phase_fn):
         return block
 
     def span_segments(ts: TableState, n_segs: int):
-        """``n_segs`` gate segments through the span path, one piece each;
-        yields after each, returns ``(ts, eager steps)``."""
-        eager_steps = 0
+        """``n_segs`` gate segments through the span path, one piece each
+        (keyed by its first step's gates); yields after each, returns
+        ``ts``."""
         dev = ts.origin.device
         for _ in range(n_segs):
             gates = _step_gates(params, ts.step)
@@ -1153,25 +1145,20 @@ def _make_table_runner(params: SimParams, phase_fn):
             runner.redo_counter(dev)
             block = span_segment(gates)
             piece.host["step"] = ts.step
-            if gates[0]:
-                out = block(carry, step_tensor(ts.step, dev))
-                eager_steps += seg
-            else:
-                key = ("segment", dev, tuple(ts.origin.shape), gates)
-                out = _graphed(graphs, key, block, carry, ts.step)
+            key = ("segment", dev, tuple(ts.origin.shape), gates)
+            out = _graphed(graphs, key, block, carry, ts.step)
             ts = _with_carry(ts, out, seg)
             yield
-        return ts, eager_steps
+        return ts
 
     @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         ts = enter_table(params, state)
-        n_segs, eager_steps = 0, 0
+        n_segs = 0
         if use_mega and seg_aligned and bps > 1:
             n_segs = n_steps // seg
-            ts, eager_steps = yield from span_segments(ts, n_segs)
-        ts, _, more = yield from advance(ts, n_steps - n_segs * seg)
-        runner.eager_steps = eager_steps + more
+            ts = yield from span_segments(ts, n_segs)
+        ts, _ = yield from advance(ts, n_steps - n_segs * seg)
         return _exit(params, ts)
 
     runner.blocks = blocks
@@ -1249,11 +1236,11 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
     while taking the max of :func:`neighbor_rel_speed_bound` at entry and
     right after every slot rebuild.  ``probe_max`` stays on the device.
     Callers enter on a segment boundary.  The segment runs as the table
-    loop's pieces (its gated first block, then ungated K-step blocks, each
-    from a CUDA graph on the card), the running maximum a carry entry
-    that each block updates after its rebuild; ``probe_chunk.eager_steps``
-    counts the steps of the last call that ran eagerly (a dead-injection
-    step)."""
+    loop's pieces (its gated first block, the dead step among its gates,
+    then ungated K-step blocks, each from a CUDA graph on the card), the
+    running maximum a carry entry that each block updates after its
+    rebuild; ``probe_chunk.eager_steps`` is 0 (no step of the segment runs
+    eagerly by design)."""
     params = params.validate()
     k = max(1, params.resolved_slot_rebuild_steps())
     seg = gate_seg(params)
@@ -1267,7 +1254,7 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
     def probe_chunk(state: SimState):
         ts = enter_table(params, state)
         pm = neighbor_rel_speed_bound(params, ts.fields)
-        ts, pm, probe_chunk.eager_steps = drain(advance(ts, seg, pm))
+        ts, pm = drain(advance(ts, seg, pm))
         return _exit(params, ts), pm
 
     probe_chunk.eager_steps = 0
@@ -1310,8 +1297,8 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     ragged chunks) run the base K=4 path.  ``runner.blocks`` is the chunk
     as a block iterator (the table runner's); ``runner.live["k"]`` /
     ``runner.last_probe`` expose the live cadence and the last bound
-    read, ``runner.eager_steps`` the steps of the last chunk that ran
-    eagerly by design (the probe's and the table runner's)."""
+    read, ``runner.eager_steps`` the steps of a chunk that run eagerly by
+    design (0, as in the probe and the table runners)."""
     base = params.validate()
     p4 = base.replace(slot_rebuild_steps=4)
     p8 = base.replace(slot_rebuild_steps=8)
@@ -1336,9 +1323,7 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
 
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         if not seg_ok or not seg_aligned or n_steps < seg or n_steps % seg:
-            state = yield from get_runner(4).blocks(state, n_steps, seg_aligned)
-            runner.eager_steps = get_runner(4).eager_steps
-            return state
+            return (yield from get_runner(4).blocks(state, n_steps, seg_aligned))
         if runner._pending is not None:
             # the previous chunk's probe, computed long ago on the device
             pm = runner._pending.read()
@@ -1347,13 +1332,10 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
         probe = get_probe(live["k"])
         state, pm = probe(state)
         runner._pending = _HostValue(pm)
-        runner.eager_steps = probe.eager_steps
         yield
         rest = n_steps - seg
         if rest:
-            inner = get_runner(live["k"])
-            state = yield from inner.blocks(state, rest, True)
-            runner.eager_steps += inner.eager_steps
+            state = yield from get_runner(live["k"]).blocks(state, rest, True)
         return state
 
     def runner(state: SimState, n_steps: int, seg_aligned: bool = False):

@@ -133,11 +133,13 @@ def _wrap_center(d: torch.Tensor, g: int) -> torch.Tensor:
 def rebuild_move_planes(params: SimParams, planes, field_names: tuple, origin,
                         lane_offset=0):
     """(dxf, dyf, moved_far, edge): per-row wrapped cell displacements
-    (``_FAR`` on empty rows) and the incremental-compaction preconditions
-    (as 0-dim bool tensors, over every row given).  ``planes`` is (nf, ...,
-    L); ``lane_offset`` is the global lane of the planes' first lane — an
-    int, or a tensor that broadcasts against ``planes.shape[1:]`` (one
-    offset per shard of the sharded loop's shard stack)."""
+    (``_FAR`` on empty rows) and the incremental-compaction preconditions,
+    bool tensors over the last two axes, the slots and lanes of a table:
+    0-dim for one table's (nf, Cs, L) planes, one flag per block of a
+    stack (nf, ..., Cs, L), such as each shard and scene of the sharded
+    loop's.  ``lane_offset`` is the global lane of the planes' first lane
+    — an int, or a tensor that broadcasts against ``planes.shape[1:]``
+    (one offset per shard of the sharded loop's shard stack)."""
     g = params.resolved_grid_dim()
     h = f32(params.cutoff())
 
@@ -154,11 +156,14 @@ def rebuild_move_planes(params: SimParams, planes, field_names: tuple, origin,
     dx = _wrap_center(ixt - ixc, g)
     dy = _wrap_center(iyt - torch.div(lane, g, rounding_mode="floor"), g)
 
-    moved_far = torch.any(val & ((dx.abs() > 1) | (dy.abs() > 1)))
+    def any_(x):
+        return torch.any(x.flatten(-2), dim=-1)
+
+    moved_far = any_(val & ((dx.abs() > 1) | (dy.abs() > 1)))
     # x-edge guard: linear lane windows mis-wrap across rows, harmless only
     # while the wrapped edge columns (0 and G-1) neither hold nor receive
     # rows; margin 1 leaves a cell of drift before the exact fallback
-    edge = torch.any(
+    edge = any_(
         val & ((ixc == 0) | (ixc == g - 1) | (ixt == 0) | (ixt == g - 1))
     )
     far = torch.full_like(px, f32(_FAR))

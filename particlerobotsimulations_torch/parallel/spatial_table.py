@@ -13,14 +13,14 @@ per-step work is local except:
 * **slot rebuilds** — the incremental compaction (kernel 2's padded form,
   ``ops/table_rebuild.compact_padded``) sees the neighbour halos, so a row
   that drifts across a shard boundary is dropped by its owner and placed by
-  the neighbour in the same pass.  The preconditions are ANDed over the
-  ring (a ring-wide min that stays on the device) and any failure takes
-  the exact global rebuild (all-gather, argsort) on every shard — the
-  single-table loop's fallback contract.  The choice is made on the
-  device, as the JAX package's ``lax.cond`` makes it inside its compiled
-  chunk (``ops/cond.cond``): in a captured CUDA graph a conditional node
-  runs the all-gather, the exact rebuild and the split only on a
-  fallback; eagerly both rebuilds run and a select keeps one;
+  the neighbour in the same pass.  A scene's preconditions are ANDed over
+  the ring (a ring-wide min that stays on the device) and any failure takes
+  the exact global rebuild (all-gather, argsort) of that scene on every
+  shard — the single-table loop's fallback contract.  The choice is made
+  on the device, as the JAX package's ``lax.cond`` makes it inside its
+  compiled chunk (``ops/cond.cond``): in a captured CUDA graph a
+  conditional node runs the all-gather, the exact rebuild and the split
+  only on a fallback; eagerly both rebuilds run and a select keeps one;
 * **reductions** — a ring-wide min for the phase law's light distance, a
   ring-wide sum for the centroid, an all-gathered ``topk`` for dead-cell
   injection.
@@ -39,7 +39,9 @@ reach.  A batch of B scenes in lockstep (dp x tp,
 :func:`make_sharded_table_run_batched`) is laid out shard-major, ``(S, B,
 Cs*L0 + n_pad)``: the ring shifts and reduces on the leading axis as for
 one scene, kernels 4 and 2 take all S x B blocks in one launch each, and a
-rebuild takes one decision for every shard and scene (:func:`_all_ok`).
+rebuild decides each scene on its own (:func:`_all_ok`: one flag per scene,
+the JAX package's vmapped ``lax.cond``, a select per scene), so a scene's
+run does not depend on the batch it runs in.
 
 Like the JAX package's jitted chunk, a chunk reads nothing from the
 device between its entry and its exit: the rebuild decision stays on the
@@ -47,16 +49,17 @@ device, the sim time and the centroid ring's row come from a device step
 (``engine_table.sim_time``), and the ``with_stats`` counters are device
 counters read once, at the exit.  The gates stay host decisions on the
 host step.  The chunk is a block iterator (``run_chunk.blocks``, the
-table loop's shape, cut by ``engine_table.table_pieces``): each K-step
-block (its gated steps' draws taken just before it and fed in with the
-carry) on a :class:`~.ring.LocalRing` on the card replays from a CUDA
-graph, captured once per carry layout and gate pattern after an eager run
-(``engine_table._graphed``); the dead-injection step, the ragged tail and
-the chunk's entry and exit run eagerly, and so does every block on the
-CPU, through the same code.  A :class:`~.ring.DistRing` runs the same
-read-free blocks eagerly: NCCL enqueues its collectives on the stream, so
-nothing is read there either, but capturing them into a graph can only
-be tested with a card per rank.
+table loop's shape, cut by ``engine_table.table_pieces``): each block (K
+steps ending with their rebuild, or the ragged tail; its gated steps'
+draws, the dead step's scores included, taken just before it and fed in
+with the carry) on a :class:`~.ring.LocalRing` on the card replays from a
+CUDA graph, captured once per carry layout and gate pattern
+(``engine_table._graphed``: the runner's first block of a layout runs
+eagerly before its capture).  The chunk's entry and exit run eagerly, and
+so does every block on the CPU, through the same code.  A
+:class:`~.ring.DistRing` runs every block eagerly: NCCL enqueues its
+collectives on the stream, so nothing is read there either, but capturing
+them into a graph can only be tested with a card per rank.
 
 Random draws: phase noise and dead-injection scores are drawn for the
 whole ``(total_ext,)`` table layout from the run's draw source (``rng``),
@@ -127,13 +130,14 @@ def resolve_tp_params(params: SimParams, n_shards: int) -> SimParams:
 
 
 def _all_ok(ring, ok_local: torch.Tensor) -> torch.Tensor:
-    """The rebuild decision, a 0-dim bool tensor on the ring's device:
-    whether every shard's (and every scene's) incremental-compaction
-    preconditions held.  ``ok_local`` is one 0-dim flag for all the shards
-    and scenes this process holds; the ring-wide min (the JAX package's
-    ``pmin``) stays on the device."""
-    S = ring.shard_ids().numel()
-    return ring.pmin(ok_local.to(torch.int32).expand(S)) > 0
+    """The rebuild decision on the ring's device: whether every shard's
+    incremental-compaction preconditions held, the ring-wide min (the JAX
+    package's ``pmin``), which stays on the device.  ``ok_local`` holds
+    one flag per shard this process holds, ``(S,)``, or per shard and
+    scene of a batch, ``(S, B)``: the decision is a 0-dim bool for one
+    scene and one per scene, ``(B,)``, for a batch (the JAX package's dp x
+    tp loop vmaps the scene's chunk, so each scene decides alone)."""
+    return ring.pmin(ok_local.to(torch.int32)) > 0
 
 
 def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = False,
@@ -147,7 +151,8 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
     its scenes in lockstep on the shard-major layout.
 
     ``with_stats=True`` makes ``run_chunk`` return ``(state, stats)``:
-    ``fallbacks``, how many rebuilds took the exact global fallback, and
+    ``fallbacks``, how many rebuilds took the exact global fallback (of a
+    batch, the scenes' rebuilds that did, summed over the scenes), and
     ``spill_rows_max``, the largest number of occupied overflow-spill rows
     over all shards (and scenes) at the end of a step (0 without spill
     rows).  Both are counted on the device and read once, at the chunk's
@@ -211,7 +216,8 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
 
     def incremental(f, origin):
         """(fields, ok): the incremental compaction with neighbour halos,
-        and whether every shard's (every scene's) preconditions held."""
+        and whether every shard's preconditions held (:func:`_all_ok`: one
+        flag, or one per scene of a batch)."""
         lead = f["val"].shape[1:-1]
         planes = torch.stack([f[k][..., :C] for k in MOVE_FIELDS], dim=-2)
         planes = planes.view((S,) + lead + (nf, cs, L0))
@@ -228,26 +234,34 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             inc[k] = torch.cat(
                 [new_planes[..., j, :, :].reshape((S,) + lead + (C,)), f[k][..., C:]], dim=-1
             )
-        # the flags already cover every shard and scene this process holds
+        # one flag per shard (and scene) this process holds
         return _derived_rows(params, inc), _all_ok(
-            ring, ~(moved_far | torch.any(incoming > cs) | edge))
+            ring, ~(moved_far | torch.any(incoming > cs, dim=-1) | edge))
 
     def sharded_rebuild(f, origin):
         """(f, origin, ok): the incremental compaction where ``ok``, else
         the exact global rebuild (the all-gather, the argsort rebuild and
         the split), chosen on the device by ``ops/cond.cond``: in a
         captured CUDA graph a conditional node runs the exact branch only
-        where ``ok`` is False; eagerly both run and a select on the 0-dim
-        ``ok`` keeps one (the JAX package's ``lax.cond`` of ``take_inc``
-        and ``take_exact``)."""
+        where ``ok`` is False; eagerly both run and a select on ``ok``
+        keeps one (the JAX package's ``lax.cond`` of ``take_inc`` and
+        ``take_exact``).  A batch's ``ok`` is per scene (the JAX package's
+        vmapped ``lax.cond``): the node fires when any scene's flag is
+        False, and its body rebuilds every scene exactly and keeps that
+        result only for the scenes whose flag is False."""
         inc, ok = incremental(f, origin)
         inc = {**{k: inc[k] for k in TABLE_FIELDS}, "origin": origin}
 
         def take_exact(carry):
             gf, exact_origin = _exact_rebuild(params, join_global(carry))
-            return {**split_local(gf), "origin": exact_origin}
+            exact = {**split_local(gf), "origin": exact_origin}
+            if ok.dim() == 0:
+                return exact
+            # (B, 1) broadcasts over (S, B, rows) planes and (B, 2) origins
+            keep = ok[:, None]
+            return {k: torch.where(keep, inc[k], v) for k, v in exact.items()}
 
-        out = cond(ok, lambda carry: inc, take_exact, {**f, "origin": origin})
+        out = cond(ok.all(), lambda carry: inc, take_exact, {**f, "origin": origin})
         return {k: out[k] for k in TABLE_FIELDS}, out["origin"], ok
 
     def step_local(f, origin, ring_t, step_t, rebuild, gates=NO_GATES, source=None):
@@ -363,8 +377,8 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         if with_stats:
             fallbacks, spill = carry["fallbacks"], carry["spill_rows_max"]
             if ok is not None:
-                # the JAX chunk's stats[0] + (1 - rb_ok)
-                fallbacks = fallbacks + (~ok).to(torch.int64)
+                # the JAX chunk's stats[0] + (1 - rb_ok), summed over scenes
+                fallbacks = fallbacks + (~ok).to(torch.int64).sum()
             out["fallbacks"] = fallbacks
             if cs > cap:
                 rows = f["val"][..., :C].unflatten(-1, (cs, L0))[..., cap:, :] > 0.5
@@ -393,8 +407,8 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
 
     @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int):
-        """The chunk as a block iterator: enqueues it a piece at a time (a
-        K-step block, gated or not, the dead-injection step, the ragged
+        """The chunk as a block iterator: enqueues it a block at a time (K
+        steps, gated or not, the dead step among them, or the ragged
         tail), yields after each, and returns the final state, with
         ``with_stats`` as ``(state, stats)`` whose counters are still
         0-dim device tensors (:func:`run_chunk` reads them)."""
@@ -407,11 +421,10 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             carry["fallbacks"] = torch.zeros((), dtype=torch.int64, device=ring.device)
             carry["spill_rows_max"] = torch.zeros((), dtype=torch.int64, device=ring.device)
         names = tuple(carry)
-        eager_steps = 0
         # the single-table schedule: chunk-relative for K <= 8, absolute
         # above (engine_table.make_run_chunk_table); the ragged tail has no
         # rebuild
-        for pattern, eager in table_pieces(params, k_rb, ts.step, n_steps):
+        for pattern in table_pieces(params, k_rb, ts.step, n_steps):
             s = ts.step
             step_in = dict(carry)
             for j, (gates, _) in enumerate(pattern):
@@ -419,18 +432,16 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
                                            ts.fields["dead"].shape, ring.device).items():
                     step_in[f"{name}{j}"] = v
             block = piece(pattern)
-            if eager or not capture:
+            if capture:
+                key = ("piece", ring.device, tuple(carry["val"].shape), pattern)
+                out = _graphed(graphs, key, block, step_in, s)
+            else:
                 # a DistRing runs every block eagerly: NCCL enqueues its
                 # collectives, nothing is read
                 out = block(step_in, step_tensor(s, ring.device))
-                eager_steps += len(pattern) if eager else 0
-            else:
-                key = ("piece", ring.device, tuple(carry["val"].shape), pattern)
-                out = _graphed(graphs, key, block, step_in, s)
             carry = {k: out[k] for k in names}
             ts.step = s + len(pattern)
             yield
-        run_chunk.eager_steps = eager_steps
         f = {k: carry[k] for k in TABLE_FIELDS}
         out = exit_table(params, ts.replace(fields=join_global(f), origin=carry["origin"],
                                             centroid_ring=carry["centroid_ring"].clone()))
@@ -451,6 +462,7 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
 
     run_chunk.blocks = blocks
     run_chunk.read_stats = read_stats
+    # no step of a chunk runs eagerly by design (engine_table.table_pieces)
     run_chunk.eager_steps = 0
     # the pieces a measurement times alone: a whole table's fields to this
     # process's shards and back, the incremental rebuild, the rebuild with
@@ -470,17 +482,24 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
     runs as one: every field is laid out shard-major, ``(S, B, C +
     n_pad)``, so the ring shifts and reduces on the leading axis as for
     one scene, and kernel 4 and kernel 2's padded form each launch once per
-    step / rebuild for all S x B blocks.  A rebuild takes one decision for
-    every shard and scene (one ring-wide min, on the device): the
-    incremental compaction when every scene's preconditions held, else the
-    exact global rebuild for every scene — the batched table loop's
-    all-scenes rule (``engine_table._smart_rebuild``), where the JAX
-    package's vmapped cond decays to a per-scene select.
+    step / rebuild for all S x B blocks.  A rebuild decides each scene on
+    its own (one ring-wide min per scene, on the device), as the JAX
+    package's dp x tp loop does, whose vmapped ``lax.cond`` decays to a
+    per-scene select: the incremental compaction for the scenes whose
+    preconditions held, the exact global rebuild for the others (it runs,
+    in a graph's conditional node, only when some scene needs it).  So each
+    scene runs bit for bit as it runs alone through
+    :func:`make_sharded_table_run`, whatever batch it is in.  This is not
+    the unsharded batched table loop's rule (``engine_table._smart_rebuild``
+    takes the incremental result for all scenes or the exact rebuild for
+    all, the JAX package's ``_smart_rebuild_batched``): dp x tp follows the
+    JAX package's dp x tp.
 
     With a ``mesh`` (``parallel/mesh.Mesh`` with axes ``("data",
     "bots")``), each place of the data axis runs its scene group
     (``sweep.shard_batch``) on a ``LocalRing`` of the bots axis' size on
-    that place's device, and decides its rebuilds for its own scenes; the
+    that place's device, each scene deciding its rebuilds alone, so the
+    mesh entry gives the ring entry's result bit for bit; the
     places' chunks advance block by block in turn
     (``engine_table.interleaved``), so every place's chunk is enqueued
     before any is read, and ``run_chunk`` returns the batch in scene order
@@ -496,7 +515,7 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
         def blocks(batch_state: SimState, n_steps: int):
             if batch_state.pos.dim() != 3:
                 raise ValueError("the dp x tp loop takes a batched state (B, n_pad, 2)")
-            return counted(run, run_chunk, run.blocks(batch_state, n_steps))
+            return run.blocks(batch_state, n_steps)
 
         def run_chunk(batch_state: SimState, n_steps: int):
             return run.read_stats(drain(blocks(batch_state, n_steps)))
@@ -520,8 +539,6 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
         on the device."""
         groups = shard_batch(batch_state, mesh)
         outs = yield from interleaved(run.blocks(gs, n_steps) for gs, run in zip(groups, runs))
-        # every place runs the same schedule
-        run_mesh.eager_steps = runs[0].eager_steps
         if not with_stats:
             return gather_batch(outs)
         dev = outs[0][0].device
@@ -539,10 +556,3 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
     run_mesh.eager_steps = 0
     return run_mesh, params
 
-
-def counted(inner, outer, blocks):
-    """``blocks`` (a block iterator of the runner ``inner``) that sets
-    ``outer.eager_steps`` to the inner runner's when it ends."""
-    out = yield from blocks
-    outer.eager_steps = inner.eager_steps
-    return out

@@ -72,12 +72,22 @@ def robustness(seeds, sim_seconds, device="cuda", params=None, draws=None) -> di
                                device=device, draws=draws)
     speeds = np.array(rob["approach_speed"])
     norm = speeds / speeds[0] if speeds[0] else speeds
+    # each seed's approach speed per fraction (their mean is the curve's
+    # speed), and the standard error of the mean normalized speed over
+    # the seeds (each seed's speed over the 0-dead mean)
+    per_seed = np.array([_per_seed_speed(rob["per_fraction"][f], p)
+                         for f in ROBUSTNESS_FRACTIONS])
+    scale = speeds[0] if speeds[0] else 1.0
+    sem = (per_seed / scale).std(axis=1, ddof=1) / np.sqrt(per_seed.shape[1]) \
+        if per_seed.shape[1] > 1 else np.zeros(len(speeds))
     return {
         "n_cells": p.n_cells,
         "sim_seconds": sim_seconds,
         "fractions": ROBUSTNESS_FRACTIONS,
         "approach_speed": speeds.tolist(),
         "normalized_speed": norm.tolist(),
+        "per_seed_speed": per_seed.tolist(),
+        "normalized_speed_sem": sem.tolist(),
     }
 
 
@@ -323,11 +333,21 @@ def _per_seed_speed(r, p):
 def _robustness_csv(results, out):
     """The robustness curve's points, in place of the JAX script's PNG."""
     rob = results["robustness"]
+    # a record without seeds (the JAX package's) keeps the three columns
+    per_seed = rob.get("per_seed_speed")
     with open(os.path.join(out, "robustness.csv"), "w") as f:
-        f.write("dead_fraction,normalized_speed,approach_speed\n")
-        for frac, norm, speed in zip(rob["fractions"], rob["normalized_speed"],
-                                     rob["approach_speed"]):
-            f.write(f"{frac:g},{norm:.6f},{speed:.6e}\n")
+        head = "dead_fraction,normalized_speed,approach_speed"
+        if per_seed:
+            head += ",normalized_speed_sem," + ",".join(
+                f"speed_seed{i}" for i in range(len(per_seed[0])))
+        f.write(head + "\n")
+        for i, (frac, norm, speed) in enumerate(zip(rob["fractions"], rob["normalized_speed"],
+                                                    rob["approach_speed"])):
+            row = f"{frac:g},{norm:.6f},{speed:.6e}"
+            if per_seed:
+                row += f",{rob['normalized_speed_sem'][i]:.6f}," + ",".join(
+                    f"{v:.6e}" for v in per_seed[i])
+            f.write(row + "\n")
 
 
 def _markdown(results, out):

@@ -291,7 +291,7 @@ def test_rebuild_counts_read_and_reset():
 
 def test_blocks_equal_the_step_loop():
     """The runner's blocks (K-step blocks, gated or not, eagerly on the
-    CPU, then the ragged tail as one piece) equal a loop of
+    CPU, then the ragged tail as one block) equal a loop of
     ``make_table_step`` with the regular schedule's gates and rebuilds,
     bit for bit, with the same rebuild counts."""
     p = params(n_cells=300, phase_std=0.5, phase_update_interval=0.12,
@@ -312,10 +312,10 @@ def test_blocks_equal_the_step_loop():
             break
     counts = dict(t_et.REBUILDS)
     # 30 steps: blocks at j = 0, 4, ..., 24 (7 blocks of 4, gated ones
-    # among them) and the 2-step ragged tail, the only eager piece
+    # among them) and the 2-step ragged tail, a block too: none eager
     gated = [j for j in range(0, 28, 4)
              if any(s % 8 == 0 or s % 12 == 0 for s in range(2 + j, 6 + j))]
-    assert len(gated) >= 4 and len(seen) == 7 + 1 and run.eager_steps == 2
+    assert len(gated) >= 4 and len(seen) == 7 + 1 and run.eager_steps == 0
 
     for k in t_et.REBUILDS:
         t_et.REBUILDS[k] = 0

@@ -1094,7 +1094,8 @@ def eager_runner(make, monkeypatch):
 
 
 # 300 bots on DENSE with the centroid every 100 steps and the noisy phase
-# law every 150: 32-step blocks between eager gated steps and ragged ends
+# law every 150: 32-step blocks from each gate, short ones before the next
+# gate and at a chunk's end
 SMALL_SCENE = dict(n_cells=300, n_dead=0, seed=5, config=pt.Config.HEX, light_x=-2.0,
                    light_y=4.0, force_backend=pt.ForceBackend.DENSE, phase_std=0.5,
                    centroid_int=1.0, phase_update_interval=1.5)
@@ -1322,7 +1323,7 @@ def test_gated_block_graph_equals_eager(card, source, monkeypatch):
     (e_state, e_launch, e_reb, _, _), (g_state, g_launch, g_reb, blocks, run) = results
     assert (without_cond_set(e_launch), e_reb) == (without_cond_set(g_launch), g_reb)
     assert g_launch["cond_set"] == replayed_conds(blocks) > 0
-    assert len(blocks) >= 3 and run.eager_steps == 2
+    assert len(blocks) >= 3 and run.eager_steps == 0
     for k in CHUNK_FIELDS:
         assert torch.equal(getattr(g_state, k), getattr(e_state, k)), k
     gens = (lambda s: s.generator.sources) if batched else (lambda s: [s.generator])
@@ -1400,7 +1401,7 @@ def test_small_chunk_reads_nothing_from_the_card(card, kind):
 # ------------------------------------------ the sharded loop's compiled chunk
 
 # 300 bots on 4 shards (G=32), K=4, the noisy phase law every 20 steps and
-# the centroid every 30: ungated 4-step blocks between eager gated steps
+# the centroid every 30: 4-step blocks, gated or not, and a ragged end
 SHARDED_SCENE = dict(n_cells=300, n_dead=0, seed=3, config=pt.Config.HEX, light_x=-5.0,
                      force_backend=pt.ForceBackend.PALLAS, phase_std=0.5,
                      slot_rebuild_steps=4, centroid_int=0.3, phase_update_interval=0.2)
@@ -1474,6 +1475,105 @@ def test_sharded_chunk_reads_nothing_from_the_card(card, kind):
     state, stats = run.read_stats(result)
     assert state.step == 138 and bool(torch.isfinite(state.pos).all())
     assert set(stats) == {"fallbacks", "spill_rows_max"}
+
+
+# the dead step mid-block in a later chunk that ends in a ragged tail: 200
+# HEX bots, K=4, the centroid every 8 steps, the noisy phase law every 12,
+# 30 bots killed at step 21, chunks of 16 and 15 steps
+DEAD_SCENE = dict(n_cells=200, n_dead=30, time_to_dead=0.21, seed=3, config=pt.Config.HEX,
+                  light_x=-5.0, phase_std=0.5, slot_rebuild_steps=4, centroid_int=0.08,
+                  phase_update_interval=0.12)
+DEAD_CHUNKS = (16, 15)
+
+
+@pytest.mark.parametrize("kind", ["table", "dense", "sharded"])
+def test_dead_step_and_tail_graph_equals_eager(card, kind, monkeypatch):
+    """Two chunks (16 + 15 steps, the bots killed at step 21, mid-block in
+    the second, which ends in a ragged tail) of the table loop, the per-bot
+    DENSE runner and the sharded loop on ``LocalRing(2)``, every block
+    replayed from a CUDA graph (the dead step's, its scores fed in, and
+    the tail's), equal the same runner with eager blocks bit for bit, with
+    equal launches apart from ``cond_set``; no step ran eagerly by
+    design."""
+    from particlerobotsimulations_torch.engine import make_run_chunk
+
+    backend = pt.ForceBackend.DENSE if kind == "dense" else pt.ForceBackend.PALLAS
+    p = pt.SimParams(**DEAD_SCENE, force_backend=backend).validate()
+    if kind == "sharded":
+        p = make_sharded_table_run(p, LocalRing(2, card))[1]
+
+        def make():
+            return make_sharded_table_run(p, LocalRing(2, card))[0]
+    elif kind == "dense":
+        def make():
+            return make_run_chunk(p, card)
+    else:
+        def make():
+            return make_run_chunk_table(p)
+
+    results = []
+    for eager in (True, False):
+        blocks = [] if eager else counted_blocks(monkeypatch)
+        run = make()
+        call = eager_runner(lambda run=run: run, monkeypatch) if eager else run
+        reset_counts()
+        state = pt.Simulation(p, device=card).state
+        for n in DEAD_CHUNKS:
+            state = call(state, n)
+            assert run.eager_steps == 0
+        torch.cuda.synchronize()
+        results.append((state, dict(kernels.LAUNCHES)))
+    (e_state, e_launch), (g_state, g_launch) = results
+    assert without_cond_set(e_launch) == without_cond_set(g_launch)
+    assert e_launch["cond_set"] == 0 and g_launch["cond_set"] == replayed_conds(blocks)
+    assert len(blocks) >= 3
+    for k in CHUNK_FIELDS:
+        assert torch.equal(getattr(g_state, k), getattr(e_state, k)), k
+    assert g_state.step == 31 and int(g_state.dead[: p.n_cells].sum()) == 30
+
+
+def test_dp_tp_scenes_decide_alone_on_card(card):
+    """dp x tp on the card (two scenes of :data:`SHARDED_SCENE` on
+    ``LocalRing(4)``, scene 1's outermost bot kicked to 60 u/s so that its
+    rebuilds fall back while scene 0's do not), two 46-step chunks from
+    graphs: each scene bit for bit its solo run, the ring bit for bit two
+    data places of four shards, the fallbacks the solo runs' summed."""
+    from particlerobotsimulations_torch.parallel.mesh import Mesh
+    from particlerobotsimulations_torch.parallel.spatial_table import (
+        make_sharded_table_run_batched,
+    )
+    from particlerobotsimulations_torch.state import scene_state
+
+    p = pt.SimParams(**SHARDED_SCENE)
+    run, p2 = make_sharded_table_run_batched(p, LocalRing(4, card), with_stats=True)
+    mesh = Mesh(np.array([card] * 8, dtype=object).reshape(2, 4), ("data", "bots"))
+    mrun, p3 = make_sharded_table_run_batched(p, mesh=mesh, with_stats=True)
+    single, p4 = make_sharded_table_run(p, LocalRing(4, card), with_stats=True)
+    assert p2 == p3 == p4
+
+    def fresh():
+        st = make_batch_state(p2, [0, 1], card)
+        vel = st.vel.clone()
+        edge = int(torch.argmax(st.pos[1, : p2.n_cells, 0]))
+        vel[1, edge, 0] = 60.0
+        return st.replace(vel=vel)
+
+    def chunks(call, state):
+        fallbacks = 0
+        for _ in range(2):
+            state, stats = call(state, 46)
+            fallbacks += stats["fallbacks"]
+        return state, fallbacks
+
+    got, fb = chunks(run, fresh())
+    mgot, mfb = chunks(mrun, fresh())
+    solo = [chunks(single, scene_state(fresh(), b)) for b in range(2)]
+    torch.cuda.synchronize()
+    assert fb == mfb == solo[0][1] + solo[1][1] and solo[1][1] > solo[0][1]
+    for k in CHUNK_FIELDS[:-1]:
+        assert torch.equal(getattr(mgot, k), getattr(got, k)), k
+        for b in range(2):
+            assert torch.equal(getattr(solo[b][0], k), getattr(got, k)[b]), (b, k)
 
 
 # ------------------------------------------- the rebuild's conditional node

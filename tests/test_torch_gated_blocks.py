@@ -178,8 +178,8 @@ def test_table_runner_equals_step_loop(batched):
     """22 steps from step 1 (the centroid at 4, 8, 12, 16, 20, the phase
     law at 6, 12, 18, the dead injection at 5) through the table runner's
     blocks equal ``make_table_step`` one step at a time, bit for bit, with
-    the same rebuild counts; only the dead step and the 2-step ragged tail
-    ran eagerly."""
+    the same rebuild counts; no step ran eagerly by design (the dead step
+    rides in its block, the 2-step ragged tail is a block)."""
     p = gated_params()
     assert len(gate_steps(p, START, N_STEPS)) >= 7 and START <= p.dead_step < START + N_STEPS
     run = (t_et.make_run_chunk_table_batched if batched else t_et.make_run_chunk_table)(p)
@@ -192,7 +192,7 @@ def test_table_runner_equals_step_loop(batched):
     want = table_step_loop(p, fresh(p, batched).replace(step=START), N_STEPS)
     assert_states_equal(got, want)
     assert counts == dict(t_et.REBUILDS) and sum(counts.values()) == 5
-    assert run.eager_steps == 1 + 2
+    assert run.eager_steps == 0
     assert int(got.dead[..., : p.n_cells].sum()) == 3 * (2 if batched else 1)
 
 
@@ -202,12 +202,13 @@ def test_per_bot_runner_equals_step_loop(backend, batched, monkeypatch):
     """The per-bot runner at 4-step blocks over the same 22 steps (a block
     from each gate, short blocks before the next gate) equals
     ``make_step`` (``make_step_batched``) one step at a time, bit for bit;
-    only the dead step and the 3-step ragged tail ran eagerly."""
+    no step ran eagerly by design (the dead step starts a block, the
+    3-step ragged tail is a short block)."""
     monkeypatch.setattr(t_engine, "BLOCK_STEPS", 4)
     p = gated_params(force_backend=pt.ForceBackend[backend])
     pieces = t_engine.bot_pieces(p, START, N_STEPS, 4)
-    assert [n for _, n, _ in pieces] == [3, 1, 1, 2, 4, 4, 2, 2, 3]
-    assert [n for _, n, e in pieces if e] == [1, 3]
+    assert [n for _, n in pieces] == [3, 1, 1, 2, 4, 4, 2, 2, 3]
+    assert [g[0] for g, _ in pieces] == [False, False, True] + [False] * 6
     run = (t_engine.make_run_chunk_batched if batched else t_engine.make_run_chunk)(p, "cpu")
     got = run(fresh(p, batched).replace(step=START), N_STEPS)
     step = (t_engine.make_step_batched if batched else t_engine.make_step)(p, "cpu")
@@ -215,7 +216,7 @@ def test_per_bot_runner_equals_step_loop(backend, batched, monkeypatch):
     for _ in range(N_STEPS):
         want = step(want)
     assert_states_equal(got, want)
-    assert run.eager_steps == 1 + 3
+    assert run.eager_steps == 0
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -228,18 +229,18 @@ def test_sharded_runner_equals_step_loop(batched, monkeypatch):
     make = t_st.make_sharded_table_run_batched if batched else t_st.make_sharded_table_run
     run, _ = make(p, LocalRing(2, "cpu"), with_stats=True)
     got, stats = run(fresh(p, batched).replace(step=START), N_STEPS)
-    assert run.eager_steps == 1 + 2
+    assert run.eager_steps == 0
 
     real = t_st.table_pieces
 
     def one_step_pieces(params, k, start, n):
-        return [((step,), True) for pattern, _ in real(params, k, start, n) for step in pattern]
+        return [(step,) for pattern in real(params, k, start, n) for step in pattern]
 
     monkeypatch.setattr(t_st, "table_pieces", one_step_pieces)
     run, _ = make(p, LocalRing(2, "cpu"), with_stats=True)
     want, w_stats = run(fresh(p, batched).replace(step=START), N_STEPS)
     assert_states_equal(got, want)
-    assert stats == w_stats and run.eager_steps == N_STEPS
+    assert stats == w_stats and run.eager_steps == 0
     assert int(got.dead[..., : p.n_cells].sum()) == 3 * (2 if batched else 1)
 
 
@@ -308,8 +309,8 @@ def step_probe(p, state):
 def test_probe_blocks_equal_step_probe(start):
     """The probe as blocks (the gated first block, then an ungated one, the
     maximum in the carry) equals the step-by-step probe bit for bit in
-    state and maximum, from step 0 and from the dead step 8 (which runs
-    eagerly)."""
+    state and maximum, from step 0 and from the dead step 8 (the first
+    step of the gated block, not run eagerly)."""
     p = gated_params(**probe_params())
     assert t_et.gate_seg(p) == 8 and p.dead_step == 8
     probe = t_et.make_probe_chunk(p)
@@ -317,7 +318,7 @@ def test_probe_blocks_equal_step_probe(start):
     want, wpm = step_probe(p, fresh(p, False).replace(step=start))
     assert_states_equal(got, want)
     assert torch.equal(pm, wpm) and float(pm) > 0
-    assert probe.eager_steps == (1 if start == 8 else 0)
+    assert probe.eager_steps == 0
 
 
 def test_probe_matches_jax_probe():

@@ -322,4 +322,5 @@ def test_no_host_read_inside_a_chunk(batched, with_stats, monkeypatch):
     out, stats = run.read_stats(result) if with_stats else (result, None)
     assert out.step == 16 and bool(torch.isfinite(out.pos).all())
     if with_stats:
-        assert stats["fallbacks"] == 4
+        # every rebuild falls back, for each scene of a batch
+        assert stats["fallbacks"] == 4 * (2 if batched else 1)

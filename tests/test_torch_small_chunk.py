@@ -173,16 +173,15 @@ def test_device_time_body_equals_host_float_body(backend, batched):
 # ------------------------------------------------ the per-bot block runner
 
 def schedule(p, start, n, block):
-    """The runner's pieces: from each gated step (the dead step alone) to
+    """The runner's pieces: from each gated step (the dead step's too) to
     the next, at most ``block`` steps at a time."""
     out, j = [], 0
     while j < n:
         s = start + j
         length = 1
-        if not t_engine._step_gates(p, s)[0]:
-            while length < block and j + length < n and not any(
-                    t_engine._step_gates(p, s + length)):
-                length += 1
+        while length < block and j + length < n and not any(
+                t_engine._step_gates(p, s + length)):
+            length += 1
         out.append(length)
         j += length
     return out
@@ -203,8 +202,9 @@ def test_block_runner_equals_make_step_loop(case, batched, monkeypatch):
     """The runner's ``blocks`` over a chunk from step 5 that ends ragged
     equals a plain loop of ``make_step`` (``make_step_batched``), bit for
     bit, yielding once per piece (whole blocks, the short blocks before a
-    gate, the dead step, the ragged tail); at ``BLOCK_STEPS`` 4 and at the
-    module's own."""
+    gate, the block the dead step starts, the ragged tail's short block),
+    none run eagerly by design; at ``BLOCK_STEPS`` 4 and at the module's
+    own."""
     block, kw, start, n = RUNNER_CASES[case]
     monkeypatch.setattr(t_engine, "BLOCK_STEPS", block)
     p = gated_params("DENSE", **kw)
@@ -222,8 +222,7 @@ def test_block_runner_equals_make_step_loop(case, batched, monkeypatch):
             got = stop.value
             break
     assert yields == len(want_blocks)
-    assert run.eager_steps == want_blocks[-1] + (
-        start <= p.dead_step < start + n)
+    assert start <= p.dead_step < start + n and run.eager_steps == 0
     step = (t_engine.make_step_batched if batched else t_engine.make_step)(p, "cpu")
     want = fresh(p, batched).replace(step=start)
     for _ in range(n):
@@ -426,7 +425,7 @@ def test_lagged_span_decision_equals_one_read_per_segment(batched, fail, forced_
         assert torch.equal(ga.get_state(), gb.get_state())
     assert run.redos == counts["redos"] == len(fail)
     assert (launches, rebuilds) == (w_launches, w_rebuilds)
-    assert run.eager_steps == (n_steps - 4 * seg) % k
+    assert run.eager_steps == 0
     assert not np.array_equal(got.phase.numpy(), a_in.phase.numpy())
 
 

@@ -278,7 +278,10 @@ def test_rebuild_move_planes_lane_offset_equals_jax(scene):
             np.testing.assert_array_equal(a[d].numpy(), np.asarray(b))
             np.testing.assert_array_equal(c.numpy(), np.asarray(b))
         assert bool(one[2]) == bool(want[2]) and bool(one[3]) == bool(want[3])
-    assert not bool(got[2]) and not bool(got[3])
+        # the stack's preconditions, one flag per shard
+        assert bool(got[2][d]) == bool(want[2]) and bool(got[3][d]) == bool(want[3])
+    assert got[2].shape == got[3].shape == (D,)
+    assert not bool(got[2].any()) and not bool(got[3].any())
 
 
 def test_resolve_tp_params_equals_jax():
@@ -456,23 +459,20 @@ def test_sharded_entry_points_refuse():
 
 @pytest.fixture
 def decisions(monkeypatch):
-    """The sharded loops' rebuild decisions, recorded in order as the 0-dim
-    bool tensors the loops select on; a test sets ``replay`` to a list of
-    them to make the loops take those decisions instead (a lockstep
-    replay: one scene alone taking its batch's decisions).  The CPU loops
-    run every block eagerly, so every rebuild calls the hook."""
-    rec = {"seen": [], "replay": None}
+    """The sharded loops' rebuild decisions, recorded in order as the bool
+    tensors the loops select on (0-dim for one scene, one flag per scene
+    for a batch).  The CPU loops run every block eagerly, so every rebuild
+    calls the hook."""
+    seen = []
     real = t_st._all_ok
 
     def hooked(ring, ok_local):
-        if rec["replay"] is not None:
-            return rec["replay"].pop(0)
         ok = real(ring, ok_local)
-        rec["seen"].append(ok)
+        seen.append(ok)
         return ok
 
     monkeypatch.setattr(t_st, "_all_ok", hooked)
-    return rec
+    return seen
 
 
 def batch_arrays(tp, seeds, kick=None):
@@ -509,13 +509,16 @@ def test_dp_tp_table_loop_matches_jax_and_lockstep(case, decisions, jax_dp_tp):
     """2 scenes x 2 shards of 96 bots, 10 steps (2 rebuilds), against JAX's
     ``make_sharded_table_run_batched`` on a (2, 2) mesh and, scene by
     scene, bit for bit against the scene alone through the single-scene
-    sharded loop taking the batch's rebuild decisions.  ``fallback`` kicks
-    scene 1's outermost bot to 60 u/s: every rebuild falls back for both
-    scenes in the port (JAX decides per scene; the exact and incremental
-    rebuilds differ only in summation order).  The batch also equals the
-    unsharded batched table loop, which decides for all scenes alike, and
-    the mesh entry (one data place per scene, each deciding alone) equals
-    the ring entry where no scene fell back."""
+    sharded loop, which decides its own rebuilds (no decision replayed).
+    ``fallback`` kicks scene 1's outermost bot to 60 u/s: every rebuild
+    falls back for scene 1 and for scene 1 only, as in JAX, whose vmapped
+    ``lax.cond`` decides per scene.  The ring entry equals the mesh entry
+    (one data place per scene) bit for bit in both cases.  The unsharded
+    batched table loop decides for all scenes alike (the JAX package's
+    ``_smart_rebuild_batched``), so it equals the batch bit for bit in the
+    scenes that took its decisions: both scenes in ``plain``, scene 1 in
+    ``fallback`` (scene 0, incremental here and exact there, differs only
+    in summation order: held at the JAX tolerance)."""
     from particlerobotsimulations_torch.parallel.mesh import Mesh as TorchMesh
     from particlerobotsimulations_torch.state import (
         batch_state_from_arrays,
@@ -525,6 +528,7 @@ def test_dp_tp_table_loop_matches_jax_and_lockstep(case, decisions, jax_dp_tp):
     from particlerobotsimulations_tpu.parallel.sweep import make_batch_state as jax_batch
 
     seeds = [0, 1]
+    fields = ("pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r")
     jp, tp = params_pair(n_shards=2, n_cells=96)
     a = batch_arrays(tp, seeds, kick=(1, 60.0) if case == "fallback" else None)
     jst = jax_batch(jp, seeds)
@@ -534,31 +538,36 @@ def test_dp_tp_table_loop_matches_jax_and_lockstep(case, decisions, jax_dp_tp):
     run, p2 = t_st.make_sharded_table_run_batched(tp, LocalRing(2, "cpu"), with_stats=True)
     assert p2 == tp
     out, stats = run(batch_state_from_arrays(tp, a, "cpu"), 10)
-    seen = list(decisions["seen"])
-    assert all(torch.is_tensor(d) and d.dtype == torch.bool and d.dim() == 0 for d in seen)
-    assert len(seen) == 2 and stats["fallbacks"] == sum(not bool(d) for d in seen)
-    assert stats["fallbacks"] == (2 if case == "fallback" else 0)
+    seen = [d.tolist() for d in decisions]
+    assert all(d.dtype == torch.bool and d.shape == (2,) for d in decisions)
+    want_ok = [True, False] if case == "fallback" else [True, True]
+    assert seen == [want_ok] * 2
+    assert stats["fallbacks"] == sum(d.count(False) for d in seen)
     got = batch_state_to_arrays(out)
     for b in range(2):
         np.testing.assert_allclose(got["pos"][b], want["pos"][b], atol=1e-5, rtol=0)
         np.testing.assert_allclose(got["vel"][b], want["vel"][b], atol=1e-4, rtol=0)
-    single, _ = t_st.make_sharded_table_run(tp, LocalRing(2, "cpu"))
+    single, _ = t_st.make_sharded_table_run(tp, LocalRing(2, "cpu"), with_stats=True)
     for b in range(2):
-        decisions["replay"] = list(seen)
-        one = single(scene_state(batch_state_from_arrays(tp, a, "cpu"), b), 10)
-        assert decisions["replay"] == []
-        for k in ("pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r"):
+        decisions.clear()
+        one, one_stats = single(scene_state(batch_state_from_arrays(tp, a, "cpu"), b), 10)
+        assert [bool(d) for d in decisions] == [want_ok[b]] * 2
+        assert one_stats["fallbacks"] == 2 * (not want_ok[b])
+        for k in fields:
             assert torch.equal(getattr(one, k), getattr(out, k)[b]), (b, k)
-    decisions["replay"] = None
+    mesh = TorchMesh(np.array(["cpu"] * 4).reshape(2, 2), ("data", "bots"))
+    mrun, _ = t_st.make_sharded_table_run_batched(tp, mesh=mesh, with_stats=True)
+    mout, mstats = mrun(batch_state_from_arrays(tp, a, "cpu"), 10)
+    assert mstats == stats
+    for k in fields:
+        assert torch.equal(getattr(mout, k), getattr(out, k)), k
     ref = t_et.make_run_chunk_table_batched(tp)(batch_state_from_arrays(tp, a, "cpu"), 10)
+    same = [0, 1] if case == "plain" else [1]
     for k in ("pos", "vel", "rad", "phase", "dead"):
-        assert torch.equal(getattr(ref, k), getattr(out, k)), k
-    if case == "plain":
-        mesh = TorchMesh(np.array(["cpu"] * 4).reshape(2, 2), ("data", "bots"))
-        mrun, _ = t_st.make_sharded_table_run_batched(tp, mesh=mesh)
-        mout = mrun(batch_state_from_arrays(tp, a, "cpu"), 10)
-        for k in ("pos", "vel", "rad", "phase", "dead"):
-            assert torch.equal(getattr(mout, k), getattr(out, k)), k
+        assert torch.equal(getattr(ref, k)[same], getattr(out, k)[same]), k
+    if case == "fallback":
+        np.testing.assert_allclose(out.pos[0].numpy(), ref.pos[0].numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(out.vel[0].numpy(), ref.vel[0].numpy(), atol=1e-4, rtol=0)
 
 
 DIST_BATCH_WORKER = """
