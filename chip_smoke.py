@@ -316,6 +316,7 @@ from particlerobotsimulations_torch.parallel.spatial_table import (
 )
 from particlerobotsimulations_torch.parallel.sweep import choose_sweep_strategy, run_sweep
 from particlerobotsimulations_torch.rng import SceneDraws
+from particlerobotsimulations_torch.utils import trace
 from particlerobotsimulations_torch.state import (
     ARRAY_FIELDS,
     active_mask,
@@ -3051,14 +3052,14 @@ def node_record(name, blocks, launches) -> dict:
     Appended to ``NODE_SCENES``."""
     rec = {"name": name, "graphs": len(blocks), "conditional": [], "body_nodes": [],
            "top_nodes": [], "replays": sum(b.replays for b in blocks),
-           "capture_s": [b.seconds for b in blocks]}
+           "capture_s": [b.capture_s for b in blocks]}
     for b in blocks:
         n = b.launches.get("cond_set", 0)
         if b.selects:
             fail(f"{name}: a capture made {b.selects} selects")
-        if n and (b.nodes is None or b.nodes["conditional"] != n or b.nodes["body_nodes"] < 1):
+        if n and (b.nodes["conditional"] != n or b.nodes["body_nodes"] < 1):
             fail(f"{name}: {n} cond_set launches in a capture with nodes {b.nodes}")
-        if b.nodes:
+        if b.nodes["conditional"]:
             rec["conditional"].append(b.nodes["conditional"])
             rec["body_nodes"].append(b.nodes["body_nodes"])
             rec["top_nodes"].append(b.nodes["nodes"])
@@ -3135,7 +3136,7 @@ def check_eager(name, eager_steps) -> str:
 def capture_text(blocks) -> str:
     """The captures' cost: how many graphs, their capture + instantiate
     seconds in all and at most."""
-    secs = [b.seconds for b in blocks]
+    secs = [b.capture_s for b in blocks]
     if not secs:
         return "no capture"
     return (f"{len(secs)} captures in {sum(secs):.3f} s (at most {max(secs):.3f} s for "
@@ -3456,19 +3457,29 @@ def eager_blocks(on: bool, count: bool = False):
     """A context in which the runners built and first run inside it take
     :class:`EagerBlock` for ``engine_table._CapturedBlock`` (``on``), else
     :class:`CountedBlock` (``count``) or the CUDA graphs as they are; it
-    yields the list of the counted blocks captured."""
+    yields the list of the counted blocks captured.  Counting, it traces
+    the host (``utils/trace``), and each counted block's ``capture_s`` is
+    its ``graph.capture`` span's duration (capture and instantiation)."""
     from contextlib import contextmanager
 
     @contextmanager
     def swap():
         captured = engine_table._CapturedBlock
         CountedBlock.MADE = []
+        counting = count and not on
         if on or count:
             engine_table._CapturedBlock = EagerBlock if on else CountedBlock
+        if counting:
+            trace.enable()
         try:
             yield CountedBlock.MADE
         finally:
             engine_table._CapturedBlock = captured
+            if counting:
+                trace.disable()
+                spans = [s for s in trace.snapshot()["spans"] if s["name"] == "graph.capture"]
+                for b, s in zip(CountedBlock.MADE, spans):
+                    b.capture_s = (s["end_ns"] - s["start_ns"]) * 1e-9
 
     return swap()
 
@@ -3635,7 +3646,7 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
         fail(f"{name}: no segment graph with a counted redo body")
     seg_text = ", ".join(
         f"{b.nodes['nodes']} top-level nodes ({b.nodes['conditional']} conditional), "
-        f"{b.nodes['body_nodes']} in bodies, captured and instantiated in {b.seconds:.2f} s, "
+        f"{b.nodes['body_nodes']} in bodies, captured and instantiated in {b.capture_s:.2f} s, "
         f"{b.replays} replays" for b in segs)
     for k, v in g_launch.items():
         total[k] = total.get(k, 0) + v
@@ -4096,7 +4107,7 @@ def cond_set_check(p, state) -> tuple:
         torch.cuda.synchronize()
         if bool(out["r_ok"]) != want_ok or bool(eager["r_ok"]) != want_ok:
             fail(f"cond_set check: ok {bool(out['r_ok'])} / {bool(eager['r_ok'])}, want {want_ok}")
-        if graph.nodes is None or graph.nodes["conditional"] != 1:
+        if graph.nodes["conditional"] != 1:
             fail(f"cond_set check: nodes {graph.nodes}")
         for k, v in eager.items():
             if k != "r_ok":

@@ -39,17 +39,12 @@
 //                         graphs
 //   pbot_cond_body_begin  begin capturing a stream into that body graph
 //   pbot_cond_body_end    end that capture
-//   pbot_capture_graph    the graph `stream` is capturing
-//   pbot_graph_nodes      a graph's nodes by type
 //
 // Conditional nodes need CUDA 12.3 or later where the library is built
 // and where it runs, their else branch CUDA 12.8.  CUDA 13 added the edge-data argument to three of
 // the calls; both forms build.
 
-#include <cuda.h>
 #include <cuda_runtime.h>
-
-#include <vector>
 
 namespace {
 
@@ -138,57 +133,4 @@ extern "C" int pbot_cond_body_end(void* stream, void* body) {
   cudaError_t err = cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &got);
   if (err != cudaSuccess) return static_cast<int>(err);
   return got == static_cast<cudaGraph_t>(body) ? 0 : static_cast<int>(cudaErrorIllegalState);
-}
-
-extern "C" int pbot_capture_graph(void* stream, void** graph) {
-  cudaGraph_t g = nullptr;
-  const cudaGraphNode_t* deps = nullptr;
-  size_t n = 0;
-  cudaError_t err = capture_info(static_cast<cudaStream_t>(stream), &g, &deps, &n);
-  *graph = g;
-  return static_cast<int>(err);
-}
-
-// out: [nodes, kernel nodes, memcpy and memset nodes, conditional nodes].
-// Through the CUDA low-level API's cuGraphGetNodes / cuGraphNodeGetType:
-// the runtime's cudaGraphGetNodes and cudaGraphNodeGetType return
-// cudaErrorUnknown on a graph that holds a conditional node (CUDA 12.9
-// runtime).  A CUresult error comes back as 100000 + its value.
-extern "C" int pbot_graph_nodes(void* graph, int* out) {
-  using GetNodes = CUresult (*)(CUgraph, CUgraphNode*, size_t*);
-  using GetType = CUresult (*)(CUgraphNode, CUgraphNodeType*);
-  void* get_nodes = nullptr;
-  void* get_type = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t err = cudaGetDriverEntryPointByVersion("cuGraphGetNodes", &get_nodes, 12030,
-                                                     cudaEnableDefault, &found);
-  if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-    err = cudaGetDriverEntryPointByVersion("cuGraphNodeGetType", &get_type, 12030,
-                                           cudaEnableDefault, &found);
-#else
-  cudaError_t err = cudaGetDriverEntryPoint("cuGraphGetNodes", &get_nodes, cudaEnableDefault,
-                                            &found);
-  if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-    err = cudaGetDriverEntryPoint("cuGraphNodeGetType", &get_type, cudaEnableDefault, &found);
-#endif
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (found != cudaDriverEntryPointSuccess) return static_cast<int>(cudaErrorNotSupported);
-  CUgraph g = static_cast<CUgraph>(graph);
-  size_t n = 0;
-  CUresult res = reinterpret_cast<GetNodes>(get_nodes)(g, nullptr, &n);
-  std::vector<CUgraphNode> nodes(n);
-  if (res == CUDA_SUCCESS && n) res = reinterpret_cast<GetNodes>(get_nodes)(g, nodes.data(), &n);
-  if (res != CUDA_SUCCESS) return 100000 + static_cast<int>(res);
-  out[0] = static_cast<int>(n);
-  out[1] = out[2] = out[3] = 0;
-  for (CUgraphNode node : nodes) {
-    CUgraphNodeType type;
-    res = reinterpret_cast<GetType>(get_type)(node, &type);
-    if (res != CUDA_SUCCESS) return 100000 + static_cast<int>(res);
-    if (type == CU_GRAPH_NODE_TYPE_KERNEL) ++out[1];
-    if (type == CU_GRAPH_NODE_TYPE_MEMCPY || type == CU_GRAPH_NODE_TYPE_MEMSET) ++out[2];
-    if (type == CU_GRAPH_NODE_TYPE_CONDITIONAL) ++out[3];
-  }
-  return 0;
 }

@@ -67,6 +67,7 @@ from .engine_table import (
     step_tensor,
 )
 from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
+from .utils import trace
 
 f32 = np.float32
 
@@ -296,8 +297,10 @@ def _step_runner(params: SimParams, device, batched: bool):
     for the table runners' signature, and changes nothing here);
     ``run_chunk.eager_steps`` is 0 (no step of a chunk runs eagerly by
     design).  A runner advances one chunk at a time (its graphs hold that
-    chunk's carry)."""
-    body = _make_body(params, params.resolved_backend(device))
+    chunk's carry).  A call is a ``chunk`` span where tracing is on
+    (``utils/trace``)."""
+    backend = params.resolved_backend(device)
+    body = _make_body(params, backend)
     graphs: dict = {}
     fns: dict = {}
 
@@ -317,6 +320,7 @@ def _step_runner(params: SimParams, device, batched: bool):
                                   gates if j == 0 else NO_GATES, step0 + j)
                 return arrays
 
+            block.steps = length
             fns[gates, length] = block
         return fns[gates, length]
 
@@ -327,7 +331,8 @@ def _step_runner(params: SimParams, device, batched: bool):
         for gates, length in bot_pieces(params, state.step, n_steps, BLOCK_STEPS):
             s = state.step
             carry = {k: getattr(state, k) for k in ARRAY_FIELDS}
-            carry.update(_draws(params, state.generator, s, gates, shape, dev))
+            with trace.work(dev):
+                carry.update(_draws(params, state.generator, s, gates, shape, dev))
             out = _graphed(graphs, ("bot", dev, tuple(state.pos.shape), gates, length),
                            piece(gates, length), carry, s)
             state = state.replace(step=s + length, **{k: out[k] for k in ARRAY_FIELDS})
@@ -335,11 +340,16 @@ def _step_runner(params: SimParams, device, batched: bool):
         if dev.type == "cuda":
             # arrays may sit in a graph's buffers, which the runner's next
             # chunk overwrites
-            state = state.replace(**{k: getattr(state, k).clone() for k in ARRAY_FIELDS})
+            with trace.work(dev):
+                state = state.replace(**{k: getattr(state, k).clone() for k in ARRAY_FIELDS})
         return state
 
     def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
-        return drain(blocks(state, n_steps, seg_aligned))
+        if not trace.ON:
+            return drain(blocks(state, n_steps, seg_aligned))
+        with trace.span("chunk", steps=n_steps, scenes=state.pos.shape[0] if batched else 1,
+                        path=backend.name):
+            return drain(blocks(state, n_steps, seg_aligned))
 
     run_chunk.blocks = blocks
     run_chunk.eager_steps = 0

@@ -77,6 +77,7 @@ from .ops.pallas_stencil import FIELDS as KERNEL_FIELDS
 from .ops.pallas_stencil import assign_slots_slotmajor, stencil_forces
 from .ops.phase import update_phase
 from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
+from .utils import trace
 
 f32 = np.float32
 
@@ -156,6 +157,7 @@ class RebuildCounts(MutableMapping):
 
 
 REBUILDS = RebuildCounts()
+trace.register("rebuilds", REBUILDS)
 
 
 def step_tensor(step: int, device) -> torch.Tensor:
@@ -792,11 +794,11 @@ class _CapturedBlock:
     segment's adopt-or-redo an IF node with an else branch, whose redo
     body holds the rebuilds' nodes in turn.  ``nodes`` holds the captured
     graph's node counts by type with its bodies' nodes
-    (``GraphCapture.node_counts``) when the block made a node, else None;
-    ``counted`` the launches of its bodies per run, each beside the
-    device counter the body increments (one of ``counters``, made outside
-    the graph's pool); ``seconds`` the time the capture and the graph's
-    instantiation took."""
+    (``GraphCapture.node_counts``: ``kernels`` at the top level, counted
+    once here, is what a replay runs but the bodies); ``counted`` the
+    launches of its bodies per run, each beside the device counter the
+    body increments (one of ``counters``, made outside the graph's
+    pool)."""
 
     def __init__(self, block, carry: dict):
         from .ops.cond import GraphCapture, capturing
@@ -805,9 +807,7 @@ class _CapturedBlock:
         self.carry = {n: torch.empty_like(v) for n, v in carry.items()}
         self.outputs = {}
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
-        self.nodes = None
         REBUILDS.counter(dev)
-        t0 = time.perf_counter()
         before = kernels.LAUNCHES.host_counts()
         self.graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(dev)
@@ -827,8 +827,7 @@ class _CapturedBlock:
                             self.outputs[n] = v
                         elif v is not self.carry[n]:
                             self.carry[n].copy_(v)
-                    if capture.bodies:
-                        self.nodes = capture.node_counts(stream)
+                    self.nodes = capture.node_counts(stream)
                 except BaseException:
                     # the capture is void: end it, and raise what voided it
                     try:
@@ -846,7 +845,6 @@ class _CapturedBlock:
         capture.finish()
         self.counted, self.counters = capture.counted, capture.counters
         torch.cuda.current_stream(dev).wait_stream(stream)
-        self.seconds = time.perf_counter() - t0
 
     def __call__(self, carry: dict, step: int) -> dict:
         for n, v in carry.items():
@@ -860,26 +858,60 @@ class _CapturedBlock:
 
 
 def _graphed(graphs: dict, key: tuple, block, carry: dict, step: int) -> dict:
-    """``block(carry, step)`` (as :class:`_CapturedBlock` takes it) at the
-    host step ``step``: eagerly off the card; on the card replayed from the
-    graph ``graphs[key]``, which the first call of a ``key`` captures.
-    ``key`` is ``(kind, device, layout, ...)``: the kind of block, the
-    carry's device and layout, and what else tells its graphs apart (a
-    gate pattern, say).  The first block of a kind, device and layout runs
-    eagerly before its capture (the warm-up :class:`_CapturedBlock`
-    needs); a later key of the same three is captured at once and
-    replayed, so that a new gate pattern reads nothing either."""
+    """``block(carry, step)`` (as :class:`_CapturedBlock` takes it; its
+    length in ``block.steps``) at the host step ``step``: eagerly off the
+    card; on the card replayed from the graph ``graphs[key]``, which the
+    first call of a ``key`` captures.  ``key`` is ``(kind, device, layout,
+    ...)``: the kind of block, the carry's device and layout, and what else
+    tells its graphs apart (a gate pattern, say).  The first block of a
+    kind, device and layout runs eagerly before its capture (the warm-up
+    :class:`_CapturedBlock` needs); a later key of the same three is
+    captured at once and replayed, so that a new gate pattern reads
+    nothing either.  Traced (``utils/trace``): spans ``graph.eager``,
+    ``graph.capture`` and ``graph.replay``; every capture counts in
+    ``trace.CAPTURES``."""
     dev = next(iter(carry.values())).device
     if dev.type != "cuda":
-        return block(carry, step_tensor(step, dev))
+        return _eager(key[0], block, carry, step)
     if key not in graphs:
         if any(k[:3] == key[:3] for k in graphs):
-            graphs[key] = _CapturedBlock(block, carry)
+            graphs[key] = _capture(key[0], block, carry)
         else:
-            out = block(carry, step_tensor(step, dev))
-            graphs[key] = _CapturedBlock(block, carry)
+            out = _eager(key[0], block, carry, step)
+            graphs[key] = _capture(key[0], block, carry)
             return out
-    return graphs[key](carry, step)
+    graph = graphs[key]
+    if not trace.ON:
+        return graph(carry, step)
+    with trace.span("graph.replay", dev, kind=key[0], steps=block.steps,
+                    nodes=graph.nodes["kernels"]):
+        return graph(carry, step)
+
+
+def _eager(kind: str, block, carry: dict, step: int) -> dict:
+    dev = next(iter(carry.values())).device
+    if not trace.ON:
+        return block(carry, step_tensor(step, dev))
+    with trace.span("graph.eager", dev, kind=kind, steps=block.steps):
+        return block(carry, step_tensor(step, dev))
+
+
+def _capture(kind: str, block, carry: dict) -> "_CapturedBlock":
+    """:class:`_CapturedBlock` ``(block, carry)``, counted in
+    ``trace.CAPTURES`` with the seconds its capture and instantiation
+    took."""
+    t0 = time.perf_counter()
+    if not trace.ON:
+        graph = _CapturedBlock(block, carry)
+    else:
+        dev = next(iter(carry.values())).device
+        with trace.span("graph.capture", kind=kind) as sp:
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = _CapturedBlock(block, carry)
+            sp.attrs.update(nodes=graph.nodes["kernels"],
+                            pool_mib=(torch.cuda.memory_reserved(dev) - reserved) / 2**20)
+    trace.CAPTURES.add(time.perf_counter() - t0)
+    return graph
 
 
 def _one_chunk_at_a_time(blocks):
@@ -979,6 +1011,7 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
                 out["pm"] = pm
             return out
 
+        block.steps = len(pattern)
         fns[pattern, with_pm] = block
         return block
 
@@ -988,10 +1021,11 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
             carry = _carry_of(ts)
             if pm is not None:
                 carry["pm"] = pm
-            for j, (gates, _) in enumerate(pattern):
-                for name, v in _draws(params, ts.generator, ts.step + j, gates,
-                                           ts.fields["dead"].shape, dev).items():
-                    carry[f"{name}{j}"] = v
+            with trace.work(dev):
+                for j, (gates, _) in enumerate(pattern):
+                    for name, v in _draws(params, ts.generator, ts.step + j, gates,
+                                          ts.fields["dead"].shape, dev).items():
+                        carry[f"{name}{j}"] = v
             block = piece(pattern, pm is not None)
             host["step"] = ts.step
             key = ("piece", dev, tuple(ts.origin.shape), pattern, pm is not None)
@@ -1007,15 +1041,18 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
 class _TableRunner:
     """A table-loop chunk runner: ``runner(state, n_steps, seg_aligned=
     False) -> state``; ``runner.blocks`` is the chunk as a block iterator,
-    ``runner.path_info`` its schedule, ``runner.eager_steps`` how many
-    steps of a chunk run eagerly by design (0: every piece is a block a
-    graph replays on the card), and ``runner.redos`` how many span
-    segments it redid (a device count, read when asked)."""
+    ``runner.segments(n_steps, seg_aligned)`` how many gate segments of
+    such a chunk take the span path, ``runner.path_info`` its schedule,
+    ``runner.eager_steps`` how many steps of a chunk run eagerly by design
+    (0: every piece is a block a graph replays on the card), and
+    ``runner.redos`` how many span segments it redid (a device count, read
+    when asked).  A call is a ``chunk`` span where tracing is on."""
 
     def __init__(self, path_info: dict):
         self.path_info = path_info
         self.eager_steps = 0
         self.blocks = None
+        self.segments = None
         self._redo_counts: dict = {}  # device -> 0-dim int64
 
     def redo_counter(self, device) -> torch.Tensor:
@@ -1029,7 +1066,14 @@ class _TableRunner:
         return sum(int(c) for c in self._redo_counts.values())
 
     def __call__(self, state: SimState, n_steps: int, seg_aligned: bool = False):
-        return drain(self.blocks(state, n_steps, seg_aligned))
+        if not trace.ON:
+            return drain(self.blocks(state, n_steps, seg_aligned))
+        batched = state.pos.dim() == 3
+        path = ("span" if self.segments(n_steps, seg_aligned)
+                else "batched" if batched else "table")
+        with trace.span("chunk", steps=n_steps, scenes=state.pos.shape[0] if batched else 1,
+                        path=path, k=self.path_info["slot_rebuild_steps"]):
+            return drain(self.blocks(state, n_steps, seg_aligned))
 
 
 def _make_table_runner(params: SimParams, phase_fn):
@@ -1128,6 +1172,7 @@ def _make_table_runner(params: SimParams, phase_fn):
 
             return branch(ok_all, adopt, redo, carry, outputs)
 
+        block.steps = seg
         seg_fns[first_gates] = block
         return block
 
@@ -1139,9 +1184,10 @@ def _make_table_runner(params: SimParams, phase_fn):
         for _ in range(n_segs):
             gates = _step_gates(params, ts.step)
             carry = _carry_of(ts)
-            for name, v in _draws(params, ts.generator, ts.step, gates,
-                                       ts.fields["dead"].shape, dev).items():
-                carry[f"{name}0"] = v
+            with trace.work(dev):
+                for name, v in _draws(params, ts.generator, ts.step, gates,
+                                      ts.fields["dead"].shape, dev).items():
+                    carry[f"{name}0"] = v
             runner.redo_counter(dev)
             block = span_segment(gates)
             piece.host["step"] = ts.step
@@ -1151,17 +1197,22 @@ def _make_table_runner(params: SimParams, phase_fn):
             yield
         return ts
 
+    def segments(n_steps: int, seg_aligned: bool) -> int:
+        return n_steps // seg if use_mega and seg_aligned and bps > 1 else 0
+
     @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
-        ts = enter_table(params, state)
-        n_segs = 0
-        if use_mega and seg_aligned and bps > 1:
-            n_segs = n_steps // seg
+        with trace.work(state.device):
+            ts = enter_table(params, state)
+        n_segs = segments(n_steps, seg_aligned)
+        if n_segs:
             ts = yield from span_segments(ts, n_segs)
         ts, _ = yield from advance(ts, n_steps - n_segs * seg)
-        return _exit(params, ts)
+        with trace.work(state.device):
+            return _exit(params, ts)
 
     runner.blocks = blocks
+    runner.segments = segments
     return runner
 
 
@@ -1252,10 +1303,12 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
     _, advance = _make_piece_runner(params, phase_fn)
 
     def probe_chunk(state: SimState):
-        ts = enter_table(params, state)
-        pm = neighbor_rel_speed_bound(params, ts.fields)
+        with trace.work(state.device):
+            ts = enter_table(params, state)
+            pm = neighbor_rel_speed_bound(params, ts.fields)
         ts, pm = drain(advance(ts, seg, pm))
-        return _exit(params, ts), pm
+        with trace.work(state.device):
+            return _exit(params, ts), pm
 
     probe_chunk.eager_steps = 0
     return probe_chunk
@@ -1279,7 +1332,11 @@ class _HostValue:
 
     def read(self) -> float:
         if self._event is not None:
-            self._event.synchronize()
+            if trace.ON:
+                with trace.span("chunk.probe_wait"):
+                    self._event.synchronize()
+            else:
+                self._event.synchronize()
         return float(self._t)
 
 
@@ -1298,7 +1355,9 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     as a block iterator (the table runner's); ``runner.live["k"]`` /
     ``runner.last_probe`` expose the live cadence and the last bound
     read, ``runner.eager_steps`` the steps of a chunk that run eagerly by
-    design (0, as in the probe and the table runners)."""
+    design (0, as in the probe and the table runners).  A call is a
+    ``chunk`` span where tracing is on, the probe segment a
+    ``chunk.probe`` span inside it."""
     base = params.validate()
     p4 = base.replace(slot_rebuild_steps=4)
     p8 = base.replace(slot_rebuild_steps=8)
@@ -1308,6 +1367,7 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     runners: dict = {}
     probes: dict = {}
     live = {"k": 4}
+    ran = {"k": 4}  # the cadence the last chunk ran at
 
     def get_runner(k):
         if k not in runners:
@@ -1323,15 +1383,22 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
 
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         if not seg_ok or not seg_aligned or n_steps < seg or n_steps % seg:
+            ran["k"] = 4
             return (yield from get_runner(4).blocks(state, n_steps, seg_aligned))
         if runner._pending is not None:
             # the previous chunk's probe, computed long ago on the device
             pm = runner._pending.read()
             runner.last_probe = pm
             live["k"] = 8 if pm <= bound8 else 4
+        ran["k"] = live["k"]
         probe = get_probe(live["k"])
-        state, pm = probe(state)
-        runner._pending = _HostValue(pm)
+        if trace.ON:
+            with trace.span("chunk.probe", k=live["k"]):
+                state, pm = probe(state)
+        else:
+            state, pm = probe(state)
+        with trace.work(state.device):
+            runner._pending = _HostValue(pm)
         yield
         rest = n_steps - seg
         if rest:
@@ -1339,7 +1406,12 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
         return state
 
     def runner(state: SimState, n_steps: int, seg_aligned: bool = False):
-        return drain(blocks(state, n_steps, seg_aligned))
+        if not trace.ON:
+            return drain(blocks(state, n_steps, seg_aligned))
+        with trace.span("chunk", steps=n_steps, scenes=1, path="adaptive") as sp:
+            out = drain(blocks(state, n_steps, seg_aligned))
+            sp.attrs["k"] = ran["k"]
+        return out
 
     runner.blocks = blocks
     runner.live = live

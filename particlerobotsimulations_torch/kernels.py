@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .config import SimParams, padded_n
+from .utils import trace
 
 class LaunchCounts(MutableMapping):
     """Launches per kernel: the main path's callers read these to show
@@ -110,6 +111,7 @@ LAUNCHES = LaunchCounts((
     "stencil_forces_ext_batched", "compact_padded_batched",
     "cond_set",
 ))
+trace.register("launches", LAUNCHES)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -200,8 +202,6 @@ SIGNATURES = {
     "pbot_cond_node": [_vp, _ull, _i, _i, _vp],
     "pbot_cond_body_begin": [_vp, _vp],
     "pbot_cond_body_end": [_vp, _vp],
-    "pbot_capture_graph": [_vp, _vp],
-    "pbot_graph_nodes": [_vp, _vp],
 }
 
 
@@ -791,17 +791,66 @@ def end_body(stream: torch.cuda.Stream, body: int) -> None:
     _raise_on(build().pbot_cond_body_end(stream.cuda_stream, body), "body capture")
 
 
+_cuda = None
+# CUgraphNodeType values (cuda.h) and CU_STREAM_CAPTURE_STATUS_ACTIVE
+_NODE_KERNEL, _NODE_MEMCPY, _NODE_MEMSET, _NODE_CONDITIONAL = 0, 1, 2, 13
+_CAPTURE_ACTIVE = 1
+
+
+def _driver() -> ctypes.CDLL:
+    """The CUDA driver library, its graph queries declared.  The driver's
+    node queries, not the runtime's: ``cudaGraphGetNodes`` and
+    ``cudaGraphNodeGetType`` fail on a graph that holds a conditional
+    node (CUDA 12.9 runtime).  No build: a graph of PyTorch kernels alone
+    is counted too."""
+    global _cuda
+    if _cuda is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuStreamGetCaptureInfo_v2.argtypes = [
+            _vp, ctypes.POINTER(_i), ctypes.POINTER(_ull), ctypes.POINTER(_vp),
+            ctypes.POINTER(_vp), ctypes.POINTER(ctypes.c_size_t)]
+        lib.cuGraphGetNodes.argtypes = [_vp, ctypes.POINTER(_vp), ctypes.POINTER(ctypes.c_size_t)]
+        lib.cuGraphNodeGetType.argtypes = [_vp, ctypes.POINTER(_i)]
+        for fn in (lib.cuStreamGetCaptureInfo_v2, lib.cuGraphGetNodes, lib.cuGraphNodeGetType):
+            fn.restype = _i
+        _cuda = lib
+    return _cuda
+
+
+
+def _driver_check(res: int, what: str) -> None:
+    if res != 0:
+        raise RuntimeError(f"{what} failed: CUresult {res}")
+
+
 def capture_graph(stream: torch.cuda.Stream) -> int:
     """The ``cudaGraph_t`` (as an int) that ``stream`` is capturing into."""
-    graph = _vp()
-    _raise_on(build().pbot_capture_graph(stream.cuda_stream, ctypes.byref(graph)),
-              "capture graph")
+    status, graph = _i(), _vp()
+    _driver_check(_driver().cuStreamGetCaptureInfo_v2(
+        stream.cuda_stream, ctypes.byref(status), None, ctypes.byref(graph), None, None),
+        "capture graph")
+    if status.value != _CAPTURE_ACTIVE:
+        raise RuntimeError("capture graph failed: no capture under way on the stream")
     return graph.value
 
 
 def graph_nodes(graph: int) -> dict:
     """A graph's nodes by type (its own, not its bodies'): ``nodes``,
     ``kernels``, ``copies`` (memcpy and memset) and ``conditional``."""
-    out = (ctypes.c_int * 4)()
-    _raise_on(build().pbot_graph_nodes(graph, out), "graph nodes")
-    return dict(zip(("nodes", "kernels", "copies", "conditional"), out))
+    lib = _driver()
+    n = ctypes.c_size_t(0)
+    _driver_check(lib.cuGraphGetNodes(graph, None, ctypes.byref(n)), "graph nodes")
+    nodes = (_vp * n.value)()
+    if n.value:
+        _driver_check(lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "graph nodes")
+    out = {"nodes": n.value, "kernels": 0, "copies": 0, "conditional": 0}
+    kind = _i()
+    for node in nodes[: n.value]:
+        _driver_check(lib.cuGraphNodeGetType(node, ctypes.byref(kind)), "graph node type")
+        if kind.value == _NODE_KERNEL:
+            out["kernels"] += 1
+        elif kind.value in (_NODE_MEMCPY, _NODE_MEMSET):
+            out["copies"] += 1
+        elif kind.value == _NODE_CONDITIONAL:
+            out["conditional"] += 1
+    return out

@@ -399,6 +399,7 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
                                                    _drawn(carry, j))}
                 return carry
 
+            block.steps = len(pattern)
             fns[pattern] = block
         return fns[pattern]
 

@@ -22,6 +22,7 @@ from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.csvio import CsvDumper, load_last_row
 from .models.placement import initial_state_arrays
 from .state import SimState, make_state
+from .utils import trace
 
 
 class Simulation:
@@ -140,13 +141,15 @@ class Simulation:
         return self.state.step * self.params.timestep
 
     def host_view(self):
-        """(pos, vel, rad) host copies, unpadded."""
+        """(pos, vel, rad) host copies, unpadded; a ``sim.host_view`` span
+        where tracing is on (``utils/trace``)."""
         n = self.params.n_cells
-        return (
-            self.state.pos[:n].cpu().numpy(),
-            self.state.vel[:n].cpu().numpy(),
-            self.state.rad[:n].cpu().numpy(),
-        )
+        parts = (self.state.pos[:n], self.state.vel[:n], self.state.rad[:n])
+        if not trace.ON:
+            return tuple(t.cpu().numpy() for t in parts)
+        with trace.span("sim.host_view", parts[0].device,
+                        bytes=sum(t.numel() * t.element_size() for t in parts)):
+            return tuple(t.cpu().numpy() for t in parts)
 
     def centroid(self) -> np.ndarray:
         pos, _, _ = self.host_view()

@@ -1,1 +1,2 @@
-"""Measurement helpers of the port (``profiling.py``)."""
+"""Measurement helpers of the port (``profiling.py``) and its spans and
+counters (``trace.py``)."""

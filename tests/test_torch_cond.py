@@ -208,7 +208,7 @@ def test_signatures_declare_the_conditional_node_entry_points():
     decls = dict(re.findall(r'extern "C" int (pbot_\w+)\(([^)]*)\)', src))
     assert set(decls) == {
         "pbot_cond_handle", "pbot_cond_set", "pbot_cond_node", "pbot_cond_body_begin",
-        "pbot_cond_body_end", "pbot_capture_graph", "pbot_graph_nodes",
+        "pbot_cond_body_end",
     }
     for name, args in decls.items():
         argtypes = kernels.SIGNATURES[name]

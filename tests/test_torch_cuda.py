@@ -974,14 +974,16 @@ def replayed_conds(blocks) -> int:
     """``cond_set`` launches the blocks' replays made (those of the
     bodies that ran included: a redone span segment's rebuilds), after
     checking each capture: one top-level conditional node per top-level
-    ``cond_set``, a body with nodes, and no select left."""
+    ``cond_set``, a body with nodes, kernel nodes at the top level, and no
+    select left."""
     for b in blocks:
         n = b.launches.get("cond_set", 0)
         assert b.selects == 0
+        assert b.nodes["kernels"] > 0, b.nodes
         if n:
             assert b.nodes["conditional"] == n and b.nodes["body_nodes"] > 0, b.nodes
         else:
-            assert b.nodes is None
+            assert b.nodes["conditional"] == 0 and b.nodes["body_nodes"] == 0, b.nodes
     return sum(b.replays * b.launches.get("cond_set", 0)
                + sum(c.get("cond_set", 0) * int(t) for c, t in b.counted) for b in blocks)
 
@@ -1692,7 +1694,7 @@ def test_cond_set_counted_once_per_replayed_rebuild(card, kind, monkeypatch):
     assert without_cond_set(e_launch) == without_cond_set(g_launch)
     conds = replayed_conds(blocks)
     assert g_launch["cond_set"] == conds > 0 and e_launch["cond_set"] == 0
-    assert any(b.nodes for b in blocks)
+    assert any(b.nodes["conditional"] for b in blocks)
     for k in CHUNK_FIELDS:
         assert torch.equal(getattr(g_state, k), getattr(e_state, k)), k
 
