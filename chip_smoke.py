@@ -240,13 +240,25 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    its node against the select at the 10k table (the incremental and the
    exact branch, bit for bit); its time per cond in a graph of 20 (body
    not taken and taken) against the select's ``torch.where``; and 10k
-   K=8 eager against graph when phase 16's probe kept K=4.
+   K=8 eager against graph when phase 16's probe kept K=4;
+20. the row step (``csrc/row_step.cu``, ``ops/row_step.py``: the table
+   loop's step glue in one launch) against its plain twin on the 10k
+   table after phase 4's 3,000 steps and on the 10k sweep's eight tables
+   after phase 12's 200, in each mode (post, pre, post_pre; kernel 1's
+   sums of the same table given), bit for bit on all 13 planes; each
+   mode timed per launch in a CUDA graph of 20, the twin per call and in
+   a CUDA graph of 20 (the ops the loop replayed before the row step), and
+   bounded by the bytes it moves.  The row step's launches are checked
+   wherever the table loop runs: phases 7, 12 and 17 against the blocks'
+   schedules (``engine_table.glue_schedule``), phase 15 between once and
+   twice a step; and phases 12 and 17 run their references through the
+   twin, so the loop's glue is held against plain PyTorch bit for bit.
 
-The four kernels are timed per launch from replays of a CUDA graph of
-20 launches, so their wrappers' host-side checks stay out of the time
-(kernel 3 also per wrapper call); the plain twins are timed per call
-with CUDA events.  ``cond_set`` is timed per cond (the kernel and its
-node) in a graph of 20.
+The four kernels and the row step are timed per launch from replays of
+a CUDA graph of 20 launches, so their wrappers' host-side checks stay
+out of the time (kernel 3 also per wrapper call); the plain twins are
+timed per call with CUDA events.  ``cond_set`` is timed per cond (the
+kernel and its node) in a graph of 20.
 
 Any failure raises and exits non-zero.  The last two lines are the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -254,6 +266,7 @@ kernels' JSON record and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -279,13 +292,16 @@ from particlerobotsimulations_torch.engine_table import (
     enter_table,
     exit_table,
     gate_seg,
+    glue_schedule,
     make_run_chunk_table,
     make_table_step,
     make_table_step_parts,
     step_tensor,
+    table_pieces,
 )
 from particlerobotsimulations_torch.models.placement import resolve_params
 from particlerobotsimulations_torch.ops.megakernel import (
+    mega_eligible,
     mega_span_batched_plain,
     mega_span_plain,
 )
@@ -294,10 +310,12 @@ from particlerobotsimulations_torch.ops.pallas_stencil import (
     assign_slots_slotmajor,
     pair_constants,
     scatter_bot_tables,
+    stencil_forces,
     stencil_forces_batched_plain,
     stencil_forces_ext_plain,
     stencil_forces_plain,
 )
+from particlerobotsimulations_torch.ops.row_step import row_step_plain
 from particlerobotsimulations_torch.ops.table_rebuild import (
     compact_padded_plain,
     compact_plain,
@@ -668,9 +686,7 @@ def compare_span(name, p, tbl, strip, first, got=None):
     """max |diff| of kernel 3 (one launch, or ``got`` when given) against
     its twin on one span; fails beyond the tolerance (K3_* above)."""
     if got is None:
-        got = kernels.mega_span_cuda(
-            p, tbl, strip, first, *kernels.obstacle_buffers(p, tbl.device)
-        )
+        got = kernels.mega_span_cuda(p, tbl, strip, first)
     want = mega_span_plain(p, tbl, strip, first)
     torch.cuda.synchronize()
     ix = {f: j for j, f in enumerate(TABLE_FIELDS)}
@@ -810,6 +826,7 @@ def band_main_path():
         "mega_span": n_segs * (bps - 1),
         "compact": n_segs * bps + r * bps,
         "stencil_forces": n_segs * k + r * (seg - 1),
+        "row_step": row_step_launches(sim.params.validate(), [(0, n_steps, True)], r),
     })
     return sim, launches, r, wall * 1e6 / n_steps, sim.params.n_cells * n_steps / wall
 
@@ -1808,7 +1825,8 @@ def lockstep_replay(params, seeds, n_steps, record_every):
 def sweep_vs_sequential(name, params, n_steps, record_every, strategy):
     """One sweep of SWEEP_SEEDS through ``run_sweep`` by ``strategy`` (None:
     AUTO) on the card, held per scene bit for bit against its reference:
-    the lockstep replay on a PALLAS table loop, else (DENSE, no rebuild
+    the lockstep replay on a PALLAS table loop (its step glue through the
+    row step's plain twin, :func:`twin_glue`), else (DENSE, no rebuild
     decisions) each seed's sequential run.  Each seed's free sequential
     run is timed beside it.  Returns (batched state, launches, the
     replay's counts or None, text)."""
@@ -1823,7 +1841,9 @@ def sweep_vs_sequential(name, params, n_steps, record_every, strategy):
     counts = None
     if table:
         t0 = time.perf_counter()
-        r_states, r_cents, counts = lockstep_replay(params, SWEEP_SEEDS, n_steps, record_every)
+        with twin_glue():
+            r_states, r_cents, counts = lockstep_replay(params, SWEEP_SEEDS, n_steps,
+                                                        record_every)
         r_wall = time.perf_counter() - t0
         if counts["exact"] != b_exact:
             fail(f"{name}: the batch took {b_exact} exact rebuilds, its replay {counts['exact']}")
@@ -1870,6 +1890,47 @@ def sweep_vs_sequential(name, params, n_steps, record_every, strategy):
 
 # the kernel-2 launches: one per rebuild, whichever path it took
 COMPACTIONS = ("compact", "compact_batched", "compact_padded", "compact_padded_batched")
+
+
+# the row step's launch counters, one scene and B scenes, and the parts of
+# a block's glue schedule that launch it
+ROW_STEP_KEYS = ("row_step", "row_step_batched")
+ROW_PARTS = ("pre", "post_pre", "post")
+
+
+def row_step_launches(p, chunks, redos=0) -> int:
+    """The row-step launches of the table runner (one scene or a batch)
+    over ``chunks``, ``(first step, steps, seg-aligned)`` each, with
+    ``redos`` segments redone: a span segment launches k + 1 (its first
+    block's pre and k - 1 post_pre before the rebuild, the adopt's post), a
+    redone one its bps regular blocks of k + 1 in place of that post; the
+    steps outside segments run ``table_pieces``' blocks, each
+    ``glue_schedule``'s row-step parts."""
+    k = max(1, p.resolved_slot_rebuild_steps())
+    seg = gate_seg(p)
+    bps = seg // k if seg > 0 else 0
+    use_mega = mega_eligible(p) and bps > 1
+    n = redos * (bps * (k + 1) - 1)
+    for start, steps, aligned in chunks:
+        n_segs = steps // seg if use_mega and aligned else 0
+        n += n_segs * (k + 1)
+        for pattern in table_pieces(p, k, start + n_segs * seg, steps - n_segs * seg):
+            n += sum(part in ROW_PARTS for part, _ in glue_schedule(pattern))
+    return n
+
+
+@contextlib.contextmanager
+def twin_glue():
+    """The row step's plain twin, the PyTorch ops, in place of its kernel
+    (``ops/row_step.row_step`` reaches the kernel through the ``kernels``
+    module): a run inside holds the table loop's step glue against plain
+    PyTorch, and counts no row-step launch."""
+    real = kernels.row_step_cuda
+    kernels.row_step_cuda = row_step_plain
+    try:
+        yield
+    finally:
+        kernels.row_step_cuda = real
 
 
 def check_launches(name, launches, want) -> None:
@@ -1950,13 +2011,12 @@ def batched_kernel_checks(p10, state10, pb, state_b):
     tbl, strip = _make_mega_glue(pb)[0](tsb.fields)
     tbl, strip = tbl.contiguous(), strip.contiguous()
     first = step_tensor(tsb.step + 1, tbl.device)
-    obs = kernels.obstacle_buffers(pb, tbl.device)
     s_tbl = [tbl[i].contiguous() for i in range(b)]
     s_strip = [strip[i].contiguous() for i in range(b)]
-    got3 = kernels.mega_span_batched_cuda(pb, tbl, strip, first, *obs)
+    got3 = kernels.mega_span_batched_cuda(pb, tbl, strip, first)
     err3 = 0.0
     for i in range(b):
-        one = kernels.mega_span_cuda(pb, s_tbl[i], s_strip[i], first, *obs)
+        one = kernels.mega_span_cuda(pb, s_tbl[i], s_strip[i], first)
         if not (torch.equal(got3[0][i], one[0]) and torch.equal(got3[1][i], one[1])):
             fail(f"batched mega_span: scene {i} differs from its single launch")
         e, _ = compare_span(f"batched scene {i}", pb, s_tbl[i], s_strip[i], first,
@@ -1967,9 +2027,9 @@ def batched_kernel_checks(p10, state10, pb, state_b):
                                     pt.config.padded_n(pb), pb.has_payload, scenes=b)
     out["mega_span_batched"] = {
         "err": err3,
-        "ms": graph_ms(lambda: kernels.mega_span_batched_cuda(pb, tbl, strip, first, *obs)),
+        "ms": graph_ms(lambda: kernels.mega_span_batched_cuda(pb, tbl, strip, first)),
         "singles_ms": graph_ms(lambda: [
-            kernels.mega_span_cuda(pb, s_tbl[i], s_strip[i], first, *obs) for i in range(b)
+            kernels.mega_span_cuda(pb, s_tbl[i], s_strip[i], first) for i in range(b)
         ]),
         "plain_ms": median_ms(lambda: mega_span_batched_plain(pb, tbl, strip, first), 2, 3),
         # the eight spans' bounds add: one launch does all their work
@@ -1999,9 +2059,13 @@ def sweep_phase():
     """Phase 12: the seed sweep on the card.  Three sweeps of eight seeds
     against their sequential runs, with the launch counts checked (kernel 1
     once per batched step, kernel 2 once per rebuild, kernel 3 once per
-    span, whatever the number of scenes); the batched kernels against eight
-    single launches and their twins; the CLI's sweep and experiment."""
-    counts = {"stencil_forces_batched": 0, "compact_batched": 0, "mega_span_batched": 0}
+    span, the row step as the blocks' schedules give it, whatever the
+    number of scenes); the batched kernels against eight
+    single launches and their twins; the CLI's sweep and experiment.
+    Returns (the batched kernels' records, their launches, the 10k sweep's
+    final state)."""
+    counts = {"stencil_forces_batched": 0, "compact_batched": 0, "mega_span_batched": 0,
+              "row_step_batched": 0}
     b = len(SWEEP_SEEDS)
 
     # the 10k sweep: bench.py's workload, AUTO batched at the K the params
@@ -2018,6 +2082,8 @@ def sweep_phase():
         fail(f"10k sweep: the replay took {rep}, want {n10} steps and {rebuilds} rebuilds")
     check_launches("10k sweep", launch, {
         "stencil_forces_batched": n10, "compact_batched": rebuilds,
+        "row_step_batched": row_step_launches(
+            p10, [(c * rec10, rec10, True) for c in range(n10 // rec10)]),
     })
     for key in counts:
         counts[key] += launch[key]
@@ -2051,7 +2117,8 @@ def sweep_phase():
     }
     if (rep["spans"], rep["rebuilds"], rep["steps"]) != tuple(want.values()):
         fail(f"band sweep: the replay took {rep}, want {want}")
-    check_launches("band sweep", launch, want)
+    check_launches("band sweep", launch,
+                   {**want, "row_step_batched": row_step_launches(pb, [(0, nb, True)], r)})
     for key in counts:
         counts[key] += launch[key]
     print(f"phase 12 sweep {text}; launches {launch}; {time.perf_counter() - t0:.1f} s")
@@ -2100,7 +2167,7 @@ def sweep_phase():
           f"({choose_sweep_strategy(resolve_params(pg.validate()), 2)}) in "
           f"{time.perf_counter() - t0:.1f} s: fraction past the wall "
           f"{gap['frac_past_wall'].tolist()}, launches {dict(kernels.LAUNCHES)}")
-    return kc, counts
+    return kc, counts, s10
 
 
 # ---------------------------- phase 13: checkpoints, video, the gradient path
@@ -2815,7 +2882,7 @@ def add_counts(total: dict) -> dict:
 def profiling_checks(total: dict, device="cuda") -> None:
     """Phase 15a: ``measure_call_overhead`` and ``measure_throughput`` at
     10k (PALLAS, the adaptive table loop: kernel 1 once per step, kernel 2
-    once per rebuild), then ``scaling_report`` over four sizes."""
+    once per rebuild, the row step between once and twice per step), then ``scaling_report`` over four sizes."""
     from particlerobotsimulations_torch.utils import profiling
 
     overhead = profiling.measure_call_overhead(device=device)
@@ -2830,11 +2897,13 @@ def profiling_checks(total: dict, device="cuda") -> None:
     rebuilds = REBUILDS["incremental"] + REBUILDS["exact"]
     if t.backend != "PALLAS" or t.n_bots != bench_params().n_cells or not t.particle_steps_per_sec > 0:
         fail(f"measure_throughput at 10k: {t}")
-    # cond_set: one launch for each rebuild a graph replayed
+    # cond_set: one launch for each rebuild a graph replayed; the row step
+    # more than once a step (a block's first pre) and at most twice
     if part["stencil_forces"] != steps or part["compact"] != rebuilds or not (
         steps // 8 <= rebuilds <= steps // 4
-    ) or part["cond_set"] > rebuilds or any(
-        v for k, v in part.items() if k not in ("stencil_forces", "compact", "cond_set")
+    ) or part["cond_set"] > rebuilds or not steps < part["row_step"] <= 2 * steps or any(
+        v for k, v in part.items()
+        if k not in ("stencil_forces", "compact", "cond_set", "row_step")
     ):
         fail(f"measure_throughput launches {part}, rebuilds {dict(REBUILDS)} over {steps} steps")
     print(f"phase 15a call overhead {overhead * 1e6:.1f} us; measure_throughput 10k HEX "
@@ -3087,6 +3156,12 @@ def without_cond_set(launches) -> dict:
     """Launch counts apart from ``cond_set``, which only a graph's
     conditional node launches (an eager rebuild selects)."""
     return {k: v for k, v in launches.items() if k != "cond_set"}
+
+
+def without_glue(launches) -> dict:
+    """:func:`without_cond_set` apart from the row step's counts too, which
+    a reference run through the twin (:func:`twin_glue`) does not make."""
+    return {k: v for k, v in without_cond_set(launches).items() if k not in ROW_STEP_KEYS}
 
 
 def chunks_run(make_runner, state, chunks, aligned, eager, count=True):
@@ -3575,9 +3650,11 @@ def forced_glue(flag):
 def span_vs_reference(name, p, state, chunks, total, flags=None):
     """``chunks`` of the span path's runner (each segment one CUDA graph
     that decides its adopt-or-redo with a conditional node) against
-    :func:`reference_span_chunk` from one state: bit for bit, generators
-    included, with equal launches (apart from ``cond_set``), rebuilds and
-    redos, and no eager step in any chunk; then the last chunk again on
+    :func:`reference_span_chunk` from one state, its step glue through the
+    row step's plain twin (:func:`twin_glue`): bit for bit, generators
+    included, with equal launches (apart from ``cond_set`` and the row
+    step, whose launches are the schedule's, :func:`row_step_launches`),
+    rebuilds and redos, and no eager step in any chunk; then the last chunk again on
     the warm runner, sync-free (a segment holding the dead step included,
     where the last chunk holds it).  With ``flags`` (one bool per
     one-segment chunk) both runs AND the span rebuilds' ``ok`` with a
@@ -3621,24 +3698,31 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
     reset_counts()
     t0 = time.perf_counter()
     want, redos = clone_state(state), 0
-    for i, n in enumerate(chunks):
-        if flags is not None:
-            flag.fill_(flags[i])
-        want, r = reference_span_chunk(p, want, n, glue)
-        redos += r
-    torch.cuda.synchronize()
+    with twin_glue():
+        for i, n in enumerate(chunks):
+            if flags is not None:
+                flag.fill_(flags[i])
+            want, r = reference_span_chunk(p, want, n, glue)
+            redos += r
+        torch.cuda.synchronize()
     r_wall, r_launch, r_reb = time.perf_counter() - t0, dict(kernels.LAUNCHES), dict(REBUILDS)
     if not (states_equal(got, want) and generators_equal(got, want)):
         bad = [k for k in ARRAY_FIELDS if not torch.equal(getattr(got, k), getattr(want, k))]
         fail(f"{name}: the span path differs from the reference in {bad}")
     # the graphs' rebuilds (and the redone segments' inside their bodies)
     # go through conditional nodes; the reference selects
-    if (without_cond_set(g_launch), g_reb, g_redos) != (without_cond_set(r_launch), r_reb,
-                                                        redos) or r_launch["cond_set"]:
+    if (without_glue(g_launch), g_reb, g_redos) != (without_glue(r_launch), r_reb,
+                                                    redos) or r_launch["cond_set"]:
         fail(f"{name}: launches {g_launch} rebuilds {g_reb} redos {g_redos}, "
              f"reference {r_launch} {r_reb} {redos}")
     if flags is not None and redos != flags.count(False):
         fail(f"{name}: {redos} redos under {flags.count(False)} forced failures")
+    starts = [int(state.step) + sum(chunks[:i]) for i in range(len(chunks))]
+    rows = {"row_step_batched" if batched else "row_step": row_step_launches(
+        p, [(s0, n, True) for s0, n in zip(starts, chunks)], redos)}
+    if {k: g_launch[k] for k in ROW_STEP_KEYS} != {k: rows.get(k, 0) for k in ROW_STEP_KEYS} \
+            or any(r_launch[k] for k in ROW_STEP_KEYS):
+        fail(f"{name}: row-step launches {g_launch}, want {rows}; the twin's {r_launch}")
     eager_text = check_eager(name, eager_steps)
     node_record(name, blocks, g_launch)
     segs = [b for b in blocks if b.counted]
@@ -4159,6 +4243,88 @@ def cond_phase(p10, main_state, k_live, smi) -> tuple:
     return row, lines
 
 
+# ----------------------------------------- phase 20: the row step
+
+# the planes each mode of the row step reads (row_step.cu's reads(); a
+# post reads px, py and rad too where there are obstacles)
+ROW_STEP_READS = {
+    "post": ("vx", "vy", "val", "pay"),
+    "pre": ("px", "py", "vx", "vy", "rad", "val", "phase", "dead", "aa", "ar"),
+    "post_pre": ("px", "py", "vx", "vy", "rad", "val", "phase", "dead", "pay"),
+}
+# where the JAX package runs the glue the row step replaces (step_pre's
+# radius and integrate, step_post's pad, obstacles, friction and validity)
+ROW_STEP_REPLACES = "particlerobotsimulations_tpu/engine_table.py:539"
+
+
+def row_step_bound(p, fields, mode) -> tuple:
+    """The bound of one launch in ``mode`` on ``fields``: the planes it
+    reads and writes, kernel 1's four sums where it posts, and kernel 3's
+    per-row operations (bytes bind it)."""
+    rows = fields["px"].numel()
+    n_obs = len(p.rect_obstacles) + len(p.circle_obstacles)
+    reads = set(ROW_STEP_READS[mode])
+    if mode != "pre" and n_obs:
+        reads |= {"px", "py", "rad"}
+    n_bytes = (len(reads) + len(kernels.ROW_STEP_WRITES[mode])) * rows * 4
+    if mode != "pre":
+        scenes = rows // fields["px"].shape[-1]
+        n_bytes += 4 * scenes * p.cell_capacity * p.resolved_grid_dim() ** 2 * 4
+    return bound(n_bytes, rows * (ROW_OPS + OBSTACLE_OPS * n_obs))
+
+
+def row_step_check(p, ts) -> dict:
+    """The row step against its twin on the planes of the table state
+    ``ts`` (one scene, or B scenes batched), kernel 1's sums of its table
+    given to the modes that post: each mode on the card and through the
+    twin on the same planes, equal to the bit on all 13 planes.  Per mode:
+    the kernel's time per launch in a CUDA graph of 20 (``ms``), the
+    twin's per call (``plain_ms``) and in a CUDA graph of 20
+    (``library_ms``: the PyTorch ops the table loop replayed before the
+    row step) and the bound.  Returns {mode: record}."""
+    g, cap = p.resolved_grid_dim(), p.cell_capacity
+    f = ts.fields
+    names = ("px", "py", "vx", "vy", "rad") + (("afac",) if p.has_payload else ())
+    forces = stencil_forces(p, {k: f[k][..., : cap * g * g].unflatten(-1, (cap, g * g))
+                                for k in names})
+    step = step_tensor(ts.step, f["px"].device)
+    out = {}
+    for mode in kernels.ROW_STEP_MODES:
+        fr = None if mode == "pre" else forces
+        got = kernels.row_step_cuda(p, f, mode, step, 1, fr)
+        want = row_step_plain(p, f, mode, step, 1, fr)
+        for k in TABLE_FIELDS:
+            if not torch.equal(got[k], want[k]):
+                fail(f"row step {mode} on {tuple(f['px'].shape)} planes: {k} differs from "
+                     f"the twin in {int((got[k] != want[k]).sum())} rows")
+        out[mode] = {
+            "ms": graph_ms(lambda: kernels.row_step_cuda(p, f, mode, step, 1, fr)),
+            "plain_ms": median_ms(lambda: row_step_plain(p, f, mode, step, 1, fr)),
+            "library_ms": graph_ms(lambda: row_step_plain(p, f, mode, step, 1, fr)),
+            "bound": row_step_bound(p, f, mode),
+        }
+    return out
+
+
+def row_step_phase(p10, main_state, sweep_state) -> tuple:
+    """Phase 20: the row step against its twin at the main path's shapes,
+    the 10k table after phase 4's 3,000 steps and the 10k sweep's eight
+    tables after phase 12's 200 (:func:`row_step_check`).  Returns
+    ({name: {mode: record}}, text lines)."""
+    out, lines = {}, []
+    for name, ts in (("row_step", enter_table(p10, main_state)),
+                     ("row_step_batched", enter_table(p10, sweep_state))):
+        out[name] = row_step_check(p10, ts)
+        lines.append(
+            f"phase 20 {name} on {tuple(ts.fields['px'].shape)} planes, each mode bit for bit "
+            f"its twin: " + "; ".join(
+                f"{mode} {v['ms'] * 1e3:.2f} us per launch in a CUDA graph, twin "
+                f"{v['plain_ms'] * 1e3:.1f} us per call and {v['library_ms'] * 1e3:.1f} us in a "
+                f"CUDA graph, bound (ms, by) ({v['bound'][0]:.4g}, {v['bound'][1]})"
+                for mode, v in out[name].items()))
+    return out, lines
+
+
 def make_advance(run, aligned=None):
     """``advance(state, n)``: one chunk of ``run`` (``aligned`` passed on
     where given: the table runners take it); a fresh runner's first call
@@ -4316,10 +4482,9 @@ def main() -> int:
     k3 = {}  # scene -> (max |diff|, max |dpos|, kernel ms, inputs)
     for name, sim in span_scenes().items():
         sp, tbl, strip, first = span_inputs(sim)
-        obs = kernels.obstacle_buffers(sp, tbl.device)
         err, dpos = compare_span(name, sp, tbl, strip, first)
-        ms = graph_ms(lambda: kernels.mega_span_cuda(sp, tbl, strip, first, *obs))
-        call_ms = median_ms(lambda: kernels.mega_span_cuda(sp, tbl, strip, first, *obs))
+        ms = graph_ms(lambda: kernels.mega_span_cuda(sp, tbl, strip, first))
+        call_ms = median_ms(lambda: kernels.mega_span_cuda(sp, tbl, strip, first))
         k3[name] = (err, dpos, ms, (sp, tbl, strip, first), call_ms)
     k3_err = max(v[0] for v in k3.values())
     _, _, k3_ms, (bp, btbl, bstrip, bfirst), _ = k3["hex1000"]
@@ -4391,7 +4556,7 @@ def main() -> int:
 
     # 12. the sweep: batched runs of eight seeds against sequential ones
     t12 = time.perf_counter()
-    kc, sweep_counts = sweep_phase()
+    kc, sweep_counts, sweep_state = sweep_phase()
     print(f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
     # 13. checkpoints and video at 10k, the CLI resume on the span path,
@@ -4442,6 +4607,14 @@ def main() -> int:
         print(line, flush=True)
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
 
+    # 20. the row step against its twin at the main path's shapes, timed
+    t20 = time.perf_counter()
+    rs, lines20 = row_step_phase(resolve_params(bench_params().validate()), main_state,
+                                 sweep_state)
+    for line in lines20:
+        print(line, flush=True)
+    print(f"phase 20 took {time.perf_counter() - t20:.1f} s")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -4471,6 +4644,21 @@ def main() -> int:
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
         {**cond_row, "launches": launches["cond_set"] + launches13.get("cond_set", 0)},
+    ] + [
+        # the main path's post_pre, the part a block runs most; every mode
+        # under "modes"
+        {"name": name, "route": "cuda",
+         "source": "particlerobotsimulations_torch/csrc/row_step.cu",
+         "replaces": ROW_STEP_REPLACES, "launches": n, "max_abs_err": 0.0,
+         "ms": rs[name]["post_pre"]["ms"], "plain_ms": rs[name]["post_pre"]["plain_ms"],
+         "bound_ms": rs[name]["post_pre"]["bound"][0],
+         "bound_by": rs[name]["post_pre"]["bound"][1],
+         "library_ms": rs[name]["post_pre"]["library_ms"],
+         "modes": {mode: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                          "library_ms": v["library_ms"], "bound_ms": v["bound"][0]}
+                   for mode, v in rs[name].items()}}
+        for name, n in (("row_step", launches["row_step"] + launches13.get("row_step", 0)),
+                        ("row_step_batched", sweep_counts["row_step_batched"]))
     ] + record9 + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep_,
          "launches": sweep_counts[name], "max_abs_err": kc[name]["err"],

@@ -24,7 +24,9 @@
 // ops/forces.py) operation for operation; kernels.py builds with
 // -fmad=false, so each product and sum rounds as PyTorch's separate
 // elementwise ops round it.  Only the pair sums' order differs from the
-// twin: they are added in kernel 1's (oy, ox, slot) order.
+// twin: they are added in kernel 1's (oy, ox, slot) order.  The per-row
+// post and pre (post_pre_row) live in row_step.cuh, which the row step
+// kernel (row_step.cu) shares.
 //
 // What bounds it on the card: latency, not bytes or arithmetic.  The
 // band's table is at most 4096 rows (G=16, C=16) and its strip at most
@@ -82,6 +84,7 @@
 #include <cuda_runtime.h>
 
 #include "pair_region.cuh"
+#include "row_step.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -100,206 +103,8 @@ constexpr int kMaxRows = 4096;   // table and strip rows (MAX_ROWS)
 constexpr int kPubPlanes = 5;    // px, py, vx, vy, rad
 constexpr int kRowFields = 6;    // val, phase, dead, pay, aa, ar
 constexpr int kFields = 13;
-constexpr int kMaxRect = 10;
-constexpr int kMaxCirc = 10;
 constexpr int kStaticSmem = 4 * (4 * kMaxRect + 3 * kMaxCirc);
 constexpr int kSmemPerBlock = 232448;  // 227 KB, the opt-in maximum
-
-// TABLE_FIELDS order
-enum Field { PX, PY, VX, VY, RAD, VAL, AFAC, PHASE, DEAD, AA, AR, PAY, BID };
-
-// float32 parameters, in kernels.py mega_constants order (MEGA_CONSTS)
-struct MegaConsts {
-  PairConsts pair;
-  float dt;
-  // radius controller (ops/actuation.py)
-  float period, rise, min_r, max_r, constraint, max_speed, phase_frozen;
-  float constrained, cc;  // constrained_contraction (1 or 0) and its gain
-  // integrate (ops/integrate.py)
-  float half, bd;
-  // obstacles + friction (ops/forces.py)
-  float spring, damping, shear, friction, friction_factor, gravity,
-      mass_factor, inv_mass_factor;
-};
-constexpr int kNumConsts = sizeof(MegaConsts) / sizeof(float);
-
-// the fields post + pre read (aa and ar are written by post before pre
-// reads them) and write
-struct Row {
-  float px, py, vx, vy, rad, val, phase, dead, pay, aa, ar;
-};
-
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return x < lo ? lo : x;  // torch.clamp(x, min=lo)
-}
-
-__device__ __forceinline__ float norm2(float x, float y) {
-  return sqrtf(clamp_min(x * x + y * y, 1.0e-30f));
-}
-
-// ops/forces.py obstacle_forces_xy: one DEM term against an obstacle
-__device__ __forceinline__ void obstacle_dem(
-    const MegaConsts& c, const Row& r, float dirx, float diry, float overlap,
-    bool hit, float& fx, float& fy, float& mr) {
-  const float rvx = -r.vx, rvy = -r.vy;
-  const float vn = rvx * dirx + rvy * diry;
-  const float tanx = rvx - vn * dirx;
-  const float tany = rvy - vn * diry;
-  const float s2 = -2.0f * c.spring;
-  const float ffx = s2 * overlap * dirx + c.damping * rvx + c.shear * tanx;
-  const float ffy = s2 * overlap * diry + c.damping * rvy + c.shear * tany;
-  fx = fx + (hit ? ffx : 0.f);
-  fy = fy + (hit ? ffy : 0.f);
-  mr = mr + (hit ? norm2(ffx, ffy) : 0.f);
-}
-
-__device__ void obstacle_forces(
-    const MegaConsts& c, const float* rect, int n_rect, const float* circ,
-    int n_circ, const Row& r, float& fx, float& fy, float& mr) {
-  const float eps = 1.0e-12f;
-  fx = 0.f;
-  fy = 0.f;
-  mr = 0.f;
-  for (int i = 0; i < n_circ; ++i) {
-    const float cx = circ[3 * i], cy = circ[3 * i + 1], cr = circ[3 * i + 2];
-    const float tcx = cx - r.px;
-    const float tcy = cy - r.py;
-    const float d2 = tcx * tcx + tcy * tcy;
-    const float rs = r.rad + cr;
-    const bool hit = d2 < rs * rs;
-    const float inv = 1.0f / clamp_min(norm2(tcx, tcy), eps);
-    const float overlap = rs - sqrtf(clamp_min(d2, eps));
-    obstacle_dem(c, r, tcx * inv, tcy * inv, overlap, hit, fx, fy, mr);
-  }
-  for (int i = 0; i < n_rect; ++i) {
-    const float x1 = rect[4 * i], x2 = rect[4 * i + 1];
-    const float y1 = rect[4 * i + 2], y2 = rect[4 * i + 3];
-    const float px = r.px, py = r.py, rad = r.rad;
-    const bool in_y = (py > y1) && (py < y2);
-    const bool in_x = (px > x1) && (px < x2);
-    const bool left = in_y && (px > x1 - rad) && (px < x2 - rad);
-    const bool right = in_y && (px < x2 + rad) && (px > x1 + rad);
-    const bool bottom = !in_y && in_x && (py > y1 - rad) && (py < y2 - rad);
-    const bool top = !in_y && in_x && (py < y2 + rad) && (py > y1 + rad);
-    const bool side_hit = left || right || bottom || top;
-    // sides: the reference's sequential ifs, the later one wins
-    float sdx = 1.f, sdy = 0.f, side_over = px - x1 + rad;
-    if (right) { sdx = -1.f; sdy = 0.f; side_over = -px + x2 + rad; }
-    if (bottom) { sdx = 0.f; sdy = 1.f; side_over = py - y1 + rad; }
-    if (top) { sdx = 0.f; sdy = -1.f; side_over = -py + y2 + rad; }
-    // corners: the reference's elif chain, the first one wins
-    bool corner_hit = false;
-    float cdx = 0.f, cdy = 0.f, corner_over = 0.f;
-    const float corx[4] = {x2, x1, x1, x2};
-    const float cory[4] = {y2, y2, y1, y1};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float dvx = px - corx[q];
-      const float dvy = py - cory[q];
-      const float d = norm2(dvx, dvy);
-      const bool hit_c = (d < rad) && !in_y && !in_x && !corner_hit;
-      const float inv = 1.0f / clamp_min(d, eps);
-      if (hit_c) {
-        cdx = -dvx * inv;
-        cdy = -dvy * inv;
-        corner_over = rad - d;
-      }
-      corner_hit = corner_hit || hit_c;
-    }
-    const bool hit = side_hit || corner_hit;
-    obstacle_dem(c, r, side_hit ? sdx : cdx, side_hit ? sdy : cdy,
-                 side_hit ? side_over : corner_over, hit, fx, fy, mr);
-  }
-}
-
-// post (obstacles, friction, validity) then pre (radius, integrate) of one
-// row whose pair sums are fx, fy, fa, fr (zero for strip rows)
-__device__ void post_pre_row(
-    const MegaConsts& c, const float* rect, int n_rect, const float* circ,
-    int n_circ, Row& r, float fx, float fy, float fa, float fr, float time) {
-  const float eps = 1.0e-12f;
-  // ---- post: aa/ar, obstacles, friction (ops/forces.py)
-  r.aa = fa;
-  r.ar = fr;
-  if (n_rect + n_circ > 0) {
-    float ofx, ofy, om;
-    obstacle_forces(c, rect, n_rect, circ, n_circ, r, ofx, ofy, om);
-    r.ar = r.ar + om;
-    fx = fx + ofx;
-    fy = fy + ofy;
-  }
-  const bool pay = r.pay > 0.5f;
-  const float fric = c.friction * (pay ? c.friction_factor : 1.f);
-  const float grav = c.gravity * (pay ? c.mass_factor : 1.f);
-  const float speed = norm2(r.vx, r.vy);
-  const float fmag = norm2(fx, fy);
-  if ((speed < 1.0e-6f) && (fmag < 2.0f * fric * grav)) {
-    fx = 0.f;
-    fy = 0.f;
-  }
-  const float inv_mass_dt = (pay ? c.inv_mass_factor : 1.f) * c.dt;
-  float vx = r.vx + fx * inv_mass_dt;
-  float vy = r.vy + fy * inv_mass_dt;
-  const float new_speed = norm2(vx, vy);
-  const float kin = fric * grav * c.dt;
-  const float inv = clamp_min(new_speed, eps);
-  const bool stopped = new_speed < kin;
-  vx = stopped ? 0.f : vx - kin * (vx / inv);
-  vy = stopped ? 0.f : vy - kin * (vy / inv);
-  const bool val = r.val > 0.5f;
-  r.vx = val ? vx : 0.f;
-  r.vy = val ? vy : 0.f;
-
-  // ---- pre: radius controller (ops/actuation.py update_radius)
-  const float period = c.period, rise = c.rise;
-  const float min_r = c.min_r, max_r = c.max_r;
-  float t1 = time + r.phase;
-  if (t1 < 0.f) t1 = t1 + 100.0f * period;
-  if (t1 >= period) t1 = t1 - period * floorf(t1 / period);
-  const bool in_window = t1 < 2.0f * rise;
-  const float target = (t1 <= rise)
-      ? min_r + (max_r - min_r) / rise * t1
-      : max_r + (min_r - max_r) / rise * (t1 - rise);
-  const float rad = r.rad;
-  const float dr1 = target - rad;
-  const float safe_rad = clamp_min(rad, 1.0e-9f);
-  float torque = dr1 * c.constraint * rad / c.max_speed / max_r / c.dt;
-  torque = torque > c.constraint ? c.constraint : torque;
-  const float surplus = torque / safe_rad;
-  const float expand = surplus > r.ar
-      ? c.max_speed * max_r / c.constraint * (surplus - r.ar) * c.dt
-      : 0.f;
-  float contract = dr1;
-  if (c.constrained > 0.5f) {
-    contract = (-c.cc * dr1 > r.aa * rad) ? (c.cc * dr1 + r.aa * rad) / c.cc
-                                          : 0.f;
-    contract = clamp_min(contract, -max_r * c.dt);
-  }
-  const float dr = dr1 > 0.f ? expand : contract;
-  float new_rad = clamp_min(rad + dr, min_r);
-  new_rad = new_rad > max_r ? max_r : new_rad;
-  const bool frozen = (r.dead > 0.5f) || (r.phase > c.phase_frozen) ||
-                      !in_window || !val;
-  r.rad = frozen ? rad : new_rad;
-
-  // ---- pre: integrate + boundary (ops/integrate.py radius_integrate_planes)
-  const float hi = c.half - r.rad;
-  const float lo = -c.half + r.rad;
-  {
-    const float np_ = r.px + r.vx * c.dt;
-    const bool out = (np_ > hi) || (np_ < lo);
-    const float q = np_ < lo ? lo : np_;
-    r.px = q > hi ? hi : q;
-    r.vx = out ? r.vx * c.bd : r.vx;
-  }
-  {
-    const float np_ = r.py + r.vy * c.dt;
-    const bool out = (np_ > hi) || (np_ < lo);
-    const float q = np_ < lo ? lo : np_;
-    r.py = q > hi ? hi : q;
-    r.vy = out ? r.vy * c.bd : r.vy;
-  }
-}
 
 __device__ __forceinline__ Row load_row(const float* p, int n, int i) {
   Row r;
@@ -365,9 +170,8 @@ __global__ void __launch_bounds__(kThreads, 1) mega_span_kernel(
     const float* __restrict__ tbl, const float* __restrict__ strip,
     float* __restrict__ tbl_out, float* __restrict__ strip_out,
     int cap, int g, int n_strip, int k_steps,
-    const long long* __restrict__ step0_ptr, MegaConsts c,
-    const float* __restrict__ rects, int n_rect,
-    const float* __restrict__ circs, int n_circ, int has_payload) {
+    const long long* __restrict__ step0_ptr, MegaConsts c, Obstacles obs,
+    int has_payload) {
   cg::cluster_group cluster = cg::this_cluster();
   const long long step0 = *step0_ptr;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -407,8 +211,7 @@ __global__ void __launch_bounds__(kThreads, 1) mega_span_kernel(
   int* warp_tot = reinterpret_cast<int*>(reach + 9 * rows);          // 32
 
   // owned row i = (slot c, cell l) is table row c*G*G + y0*G + l
-  for (int i = tid; i < 4 * n_rect; i += kThreads) s_rect[i] = rects[i];
-  for (int i = tid; i < 3 * n_circ; i += kThreads) s_circ[i] = circs[i];
+  stage_obstacles(obs, s_rect, s_circ);
   for (int i = tid; i < rows; i += kThreads) {
     const int cc = i / own;
     const int gr = cc * gg + y0 * g + (i - cc * own);
@@ -497,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, 1) mega_span_kernel(
       w.pay = rowf[3 * rows + i];
       w.aa = rowf[4 * rows + i];
       w.ar = rowf[5 * rows + i];
-      post_pre_row(c, s_rect, n_rect, s_circ, n_circ, w, sx, sy, sa, sr, time);
+      post_pre_row(c, s_rect, obs.n_rect, s_circ, obs.n_circ, w, sx, sy, sa, sr, time);
       nxt[PX * rows + i] = w.px;
       nxt[PY * rows + i] = w.py;
       nxt[VX * rows + i] = w.vx;
@@ -531,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1) mega_span_kernel(
     Row w = load_row(strip, n_strip, si);
     for (int j = 0; j < k_steps; ++j) {
       const float time = static_cast<float>(step0 + j) * c.dt;
-      post_pre_row(c, s_rect, n_rect, s_circ, n_circ, w, 0.f, 0.f, 0.f, 0.f,
+      post_pre_row(c, s_rect, obs.n_rect, s_circ, obs.n_circ, w, 0.f, 0.f, 0.f, 0.f,
                    time);
     }
     for (int f = 0; f < kFields; ++f) strip_out[f * n_strip + si] = strip[f * n_strip + si];
@@ -614,9 +417,11 @@ extern "C" int pbot_mega_span_plan(int cap, int g, int n_strip, int has_payload,
 
 // One span of `scenes` scenes in one launch, one cluster each: scene b's
 // table and strip are the b-th contiguous (13, C, G*G) and (13, S, 128)
-// blocks of tbl and strip (and of the outputs); the obstacles, constants
-// and the step (*step0, an int64 on the card) are shared, the scenes
-// running in lockstep.  A cluster reads
+// blocks of tbl and strip (and of the outputs); the obstacles (host
+// arrays of n_rect x 4 and n_circ x 3 floats, passed by value in the
+// launch's parameters as row_step.cuh's Obstacles), constants and the step
+// (*step0, an int64 on the card) are shared, the scenes running in
+// lockstep.  A cluster reads
 // and syncs only within itself, so each scene's outputs equal a one-scene
 // launch on its planes bit for bit, whether or not the clusters of other
 // scenes are resident at the same time (the card may run them in waves).
@@ -628,9 +433,10 @@ extern "C" int pbot_mega_span(
     const void* tbl, const void* strip, void* tbl_out, void* strip_out,
     int scenes, int cap, int g, int n_strip, int k_steps, const void* step0,
     const float* consts, int n_consts,
-    const void* rects, int n_rect, const void* circs, int n_circ,
+    const float* rects, int n_rect, const float* circs, int n_circ,
     int has_payload, void* stream) {
-  if (n_consts != kNumConsts || n_rect > kMaxRect || n_circ > kMaxCirc ||
+  Obstacles obs;
+  if (n_consts != kNumConsts || !load_obstacles(rects, n_rect, circs, n_circ, &obs) ||
       k_steps < 1 || scenes < 1 || step0 == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -647,9 +453,8 @@ extern "C" int pbot_mega_span(
       &cfg, mega_span_kernel,
       static_cast<const float*>(tbl), static_cast<const float*>(strip),
       static_cast<float*>(tbl_out), static_cast<float*>(strip_out),
-      cap, g, n_strip, k_steps, static_cast<const long long*>(step0), c,
-      static_cast<const float*>(rects), n_rect,
-      static_cast<const float*>(circs), n_circ, has_payload);
+      cap, g, n_strip, k_steps, static_cast<const long long*>(step0), c, obs,
+      has_payload);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,11 +71,11 @@ from torch.func import vmap
 
 from . import kernels, rng
 from .config import Control, SimParams, padded_n
-from .ops.forces import attraction_scale, friction_velocity_update_xy, obstacle_forces_xy
-from .ops.integrate import radius_integrate_planes
+from .ops.forces import attraction_scale
 from .ops.pallas_stencil import FIELDS as KERNEL_FIELDS
 from .ops.pallas_stencil import assign_slots_slotmajor, stencil_forces
 from .ops.phase import update_phase
+from .ops.row_step import row_step
 from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
 from .utils import trace
 
@@ -550,8 +550,156 @@ def _make_mega_glue(params: SimParams):
     return mega_pack, mega_unpack, incremental_packed
 
 
+def _make_step_glue(params: SimParams, phase_fn=None):
+    """(pre, post, post_pre): the table step's parts around the rebuild.
+
+    ``pre(ts, gates, step0, j, source=None)`` runs step ``ts.step``'s gated
+    ops where its ``gates`` (dead, cog, phase: host bools) fire (dead
+    injection, centroid ring, phase), then its ungated tail, the radius
+    controller and integrate, at the sim time of the 0-dim int64 device
+    step ``step0 + j`` (the counter is NOT bumped); ``post(ts)`` runs
+    collide (kernel 1), obstacles and friction and bumps the counter;
+    ``post_pre(ts, step0, j)`` is ``post`` followed by an ungated ``pre``
+    at ``step0 + j``.  Each part's elementwise glue is one
+    ``ops/row_step.row_step``: on CUDA tensors one launch of the row-step
+    kernel (``post_pre`` is kernel 1 and one row-step launch for both
+    parts), on CPU tensors its plain twin, the PyTorch ops, which the
+    kernel equals bit for bit; the gated ops stay PyTorch ops.
+    ``phase_fn``, ``source``: as :func:`make_table_step_parts` takes
+    them; :func:`make_table_steps` runs the parts."""
+    params = params.validate()
+    g, cap = params.resolved_grid_dim(), params.cell_capacity
+    gg = g * g
+    # the force kernel sees only the first cell_capacity rows of each cell:
+    # in the slot-major layout those are the first cap * G*G flat rows;
+    # spill rows above them and the parking strip get zero force
+    force_total = gg * cap
+    kernel_inputs = ("px", "py", "vx", "vy", "rad") + (
+        ("afac",) if params.has_payload else ()
+    )
+
+    def gated(ts: TableState, gates: tuple, step0: torch.Tensor, j: int,
+              source) -> TableState:
+        dead_gate, cog_gate, phase_gate = gates
+        f = dict(ts.fields)
+        if source is None:
+            source = ts.generator
+
+        # 1. dead-cell injection (one-shot)
+        if params.n_dead > 0 and dead_gate:
+            f["dead"] = _inject_dead_table(params, f, source, ts.step)
+
+        # 2. centroid ring (pre-integrate positions), written out of place
+        ring = ts.centroid_ring
+        if cog_gate:
+            cx = torch.sum(f["px"] * f["val"], dim=-1) / f32(params.n_cells)
+            cy = torch.sum(f["py"] * f["val"], dim=-1) / f32(params.n_cells)
+            ring = _ring_write(params, ring, step0 + j, torch.stack([cx, cy], dim=-1))
+
+        # 3. phase controller
+        if params.control == Control.LIGHT_WAVE and phase_gate:
+            val = f["val"] > 0.5
+            if phase_fn is not None:
+                f["phase"] = phase_fn(f, val, source, ts.step)
+            else:
+                pos_t = torch.stack([f["px"], f["py"]], dim=-1)
+                f["phase"] = update_phase(
+                    params, pos_t, f["phase"], val, source, step=ts.step
+                )
+        return ts.replace(fields=f, centroid_ring=ring)
+
+    def pre(ts: TableState, gates: tuple, step0: torch.Tensor, j: int,
+            source=None) -> TableState:
+        if any(gates):
+            ts = gated(ts, gates, step0, j, source)
+        # 4+5. radius controller (previous step's force magnitudes) +
+        #      integrate/boundary in component form
+        return ts.replace(fields=row_step(params, ts.fields, "pre", step0, j))
+
+    def collide(f: dict):
+        # 7. collide: the kernel reads (C, G*G) views of each scene's table
+        tables = {
+            k: f[k][..., :force_total].unflatten(-1, (cap, gg)) for k in kernel_inputs
+        }
+        return stencil_forces(params, tables)
+
+    def post(ts: TableState) -> TableState:
+        # 8. obstacles, friction and validity
+        f = row_step(params, ts.fields, "post", forces=collide(ts.fields))
+        return ts.replace(fields=f, step=ts.step + 1)
+
+    def post_pre(ts: TableState, step0: torch.Tensor, j: int) -> TableState:
+        f = row_step(params, ts.fields, "post_pre", step0, j, collide(ts.fields))
+        return ts.replace(fields=f, step=ts.step + 1)
+
+    return pre, post, post_pre
+
+
+def glue_schedule(pattern: tuple, close: bool = True, entered: bool = False) -> list:
+    """The parts of a block's steps in the order they run: ``(part, j)``
+    with ``part`` one of ``"pre"``, ``"post_pre"``, ``"rebuild"`` and
+    ``"post"``, and ``j`` the step of the block the part belongs to (for
+    ``"post_pre"``, the step whose pre it runs).  ``pattern`` is a block's
+    ``((gates, rebuild), ...)`` (:func:`table_pieces`).  The post of step
+    ``j`` and the pre of step ``j + 1`` run as one ``"post_pre"`` where
+    step ``j + 1`` fires no gate and step ``j`` does not rebuild; so an
+    ungated K-step block is a pre, K - 1 post_pre, the rebuild and a post.
+    With ``close=False`` the last step stops after its pre (and rebuild):
+    its post is the caller's.  With ``entered=True`` the block enters
+    mid-step 0, whose pre (and rebuild: ``pattern`` gives it none) ran
+    already: the schedule opens with step 0's post."""
+    n = len(pattern)
+    out = [] if entered else [("pre", 0)]
+    for j, (_, rebuild) in enumerate(pattern):
+        if rebuild:
+            out.append(("rebuild", j))
+        if j == n - 1:
+            if close:
+                out.append(("post", j))
+        elif not rebuild and not any(pattern[j + 1][0]):
+            out.append(("post_pre", j + 1))
+        else:
+            out += [("post", j), ("pre", j + 1)]
+    return out
+
+
+def make_table_steps(params: SimParams, phase_fn=None):
+    """``steps(ts, pattern, step0, source=None, close=True, entered=False,
+    on_rebuild=None) -> ts``: the table step's one entry point.  A block's
+    steps in turn (``pattern`` as :func:`table_pieces` gives it), step
+    ``j`` at the 0-dim int64 device step ``step0 + j`` drawing from
+    ``source(j)`` (``source=None``: from ``ts.generator``), in
+    :func:`glue_schedule`'s order, with a step's post and the next ungated
+    step's pre one row-step launch on CUDA tensors (K + 1 row-step
+    launches in an ungated K-step block; :func:`_make_step_glue`).
+    ``on_rebuild(ts)`` is called after each rebuild step's post;
+    ``close``, ``entered``: as :func:`glue_schedule` takes them.
+    :func:`make_table_step` and :func:`make_table_step_parts` are one-step
+    calls of it."""
+    params = params.validate()
+    pre, post, post_pre = _make_step_glue(params, phase_fn)
+
+    def steps(ts: TableState, pattern: tuple, step0: torch.Tensor, source=None,
+              close: bool = True, entered: bool = False, on_rebuild=None) -> TableState:
+        for part, j in glue_schedule(pattern, close, entered):
+            if part == "pre":
+                ts = pre(ts, pattern[j][0], step0, j, None if source is None else source(j))
+            elif part == "post_pre":
+                ts = post_pre(ts, step0, j)
+            elif part == "rebuild":
+                ts = _smart_rebuild(params, ts)
+            else:
+                ts = post(ts)
+                if on_rebuild is not None and pattern[j][1]:
+                    on_rebuild(ts)
+        return ts
+
+    return steps
+
+
 def make_table_step_parts(params: SimParams, phase_fn=None):
-    """(step_pre, step_post): the physics step split around the rebuild.
+    """(step_pre, step_post): the physics step split around the rebuild,
+    each a one-step call of :func:`make_table_steps`.
 
     ``step_pre(ts, dead_gate, cog_gate, phase_gate, step_t=None,
     source=None)`` runs dead injection, centroid ring, phase, radius and
@@ -565,7 +713,9 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
     draws taken beforehand (:func:`_draws`).  Both take a single
     scene's carry or a batched one (a leading scene axis on every field,
     the batched loop's): every op is elementwise or reduces the last axis,
-    and kernel 1 takes every scene in one launch.
+    and kernel 1 takes every scene in one launch.  On CUDA tensors the
+    radius controller and integrate are one row-step launch, and so is the
+    glue after kernel 1.
 
     ``phase_fn`` (optional) replaces the phase-gate body: called as
     ``phase_fn(fields, val_mask, source, step) -> new phase plane`` inside
@@ -574,110 +724,37 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
     step, ...)``.  The packed scene-tiling sweep (``parallel/packed.py``)
     uses it to run the phase law per scene.  ``None`` runs the same ops as
     without the hook."""
-    params = params.validate()
-    dt = params.timestep
-    g, cap = params.resolved_grid_dim(), params.cell_capacity
-    gg = g * g
-    _, total_ext, _ = _geometry(params)
-    # the force kernel sees only the first cell_capacity rows of each cell:
-    # in the slot-major layout those are the first cap * G*G flat rows;
-    # spill rows above them and the parking strip get zero force
-    force_total = gg * cap
-    kernel_inputs = ("px", "py", "vx", "vy", "rad") + (
-        ("afac",) if params.has_payload else ()
-    )
+    steps = make_table_steps(params, phase_fn)
 
     def step_pre(ts: TableState, dead_gate: bool, cog_gate: bool, phase_gate: bool,
                  step_t: torch.Tensor | None = None, source=None) -> TableState:
-        f = dict(ts.fields)
         if step_t is None:
-            step_t = step_tensor(ts.step, f["px"].device)
-        if source is None:
-            source = ts.generator
-        time = sim_time(step_t, dt)
-        val = f["val"] > 0.5
-
-        # 1. dead-cell injection (one-shot)
-        if params.n_dead > 0 and dead_gate:
-            f["dead"] = _inject_dead_table(params, f, source, ts.step)
-
-        # 2. centroid ring (pre-integrate positions), written out of place
-        ring = ts.centroid_ring
-        if cog_gate:
-            cx = torch.sum(f["px"] * f["val"], dim=-1) / f32(params.n_cells)
-            cy = torch.sum(f["py"] * f["val"], dim=-1) / f32(params.n_cells)
-            ring = _ring_write(params, ring, step_t, torch.stack([cx, cy], dim=-1))
-
-        # 3. phase controller
-        if params.control == Control.LIGHT_WAVE and phase_gate:
-            if phase_fn is not None:
-                f["phase"] = phase_fn(f, val, source, ts.step)
-            else:
-                pos_t = torch.stack([f["px"], f["py"]], dim=-1)
-                f["phase"] = update_phase(
-                    params, pos_t, f["phase"], val, source, step=ts.step
-                )
-
-        # 4+5. radius controller (previous step's force magnitudes) +
-        #      integrate/boundary in component form
-        f = radius_integrate_planes(params, f, time)
-        return ts.replace(fields=f, centroid_ring=ring)
+            step_t = step_tensor(ts.step, ts.fields["px"].device)
+        return steps(ts, (((dead_gate, cog_gate, phase_gate), False),), step_t,
+                     lambda j: source, close=False)
 
     def step_post(ts: TableState) -> TableState:
-        f = dict(ts.fields)
-        lead = f["px"].shape[:-1]
-
-        # 7. collide: the kernel reads (C, G*G) views of each scene's table
-        tables = {
-            k: f[k][..., :force_total].unflatten(-1, (cap, gg)) for k in kernel_inputs
-        }
-        fx, fy, fa, fr = stencil_forces(params, tables)
-        zpad = torch.zeros(
-            lead + (total_ext - force_total,), dtype=torch.float32, device=fx.device
-        )
-
-        def flat(t):
-            return torch.cat([t.reshape(lead + (force_total,)), zpad], dim=-1)
-
-        fxf, fyf = flat(fx), flat(fy)
-        f["aa"], f["ar"] = flat(fa), flat(fr)
-
-        val_r = f["val"] > 0.5
-        if params.circle_obstacles or params.rect_obstacles:
-            ofx, ofy, m_obs = obstacle_forces_xy(
-                params, f["px"], f["py"], f["vx"], f["vy"], f["rad"]
-            )
-            fxf = fxf + ofx
-            fyf = fyf + ofy
-            f["ar"] = f["ar"] + m_obs
-
-        nvx, nvy = friction_velocity_update_xy(
-            params, f["vx"], f["vy"], fxf, fyf, f["pay"] > 0.5, dt
-        )
-        zero = torch.zeros((), dtype=torch.float32, device=nvx.device)
-        f["vx"] = torch.where(val_r, nvx, zero)
-        f["vy"] = torch.where(val_r, nvy, zero)
-        return ts.replace(fields=f, step=ts.step + 1)
+        return steps(ts, ((NO_GATES, False),), None, entered=True)
 
     return step_pre, step_post
 
 
 def make_table_step(params: SimParams, phase_fn=None):
     """``step(ts, dead_gate, cog_gate, phase_gate, rebuild, step_t=None,
-    source=None) -> ts``: one physics step; the slot rebuild (when
-    ``rebuild``) sits after integrate and before collide, so the one-step-
-    lag force carry is already consumed and collide sees the freshest
-    assignment.  A batched carry's rebuild is decided for all scenes at
-    once (:func:`_smart_rebuild`).  ``step_t``, ``source``: as ``step_pre``
-    takes them."""
-    params = params.validate()
-    step_pre, step_post = make_table_step_parts(params, phase_fn)
+    source=None) -> ts``: one physics step, a one-step call of
+    :func:`make_table_steps`; the slot rebuild (when ``rebuild``) sits
+    after integrate and before collide, so the one-step-lag force carry is
+    already consumed and collide sees the freshest assignment.  A batched
+    carry's rebuild is decided for all scenes at once
+    (:func:`_smart_rebuild`).  ``step_t``, ``source``: as
+    :func:`make_table_step_parts`' ``step_pre`` takes them."""
+    steps = make_table_steps(params, phase_fn)
 
     def step(ts, dead_gate, cog_gate, phase_gate, rebuild, step_t=None, source=None):
-        ts = step_pre(ts, dead_gate, cog_gate, phase_gate, step_t, source)
-        if rebuild:
-            ts = _smart_rebuild(params, ts)
-        return step_post(ts)
+        if step_t is None:
+            step_t = step_tensor(ts.step, ts.fields["px"].device)
+        return steps(ts, (((dead_gate, cog_gate, phase_gate), rebuild),), step_t,
+                     lambda j: source)
 
     return step
 
@@ -986,7 +1063,7 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
     piece's graph on the card (``_graphed``, keyed by device, layout and
     pattern; the first piece of a layout runs eagerly before its capture)
     or runs it eagerly off the card."""
-    step = make_table_step(params, phase_fn)
+    steps = make_table_steps(params, phase_fn)
     k = max(1, params.resolved_slot_rebuild_steps())
     graphs: dict = {}
     fns: dict = {}
@@ -1001,14 +1078,16 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
         def block(carry: dict, step0: torch.Tensor) -> dict:
             ts = TableState({kf: carry[kf] for kf in TABLE_FIELDS}, carry["origin"],
                             host["step"], None, carry["centroid_ring"])
-            pm = carry.get("pm")
-            for j, (gates, rebuild) in enumerate(pattern):
-                ts = step(ts, *gates, rebuild, step_t=step0 + j, source=_drawn(carry, j))
-                if with_pm and rebuild:
-                    pm = torch.maximum(pm, neighbor_rel_speed_bound(params, ts.fields))
+            pm = [carry.get("pm")]
+
+            def probe(ts: TableState) -> None:
+                pm[0] = torch.maximum(pm[0], neighbor_rel_speed_bound(params, ts.fields))
+
+            ts = steps(ts, pattern, step0, lambda j: _drawn(carry, j),
+                       on_rebuild=probe if with_pm else None)
             out = _carry_of(ts)
             if with_pm:
-                out["pm"] = pm
+                out["pm"] = pm[0]
             return out
 
         block.steps = len(pattern)
@@ -1113,7 +1192,7 @@ def _make_table_runner(params: SimParams, phase_fn):
     capture) the branch reads the flag and runs one body: the
     one-read-per-segment path."""
     params = params.validate()
-    step_pre, step_post = make_table_step_parts(params, phase_fn)
+    steps = make_table_steps(params, phase_fn)
     k = max(1, params.resolved_slot_rebuild_steps())
     seg = gate_seg(params)
 
@@ -1144,9 +1223,9 @@ def _make_table_runner(params: SimParams, phase_fn):
             src, s0 = _drawn(carry, 0), piece.host["step"]
             ts = TableState({kf: carry[kf] for kf in TABLE_FIELDS}, carry["origin"], s0, None,
                             carry["centroid_ring"])
-            for j in range(k - 1):
-                ts = step_post(step_pre(ts, *gates_at[j], step0 + j, src))
-            ts, _ = _choose_rebuild(params, step_pre(ts, *gates_at[k - 1], step0 + k - 1, src))
+            ts = steps(ts, tuple((gates_at[j], False) for j in range(k)), step0,
+                       lambda j: src, close=False)
+            ts, _ = _choose_rebuild(params, ts)
             tbl, strip = mega_pack(ts.fields)
             first = step0 + k
             ok_all = None
@@ -1159,7 +1238,8 @@ def _make_table_runner(params: SimParams, phase_fn):
             def adopt(_):
                 # the last span ended mid-step step0 + seg - 1, after pre +
                 # rebuild: its post completes the segment
-                end = step_post(mid.replace(fields=mega_unpack(tbl, strip)))
+                end = steps(mid.replace(fields=mega_unpack(tbl, strip)), ((NO_GATES, False),),
+                            None, entered=True)
                 return _carry_of(end)
 
             def redo(entry: dict) -> dict:

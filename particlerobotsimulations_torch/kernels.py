@@ -28,7 +28,11 @@ and host entry points (:func:`cond_node`, :func:`while_node`,
 conditional IF and WHILE nodes through which ``ops/cond.py`` carries the
 JAX package's ``lax.cond`` s (the incremental-or-exact rebuild, the span
 segment's adopt-or-redo) and the redone segment's ``lax.scan`` into a
-captured CUDA graph.
+captured CUDA graph.  ``csrc/row_step.cu`` replaces no ``pallas_call``
+either: the row step (:func:`row_step_cuda`) runs the table loop's
+elementwise step glue (post: obstacles, friction and validity after kernel
+1; pre: the radius controller and integrate; or the two in turn) in one
+launch, with kernel 3's row arithmetic (``csrc/row_step.cuh``).
 """
 
 from __future__ import annotations
@@ -109,7 +113,7 @@ LAUNCHES = LaunchCounts((
     "stencil_forces_ext", "compact_padded",
     "stencil_forces_batched", "compact_batched", "mega_span_batched",
     "stencil_forces_ext_batched", "compact_padded_batched",
-    "cond_set",
+    "cond_set", "row_step", "row_step_batched",
 ))
 trace.register("launches", LAUNCHES)
 
@@ -202,6 +206,7 @@ SIGNATURES = {
     "pbot_cond_node": [_vp, _ull, _i, _i, _vp],
     "pbot_cond_body_begin": [_vp, _vp],
     "pbot_cond_body_end": [_vp, _vp],
+    "pbot_row_step": [_vp] * 4 + [_i] * 4 + [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp],
 }
 
 
@@ -653,44 +658,44 @@ def mega_constants(params: SimParams) -> tuple:
     ))
 
 
-def obstacle_buffers(params: SimParams, device) -> tuple:
-    """(rects (n, 4), circles (n, 3)) float32 tensors on ``device`` for
-    kernel 3: (x1, x2, y1, y2) and (x, y, r) per obstacle."""
-    def buf(rows, width):
-        return torch.tensor(
-            [float(np.float32(v)) for row in rows for v in row],
-            dtype=torch.float32, device=device,
-        ).reshape(len(rows), width)
+def obstacle_arrays(params: SimParams) -> tuple:
+    """(rects, n_rect, circles, n_circ): the obstacles as float32 host
+    arrays, (x1, x2, y1, y2) and (x, y, r) per obstacle, which kernel 3
+    and the row step take by value in their launch parameters (the C
+    entry points refuse more than ``SimParams.validate`` allows)."""
+    def arr(rows):
+        flat = [float(np.float32(v)) for row in rows for v in row]
+        return (ctypes.c_float * max(1, len(flat)))(*flat)
 
-    return buf(params.rect_obstacles, 4), buf(params.circle_obstacles, 3)
+    rects, circles = params.rect_obstacles, params.circle_obstacles
+    return arr(rects), len(rects), arr(circles), len(circles)
 
 
 def mega_span_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
-                   step: torch.Tensor, rects: torch.Tensor, circles: torch.Tensor):
+                   step: torch.Tensor):
     """Kernel 3 on CUDA tensors: one ungated span from mid-step ``step - 1``
     -> (tbl', strip').  ``tbl`` is (13, C, G*G), ``strip`` (13, n_pad//128,
     128); ``step`` a 0-dim int64 tensor on the same card, which the kernel
     reads (so a CUDA graph of the launch replays at whatever step the
-    tensor then holds); ``rects`` and ``circles`` come from
-    :func:`obstacle_buffers`."""
+    tensor then holds); the obstacles travel in the launch's parameters
+    (:func:`obstacle_arrays`)."""
     if tbl.dim() != 3:
         raise ValueError(f"tbl: expected (13, C, G*G), got {tuple(tbl.shape)}")
-    return _launch_mega(params, tbl, strip, step, rects, circles, 1, "mega_span")
+    return _launch_mega(params, tbl, strip, step, 1, "mega_span")
 
 
 def mega_span_batched_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
-                           step: torch.Tensor, rects: torch.Tensor, circles: torch.Tensor):
+                           step: torch.Tensor):
     """Kernel 3 on B scenes in one launch, one cluster each: ``tbl`` (B,
     13, C, G*G) and ``strip`` (B, 13, n_pad//128, 128) -> (tbl', strip'),
     the scenes in lockstep at ``step``.  Scene b's outputs equal
     :func:`mega_span_cuda` on scene b's planes bit for bit."""
     if tbl.dim() != 4 or tbl.shape[0] < 1:
         raise ValueError(f"tbl: expected (B, 13, C, G*G), got {tuple(tbl.shape)}")
-    return _launch_mega(params, tbl, strip, step, rects, circles, tbl.shape[0],
-                        "mega_span_batched")
+    return _launch_mega(params, tbl, strip, step, tbl.shape[0], "mega_span_batched")
 
 
-def _launch_mega(params, tbl, strip, step, rects, circles, scenes: int, what: str):
+def _launch_mega(params, tbl, strip, step, scenes: int, what: str):
     from .engine_table import N_TF
 
     g, cs = params.resolved_grid_dim(), params.storage_capacity()
@@ -698,11 +703,8 @@ def _launch_mega(params, tbl, strip, step, rects, circles, scenes: int, what: st
     lead = tbl.shape[:-3]
     _check("tbl", tbl, lead + (N_TF, cs, g * g))
     _check("strip", strip, lead + (N_TF, n_pad // 128, 128))
-    _check("rects", rects, (len(params.rect_obstacles), 4))
-    _check("circles", circles, (len(params.circle_obstacles), 3))
-    for name, t in (("strip", strip), ("rects", rects), ("circles", circles)):
-        if t.device != tbl.device:
-            raise ValueError(f"{name}: on {t.device}, tbl on {tbl.device}")
+    if strip.device != tbl.device:
+        raise ValueError(f"strip: on {strip.device}, tbl on {tbl.device}")
     _check_mega_plan(cs, g, n_pad, params.has_payload, scenes)
     if not (torch.is_tensor(step) and step.dtype == torch.int64 and step.dim() == 0
             and step.device == tbl.device):
@@ -716,9 +718,7 @@ def _launch_mega(params, tbl, strip, step, rects, circles, scenes: int, what: st
     err = lib.pbot_mega_span(
         tbl.data_ptr(), strip.data_ptr(), tbl_out.data_ptr(), strip_out.data_ptr(),
         scenes, cs, g, n_pad, k, step.data_ptr(),
-        ctypes.cast(carr, _vp), len(consts),
-        rects.data_ptr() if rects.numel() else None, rects.shape[0],
-        circles.data_ptr() if circles.numel() else None, circles.shape[0],
+        ctypes.cast(carr, _vp), len(consts), *obstacle_arrays(params),
         int(params.has_payload), _stream(tbl_out),
     )
     _raise_on(err, what)
@@ -854,3 +854,83 @@ def graph_nodes(graph: int) -> dict:
         elif kind.value == _NODE_CONDITIONAL:
             out["conditional"] += 1
     return out
+
+
+# the row step's modes, their codes in row_step.cu, and the planes each
+# writes (the kernel's outputs are px py vx vy rad aa ar)
+ROW_STEP_MODES = {"post": 1, "pre": 2, "post_pre": 3}
+ROW_STEP_OUT = ("px", "py", "vx", "vy", "rad", "aa", "ar")
+ROW_STEP_WRITES = {
+    "post": ("vx", "vy", "aa", "ar"),
+    "pre": ("px", "py", "vx", "vy", "rad"),
+    "post_pre": ROW_STEP_OUT,
+}
+
+
+def row_step_cuda(params: SimParams, fields: dict, mode: str, step=None,
+                  offset: int = 0, forces=None) -> dict:
+    """The row step on the table loop's CUDA field planes -> a new dict of
+    the 13 ``TABLE_FIELDS`` planes: those ``mode`` writes
+    (:data:`ROW_STEP_WRITES`) new tensors from ``torch.empty`` (one stack,
+    a plane each), the others ``fields``' own.
+
+    ``fields`` holds every plane of one scene, ``(total_ext,)``, or of B
+    scenes, ``(B, total_ext)``: float32 on one card, rows contiguous (any
+    scene stride).  ``mode``: ``"post"`` (``forces``, kernel 1's (fx, fy,
+    fa, fr), each ``([B,] C, G*G)`` contiguous, give the pair sums of the
+    first C*G*G rows; the other rows feel none), ``"pre"`` (at the sim time
+    of the step ``step + offset``) or ``"post_pre"`` (post, then pre at
+    ``step + offset``).  ``step`` is a 0-dim int64 tensor on the card,
+    which the kernel reads.  Equals the table loop's PyTorch ops
+    (``engine_table.make_table_step_parts`` on CPU tensors) bit for bit.
+    One launch, counted as ``row_step``, or ``row_step_batched`` for B
+    scenes."""
+    from .engine_table import N_TF, TABLE_FIELDS, _geometry
+
+    if mode not in ROW_STEP_MODES:
+        raise ValueError(f"row_step: mode {mode!r} not in {tuple(ROW_STEP_MODES)}")
+    _, rows, _ = _geometry(params)
+    g, cap = params.resolved_grid_dim(), params.cell_capacity
+    px = fields["px"]
+    if px.dim() not in (1, 2):
+        raise ValueError(f"fields: expected ([B,] {rows}) planes, got {tuple(px.shape)}")
+    lead = tuple(px.shape[:-1])
+    for k in TABLE_FIELDS:
+        t = fields[k]
+        if t.device.type != "cuda" or t.device != px.device:
+            raise ValueError(f"{k}: expected a CUDA tensor on {px.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{k}: expected float32, got {t.dtype}")
+        if tuple(t.shape) != lead + (rows,) or t.stride(-1) != 1:
+            raise ValueError(f"{k}: expected shape {lead + (rows,)} with contiguous rows, "
+                             f"got {tuple(t.shape)} strides {t.stride()}")
+    posts = mode != "pre"
+    if posts:
+        if forces is None or len(forces) != 4:
+            raise ValueError("row_step: post needs the forces, kernel 1's (fx, fy, fa, fr)")
+        for t in forces:
+            _check("forces", t, lead + (cap, g * g))
+    pres = mode != "post"
+    if pres and not (torch.is_tensor(step) and step.dtype == torch.int64 and step.dim() == 0
+                     and step.device == px.device):
+        raise ValueError(f"step: expected a 0-dim int64 tensor on {px.device}")
+    scenes = lead[0] if lead else 1
+    writes = ROW_STEP_WRITES[mode]
+    out = torch.empty((len(writes),) + lead + (rows,), dtype=torch.float32, device=px.device)
+    planes = dict(zip(writes, out))
+    lib = build()
+    consts = mega_constants(params)
+    carr = (ctypes.c_float * len(consts))(*consts)
+    err = lib.pbot_row_step(
+        (_vp * N_TF)(*(fields[k].data_ptr() for k in TABLE_FIELDS)),
+        (_ll * N_TF)(*(fields[k].stride(0) if lead else 0 for k in TABLE_FIELDS)),
+        (_vp * len(ROW_STEP_OUT))(*(planes[k].data_ptr() if k in planes else None
+                                    for k in ROW_STEP_OUT)),
+        (_vp * 4)(*(t.data_ptr() for t in forces)) if posts else None,
+        scenes, rows, cap * g * g, ROW_STEP_MODES[mode],
+        step.data_ptr() if pres else None, int(offset),
+        ctypes.cast(carr, _vp), len(consts), *obstacle_arrays(params), _stream(px),
+    )
+    _raise_on(err, "row_step")
+    LAUNCHES.count("row_step_batched" if lead else "row_step")
+    return {**fields, **planes}

@@ -134,7 +134,6 @@ def make_mega_span(params: SimParams, n_pad: int):
     p = params.validate()
     if n_pad % 128:
         raise ValueError(f"n_pad must be a multiple of 128, got {n_pad}")
-    obstacles = {}  # device -> kernel 3's obstacle buffers, built once
 
     def span(tbl: torch.Tensor, strip: torch.Tensor, step):
         if strip.shape[-2] * 128 != n_pad:
@@ -145,12 +144,10 @@ def make_mega_span(params: SimParams, n_pad: int):
         if not torch.is_tensor(step):
             step = torch.full((), int(step), dtype=torch.int64, device=tbl.device)
         if kind == "cuda":
-            from ..kernels import mega_span_batched_cuda, mega_span_cuda, obstacle_buffers
+            from ..kernels import mega_span_batched_cuda, mega_span_cuda
 
-            if tbl.device not in obstacles:
-                obstacles[tbl.device] = obstacle_buffers(p, tbl.device)
             fn = mega_span_batched_cuda if batched else mega_span_cuda
-            return fn(p, tbl, strip, step, *obstacles[tbl.device])
+            return fn(p, tbl, strip, step)
         fn = mega_span_batched_plain if batched else mega_span_plain
         return fn(p, tbl, strip, step)
 

@@ -236,7 +236,7 @@ def test_wrappers_refuse_shapes_the_plans_refuse(card):
     tbl = torch.zeros((N_TF, 8, 32 * 32), device=card)
     strip = torch.zeros((N_TF, n_pad // 128, 128), device=card)
     with pytest.raises(ValueError, match="4096"):
-        kernels.mega_span_cuda(p, tbl, strip, 1, *kernels.obstacle_buffers(p, card))
+        kernels.mega_span_cuda(p, tbl, strip, 1)
     assert kernels.LAUNCHES == n0
 
 
@@ -286,9 +286,8 @@ def test_mega_span_wrapper_refuses_cpu_tensors():
     n_pad = _geometry(p)[2]
     tbl = torch.zeros((N_TF, cs, g * g))
     strip = torch.zeros((N_TF, n_pad // 128, 128))
-    rects, circles = kernels.obstacle_buffers(p, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.mega_span_cuda(p, tbl, strip, 1, rects, circles)
+        kernels.mega_span_cuda(p, tbl, strip, 1)
 
 
 def ext_tables(p, seed, shards=4, fill=0.3):
@@ -641,13 +640,12 @@ def test_batched_mega_span_equals_single_launches(card):
     plan = kernels.mega_plan(cs, g, n_pad, p.has_payload, scenes=3)
     lib = kernels.library_mega_plan(cs, g, n_pad, p.has_payload, scenes=3)
     assert plan["ctas"] == lib["ctas"] == 48 and lib["max_active_clusters"] >= 1
-    obs = kernels.obstacle_buffers(p, card)
     n0 = kernels.LAUNCHES["mega_span_batched"]
-    got = kernels.mega_span_batched_cuda(p, tbl, strip, first, *obs)
+    got = kernels.mega_span_batched_cuda(p, tbl, strip, first)
     assert kernels.LAUNCHES["mega_span_batched"] == n0 + 1
     for b in range(3):
         single = kernels.mega_span_cuda(p, tbl[b].contiguous(), strip[b].contiguous(),
-                                        first, *obs)
+                                        first)
         assert bitwise(got[0][b], single[0]) and bitwise(got[1][b], single[1]), b
         want = mega_span_plain(p, tbl[b], strip[b], first)
         assert_span_close(p, (got[0][b], got[1][b]), want)
@@ -716,11 +714,9 @@ def test_batched_wrappers_refuse_cpu_tensors_and_bad_strides():
         kernels.stencil_forces_batched_cuda(p, tables)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.compact_batched_cuda(p, torch.zeros((2, 11, cs, g * g)))
-    rects, circles = kernels.obstacle_buffers(p, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.mega_span_batched_cuda(
-            p, torch.zeros((2, N_TF, cs, g * g)), torch.zeros((2, N_TF, n_pad // 128, 128)),
-            1, rects, circles,
+            p, torch.zeros((2, N_TF, cs, g * g)), torch.zeros((2, N_TF, n_pad // 128, 128)), 1,
         )
     if torch.cuda.is_available():
         strided = {k: torch.zeros((2, g * g, cs), device="cuda").transpose(1, 2)
@@ -994,6 +990,26 @@ def without_cond_set(launches) -> dict:
     return {k: v for k, v in launches.items() if k != "cond_set"}
 
 
+ROW_STEP_KEYS = ("row_step", "row_step_batched")
+
+
+def without_glue(launches) -> dict:
+    """:func:`without_cond_set` apart from the row step's counts too: a
+    loop of ``make_table_step`` launches the row step twice a step, the
+    runners' blocks fuse a step's post with the next ungated step's pre
+    (``engine_table.glue_schedule``)."""
+    return {k: v for k, v in without_cond_set(launches).items() if k not in ROW_STEP_KEYS}
+
+
+def scheduled_row_steps(p, start, n_steps) -> int:
+    """The row-step launches of an ``n_steps`` chunk of the table runner
+    from step ``start``, as its blocks schedule them."""
+    k = max(1, p.resolved_slot_rebuild_steps())
+    return sum(sum(part in ("pre", "post_pre", "post") for part, _ in
+                   engine_table.glue_schedule(pattern))
+               for pattern in engine_table.table_pieces(p, k, start, n_steps))
+
+
 def eager_table_loop(p, state, n_steps):
     """``n_steps`` of ``make_table_step``, one call a step, on the regular
     schedule (chunk-relative rebuilds) between chunk entry and exit: the
@@ -1012,8 +1028,9 @@ def test_graph_loop_equals_eager_step_loop(card, batched, monkeypatch):
     replayed from a CUDA graph after the first, each rebuild through its
     conditional node) equal the eager step loop (the select) bit for bit,
     with equal rebuild counts and equal launches apart from ``cond_set``,
-    which the graphs launch once per replayed rebuild; batched: three
-    scenes in lockstep."""
+    which the graphs launch once per replayed rebuild, and the row step,
+    which the eager loop launches twice a step and the blocks as they
+    schedule it; batched: three scenes in lockstep."""
     p = resolve_params(pt.SimParams(**GRAPH_SCENE).validate())
 
     def fresh():
@@ -1032,8 +1049,11 @@ def test_graph_loop_equals_eager_step_loop(card, batched, monkeypatch):
     want = fresh()
     for _ in range(2):
         want = eager_table_loop(p, want, 62)
-    assert (without_cond_set(kernels.LAUNCHES), dict(REBUILDS)) == (
-        without_cond_set(counts[0]), counts[1])
+    assert (without_glue(kernels.LAUNCHES), dict(REBUILDS)) == (
+        without_glue(counts[0]), counts[1])
+    key = "row_step_batched" if batched else "row_step"
+    assert kernels.LAUNCHES[key] == 2 * 124
+    assert counts[0][key] == scheduled_row_steps(p, 0, 62) + scheduled_row_steps(p, 62, 62)
     assert kernels.LAUNCHES["cond_set"] == 0
     assert counts[0]["cond_set"] == replayed_conds(blocks) > 0
     assert sum(counts[1].values()) == 2 * 15
@@ -1228,7 +1248,7 @@ def test_lagged_span_chunk_equals_one_read_per_segment(card, batched, monkeypatc
     assert run.redos == redos >= 1
     # the redone segments' blocks replay their rebuilds through conditional
     # nodes; the reference selects
-    assert (without_cond_set(g_launch), g_reb) == (without_cond_set(r_launch), r_reb)
+    assert (without_glue(g_launch), g_reb) == (without_glue(r_launch), r_reb)
     assert g_launch["cond_set"] == replayed_conds(blocks) and r_launch["cond_set"] == 0
     assert g_launch["mega_span_batched" if batched else "mega_span"] > 0
 
@@ -1286,7 +1306,7 @@ def test_segment_graph_redoes_when_forced_on_alternate_replays(card, batched, mo
     for a, b in zip(gens(got), gens(want)):
         assert torch.equal(a.get_state(), b.get_state())
     assert run.redos == redos == 4
-    assert (without_cond_set(g_launch), g_reb) == (without_cond_set(r_launch), r_reb)
+    assert (without_glue(g_launch), g_reb) == (without_glue(r_launch), r_reb)
     assert g_launch["cond_set"] == replayed_conds(blocks) and r_launch["cond_set"] == 0
     segments = [b for b in blocks if b.counted]
     assert segments and sum(b.replays for b in segments) >= 6
@@ -1342,22 +1362,21 @@ def test_mega_span_replays_at_the_step_it_reads(card):
     p = pt.SimParams(n_cells=1000, n_dead=0, seed=3, config=pt.Config.HEX,
                      light_x=-5.0).validate()
     tbl, strip, first = band_span_inputs(p, card, 3)
-    obs = kernels.obstacle_buffers(p, card)
     step = step_tensor(first, card)
-    kernels.mega_span_cuda(p, tbl, strip, step, *obs)
+    kernels.mega_span_cuda(p, tbl, strip, step)
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         graph.capture_begin()
-        out = kernels.mega_span_cuda(p, tbl, strip, step, *obs)
+        out = kernels.mega_span_cuda(p, tbl, strip, step)
         graph.capture_end()
     torch.cuda.current_stream().wait_stream(stream)
     results = []
     for s in (first, first + 37):
         step.fill_(s)
         graph.replay()
-        direct = kernels.mega_span_cuda(p, tbl, strip, step_tensor(s, card), *obs)
+        direct = kernels.mega_span_cuda(p, tbl, strip, step_tensor(s, card))
         assert bitwise(out[0], direct[0]) and bitwise(out[1], direct[1]), s
         assert_span_close(p, direct, mega_span_plain(p, tbl, strip, step_tensor(s, card)))
         results.append(direct[0].clone())

@@ -252,11 +252,11 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
 
 
 def test_mega_constants_order():
-    """kernel 3's constants: the pair law first, then dt — as MegaConsts in
-    csrc/mega_span.cu lays them out."""
+    """kernel 3's and the row step's constants: the pair law first, then
+    dt — as MegaConsts in csrc/row_step.cuh lays them out."""
     _, tp = params_pair(constrained_contraction=1)
     c = kernels.mega_constants(tp)
-    src = (kernels.CSRC / "mega_span.cu").read_text()
+    src = (kernels.CSRC / "row_step.cuh").read_text()
     body = src[src.index("struct MegaConsts {"):src.index("};", src.index("struct MegaConsts {"))]
     decl = body.split("PairConsts pair;")[1]
     names = [
