@@ -20,7 +20,18 @@ inside the chunk, the chunk's last block (which ends in the chunk's
 answer as the user reads it) and :data:`DRAWN` blocks drawn from the
 seed.  Where the blocks are longer than a piece (a span segment is one
 graph), the pieces are instead the entry's own calls of a piece's length
-from the chunk's entry and from its answer.  One more piece of
+from the chunk's entry and from its answer (they run the regular path,
+never kernel 3).  Where the chunk ran span segments, kernel 3 is judged
+on its own answers too: the chunk's first segment is run again from
+the chunk's entry, eagerly, through a fresh runner of the cell's entry
+(``workload.SpanCalls`` records each span's input and answer), and
+:data:`SPAN_PIECES` of its spans (:func:`span_picks`) are pieces that
+start and end mid-step, a span's K steps each.  ``replay_gap``, the
+widest field gap between that eager segment's answer and the timed
+runner's graph-replayed answer for the same segment, ties the recorded
+spans to what the window replayed (the adopt-or-redo branch included):
+the two launch the same kernels on the same inputs, so its limit is 0.
+One more piece of
 :data:`START_STEPS` runs from the cell's initial state (the layout's
 exactly touching pairs, which no window chunk starts from).  The
 reference runs the same steps from the same fields on the same draws,
@@ -48,6 +59,8 @@ import torch
 from . import reference
 
 NUMBERS = ("pos_gap", "vel_gap", "rad_gap", "phase_gap", "ring_gap", "bots_off")
+# the number of a chunk that ran span segments, beside :data:`NUMBERS`
+REPLAY = "replay_gap"
 FIELD_OF = {"pos_gap": "pos", "vel_gap": "vel", "rad_gap": "rad", "phase_gap": "phase"}
 # steps of a piece (a contact that flips on rounding moves a bot's
 # velocity by ~0.03-0.7; shorter pieces give its effect less time to
@@ -55,6 +68,9 @@ FIELD_OF = {"pos_gap": "pos", "vel_gap": "vel", "rad_gap": "rad", "phase_gap": "
 PIECE_STEPS = 8
 START_STEPS = 1
 DRAWN = 2
+# spans of the segment run again that are pieces: its first, its last
+# and one drawn from the seed
+SPAN_PIECES = 3
 # a bot is off where its position or velocity part from the reference's
 # by more than these
 OFF_POS, OFF_VEL = 1e-5, 1e-3
@@ -64,13 +80,16 @@ OFF_POS, OFF_VEL = 1e-5, 1e-3
 class Piece:
     """One scene of one piece: where it started (step and fields, with
     ``rows``, the bots' table rows, or None), and the program's fields and
-    centroid ring after ``steps`` steps (``end`` None: no end recorded)."""
+    centroid ring after ``steps`` steps (``end`` None: no end recorded);
+    ``mid``: the piece starts and ends mid-step, as a span of kernel 3
+    does (``reference.run``'s ``mid``)."""
 
     scene: int
     step: int
     steps: int
     start: dict
     end: dict | None
+    mid: bool = False
 
 
 def starts(p: dict, seed: int, entry: int, chunk: int, seg: int) -> list:
@@ -92,11 +111,35 @@ def starts(p: dict, seed: int, entry: int, chunk: int, seg: int) -> list:
     return sorted(entry + o for o in offsets)
 
 
+def span_picks(seed: int, entry: int, n: int) -> list:
+    """Which of a segment's ``n`` spans are pieces: the first, the last
+    and one between them drawn from the seed (fewer where ``n`` is
+    small)."""
+    if n <= SPAN_PIECES - 1:
+        return list(range(n))
+    rng = np.random.default_rng([int(seed) & (2**63 - 1), int(entry), SPAN_PIECES])
+    return [0, int(rng.integers(1, n - 1)), n - 1]
+
+
+def replay_gap(eager: list, replayed: list) -> float:
+    """The widest gap of any field (and the centroid ring) between two
+    answers of one segment, scene by scene (``Workload.snapshot``'s
+    dicts); :data:`NO_AGREEMENT` where one is not finite."""
+    gap = 0.0
+    for a, b in zip(eager, replayed, strict=True):
+        for k in reference.FIELDS + ("centroid_ring",):
+            if torch.equal(a[k], b[k]):
+                continue
+            d = float((a[k].float() - b[k].float()).abs().max())
+            gap = max(gap, d if np.isfinite(d) else NO_AGREEMENT)
+    return gap
+
+
 def follow(p: dict, piece: Piece, draws, dtype=torch.float32) -> tuple:
     """The reference's fields and centroid rows after the piece's steps
     from its start, computed in ``dtype``."""
     return reference.run(p, piece.start, piece.step, piece.steps, draws, dtype,
-                         rows=piece.start.get("rows"))
+                         rows=piece.start.get("rows"), mid=piece.mid)
 
 
 def gaps(end: dict, ring_end: torch.Tensor, ref: dict, ref_ring: dict) -> dict:

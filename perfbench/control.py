@@ -57,7 +57,8 @@ def main(argv=None) -> int:
                           "piece_bots_off": [x["bots_off"] for x in info["readings"]],
                           "control": info["control"], "witness": info["witness"],
                           "live_k": info["live_k"],
-                          "rebuilds": info["rebuilds"], "setup_marks": info["setup_marks"],
+                          "rebuilds": info["rebuilds"], "span_segments": info["span_segments"],
+                          "redos": info["redos"], "setup_marks": info["setup_marks"],
                           "metrics": {k: m["value"] for k, m in r["metrics"].items()}}),
               flush=True)
     return 0

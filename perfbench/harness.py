@@ -13,7 +13,7 @@ from types import SimpleNamespace
 
 from . import check
 from .spec import Bench
-from .workload import BlockEnds, Workload
+from .workload import BlockEnds, SpanCalls, Workload
 
 MIB = float(1 << 20)
 # the traced stretch: steps run from the window's last state, untraced and
@@ -51,7 +51,8 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
     cell = bench.cell(name)
     config = config or bench.config(cell["config"])
     traffic = traffic or bench.traffic(cell["traffic"])
-    wl = Workload(config, traffic, seed, bench.config_path(cell["config"]).parent, device)
+    cfg_dir = bench.config_path(cell["config"]).parent
+    wl = Workload(config, traffic, seed, cfg_dir, device)
     dev = wl.device
     chunk = int(traffic["chunk_steps"])
 
@@ -79,14 +80,16 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
         pool_mib = (_reserved(torch, dev) - reserved0) / MIB
     wl.zero_rebuilds()
+    redos0 = wl.redos()
 
     # the window: whole chunks, each ended by the user's host read
     _sync(torch, dev)
     reserved1 = _reserved(torch, dev)
     t0 = time.perf_counter()
     setup_s = t0 - t_start
-    attempted, failed, chunks, chunk_walls = 0, 0, 0, []
+    attempted, failed, chunks, chunk_walls, span_segments = 0, 0, 0, [], 0
     while True:
+        span_segments += wl.span_segments(state, chunk)
         state = wl.advance(state, chunk)
         ok = wl.read(state)
         chunk_walls.append(time.perf_counter() - t0)
@@ -101,10 +104,15 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
     steps = chunks * chunk
     rebuilds = wl.rebuild_counts() if wl.seg else None
     live_k = wl.live_k()
+    # the window's redone span segments: a device count, read once the
+    # window has closed
+    redos = None if redos0 is None else wl.redos() - redos0
 
     ctx = SimpleNamespace(p=wl.p, scenes=wl.scenes, n=wl.n, rebuilds=rebuilds, live_k=live_k,
                           pool_mib=pool_mib, trace=None, trace_steps=0, untraced_wall=None,
-                          scenes_pos=[wl.arrays(state, b)["pos"] for b in range(wl.scenes)])
+                          scenes_pos=[wl.arrays(state, b)["pos"] for b in range(wl.scenes)],
+                          span_segments=span_segments, redos=redos,
+                          k=wl.params.resolved_slot_rebuild_steps())
     if trace and dev.type == "cuda":
         from .trace import traced
 
@@ -120,11 +128,13 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
     peak = torch.cuda.max_memory_reserved(dev) if dev.type == "cuda" else 0
 
     # the check: one more chunk of the window's own call from the window's
-    # last state, with the program's state recorded at its block ends; and
-    # the first steps from the initial state
+    # last state, with the program's state recorded at its block ends (and
+    # at its first segment's end where it runs span segments); and the
+    # first steps from the initial state
     entry = state.step
+    on_spans = wl.span_segments(state, chunk) > 0
     rec = BlockEnds(wl, check.starts(wl.p, seed, entry, chunk, wl.seg), check.PIECE_STEPS,
-                    entry + chunk)
+                    entry + chunk, keep=[entry + wl.seg] if on_spans else [])
     rec.offer(entry, state)
     with rec:
         out = wl.advance(state, chunk)
@@ -140,6 +150,10 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
             rec.states[st.step + check.PIECE_STEPS] = wl.snapshot(
                 wl.advance(st, check.PIECE_STEPS))
             spans.append((st.step, st.step, st.step + check.PIECE_STEPS))
+    span_pieces, replay = [], None
+    if on_spans:
+        span_pieces, replay = _span_check(Workload(config, traffic, seed, cfg_dir, device),
+                                          state, rec.states[entry + wl.seg], seed, ctx.k)
     first = wl.snapshot(wl.advance(start_state, check.START_STEPS))
     pieces = [check.Piece(b, start_state.step, check.START_STEPS, wl.snapshot(start_state)[b],
                           first[b]) for b in range(wl.scenes)]
@@ -150,11 +164,14 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
                 continue
             end = rec.states[s1][b] if s1 is not None else None
             pieces.append(check.Piece(b, s0, (s1 or s0) - s0, rec.states[s0][b], end))
+    pieces += span_pieces
     piece_steps = [(pc.step, pc.steps) for pc in pieces if pc.scene == 0]
     draws = wl.draws
     del wl, state, start_state, out, rec, first
     readings = check.program_readings(ctx.p, pieces, draws)
     numbers = check.widest(readings)
+    if replay is not None:
+        numbers[check.REPLAY] = replay
     control = witness = None
     if with_control:
         control = check.widest(check.control_readings(ctx.p, pieces, draws))
@@ -191,5 +208,34 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
     result["_info"] = {"setup_marks": marks, "numbers": numbers, "window_s": wall,
                        "chunk_ends": chunk_walls, "window_mib": window_mib, "steps": steps,
                        "live_k": live_k, "rebuilds": rebuilds, "pieces": piece_steps,
+                       "span_segments": span_segments, "redos": redos,
                        "readings": readings, "control": control, "witness": witness}
     return result
+
+
+def _span_check(fresh: Workload, state, replayed: list, seed: int, k: int) -> tuple:
+    """(pieces, replay_gap) of kernel 3's own spans: the chunk's first
+    segment run again from its entry ``state`` through ``fresh``, a new
+    runner of the cell's entry, which runs its first segment eagerly
+    while :class:`SpanCalls` records each span; ``replayed`` is the timed
+    runner's answer for the same segment (``BlockEnds``).  The pieces
+    are the spans :func:`check.span_picks` takes, each from its input to
+    its answer, ``k`` steps, mid-step to mid-step; a segment that ran no
+    span gives a piece with no end, which reads no agreement."""
+    calls = SpanCalls()
+    with calls:
+        eager = fresh.advance(state, fresh.seg)
+    replay = check.replay_gap(fresh.snapshot(eager), replayed)
+    ring = state.centroid_ring
+    if not calls.calls:
+        return [check.Piece(b, state.step, k, {}, None, mid=True)
+                for b in range(fresh.scenes)], replay
+    pieces = []
+    for i in check.span_picks(seed, state.step, len(calls.calls)):
+        tbl, strip, step, tbl1, strip1 = calls.calls[i]
+        s0 = int(step)
+        start = fresh.span_snapshot(tbl, strip, s0, ring)
+        end = fresh.span_snapshot(tbl1, strip1, s0 + k, ring)
+        pieces += [check.Piece(b, s0, k, start[b], end[b], mid=True)
+                   for b in range(fresh.scenes)]
+    return pieces, replay

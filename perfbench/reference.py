@@ -9,6 +9,9 @@ box clamp, then the pair contact and magnet forces, the circular
 obstacles and the stick-slip friction (particlebot_kernel_impl.cuh:53-831).
 Pairs are found through a plain cell list of side ``cutoff``, so every
 pair closer than the cutoff is summed, in no order the program shares.
+A step is two halves, :func:`pre` (up to the integration) and
+:func:`post` (the forces and the friction), so that :func:`run` can
+also start and end mid-step, as a span of the program's kernel 3 does.
 
 ``dtype`` is the precision it computes in: float32 as the configurations
 state it, or a lower one for the control that shows the comparison fails
@@ -305,13 +308,16 @@ def radius_law(p: dict, rad, phase, aa, ar, time):
     return torch.where(frozen, rad, new)
 
 
-def step(p: dict, s: dict, step_no: int, draws, ring=None, entry: bool = True,
-         rows: torch.Tensor | None = None) -> dict:
-    """One step of the scene ``s`` (a dict of :data:`FIELDS`, real bots
-    only, all of one dtype) at step ``step_no``; ``ring`` is a dict of the
-    centroid rows this stretch wrote, by row, updated in place; ``entry``
-    (the piece's first step) and ``rows`` as :func:`phase_noise` takes
-    them."""
+def pre(p: dict, s: dict, step_no: int, draws, ring=None, entry: bool = True,
+        rows: torch.Tensor | None = None) -> dict:
+    """The first half of step ``step_no`` of the scene ``s`` (a dict of
+    :data:`FIELDS`, real bots only, all of one dtype): the centroid ring
+    and the phase law where their gates fire, the radius law and the
+    integration with the box clamp.  It ends mid-step, after integration
+    and before the pair forces; the force magnitudes it read are carried
+    on.  ``ring`` is a dict of the centroid rows this stretch wrote, by
+    row, updated in place; ``entry`` (the piece's first step) and
+    ``rows`` as :func:`phase_noise` takes them."""
     pos, vel, rad, phase = s["pos"], s["vel"], s["rad"], s["phase"]
     dt = p["timestep"]
     cog, ph = gates(p, step_no)
@@ -333,25 +339,48 @@ def step(p: dict, s: dict, step_no: int, draws, ring=None, entry: bool = True,
     out = (new > hi) | (new < lo)
     pos = torch.minimum(torch.maximum(new, lo), hi)
     vel = torch.where(out, vel * p["boundary_damping"], vel)
+    return {"pos": pos, "vel": vel, "rad": rad, "phase": phase,
+            "abs_force_a": s["abs_force_a"], "abs_force_r": s["abs_force_r"]}
 
+
+def post(p: dict, s: dict) -> dict:
+    """The second half of a step, from mid-step: the pair contact and
+    magnet forces, the circular obstacles and the stick-slip friction,
+    which write the velocities and the force magnitudes."""
+    pos, vel, rad = s["pos"], s["vel"], s["rad"]
     j, valid = neighbours(p, pos)
     fx, fy, aa, ar = pair_forces(p, pos, vel, rad, j, valid)
     ox, oy, mr = obstacle_forces(p, pos, vel, rad)
     vx, vy = friction(p, vel[:, 0], vel[:, 1], fx + ox, fy + oy)
-    return {"pos": pos, "vel": torch.stack([vx, vy], 1), "rad": rad, "phase": phase,
+    return {"pos": pos, "vel": torch.stack([vx, vy], 1), "rad": rad, "phase": s["phase"],
             "abs_force_a": aa, "abs_force_r": ar + mr}
 
 
+def step(p: dict, s: dict, step_no: int, draws, ring=None, entry: bool = True,
+         rows: torch.Tensor | None = None) -> dict:
+    """One whole step of the scene ``s`` at step ``step_no``: :func:`pre`,
+    then :func:`post`."""
+    return post(p, pre(p, s, step_no, draws, ring, entry, rows))
+
+
 def run(p: dict, s: dict, start: int, n_steps: int, draws, dtype=torch.float32,
-        rows: torch.Tensor | None = None):
+        rows: torch.Tensor | None = None, mid: bool = False):
     """``n_steps`` steps of scene ``s`` from step ``start`` in ``dtype``:
     (the scene after them in float32, the centroid rows written, by
     row); ``rows``, where given, the bots' rows in the table the program
-    carries at ``start``."""
+    carries at ``start``.  With ``mid`` the steps start and end mid-step
+    (:func:`pre`'s end): ``s`` is step ``start - 1`` after integration,
+    and the answer is step ``start + n_steps - 1`` after integration, the
+    span of kernel 3 (its post, then ``n_steps - 1`` whole steps, then a
+    pre)."""
     check_supported(p)
     s = {k: s[k].to(dtype) for k in FIELDS}
     ring: dict = {}
+    if mid:
+        s = post(p, s)
     for i in range(n_steps):
-        s = step(p, s, start + i, draws, ring, entry=i == 0, rows=rows)
+        s = pre(p, s, start + i, draws, ring, entry=i == 0, rows=rows)
+        if not mid or i < n_steps - 1:
+            s = post(p, s)
     return ({k: v.float() for k, v in s.items()},
             {r: v.float() for r, v in ring.items()})

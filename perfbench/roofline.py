@@ -1,17 +1,23 @@
 """The yardstick's arithmetic: one H100's published peaks, and the bytes
-and operations the pair-force pass needs for a scene's table.
+and operations the pair-force pass and a span of kernel 3 need for a
+scene's table.
 
-A frozen copy of ``chip_smoke.py``'s ``bound``, ``occupied_pairs`` and
-``stencil_bound``: the bytes are the force kernel's input planes and its
-four output planes over every row of the table it reads, the operations
-``PAIR_OPS`` for every ordered pair of occupied rows in each other's 3x3
-cells.  The occupancy is counted from the scene's positions with the
-reference's table rule (``reference.cell_counts``), each cell holding at
+A frozen copy of ``chip_smoke.py``'s ``bound``, ``occupied_pairs``,
+``stencil_bound`` and ``span_bound``: the force kernel's bytes are its
+input planes and its four output planes over every row of the table it
+reads, its operations ``PAIR_OPS`` for every ordered pair of occupied
+rows in each other's 3x3 cells; a span reads and writes the table's and
+the parking strip's planes once, and does K steps of those pairs' work
+and ``ROW_OPS`` (with ``OBSTACLE_OPS`` per obstacle) on every row.  The
+occupancy is counted from the scene's positions with the reference's
+table rule (``reference.cell_counts``), each cell holding at
 most the force-visible capacity, so the count is what these inputs need
 and not which kernel computes it.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,6 +30,12 @@ PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 PAIR_OPS = 14
 # the force kernel's inputs: px, py, vx, vy, rad (and a payload's afac)
 KERNEL_INPUTS = 5
+# elementwise operations per row and step in kernel 3 without obstacles
+# (friction ~25, radius law ~30, integrate ~12), and per obstacle
+ROW_OPS, OBSTACLE_OPS = 67, 30
+# the planes of kernel 3's table and parking strip: the table loop's 13
+# fields (px, py, vx, vy, rad, val, afac, phase, dead, aa, ar, pay, bid)
+TABLE_PLANES = 13
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
@@ -56,3 +68,27 @@ def stencil_bound(p: dict, scenes_pos: list) -> tuple:
     rows = g * g * p["cell_capacity"] * len(scenes_pos)
     ops = PAIR_OPS * sum(scene_pairs(p, pos) for pos in scenes_pos)
     return bound((KERNEL_INPUTS + 4) * rows * 4, ops)
+
+
+def segment_steps(p: dict) -> int:
+    """Steps of a gate segment: the gcd of the centroid's and the phase
+    law's periods, on whose multiples every gate fires."""
+    return math.gcd(reference.steps_of(p, p["centroid_int"]),
+                    reference.steps_of(p, p["phase_update_interval"]))
+
+
+def span_work(p: dict, pos: torch.Tensor, k: int) -> tuple:
+    """(bytes, operations) of one ``k``-step span of kernel 3 over the
+    table and parking strip a scene at ``pos`` enters."""
+    rows = reference.grid_dim(p) ** 2 * reference.storage_capacity(p) + (
+        -(-p["n_cells"] // 128) * 128)
+    n_obs = len(p["rect_obstacles"]) + len(p["circle_obstacles"])
+    ops = k * (PAIR_OPS * scene_pairs(p, pos) + rows * (ROW_OPS + OBSTACLE_OPS * n_obs))
+    return 2 * TABLE_PLANES * rows * 4, ops
+
+
+def span_bound(p: dict, scenes_pos: list, k: int) -> tuple:
+    """(seconds, what bounds it) of one ``k``-step span of kernel 3 over
+    the tables of ``scenes_pos`` (one position tensor per scene)."""
+    work = [span_work(p, pos, k) for pos in scenes_pos]
+    return bound(sum(w[0] for w in work), sum(w[1] for w in work))

@@ -93,6 +93,8 @@ def test_a_run_loads_no_jax():
 
 CASES = [("hex10k.scene", 1, "dense"), ("hex10k.scene", 1, "table"),
          ("obstacle500.sweep8", 2, "dense"), ("hex10k.scene", 1, "span")]
+# the cell whose limits judge the span path's small runs
+SPAN_CELL = "hex10k.scene"
 
 
 @pytest.mark.parametrize("cell,scenes,path", CASES)
@@ -103,10 +105,16 @@ def test_a_sound_run_is_correct(cell, scenes, path):
     assert list(r)[-2:] == ["checks", "_info"]
     assert set(r["metrics"]) == {"particle_steps_per_s", "peak_mem_mib", "setup_s"}
     # every piece but the first runs 8 steps: between two block ends of
-    # the chunk, or on the span path from the chunk's entry and its answer
+    # the chunk, or on the span path from the chunk's entry and its answer;
+    # the span path adds kernel 3's own spans, K=4 steps each, and its
+    # first segment run again eagerly lands on the window's replay exactly
     pieces = r["_info"]["pieces"]
-    assert all(steps == 8 for _, steps in pieces[1:])
-    assert len(pieces) == (3 if path == "span" else 5)
+    spans = check.SPAN_PIECES if path == "span" else 0
+    assert all(steps == 8 for _, steps in pieces[1:len(pieces) - spans])
+    assert all(steps == 4 for _, steps in pieces[len(pieces) - spans:])
+    assert len(pieces) == (3 + spans if path == "span" else 5)
+    numbers = r["_info"]["numbers"]
+    assert (numbers.get(check.REPLAY) == 0.0) if path == "span" else check.REPLAY not in numbers
 
 
 def _unchanged(out, carry):
@@ -172,6 +180,78 @@ def test_a_fault_underneath_is_not_correct(monkeypatch, cell, scenes, path, faul
     assert not r["correct"], r["checks"]
 
 
+def _span_unchanged(real, *args):
+    tbl, strip = args[1], args[2]
+    return tbl.clone(), strip.clone()
+
+
+def _span_one_row_moved(real, *args):
+    from particlerobotsimulations_torch.engine_table import TABLE_FIELDS
+
+    tbl, strip = real(*args)
+    tbl = tbl.clone()
+    # the first occupied row, chosen on the device (a graph may capture it)
+    occupied = tbl[TABLE_FIELDS.index("val")].reshape(-1) > 0.5
+    rows = torch.arange(occupied.numel(), device=tbl.device)
+    tbl[TABLE_FIELDS.index("px")].view(-1).add_(0.05 * (rows == occupied.long().argmax()))
+    return tbl, strip
+
+
+SPAN_FAULT = {"unchanged": _span_unchanged, "one_answer_altered": _span_one_row_moved}
+
+
+def plant_in_kernel3(monkeypatch, fault):
+    """Kernel 3 alone returns its answer broken by ``fault``: its plain
+    twin on the CPU, the CUDA wrapper on the card.  Every other part of
+    the span path (the segment's first block, the rebuilds between spans,
+    the closing post, the regular blocks) is left as it is."""
+    from particlerobotsimulations_torch import kernels
+    from particlerobotsimulations_torch.ops import megakernel
+
+    for module, name in ((megakernel, "mega_span_plain"), (kernels, "mega_span_cuda")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name,
+                            lambda *a, _real=real: SPAN_FAULT[fault](_real, *a))
+
+
+@pytest.mark.parametrize("fault", sorted(SPAN_FAULT))
+def test_a_fault_in_kernel3_alone_is_not_correct(monkeypatch, fault):
+    plant_in_kernel3(monkeypatch, fault)
+    r = small_run(SPAN_CELL, path="span")
+    assert not r["correct"], r["checks"]
+
+
+def _kicked(monkeypatch):
+    """Every scene starts with one bot kicked to 60 u/s: it crosses
+    several cells between two rebuilds for the whole run, so every span
+    rebuild refuses and every span segment is redone."""
+    from perfbench.workload import Workload
+
+    real = Workload.initial
+
+    def initial(self):
+        st = real(self)
+        vel = st.vel.clone()
+        vel[..., 7, 0] += 60.0
+        return st.replace(vel=vel)
+
+    monkeypatch.setattr(Workload, "initial", initial)
+
+
+@pytest.mark.parametrize("kick,share", [(False, 0.0), (True, 1.0)])
+def test_the_redo_share_counts_the_windows_redone_segments(monkeypatch, kick, share):
+    from types import SimpleNamespace
+
+    if kick:
+        _kicked(monkeypatch)
+    info = small_run(SPAN_CELL, path="span")["_info"]
+    assert info["span_segments"] == 1
+    read = BENCH.reader("span.redo_share")
+    assert read(SimpleNamespace(span_segments=info["span_segments"], redos=info["redos"])) == share
+    # no span segment, nothing to read
+    assert read(SimpleNamespace(span_segments=0, redos=None)) is None
+
+
 @pytest.mark.parametrize("cell,scenes,path", CASES)
 def test_the_control_is_not_correct(cell, scenes, path):
     r = small_run(cell, scenes, seed=9, path=path, with_control=True)
@@ -210,6 +290,48 @@ def test_a_fault_in_the_table_loop_at_full_size_is_not_correct(monkeypatch, cell
     print(json.dumps({"cell": cell, "fault": fault, "numbers": r["_info"]["numbers"],
                       "limits": BENCH.limits(cell)}))
     assert not r["correct"], r["checks"]
+
+
+def waiting_bench():
+    """The benchmark with ``band1k.scene``, the span path's cell that waits
+    for the band swell (PERF.md section 7), whose configuration and limits
+    are kept under ``perfbench/``."""
+    bench = Bench()
+    bench.data["configs"].append({"name": "band1k", "file": "perfbench/configs/band1k.json"})
+    bench.data["workloads"].append(
+        {"name": "band1k.scene", "config": "band1k", "traffic": "scene", "chips": 1})
+    return bench
+
+
+def test_the_waiting_span_cell_resolves():
+    from perfbench.workload import program_params
+
+    bench = waiting_bench()
+    limits = bench.limits("band1k.scene")
+    assert limits[check.REPLAY] == 0.0 and set(limits) == set(check.NUMBERS) | {check.REPLAY}
+    params = program_params(bench.config("band1k"), bench.config_path("band1k").parent, 7)
+    # the span path's table: AUTO's G=16 at C=16, 4,096 rows, K=4
+    assert params.resolved_grid_dim() == 16 and params.resolved_slot_rebuild_steps() == 4
+    assert params.storage_capacity() == 16 and params.n_cells == 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["none"] + sorted(SPAN_FAULT))
+def test_kernel3_at_full_size_is_judged_on_its_own_answers(monkeypatch, fault):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if fault != "none":
+        plant_in_kernel3(monkeypatch, fault)
+    r = harness.run_cell(waiting_bench(), "band1k.scene", 2**31 + 23, 1.0, False, "cuda")
+    info = r["_info"]
+    print(json.dumps({"cell": "band1k.scene", "fault": fault, "numbers": info["numbers"],
+                      "pieces": info["pieces"], "span_segments": info["span_segments"],
+                      "redos": info["redos"]}))
+    if fault == "none":
+        assert r["correct"], r["checks"]
+        assert info["numbers"][check.REPLAY] == 0.0
+    else:
+        assert not r["correct"], r["checks"]
 
 
 @pytest.mark.parametrize("live,probe,settled", [

@@ -60,7 +60,10 @@ def test_cell_files_resolve(cell):
     assert BENCH.config_path(w["config"]).is_file()
     assert BENCH.traffic_path(w["traffic"]).is_file()
     limits = BENCH.limits(cell)
-    assert limits and set(limits) <= set(check.NUMBERS)
+    assert limits and set(limits) <= set(check.NUMBERS + (check.REPLAY,))
+    # the span path's eager segment and its replay run the same kernels
+    # on the same inputs: an exact comparison
+    assert limits.get(check.REPLAY, 0.0) == 0.0
     config = BENCH.config(w["config"])
     if config.get("cfg"):
         assert (BENCH.config_path(w["config"]).parent / config["cfg"]).is_file()

@@ -116,3 +116,74 @@ def test_random_layout_is_the_ports(seed):
     ours = layouts.random_accretion(60, 0.0775, 0.235, seed)
     theirs, _ = place(SimParams(n_cells=60, n_dead=0, config=Config.RANDOM, seed=seed))
     assert np.array_equal(ours, theirs)
+
+
+def _jittered(n=40, seed=1):
+    """A HEX swarm of ``n`` bots nudged off its exact contacts, moving and
+    mid-wave, so that contacts, magnets, friction and the radius law all
+    act."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.from_numpy(layouts.hex_layout(n, 0.0775)) + 1e-3 * torch.randn(n, 2, generator=g)
+    return {"pos": pos, "vel": 0.05 * torch.randn(n, 2, generator=g),
+            "rad": 0.0775 + 0.04 * torch.rand(n, generator=g),
+            "phase": 3.0 * torch.rand(n, generator=g),
+            "abs_force_a": torch.rand(n, generator=g), "abs_force_r": torch.rand(n, generator=g)}
+
+
+def _equal(a, b):
+    return all(torch.equal(a[k], b[k]) for k in reference.FIELDS)
+
+
+def test_the_mid_step_halves_make_the_whole_step_bit_for_bit():
+    p = dict(reference.DEFAULTS, n_cells=40, n_dead=0)
+    s = _jittered()
+    # no gate fires at steps 101-106
+    assert not any(any(reference.gates(p, t)) for t in range(101, 107))
+    assert _equal(reference.step(p, s, 101, None),
+                  reference.post(p, reference.pre(p, s, 101, None)))
+    # a mid-step piece (kernel 3's span: post, whole steps, pre) set
+    # between a pre and a post is the whole steps
+    whole, _ = reference.run(p, s, 101, 6, None)
+    mid, _ = reference.run(p, reference.pre(p, s, 101, None), 102, 4, None, mid=True)
+    assert _equal(whole, reference.post(p, reference.pre(p, reference.post(p, mid), 106, None)))
+
+
+def test_span_work_is_chip_smokes_span_bound(monkeypatch):
+    import chip_smoke
+    from particlerobotsimulations_torch.config import Config, ForceBackend, SimParams
+    from particlerobotsimulations_torch.sim import Simulation
+
+    n = 300
+    sim = Simulation(SimParams(n_cells=n, n_dead=0, config=Config.HEX,
+                               force_backend=ForceBackend.PALLAS), device="cpu")
+    prog, tbl, strip, _ = chip_smoke.span_inputs(sim)
+    monkeypatch.setattr(chip_smoke, "bound", lambda n_bytes, n_ops: (n_bytes, n_ops))
+    p = dict(reference.DEFAULTS, n_cells=n, n_dead=0)
+    k = prog.resolved_slot_rebuild_steps()
+    assert reference.grid_dim(p) == prog.resolved_grid_dim() == 16 and k == 4
+    assert roofline.span_work(p, sim.state.pos[:n], k) == chip_smoke.span_bound(prog, tbl, strip)
+    t, by = roofline.span_bound(p, [sim.state.pos[:n]] * 2, k)
+    n_bytes, n_ops = roofline.span_work(p, sim.state.pos[:n], k)
+    assert (t, by) == roofline.bound(2 * n_bytes, 2 * n_ops)
+
+
+def test_segment_steps_are_the_gates_gcd():
+    assert roofline.segment_steps(dict(reference.DEFAULTS)) == 200
+
+
+def test_kernel3_roofline_counts_the_spans_of_the_stretch():
+    from types import SimpleNamespace
+
+    from perfbench.spec import Bench
+
+    read = Bench().reader("kernel3_roofline")
+    p = dict(reference.DEFAULTS, n_cells=300, n_dead=0)
+    pos = torch.from_numpy(layouts.hex_layout(300, 0.0775))
+    trace = SimpleNamespace(time_of=lambda symbols: 0.01 if "mega_span_kernel" in symbols else 0)
+    ctx = SimpleNamespace(trace=trace, p=p, k=4, trace_steps=1200, scenes_pos=[pos])
+    # 1,200 steps are six 200-step segments, each with 49 spans of K=4
+    least, _ = roofline.span_bound(p, [pos], 4)
+    assert read(ctx) == pytest.approx(100.0 * least * 6 * 49 / 0.01)
+    assert read(SimpleNamespace(**{**vars(ctx), "trace": None})) is None
+    idle = SimpleNamespace(time_of=lambda symbols: 0.0)
+    assert read(SimpleNamespace(**{**vars(ctx), "trace": idle})) is None

@@ -147,6 +147,35 @@ class Workload:
             st = exit_table(self.params, st.replace(centroid_ring=st.centroid_ring.clone()))
         return [dict(self.arrays(st, b), rows=rows[b]) for b in range(self.scenes)]
 
+    def span_segments(self, state, n_steps: int) -> int:
+        """How many gate segments of a chunk of ``n_steps`` entered at
+        ``state`` the runner takes through the span path (kernel 3); 0
+        where its path has none."""
+        segments = getattr(self.runner, "segments", None)
+        if segments is None:
+            return 0
+        return segments(n_steps, self.seg > 0 and state.step % self.seg == 0)
+
+    def redos(self):
+        """The span segments the runner redid on the regular path so far
+        (a device count: reading it waits for the card), or None where
+        the runner keeps no such count (the adaptive and per-bot
+        runners)."""
+        return getattr(self.runner, "redos", None)
+
+    def span_snapshot(self, tbl, strip, step: int, ring) -> list:
+        """:meth:`snapshot` of kernel 3's table and parking-strip planes
+        (its input or its answer, at ``step``), gathered to bot order by
+        ``bid`` as the chunk's exit gathers a table; ``ring`` stands in
+        for the centroid ring, which a span never writes."""
+        import torch
+
+        from particlerobotsimulations_torch.engine_table import TableState, _make_mega_glue
+
+        fields = _make_mega_glue(self.params)[1](tbl, strip)
+        origin = torch.zeros(tbl.shape[:-3] + (2,), dtype=torch.float32, device=tbl.device)
+        return self.snapshot(TableState(fields, origin, int(step), None, ring))
+
     def rebuild_counts(self) -> tuple:
         return self.rebuilds["incremental"], self.rebuilds["exact"]
 
@@ -185,7 +214,24 @@ def _rows_of(val, bid, n: int):
     return rows
 
 
-class BlockEnds:
+class _Hook:
+    """A ``sys.settrace`` hook on this thread, for the block of a ``with``
+    alone: :meth:`_global` sees each call made there."""
+
+    def _global(self, frame, event, arg):
+        raise NotImplementedError
+
+    def __enter__(self):
+        self._before = sys.gettrace()
+        sys.settrace(self._global)
+        return self
+
+    def __exit__(self, *exc):
+        sys.settrace(self._before)
+        return False
+
+
+class BlockEnds(_Hook):
     """The program's state at block ends inside one chunk, recorded while
     the chunk runs through the cell's own entry.
 
@@ -195,24 +241,26 @@ class BlockEnds:
     yield of such a generator offers that state, by its step, to
     :meth:`offer`, which keeps the states that the pieces need: for each
     start asked for, the first block end at or after it, and the first at
-    least ``length`` steps after that (the piece's end).  States at or
+    least ``length`` steps after that (the piece's end), and the states
+    at the steps of ``keep``.  States at or
     after ``stop`` are not taken: the chunk's own answer ends the last
     piece there.  Nothing of the program changes: the hook reads locals
     (``sys.settrace``, on this thread, for the chunk alone)."""
 
-    def __init__(self, wl: "Workload", starts: list, length: int, stop: int):
+    def __init__(self, wl: "Workload", starts: list, length: int, stop: int, keep=()):
         from particlerobotsimulations_torch.engine_table import TableState
         from particlerobotsimulations_torch.state import SimState
 
         self.wl, self.length, self.stop = wl, int(length), int(stop)
         self.kinds = (TableState, SimState)
         self.spans = {int(a): [None, None] for a in sorted(set(starts))}
+        self.keep = {int(s) for s in keep}
         self.states: dict = {}
 
     def offer(self, step: int, st) -> None:
         if step in self.states or step >= self.stop:
             return
-        need = False
+        need = step in self.keep
         for a, span in self.spans.items():
             if span[0] is None and step >= a:
                 span[0], need = step, True
@@ -248,15 +296,45 @@ class BlockEnds:
             return self._local
         return None
 
-    def __enter__(self):
-        self._before = sys.gettrace()
-        sys.settrace(self._global)
-        return self
 
-    def __exit__(self, *exc):
-        sys.settrace(self._before)
-        return False
+class SpanCalls(_Hook):
+    """Kernel 3's own spans, recorded while the cell's entry runs a span
+    segment eagerly (a fresh runner's first segment of a kind, before its
+    capture): for each call of the span function that
+    ``ops.megakernel.make_mega_span`` returns, ``(tbl, strip, step, tbl',
+    strip')``, its inputs and its answer, cloned at once.  Calls made
+    while a CUDA graph is being captured run on the capture's buffers and
+    are skipped.  Nothing of the program changes: the hook reads the
+    call's arguments and its return value (``sys.settrace``, on this
+    thread, for the block of the ``with`` alone)."""
+
+    def __init__(self):
+        self.calls: list = []
+        self._open = None
+
+    def _local(self, frame, event, arg):
+        if event == "return" and arg is not None and self._open is not None:
+            tbl, strip = arg
+            self.calls.append(self._open + (tbl.clone(), strip.clone()))
+            self._open = None
+        return self._local
+
+    def _global(self, frame, event, arg):
+        if (event != "call" or frame.f_code.co_qualname != _SPAN
+                or frame.f_globals.get("__name__") != _MEGA):
+            return None
+        import torch
+
+        args = frame.f_locals
+        tbl, step = args["tbl"], args["step"]
+        if tbl.is_cuda and torch.cuda.is_current_stream_capturing():
+            return None
+        self._open = (tbl.clone(), args["strip"].clone(),
+                      step.clone() if torch.is_tensor(step) else int(step))
+        frame.f_trace_lines = False
+        return self._local
 
 
 _PORT = "particlerobotsimulations_torch."
+_MEGA, _SPAN = _PORT + "ops.megakernel", "make_mega_span.<locals>.span"
 _CO_GENERATOR = 0x20
