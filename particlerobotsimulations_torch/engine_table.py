@@ -26,17 +26,18 @@ counter, fires the same gates and rebuilds on the same steps as the JAX
 loop's segment scan.  Like the JAX package's jitted chunk, a chunk waits
 for nothing it has just enqueued: the rebuild's incremental-or-exact
 choice is made on the device (``ops/cond.cond``, the JAX package's
-``lax.cond``), the rebuild counts (:data:`REBUILDS`) are device counters,
-and the sim time and the centroid ring's row come from a device step.  On
-the card every block (the JAX loop's gated first block, ``plain_u`` scans
-and remainder scan: K-step blocks, the dead-injection step's ``lax.cond``
-among their gates, and a chunk's ragged tail) replays from a CUDA graph
-captured once per runner, carry layout and gate pattern, the gated steps'
-draws taken beforehand and fed in with the carry; a conditional node runs the
-exact rebuild only when the incremental one's preconditions failed.  A
-runner's first block of a layout runs eagerly before its capture (as
-every step does on the CPU), where a rebuild runs both branches and a
-select keeps one.  Small tables
+``lax.cond``), the rebuild counts (:data:`REBUILDS`) and the most bots the
+table held in spill rows or parked (:data:`OCCUPANCY`) are device
+counters, and the sim time and the centroid ring's row come from a device
+step.  On the card every block (the JAX loop's gated first block,
+``plain_u`` scans and remainder scan: K-step blocks, the dead-injection
+step's ``lax.cond`` among their gates, and a chunk's ragged tail) replays
+from a CUDA graph captured once per runner, carry layout and gate pattern,
+the gated steps' draws taken beforehand and fed in with the carry; a
+conditional node runs the exact rebuild only when the incremental one's
+preconditions failed.  A runner's first block of a layout runs eagerly
+before its capture (as every step does on the CPU), where a rebuild runs
+both branches and a select keeps one.  Small tables
 (``ops/megakernel.mega_eligible``) run each gate segment through the
 megakernel span path: one launch of kernel 3 per rebuild block, with the
 slot rebuild between spans, the whole segment one CUDA graph, and the
@@ -100,36 +101,27 @@ MOVE_FIELDS = (
 )
 
 
-class RebuildCounts(MutableMapping):
-    """What the loops' rebuild schedule took, for callers that check a run:
-    one count per slot rebuild (a batched rebuild counts once for all its
-    scenes), ``"incremental"`` for the compaction's result, ``"exact"``
-    for the argsort rebuild that failed preconditions select.  The span
-    path's unconditional rebuilds between spans are not counted; their
-    failures show as the runner's ``redos``.
+class _DeviceCounts(MutableMapping):
+    """Counts with fixed keys kept on the device: one int64 counter tensor
+    per device, never reallocated, that the loops update in place (so a
+    CUDA graph that captured an update repeats it at every replay, and the
+    loop reads nothing).  Reading a count copies the counters to the host
+    (it waits for the card); setting one (to 0, say) zeroes the counters
+    in place.  A subclass names its ``KEYS`` and ``_combine``, which
+    merges a key's host base and its per-device values."""
 
-    The counts live on the device: each rebuild adds its decision in
-    place to a counter tensor on its carry's device, so a CUDA graph that
-    captured the rebuild counts its replays, and the loop reads nothing.
-    Reading a count copies the counters to the host (it waits for the
-    card); setting one (to 0, say) zeroes the counters in place."""
-
-    KEYS = ("incremental", "exact")
+    KEYS: tuple = ()
 
     def __init__(self):
         self._base = dict.fromkeys(self.KEYS, 0)
-        self._counters = {}  # device -> (2,) int64, never reallocated
+        self._counters = {}  # device -> (len(KEYS),) int64
 
     def counter(self, device) -> torch.Tensor:
         device = torch.device(device)
         if device not in self._counters:
-            self._counters[device] = torch.zeros(2, dtype=torch.int64, device=device)
+            self._counters[device] = torch.zeros(len(self.KEYS), dtype=torch.int64,
+                                                 device=device)
         return self._counters[device]
-
-    def add(self, ok: torch.Tensor) -> None:
-        """Count one rebuild: incremental where the 0-dim bool ``ok``
-        holds, exact where it does not."""
-        self.counter(ok.device).add_(torch.stack([ok, ~ok]).to(torch.int64))
 
     def _index(self, key) -> int:
         if key not in self.KEYS:
@@ -138,7 +130,7 @@ class RebuildCounts(MutableMapping):
 
     def __getitem__(self, key) -> int:
         i = self._index(key)
-        return self._base[key] + sum(int(c[i]) for c in self._counters.values())
+        return self._combine([self._base[key]] + [int(c[i]) for c in self._counters.values()])
 
     def __setitem__(self, key, value) -> None:
         i = self._index(key)
@@ -147,7 +139,7 @@ class RebuildCounts(MutableMapping):
             c[i].zero_()
 
     def __delitem__(self, key):
-        raise TypeError("the rebuild counts have fixed keys")
+        raise TypeError(f"{type(self).__name__} has fixed keys")
 
     def __iter__(self):
         return iter(self.KEYS)
@@ -156,8 +148,51 @@ class RebuildCounts(MutableMapping):
         return len(self.KEYS)
 
 
+class RebuildCounts(_DeviceCounts):
+    """What the loops' rebuild schedule took, for callers that check a run:
+    one count per slot rebuild (a batched rebuild counts once for all its
+    scenes), ``"incremental"`` for the compaction's result, ``"exact"``
+    for the argsort rebuild that failed preconditions select.  The span
+    path's unconditional rebuilds between spans are not counted; their
+    failures show as the runner's ``redos``.  Device counts: each rebuild
+    adds its decision in place to its carry's device's counter."""
+
+    KEYS = ("incremental", "exact")
+    _combine = staticmethod(sum)
+
+    def add(self, ok: torch.Tensor) -> None:
+        """Count one rebuild: incremental where the 0-dim bool ``ok``
+        holds, exact where it does not."""
+        self.counter(ok.device).add_(torch.stack([ok, ~ok]).to(torch.int64))
+
+
+class OccupancyCounts(_DeviceCounts):
+    """What the table drops, for callers that check a run: the most real
+    bots (``val > 0.5``) that one scene of the table runners held in spill
+    rows (``"spill_max"``: ranks ``cell_capacity`` to ``storage_capacity
+    - 1`` of a cell, which kernel 1 does not see) and in the parking strip
+    (``"parked_max"``: bots no cell had room for).  Neither feels or
+    exerts a pair force, unlike the reference's uncapped neighbour loops.
+    Each is a maximum since it was last set, over every scene (a batch
+    counts its worst) and every table a runner held: those its chunks
+    enter and those its slot rebuilds choose (:func:`_count_occupancy`).
+    Device counts, each an in-place maximum into the carry's device's
+    counter; setting a key to 0 starts a new maximum."""
+
+    KEYS = ("spill_max", "parked_max")
+    _combine = staticmethod(max)
+
+    def record(self, key: str, n: torch.Tensor) -> None:
+        """Take ``key``'s maximum with ``n``, a count per scene (0-dim for
+        one scene)."""
+        c = self.counter(n.device)[self._index(key)]
+        torch.maximum(c, n.amax() if n.dim() else n, out=c)
+
+
 REBUILDS = RebuildCounts()
 trace.register("rebuilds", REBUILDS)
+OCCUPANCY = OccupancyCounts()
+trace.register("occupancy", OCCUPANCY)
 
 
 def step_tensor(step: int, device) -> torch.Tensor:
@@ -394,10 +429,47 @@ def _choose_rebuild(params: SimParams, ts: TableState):
 
     def take_exact(carry: dict) -> dict:
         exact, origin = _exact_rebuild(params, {kf: carry[kf] for kf in TABLE_FIELDS})
+        _count_occupancy(params, exact["val"], "parked_max", taken=~ok)
         return {**exact, "origin": origin}
 
     out = cond(ok, lambda carry: inc, take_exact, {**ts.fields, "origin": ts.origin})
+    _count_occupancy(params, out["val"], "spill_max")
     return ts.replace(fields={kf: out[kf] for kf in TABLE_FIELDS}, origin=out["origin"]), ok
+
+
+def _count_occupancy(params: SimParams, val: torch.Tensor, key: str, taken=None) -> None:
+    """:data:`OCCUPANCY`'s ``key`` taken with the real bots of a ``([B,]
+    total_ext)`` validity plane in its spill rows (``"spill_max"``: the
+    slot-major rows ``[cell_capacity * G*G, total)``) or its parking strip
+    (``"parked_max"``: rows ``[total, total_ext)``), per scene; with 0
+    where the 0-dim bool ``taken`` (the plane's table was chosen) does not
+    hold.  Nothing where the table has no spill rows to count.
+
+    The strip changes only where a table is entered or the exact rebuild
+    is chosen: the incremental rebuild passes it through, and its
+    precondition refuses a cell over capacity.  So the strip is counted
+    there alone (the exact rebuild inside its conditional node on the
+    card, :func:`_enter`), the spill rows also after every rebuild, and
+    each maximum is the one a count after every rebuild would take."""
+    total, _, _ = _geometry(params)
+    visible = params.resolved_grid_dim() ** 2 * params.cell_capacity
+    if key == "spill_max" and visible == total:
+        return
+    rows = val[..., visible:total] if key == "spill_max" else val[..., total:]
+    n = (rows > 0.5).sum(-1)
+    if taken is not None:
+        # a product, not a select: a graph's body holds no select on a flag
+        n = n * taken
+    OCCUPANCY.record(key, n)
+
+
+def _enter(params: SimParams, state: SimState) -> TableState:
+    """:func:`enter_table` of a table runner's chunk, its table counted in
+    :data:`OCCUPANCY`."""
+    ts = enter_table(params, state)
+    for key in OCCUPANCY:
+        _count_occupancy(params, ts.fields["val"], key)
+    return ts
 
 
 def _inject_dead_table(params: SimParams, f: dict, source, step: int) -> torch.Tensor:
@@ -859,11 +931,11 @@ class _CapturedBlock:
     (``ops/cond``), so ``kernels.LAUNCHES`` counts what ran.  The caller
     has run the block eagerly on the card first: that warm-up grants each
     kernel its shared memory at these sizes, which capture may not do, and
-    creates the rebuild counter on this device.  Python's cyclic garbage
-    collector is held off during the capture: a runner no longer
-    referenced (runners hold reference cycles) that it freed mid-capture
-    would destroy its graphs there, and that voids the capture.  A failed
-    capture raises.
+    creates the rebuild and occupancy counters on this device.  Python's
+    cyclic garbage collector is held off during the capture: a runner no
+    longer referenced (runners hold reference cycles) that it freed
+    mid-capture would destroy its graphs there, and that voids the
+    capture.  A failed capture raises.
 
     The capture is registered for ``ops/cond``: each slot rebuild in the
     block becomes the incremental rebuild, kernel ``cond_set`` and a
@@ -885,6 +957,7 @@ class _CapturedBlock:
         self.outputs = {}
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
         REBUILDS.counter(dev)
+        OCCUPANCY.counter(dev)
         before = kernels.LAUNCHES.host_counts()
         self.graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(dev)
@@ -1283,7 +1356,7 @@ def _make_table_runner(params: SimParams, phase_fn):
     @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         with trace.work(state.device):
-            ts = enter_table(params, state)
+            ts = _enter(params, state)
         n_segs = segments(n_steps, seg_aligned)
         if n_segs:
             ts = yield from span_segments(ts, n_segs)
@@ -1384,7 +1457,7 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
 
     def probe_chunk(state: SimState):
         with trace.work(state.device):
-            ts = enter_table(params, state)
+            ts = _enter(params, state)
             pm = neighbor_rel_speed_bound(params, ts.fields)
         ts, pm = drain(advance(ts, seg, pm))
         with trace.work(state.device):

@@ -45,7 +45,8 @@ upper bound of the card's busy time.
 
 Counters: ``graph.captures`` (:data:`CAPTURES`, always on: a capture is
 rare and cold) with their seconds, and what other modules register
-(:func:`register`: ``engine_table.REBUILDS``, ``kernels.LAUNCHES``),
+(:func:`register`: ``engine_table.REBUILDS`` as ``rebuilds``,
+``engine_table.OCCUPANCY`` as ``occupancy``, ``kernels.LAUNCHES``),
 which :func:`snapshot` reads as those objects read; ``graph.replays`` by
 kind and ``graph.nodes_replayed`` come from the recording's spans.
 :func:`report` reduces a snapshot to time by span name and the card's

@@ -1,0 +1,14 @@
+"""The most real bots that one scene held in spill rows after a slot
+rebuild (ranks ``cell_capacity`` and up of a cell: stored, but seen by no
+pair force), from the program's device counters (``occupancy`` in
+``utils.trace.snapshot()``, ``engine_table.OCCUPANCY``).  The harness
+zeroes only the rebuild counts, so this is the maximum over the whole
+run: set-up, window, traced stretch and the check's chunk.  Nothing to
+read where the program keeps no such counter."""
+
+
+def read(ctx):
+    from particlerobotsimulations_torch.utils import trace
+
+    counts = trace.snapshot()["counters"].get("occupancy")
+    return None if counts is None else int(counts["spill_max"])

@@ -16,6 +16,7 @@ from particlerobotsimulations_torch import engine_table, kernels
 from particlerobotsimulations_torch.engine_table import (
     MOVE_FIELDS,
     N_TF,
+    OCCUPANCY,
     REBUILDS,
     TABLE_FIELDS,
     _gates,
@@ -928,6 +929,8 @@ def reset_counts():
         kernels.LAUNCHES[k] = 0
     for k in REBUILDS:
         REBUILDS[k] = 0
+    for k in OCCUPANCY:
+        OCCUPANCY[k] = 0
 
 
 class CountedBlock(engine_table._CapturedBlock):
@@ -1060,6 +1063,41 @@ def test_graph_loop_equals_eager_step_loop(card, batched, monkeypatch):
     for k in CHUNK_FIELDS:
         assert torch.equal(getattr(got, k), getattr(want, k)), k
     assert got.step == want.step == 124
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("overflow_slots", [8, 0])
+def test_graph_and_eager_count_equal_occupancy(card, overflow_slots, batched, monkeypatch):
+    """The occupancy maxima (``engine_table.OCCUPANCY``) that the runner's
+    graphs take inside their replays (the parking strip inside the exact
+    rebuild's conditional node) equal those of the same runner with its
+    blocks eager, on a crowded table: ``cell_capacity`` 8 with 8 spill
+    rows (bots in spill rows, none parked) or with none (bots parked)."""
+    p = resolve_params(pt.SimParams(**dict(GRAPH_SCENE, cell_capacity=8,
+                                           overflow_slots=overflow_slots)).validate())
+    make = make_run_chunk_table_batched if batched else make_run_chunk_table
+
+    def fresh():
+        if batched:
+            return make_batch_state(p, [0, 1, 2], card)
+        return pt.Simulation(p, device=card).state
+
+    results = []
+    for run in (make(p), eager_runner(lambda: make(p), monkeypatch)):
+        reset_counts()
+        state = fresh()
+        for _ in range(2):
+            state = run(state, 62)
+        results.append((state, dict(OCCUPANCY), dict(REBUILDS)))
+    (got, counts, rebuilds), (want, eager_counts, eager_rebuilds) = results
+    assert (counts, rebuilds) == (eager_counts, eager_rebuilds)
+    assert torch.equal(got.pos, want.pos)
+    if overflow_slots:
+        assert counts["spill_max"] > 0 and counts["parked_max"] == 0
+    else:
+        assert counts["spill_max"] == 0 and counts["parked_max"] > 0
+        # exact rebuilds taken: the strip is counted inside the graphs' bodies
+        assert rebuilds["exact"] > 0
 
 
 @pytest.mark.parametrize("kind", ["single", "adaptive", "batched"])
