@@ -315,6 +315,7 @@ from particlerobotsimulations_torch.ops.pallas_stencil import (
     stencil_forces_ext_plain,
     stencil_forces_plain,
 )
+from particlerobotsimulations_torch.ops.dense_step import dense_step_plain
 from particlerobotsimulations_torch.ops.row_step import row_step_plain
 from particlerobotsimulations_torch.ops.table_rebuild import (
     compact_padded_plain,
@@ -843,6 +844,7 @@ def seg_steps(sim, n_steps):
 KERNEL_SYMBOLS = {
     "stencil_forces": "stencil_forces_kernel", "compact": "compact_kernel",
     "mega_span": "mega_span_kernel", "stencil_forces_ext": "stencil_forces_ext_kernel",
+    "dense_step": "dense_step_kernel",
 }
 
 
@@ -2095,7 +2097,7 @@ def sweep_phase():
         fail("example.cfg sweep: not DENSE batched under AUTO")
     t0 = time.perf_counter()
     _, launch, _, text = sweep_vs_sequential("dense", pe, 200, 100, None)
-    check_launches("example.cfg sweep", launch, {})
+    check_launches("example.cfg sweep", launch, {"dense_step_batched": 200})
     print(f"phase 12 sweep example.cfg {text}; {time.perf_counter() - t0:.1f} s")
 
     # the band scene forced batched: the batched span path
@@ -4325,6 +4327,106 @@ def row_step_phase(p10, main_state, sweep_state) -> tuple:
     return out, lines
 
 
+# ----------------------------------------- phase 21: the dense step
+
+# where the JAX package runs the DENSE step the dense step replaces
+DENSE_STEP_REPLACES = "particlerobotsimulations_tpu/ops/forces.py dense_collide (engine.py's step)"
+# bytes a row reads (pos, vel, rad, phase, aa, ar; dead) and writes (pos,
+# vel, rad, aa, ar)
+DENSE_ROW_BYTES = 4 * 8 + 1 + 4 * 7
+# operations of a real pair out of reach of both laws (dx, dy, two
+# products, a sum, one compare against the target's squared reach) and of
+# one in reach (PAIR_OPS and its branch)
+DENSE_FAR_OPS, DENSE_NEAR_OPS = 6, PAIR_OPS + 24
+
+
+def dense_step_bound(p, arrays, stepped) -> tuple:
+    """The bound of one dense-step launch on ``arrays``: every field read
+    and written once; every real pair's distance, the whole term for the
+    pairs in reach after the pre (``stepped``: the step's outputs), the
+    row arithmetic and obstacles of every row (operations bind it)."""
+    n, n_pad = p.n_cells, arrays["pos"].shape[-2]
+    pos, rad = stepped["pos"][..., :n, :], stepped["rad"][..., :n]
+    rows = arrays["rad"].numel()
+    reach = torch.cdist(pos, pos) < torch.clamp(rad[..., :, None] + rad[..., None, :],
+                                                min=p.cutoff())
+    near = int(reach.sum()) - reach.shape[-1] * (rows // n_pad)
+    pairs = (rows // n_pad) * n * (n - 1)
+    n_obs = len(p.rect_obstacles) + len(p.circle_obstacles)
+    ops = (pairs - near) * DENSE_FAR_OPS + near * DENSE_NEAR_OPS + rows * (
+        ROW_OPS + OBSTACLE_OPS * n_obs)
+    return bound(rows * DENSE_ROW_BYTES, ops)
+
+
+def dense_step_phase() -> tuple:
+    """Phase 21: the dense step against its twin on ``example_obstacle.cfg``
+    (500 RANDOM bots, 3 circles; AUTO: DENSE), one scene and 8 seeds 300
+    steps in (each chunk's launches counted from 0: 300 of its key, none
+    of the other): the positions and radii bit for bit, velocities and force
+    magnitudes within the sum order's tolerance (rtol 1e-5, atol 1e-5 x
+    max|f|).  Per shape: the kernel's time per launch in a CUDA graph of 20
+    (``ms``), the twin's per call (``plain_ms``) and in a CUDA graph of 20
+    (``library_ms``: the PyTorch ops the runner replayed before), the bound,
+    the launch plan and the chunk's launches.  Returns ({name: record},
+    text lines)."""
+    from particlerobotsimulations_torch.engine import make_run_chunk, make_run_chunk_batched
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    p = pt.load_cfg(os.path.join(ROOT, "examples", "example_obstacle.cfg"))
+    if p.resolved_backend("cuda") != pt.ForceBackend.DENSE:
+        fail("phase 21: example_obstacle.cfg does not run DENSE on the card")
+    keys = ("dense_step", "dense_step_batched")
+    runs = {}
+    for name, run, state in (
+            ("dense_step", make_run_chunk(p, "cuda"), pt.Simulation(p, device="cuda").state),
+            ("dense_step_batched", make_run_chunk_batched(p, "cuda"),
+             make_batch_state(p, list(range(8)), "cuda"))):
+        # the main path's own launches: the chunk alone, counted from 0
+        for k in keys:
+            kernels.LAUNCHES[k] = 0
+        state = run(state, 300)
+        counts = {k: kernels.LAUNCHES[k] for k in keys}
+        if counts != {k: 300 if k == name else 0 for k in keys}:
+            fail(f"phase 21: a 300-step DENSE chunk launched {counts}, not 300 {name}")
+        runs[name] = (state, counts[name])
+    out, lines = {}, []
+    for name, (state, n_launched) in runs.items():
+        arrays = {k: getattr(state, k) for k in ARRAY_FIELDS}
+        s = step_tensor(state.step, "cuda")
+        got = kernels.dense_step_cuda(p, arrays, s)
+        want = dense_step_plain(p, arrays, s)
+        torch.cuda.synchronize()
+        for k in ("pos", "rad"):
+            if not torch.equal(got[k], want[k]):
+                fail(f"phase 21 {name}: {k} differs from the twin")
+        err = 0.0
+        for k in ("vel", "abs_force_a", "abs_force_r"):
+            scale = float(want[k].abs().max())
+            excess = (got[k] - want[k]).abs() - (1e-5 * want[k].abs() + 1e-5 * scale)
+            if not scale > 0 or float(excess.max()) > 0:
+                fail(f"phase 21 {name}: {k} outside the sum order's tolerance of the twin")
+            err = max(err, float((got[k] - want[k]).abs().max()))
+        scenes = state.pos.shape[0] if state.pos.dim() == 3 else 1
+        plan = kernels.dense_plan(scenes, state.n_pad,
+                                  torch.cuda.get_device_properties(0).multi_processor_count)
+        out[name] = {
+            "ms": graph_ms(lambda: kernels.dense_step_cuda(p, arrays, s)),
+            "plain_ms": median_ms(lambda: dense_step_plain(p, arrays, s)),
+            "library_ms": graph_ms(lambda: dense_step_plain(p, arrays, s)),
+            "bound": dense_step_bound(p, arrays, want), "err": err, "plan": plan,
+            "launches": n_launched,
+        }
+        v = out[name]
+        lines.append(
+            f"phase 21 {name} on {tuple(state.pos.shape)}: {n_launched} launches in the "
+            f"300-step chunk; pos and rad bit for bit its twin, "
+            f"vel and the magnitudes within the sum order (max|diff| {err:.3g}); "
+            f"{v['ms'] * 1e3:.2f} us per launch in a CUDA graph (plan {plan}), twin "
+            f"{v['plain_ms'] * 1e3:.1f} us per call and {v['library_ms'] * 1e3:.1f} us in a "
+            f"CUDA graph, bound (ms, by) ({v['bound'][0]:.4g}, {v['bound'][1]})")
+    return out, lines
+
+
 def make_advance(run, aligned=None):
     """``advance(state, n)``: one chunk of ``run`` (``aligned`` passed on
     where given: the table runners take it); a fresh runner's first call
@@ -4615,6 +4717,13 @@ def main() -> int:
         print(line, flush=True)
     print(f"phase 20 took {time.perf_counter() - t20:.1f} s")
 
+    # 21. the dense step against its twin on the obstacle scene, timed
+    t21 = time.perf_counter()
+    ds, lines21 = dense_step_phase()
+    for line in lines21:
+        print(line, flush=True)
+    print(f"phase 21 took {time.perf_counter() - t21:.1f} s")
+
     k1_bound = stencil_bound(p, tables)
     k2_bound = compact_bound(planes)
     k3_bound = span_bound(bp, btbl, bstrip)
@@ -4659,6 +4768,14 @@ def main() -> int:
                    for mode, v in rs[name].items()}}
         for name, n in (("row_step", launches["row_step"] + launches13.get("row_step", 0)),
                         ("row_step_batched", sweep_counts["row_step_batched"]))
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "particlerobotsimulations_torch/csrc/dense_step.cu",
+         "replaces": DENSE_STEP_REPLACES, "launches": ds[name]["launches"],
+         "max_abs_err": ds[name]["err"], "ms": ds[name]["ms"],
+         "plain_ms": ds[name]["plain_ms"], "bound_ms": ds[name]["bound"][0],
+         "bound_by": ds[name]["bound"][1], "library_ms": ds[name]["library_ms"]}
+        for name in ("dense_step", "dense_step_batched")
     ] + record9 + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep_,
          "launches": sweep_counts[name], "max_abs_err": kc[name]["err"],

@@ -28,7 +28,9 @@ The random draws go through ``rng.py`` with the step they are drawn for.  :func:
 runs a batch of scenes in lockstep (the seed sweep): PALLAS through the
 batched table loop, the other backends through the same block runner on
 :func:`make_step_batched`, the per-scene step vmapped over the scene
-axis.  ``make_step(...,
+axis.  On DENSE on the card, steps 4-6 of every scene are one launch of
+the dense step (``ops/dense_step.py``, ``csrc/dense_step.cu``), outside
+the ``vmap``.  ``make_step(...,
 differentiable=True)`` is the step that ``torch.autograd`` differentiates
 (``models/optimize.py``): PALLAS through ``ops/pallas_stencil.
 make_diff_pallas_collide`` (kernel 1 forward, the STENCIL collide
@@ -43,12 +45,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import rng
+from . import kernels, rng
 from .config import ForceBackend, SimParams
-from .ops.actuation import update_radius
+from .ops.dense_step import step_tail
 from .ops.forces import dense_collide
 from .ops.grid import cellgrid_collide
-from .ops.integrate import integrate
 from .ops.pallas_stencil import make_diff_pallas_collide, pallas_stencil_collide
 from .ops.phase import update_phase
 from .ops.stencil import stencil_collide
@@ -111,77 +112,114 @@ def _collide_fn(params: SimParams, backend: ForceBackend, differentiable: bool):
     return collide
 
 
+def _gated(arrays: dict, draws: dict, *, params: SimParams, step, gates: tuple,
+           step_t: torch.Tensor, mask=None) -> dict:
+    """Steps 1-3 of the step on one scene's arrays: the arrays with
+    ``dead``, ``centroid_ring`` and ``phase`` as the gates that fire leave
+    them (``mask``, the real bots, made when not given)."""
+    pos, phase, dead, ring = (arrays[k] for k in ("pos", "phase", "dead", "centroid_ring"))
+    dev = pos.device
+    if mask is None:
+        mask = active_mask(params, pos.shape[-2], dev)
+    dead_gate, cog_gate, phase_gate = gates
+
+    # 1. dead-cell injection (one-shot)
+    if dead_gate:
+        dead = _inject_dead(params, dead, mask, draws["scores"])
+
+    # 2. centroid ring buffer (reference ring index:
+    #    (int)(time / centroid_int) % centroid_steps, of the step
+    #    tensor), written out of place
+    if cog_gate:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        centroid = torch.sum(
+            torch.where(mask[:, None], pos, zero), dim=0
+        ) / f32(params.n_cells)
+        ring = _ring_write(params, ring, step_t, centroid)
+
+    # 3. phase controller
+    if phase_gate:
+        phase = update_phase(
+            params, pos, phase, mask, rng.Drawn(normal=draws.get("noise")),
+            step=step,
+        )
+    return {**arrays, "phase": phase, "dead": dead, "centroid_ring": ring}
+
+
+def _kernel_step(params: SimParams, arrays: dict, draws: dict, step, gates: tuple,
+                 step_t: torch.Tensor, offset: int, batched: bool) -> dict:
+    """DENSE on the card: steps 1-3 where a gate fires (vmapped over the
+    scenes where ``batched``), then steps 4-6 of every scene in one launch
+    of the dense step (``kernels.dense_step_cuda``) at the step ``step_t +
+    offset``."""
+    if any(gates):
+        gated = functools.partial(_gated, params=params, step=step, gates=gates,
+                                  step_t=step_t + offset if offset else step_t)
+        arrays = (torch.func.vmap(gated) if batched else gated)(arrays, draws)
+    return {**arrays, **kernels.dense_step_cuda(params, arrays, step_t, offset)}
+
+
 def _make_body(params: SimParams, backend: ForceBackend, differentiable: bool = False):
-    """The step on one scene's arrays, with its draws taken beforehand
-    (``_draws``) and its gates decided on the host: pure, so the batched
-    step can ``torch.func.vmap`` it over a scene axis, and
+    """The step on one scene's arrays in PyTorch ops, with its draws taken
+    beforehand (``_draws``) and its gates decided on the host: pure, so the
+    batched step can ``torch.func.vmap`` it over a scene axis, and
     ``torch.utils.checkpoint`` can run it again in a backward pass.
 
-    ``body(arrays, draws, step, gates, slot=None, step_t=None)``: the sim
-    time is ``engine_table.sim_time`` of ``step_t``, the step as a 0-dim
-    int64 tensor on the arrays' device (by default made from the host
-    ``step``), so that a CUDA graph of ungated steps reads it from a
-    tensor it refills; the host ``step`` serves the gated branches."""
+    ``body(arrays, draws, step, gates, slot=None, step_t=None, offset=0)``:
+    the sim time is ``engine_table.sim_time`` of ``step_t + offset``, the
+    step as a 0-dim int64 tensor on the arrays' device (``step_t`` by
+    default made from the host ``step``), so that a CUDA graph of ungated
+    steps reads it from a tensor it refills; the host ``step`` serves the
+    gated branches.  Steps 1-3 are :func:`_gated`, steps 4-6
+    ``ops/dense_step.step_tail``.  The runners and ``make_step`` take it
+    through :func:`_make_step_fn`, which sends DENSE on the card to the
+    dense step instead."""
     collide = _collide_fn(params, backend, differentiable)
-    dt = params.timestep
 
     def body(arrays: dict, draws: dict, step: int, gates: tuple, slot=None,
-             step_t: torch.Tensor | None = None) -> dict:
-        pos, vel, rad, phase, dead, ring = (
-            arrays[k] for k in ("pos", "vel", "rad", "phase", "dead", "centroid_ring")
-        )
+             step_t: torch.Tensor | None = None, offset: int = 0) -> dict:
+        pos = arrays["pos"]
         dev = pos.device
+        if step_t is None:
+            step_t = step_tensor(step, dev)
+        if offset:
+            step_t = step_t + offset
         n_pad = pos.shape[-2]
         mask = active_mask(params, n_pad, dev)
         payload = payload_mask(params, n_pad, dev)
-        if step_t is None:
-            step_t = step_tensor(step, dev)
-        time = sim_time(step_t, dt)
-        dead_gate, cog_gate, phase_gate = gates
-
-        # 1. dead-cell injection (one-shot)
-        if dead_gate:
-            dead = _inject_dead(params, dead, mask, draws["scores"])
-
-        # 2. centroid ring buffer (reference ring index:
-        #    (int)(time / centroid_int) % centroid_steps, of the step
-        #    tensor), written out of place
-        if cog_gate:
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
-            centroid = torch.sum(
-                torch.where(mask[:, None], pos, zero), dim=0
-            ) / f32(params.n_cells)
-            ring = _ring_write(params, ring, step_t, centroid)
-
-        # 3. phase controller
-        if phase_gate:
-            phase = update_phase(
-                params, pos, phase, mask, rng.Drawn(normal=draws.get("noise")),
-                step=step,
-            )
-
-        # 4. radius controller — consumes previous collide's magnitudes
-        rad = update_radius(
-            params, rad, phase, arrays["abs_force_a"], arrays["abs_force_r"],
-            dead, mask, time, dt,
-        )
-
-        # 5. integrate + boundary
-        pos, vel = integrate(params, pos, vel, rad, dt)
-
-        # 6. collide -> next-step velocity + force magnitudes
-        if slot is not None:
-            new_vel, abs_a, abs_r = collide(
-                params, pos, vel, rad, mask, payload, dt, slot=slot
-            )
-        else:
-            new_vel, abs_a, abs_r = collide(params, pos, vel, rad, mask, payload, dt)
-        return {
-            "pos": pos, "vel": new_vel, "rad": rad, "phase": phase, "dead": dead,
-            "abs_force_a": abs_a, "abs_force_r": abs_r, "centroid_ring": ring,
-        }
+        time = sim_time(step_t, params.timestep)
+        arrays = _gated(arrays, draws, params=params, step=step, gates=gates,
+                        step_t=step_t, mask=mask)
+        return {**arrays, **step_tail(params, collide, arrays, mask, payload, time, slot)}
 
     return body
+
+
+def _make_step_fn(params: SimParams, backend: ForceBackend, batched: bool,
+                  differentiable: bool = False):
+    """``fn(arrays, draws, step, gates, step_t=None, offset=0, slot=None)``:
+    :func:`_make_body`'s step on one scene's arrays, or (``batched``) on B
+    scenes' with a leading scene axis, vmapped over it.  The one place that
+    routes a step to the dense step: on DENSE on the card, unless
+    ``differentiable``, the gated ops run as PyTorch ops (vmapped where
+    ``batched``) and steps 4-6 of every scene are one launch
+    (:func:`_kernel_step`), which no ``vmap`` may wrap."""
+    body = _make_body(params, backend, differentiable)
+    kernel = backend == ForceBackend.DENSE and not differentiable
+
+    def fn(arrays: dict, draws: dict, step, gates: tuple,
+           step_t: torch.Tensor | None = None, offset: int = 0, slot=None) -> dict:
+        dev = arrays["pos"].device
+        if kernel and dev.type == "cuda":
+            if step_t is None:
+                step_t = step_tensor(step, dev)
+            return _kernel_step(params, arrays, draws, step, gates, step_t, offset, batched)
+        if batched:
+            return torch.func.vmap(functools.partial(
+                body, step=step, gates=gates, step_t=step_t, offset=offset))(arrays, draws)
+        return body(arrays, draws, step, gates, slot, step_t, offset)
+
+    return fn
 
 
 def make_step(params: SimParams, device="cuda",
@@ -196,7 +234,7 @@ def make_step(params: SimParams, device="cuda",
     as they are."""
     params = params.validate()
     backend = params.resolved_backend(device)
-    body = _make_body(params, backend, differentiable)
+    fn = _make_step_fn(params, backend, batched=False, differentiable=differentiable)
 
     def step(state: SimState, slot: torch.Tensor | None = None) -> SimState:
         gates = _step_gates(params, state.step)
@@ -204,8 +242,8 @@ def make_step(params: SimParams, device="cuda",
                        (state.n_pad,), state.device)
         if backend != ForceBackend.PALLAS:
             slot = None
-        out = body({k: getattr(state, k) for k in ARRAY_FIELDS}, draws,
-                   state.step, gates, slot)
+        out = fn({k: getattr(state, k) for k in ARRAY_FIELDS}, draws,
+                 state.step, gates, slot=slot)
         return state.replace(step=state.step + 1, **out)
 
     return step
@@ -227,15 +265,14 @@ def make_step_batched(params: SimParams, device="cuda") -> Callable[[SimState], 
             "the batched per-bot step takes DENSE, STENCIL or CELLGRID; PALLAS "
             "batches run the table loop (make_run_chunk_batched)"
         )
-    body = _make_body(params, backend)
+    fn = _make_step_fn(params, backend, batched=True)
 
     def step(state: SimState) -> SimState:
         gates = _step_gates(params, state.step)
         shape = (state.pos.shape[0], state.n_pad)
         draws = _draws(params, state.generator, state.step, gates, shape, state.device)
-        out = torch.func.vmap(
-            functools.partial(body, step=state.step, gates=gates)
-        )({k: getattr(state, k) for k in ARRAY_FIELDS}, draws)
+        out = fn({k: getattr(state, k) for k in ARRAY_FIELDS}, draws, state.step, gates,
+                 step_tensor(state.step, state.device))
         return state.replace(step=state.step + 1, **out)
 
     return step
@@ -300,15 +337,9 @@ def _step_runner(params: SimParams, device, batched: bool):
     chunk's carry).  A call is a ``chunk`` span where tracing is on
     (``utils/trace``)."""
     backend = params.resolved_backend(device)
-    body = _make_body(params, backend)
+    step = _make_step_fn(params, backend, batched)
     graphs: dict = {}
     fns: dict = {}
-
-    def step(arrays: dict, draws: dict, gates: tuple, step_t: torch.Tensor) -> dict:
-        if batched:
-            return torch.func.vmap(functools.partial(
-                body, step=None, gates=gates, step_t=step_t))(arrays, draws)
-        return body(arrays, draws, None, gates, step_t=step_t)
 
     def piece(gates: tuple, length: int):
         if (gates, length) not in fns:
@@ -316,8 +347,8 @@ def _step_runner(params: SimParams, device, batched: bool):
                 arrays = {k: carry[k] for k in ARRAY_FIELDS}
                 draws = {k: carry[k] for k in ("scores", "noise") if k in carry}
                 for j in range(length):
-                    arrays = step(arrays, draws if j == 0 else {},
-                                  gates if j == 0 else NO_GATES, step0 + j)
+                    arrays = step(arrays, draws if j == 0 else {}, None,
+                                  gates if j == 0 else NO_GATES, step0, j)
                 return arrays
 
             block.steps = length

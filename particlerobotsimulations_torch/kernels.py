@@ -32,7 +32,11 @@ captured CUDA graph.  ``csrc/row_step.cu`` replaces no ``pallas_call``
 either: the row step (:func:`row_step_cuda`) runs the table loop's
 elementwise step glue (post: obstacles, friction and validity after kernel
 1; pre: the radius controller and integrate; or the two in turn) in one
-launch, with kernel 3's row arithmetic (``csrc/row_step.cuh``).
+launch, with kernel 3's row arithmetic (``csrc/row_step.cuh``).  Nor does
+``csrc/dense_step.cu``: the dense step (:func:`dense_step_cuda`) runs the
+per-bot DENSE step's radius controller, integrate, all-pairs forces,
+obstacles and friction of B scenes in one launch, with the same row
+arithmetic.
 """
 
 from __future__ import annotations
@@ -113,7 +117,7 @@ LAUNCHES = LaunchCounts((
     "stencil_forces_ext", "compact_padded",
     "stencil_forces_batched", "compact_batched", "mega_span_batched",
     "stencil_forces_ext_batched", "compact_padded_batched",
-    "cond_set", "row_step", "row_step_batched",
+    "cond_set", "row_step", "row_step_batched", "dense_step", "dense_step_batched",
 ))
 trace.register("launches", LAUNCHES)
 
@@ -207,6 +211,7 @@ SIGNATURES = {
     "pbot_cond_body_begin": [_vp, _vp],
     "pbot_cond_body_end": [_vp, _vp],
     "pbot_row_step": [_vp] * 4 + [_i] * 4 + [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp],
+    "pbot_dense_step": [_vp, _vp] + [_i] * 5 + [_vp, _i] + [_vp, _i] * 4 + [_vp],
 }
 
 
@@ -934,3 +939,109 @@ def row_step_cuda(params: SimParams, fields: dict, mode: str, step=None,
     _raise_on(err, "row_step")
     LAUNCHES.count("row_step_batched" if lead else "row_step")
     return {**fields, **planes}
+
+
+# the dense step's target rows per block, largest first (csrc/dense_step.cu:
+# a warp each), and the fewest blocks per SM a tile may leave: every block
+# stages its whole scene, so larger tiles stage less, down to about one
+# block for 8 SMs (on the H100 at 500 bots, B=1 and B=8, PERF.md)
+DENSE_TILES = (32, 16, 8, 4)
+DENSE_MIN_BLOCKS_PER_SM = 1 / 8
+
+
+def dense_plan(scenes: int, n_pad: int, sms: int) -> dict:
+    """The dense step's launch for ``scenes`` scenes of ``n_pad`` rows on a
+    card of ``sms`` SMs: the largest tile of :data:`DENSE_TILES` target rows
+    whose blocks (scenes x tiles) number at least
+    :data:`DENSE_MIN_BLOCKS_PER_SM` of the SMs, else the smallest; blocks
+    and threads per block (a warp per row).  The sums do not depend on the
+    tile."""
+    for rows in DENSE_TILES:
+        if scenes * -(-n_pad // rows) >= sms * DENSE_MIN_BLOCKS_PER_SM:
+            break
+    return {"rows": rows, "blocks": scenes * -(-n_pad // rows),
+            "threads": rows * 32}
+
+
+def dense_constants(params: SimParams) -> tuple:
+    """The dense step's pair-law constants, in the order of ``DensePair``
+    in ``csrc/dense_step.cu``, folded as ``ops/forces.py pair_forces``
+    folds them: the spring negated, and the magnet ramp's two divisions
+    by host scalars as products by their float32 reciprocals (PyTorch's
+    CUDA division by a host scalar)."""
+    from .ops.forces import MAGNET_INT1, MAGNET_INT2, MAGNET_MIN_ATTR
+
+    f, p = np.float32, params
+    one = f(1.0)
+    return tuple(float(v) for v in (
+        f(p.cutoff()), -f(p.spring), f(p.damping), f(p.shear), f(p.attraction),
+        f(p.attraction_factor), f(MAGNET_INT1), f(MAGNET_INT2), f(MAGNET_MIN_ATTR),
+        one / f(MAGNET_INT2) ** 2, one / f(MAGNET_INT2 - MAGNET_INT1),
+    ))
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
+def dense_step_cuda(params: SimParams, arrays: dict, step: torch.Tensor,
+                    offset: int = 0) -> dict:
+    """Steps 4-6 of the per-bot DENSE step (``ops/dense_step.py``) in one
+    launch of the dense step on CUDA tensors -> the new ``pos``, ``vel``,
+    ``rad``, ``abs_force_a`` and ``abs_force_r`` (``TAIL_FIELDS``), fresh
+    tensors from ``torch.empty``.
+
+    ``arrays`` holds one scene's ``SimState`` fields (``pos`` and ``vel``
+    ``(n_pad, 2)``, the others ``(n_pad,)``) or B scenes' with a leading
+    scene axis, float32 (``dead`` bool), contiguous, on one card; the
+    radius controller runs at the sim time of the step ``step + offset``
+    (``step`` a 0-dim int64 tensor on the card, which the kernel reads).
+    Equals :func:`ops.dense_step.dense_step_plain` on the same tensors but
+    for the order of the pair sums, and bit for bit where a row has at most
+    one neighbour in reach.  One launch, counted as ``dense_step``, or
+    ``dense_step_batched`` for B scenes."""
+    from .ops.dense_step import IN_FIELDS, TAIL_FIELDS
+
+    pos = arrays["pos"]
+    if pos.dim() not in (2, 3) or pos.shape[-1] != 2:
+        raise ValueError(f"pos: expected ([B,] n_pad, 2), got {tuple(pos.shape)}")
+    lead, n_pad = tuple(pos.shape[:-2]), pos.shape[-2]
+    for k in IN_FIELDS:
+        t = arrays[k]
+        want = lead + ((n_pad, 2) if k in ("pos", "vel") else (n_pad,))
+        dtype = torch.bool if k == "dead" else torch.float32
+        if t.device.type != "cuda" or t.device != pos.device:
+            raise ValueError(f"{k}: expected a CUDA tensor on {pos.device}, got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{k}: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != want or not t.is_contiguous() or t.data_ptr() % 8:
+            raise ValueError(f"{k}: expected a contiguous, 8-byte aligned {want}, "
+                             f"got {tuple(t.shape)} strides {t.stride()}")
+    if n_pad < params.n_cells:
+        raise ValueError(f"pos: {n_pad} rows hold fewer than n_cells = {params.n_cells}")
+    if not (torch.is_tensor(step) and step.dtype == torch.int64 and step.dim() == 0
+            and step.device == pos.device):
+        raise ValueError(f"step: expected a 0-dim int64 tensor on {pos.device}")
+    scenes = lead[0] if lead else 1
+    plan = dense_plan(scenes, n_pad, _sm_count(pos.device))
+    out = {k: torch.empty_like(arrays[k]) for k in TAIL_FIELDS}
+    lib = build()
+    consts, pair = mega_constants(params), dense_constants(params)
+    carr = (ctypes.c_float * len(consts))(*consts)
+    parr = (ctypes.c_float * len(pair))(*pair)
+    err = lib.pbot_dense_step(
+        (_vp * len(IN_FIELDS))(*(arrays[k].data_ptr() for k in IN_FIELDS)),
+        (_vp * len(TAIL_FIELDS))(*(out[k].data_ptr() for k in TAIL_FIELDS)),
+        scenes, n_pad, params.n_cells, params.n_cells - 1 if params.has_payload else -1,
+        plan["rows"], step.data_ptr(), int(offset),
+        ctypes.cast(carr, _vp), len(consts), ctypes.cast(parr, _vp), len(pair),
+        *obstacle_arrays(params), _stream(pos),
+    )
+    _raise_on(err, "dense_step")
+    LAUNCHES.count("dense_step_batched" if lead else "dense_step")
+    return out
