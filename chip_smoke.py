@@ -148,9 +148,11 @@ table-resident loop, and the same workload cut to 1000 bots (light at
 16. the graphed chunk: the table runners replay every block, K steps
    gated or not (its draws taken before it and fed in, the dead step's
    scores among them) or a chunk's ragged tail, and the adaptive probe's
-   segment from CUDA graphs; no step of a chunk runs eagerly, and each
-   chunk's eager steps are held to none.  Four scenes run graph against eager (the
-   same runner with ``engine_table._CapturedBlock`` swapped for the eager
+   segment from CUDA graphs; no step of a chunk runs eagerly but a
+   runner's warm-ups, and each chunk's eager steps on the card
+   (``chunk.EAGER``) are printed, those of the last chunk run again on the
+   warm runner held to none.  Four scenes run graph against eager (the
+   same runner with ``chunk.CapturedBlock`` swapped for the eager
    block), bit for bit with equal rebuild counts and equal launches
    apart from ``cond_set`` (each graph rebuild is a conditional node, each
    eager one a select; ``cond_set`` counts one launch per replayed
@@ -180,7 +182,7 @@ table-resident loop, and the same workload cut to 1000 bots (light at
    the card (an IF node with an else branch: the closing post, or the
    regular segment redone from the segment's entry with its rebuilds'
    nodes nested in the body).  Graph against eager (the runner with
-   ``engine_table._CapturedBlock`` swapped for the eager block), bit for
+   ``chunk.CapturedBlock`` swapped for the eager block), bit for
    bit with equal counts: ``examples/example.cfg`` (300 bots) and
    ``examples/example_obstacle.cfg`` (500 bots), 2,000 steps each from
    placement (a phase gate included), ``examples/example_dead_cells.cfg``
@@ -207,7 +209,7 @@ table-resident loop, and the same workload cut to 1000 bots (light at
 18. the sharded loop's compiled chunk: its K-step blocks, gated or not,
    replay from CUDA graphs and a chunk reads nothing from the card (the rebuild
    decision a device select, the stats device counters read at the exit).
-   Graph against eager (the runner with ``engine_table._CapturedBlock``
+   Graph against eager (the runner with ``chunk.CapturedBlock``
    swapped for the eager block), bit for bit with equal launches (apart
    from ``cond_set``, as in phase 16) and equal ``fallbacks`` and
    ``spill_rows_max`` per chunk: bench.py's 10k workload on
@@ -282,12 +284,10 @@ import numpy as np
 import torch
 
 import particlerobotsimulations_torch as pt
+from particlerobotsimulations_torch import chunk as t_chunk
 from particlerobotsimulations_torch import engine_table, kernels
 from particlerobotsimulations_torch.engine_table import (
-    MOVE_FIELDS,
     REBUILDS,
-    TABLE_FIELDS,
-    _gates,
     _make_mega_glue,
     enter_table,
     exit_table,
@@ -296,7 +296,6 @@ from particlerobotsimulations_torch.engine_table import (
     make_run_chunk_table,
     make_table_step,
     make_table_step_parts,
-    step_tensor,
     table_pieces,
 )
 from particlerobotsimulations_torch.models.placement import resolve_params
@@ -338,11 +337,15 @@ from particlerobotsimulations_torch.rng import SceneDraws
 from particlerobotsimulations_torch.utils import trace
 from particlerobotsimulations_torch.state import (
     ARRAY_FIELDS,
+    MOVE_FIELDS,
+    TABLE_FIELDS,
     active_mask,
     payload_mask,
     scene_state,
     state_from_arrays,
     state_to_arrays,
+    step_tensor,
+    table_geometry,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -431,7 +434,7 @@ def median_ms(fn, launches: int = 20, reps: int = 5) -> float:
 
 def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
     """Device time of one call of ``fn`` in ms: ``launches`` calls captured
-    in one CUDA graph (an ``engine_table._CapturedBlock``, so a rebuild's
+    in one CUDA graph (a ``chunk.CapturedBlock``, so a rebuild's
     cond becomes its conditional node), CUDA events around each replay,
     divided by the count; the median of ``reps`` replays, after a
     warm-up.  The replay runs no Python, so a wrapper's host-side checks
@@ -445,7 +448,7 @@ def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
             fn()
         return {}
 
-    graph = engine_table._CapturedBlock(block, {"x": torch.zeros(1, device="cuda")}).graph
+    graph = t_chunk.CapturedBlock(block, {"x": torch.zeros(1, device="cuda")}).graph
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -669,7 +672,7 @@ def span_inputs(sim):
     p = sim.params.validate()
     ts = enter_table(p, sim.state)
     step_pre, _ = make_table_step_parts(p)
-    ts = step_pre(ts, *_gates(p, ts.step))
+    ts = step_pre(ts, *t_chunk.gates(p, ts.step))
     tbl, strip = _make_mega_glue(p)[0](ts.fields)
     return p, tbl, strip, step_tensor(ts.step + 1, tbl.device)
 
@@ -1486,7 +1489,8 @@ def per_bot_phase(start):
     base = bench_params()
     arrays = state_to_arrays(start)
     n0 = start.step
-    gated = [j for j in range(n0, n0 + PER_BOT_STEPS) if any(_gates(base.validate(), j))]
+    gated = [j for j in range(n0, n0 + PER_BOT_STEPS)
+             if any(t_chunk.gates(base.validate(), j))]
     if gated:
         fail(f"per-bot window steps {n0}..{n0 + PER_BOT_STEPS} draws at {gated}")
     # the main path over the same steps: the centroid the per-bot runs
@@ -1766,7 +1770,7 @@ def lockstep_replay(params, seeds, n_steps, record_every):
         return out
 
     def one_step(tss, do_rebuild, post=True):
-        gates = _gates(params, tss[0].step)
+        gates = t_chunk.gates(params, tss[0].step)
         tss = [step_pre(ts, *gates) for ts in tss]
         if do_rebuild:
             tss = rebuild(tss)
@@ -2009,7 +2013,7 @@ def batched_kernel_checks(p10, state10, pb, state_b):
     }
 
     tsb = enter_table(pb, state_b)
-    tsb = make_table_step_parts(pb)[0](tsb, *_gates(pb, tsb.step))
+    tsb = make_table_step_parts(pb)[0](tsb, *t_chunk.gates(pb, tsb.step))
     tbl, strip = _make_mega_glue(pb)[0](tsb.fields)
     tbl, strip = tbl.contiguous(), strip.contiguous()
     first = step_tensor(tsb.step + 1, tbl.device)
@@ -3054,7 +3058,7 @@ GRAPH_PROFILE_STEPS, BENCH2_STEPS = 600, 400
 
 
 class EagerBlock:
-    """Stands in for ``engine_table._CapturedBlock`` in phases 16 and 17's
+    """Stands in for ``chunk.CapturedBlock`` in phases 16 and 17's
     eager runs: the same runner, its captured blocks (the table loop's
     K-step blocks, the span path's segments, the per-bot runner's
     ungated blocks) run eagerly where the graph runs replay them."""
@@ -3066,8 +3070,8 @@ class EagerBlock:
         return self.block(carry, step_tensor(step, next(iter(carry.values())).device))
 
 
-class CountedBlock(engine_table._CapturedBlock):
-    """``engine_table._CapturedBlock`` that keeps count, for the graph runs
+class CountedBlock(t_chunk.CapturedBlock):
+    """``chunk.CapturedBlock`` that keeps count, for the graph runs
     held against eager ones: its replays, the rebuild choices they took
     (summed on the device, no host read: ``REBUILDS``' device counter
     before and after each replay, and for the sharded loop, which counts
@@ -3171,7 +3175,8 @@ def chunks_run(make_runner, state, chunks, aligned, eager, count=True):
     eager or replayed from graphs (counted where ``count``), the counters
     reset just before: a record of the runner, its end state, launches,
     rebuilds, wall s, live K after each chunk, the counted blocks, each
-    chunk's (start step, steps, eager steps), the state the last chunk
+    chunk's (start step, steps, steps run eagerly on the card:
+    ``chunk.EAGER``), the state the last chunk
     started from (a copy) and the memory the run left reserved on the
     card (``torch.cuda.memory_reserved`` after it less before it, the
     cache emptied first: a graph run's is mostly its graphs' pools)."""
@@ -3189,9 +3194,10 @@ def chunks_run(make_runner, state, chunks, aligned, eager, count=True):
         for n in chunks:
             start = state.step
             last_start = clone_state(state)
+            before = t_chunk.EAGER["card"]
             state = run(state, n, aligned)
             ks.append(getattr(run, "live", {}).get("k"))
-            eager_steps.append((start, n, run.eager_steps))
+            eager_steps.append((start, n, t_chunk.EAGER["card"] - before))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return SimpleNamespace(
@@ -3200,14 +3206,18 @@ def chunks_run(make_runner, state, chunks, aligned, eager, count=True):
             held=torch.cuda.memory_reserved() - reserved)
 
 
-def check_eager(name, eager_steps) -> str:
-    """Each chunk's eager steps, none by design on any path (every piece a
-    block or a span segment that a graph replays, the dead-injection step
-    and the ragged tail included); the text that reports them."""
+def check_eager(name, eager_steps, warm=None) -> str:
+    """Each chunk's steps run eagerly on the card (``chunk.EAGER``): a
+    runner's warm-ups alone, the first block or span segment of each kind
+    and layout, run before its capture (every piece is a block or a
+    segment that a graph replays, the dead-injection step and the ragged
+    tail included); ``warm``, those of the last chunk run again on the
+    warm runner, must be none.  Returns the text that reports them."""
     got = [e for _, _, e in eager_steps]
-    if any(got):
-        fail(f"{name}: eager steps per chunk {got}, by design none")
-    return f"eager steps per chunk {got}"
+    if warm:
+        fail(f"{name}: {warm} eager steps in a chunk on the warm runner, by design none")
+    return (f"eager steps per chunk {got} (warm-ups)"
+            + ("" if warm is None else f", {warm} on the warm runner"))
 
 
 def capture_text(blocks) -> str:
@@ -3231,9 +3241,10 @@ def sync_free_chunk(name, run, state, n, aligned):
     the warm runner under ``set_sync_debug_mode("error")``: nothing between
     its entry and exit may wait for the card (every gate pattern of the
     chunk, a dead step and a ragged tail included, replays a graph
-    captured before)."""
+    captured before).  Returns the steps it ran eagerly on the card."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
+    before = t_chunk.EAGER["card"]
     try:
         state = run(state, n, aligned)
     except RuntimeError as err:
@@ -3243,13 +3254,14 @@ def sync_free_chunk(name, run, state, n, aligned):
     torch.cuda.synchronize()
     if not bool(torch.isfinite(state.pos).all()):
         fail(f"{name}: non-finite state after the sync-free chunk")
+    return t_chunk.EAGER["card"] - before
 
 
 def graph_vs_eager(name, make_runner, state, chunks, aligned, total):
     """``chunks`` through eager and graph runs of one runner kind from one
-    state: bit for bit, with equal launch and rebuild counts, no eager
-    step in any chunk, then the last chunk again on the warm graph runner,
-    sync-free.  Adds the graph run's launches to ``total``; returns (text,
+    state: bit for bit, with equal launch and rebuild counts, each chunk's
+    eager steps (warm-ups), then the last chunk again on the warm graph
+    runner, sync-free and with no eager step.  Adds the graph run's launches to ``total``; returns (text,
     live Ks)."""
     e = chunks_run(make_runner, state, chunks, aligned, True)
     g = chunks_run(make_runner, state, chunks, aligned, False)
@@ -3261,11 +3273,11 @@ def graph_vs_eager(name, make_runner, state, chunks, aligned, total):
             without_cond_set(g.launches), g.rebuilds, g.ks) or e.launches["cond_set"]:
         fail(f"{name}: eager launches {e.launches} rebuilds {e.rebuilds} K {e.ks}, "
              f"graph {g.launches} {g.rebuilds} {g.ks}")
-    eager_text = check_eager(name, g.eager_steps)
     rec = node_record(name, g.blocks, g.launches)
     for k, v in g.launches.items():
         total[k] = total.get(k, 0) + v
-    sync_free_chunk(name, g.run, g.last_start, chunks[-1], aligned)
+    warm = sync_free_chunk(name, g.run, g.last_start, chunks[-1], aligned)
+    eager_text = check_eager(name, g.eager_steps, warm)
     steps = sum(chunks)
     used = {k: v for k, v in g.launches.items() if v}
     return (f"{name}: {steps} steps in chunks {list(chunks)}, graph (node) == eager (select) "
@@ -3532,7 +3544,7 @@ BLOCK_CHOICES, BLOCK_CHOICE_STEPS = (8, 32), 600
 
 def eager_blocks(on: bool, count: bool = False):
     """A context in which the runners built and first run inside it take
-    :class:`EagerBlock` for ``engine_table._CapturedBlock`` (``on``), else
+    :class:`EagerBlock` for ``chunk.CapturedBlock`` (``on``), else
     :class:`CountedBlock` (``count``) or the CUDA graphs as they are; it
     yields the list of the counted blocks captured.  Counting, it traces
     the host (``utils/trace``), and each counted block's ``capture_s`` is
@@ -3541,17 +3553,17 @@ def eager_blocks(on: bool, count: bool = False):
 
     @contextmanager
     def swap():
-        captured = engine_table._CapturedBlock
+        captured = t_chunk.CapturedBlock
         CountedBlock.MADE = []
         counting = count and not on
         if on or count:
-            engine_table._CapturedBlock = EagerBlock if on else CountedBlock
+            t_chunk.CapturedBlock = EagerBlock if on else CountedBlock
         if counting:
             trace.enable()
         try:
             yield CountedBlock.MADE
         finally:
-            engine_table._CapturedBlock = captured
+            t_chunk.CapturedBlock = captured
             if counting:
                 trace.disable()
                 spans = [s for s in trace.snapshot()["spans"] if s["name"] == "graph.capture"]
@@ -3569,7 +3581,7 @@ def reference_span_chunk(p, state, n_steps, glue=None):
     time (bit for bit the runner's graphed blocks, phase 16).  ``glue``:
     ``_make_mega_glue`` or a stand-in.  Returns (state, redos)."""
     from particlerobotsimulations_torch import rng
-    from particlerobotsimulations_torch.engine_table import _geometry, _smart_rebuild
+    from particlerobotsimulations_torch.engine_table import _smart_rebuild
     from particlerobotsimulations_torch.ops.megakernel import make_mega_span
 
     step = make_table_step(p)
@@ -3577,13 +3589,13 @@ def reference_span_chunk(p, state, n_steps, glue=None):
     k = max(1, p.resolved_slot_rebuild_steps())
     seg = gate_seg(p)
     bps = seg // k
-    mega = make_mega_span(p, _geometry(p)[2])
+    mega = make_mega_span(p, table_geometry(p)[2])
     mega_pack, mega_unpack, incremental_packed = (glue or _make_mega_glue)(p)
     redos = 0
 
     def regular(ts, n):
         for j in range(n):
-            ts = step(ts, *_gates(p, ts.step), j % k == k - 1)
+            ts = step(ts, *t_chunk.gates(p, ts.step), j % k == k - 1)
         return ts
 
     def mega_seg(ts):
@@ -3591,8 +3603,8 @@ def reference_span_chunk(p, state, n_steps, glue=None):
         entry = (dict(ts.fields), ts.origin, ts.step, ts.centroid_ring,
                  rng.snapshot(ts.generator))
         for _ in range(k - 1):
-            ts = step(ts, *_gates(p, ts.step), False)
-        ts = _smart_rebuild(p, step_pre(ts, *_gates(p, ts.step)))
+            ts = step(ts, *t_chunk.gates(p, ts.step), False)
+        ts = _smart_rebuild(p, step_pre(ts, *t_chunk.gates(p, ts.step)))
         tbl, strip = mega_pack(ts.fields)
         ok_all = torch.ones((), dtype=torch.bool, device=tbl.device)
         first = ts.step + 1
@@ -3624,11 +3636,9 @@ def generators_equal(a, b) -> bool:
 
 def gate_counts(p, start, n) -> dict:
     """How often each gate fires over steps ``start`` .. ``start + n - 1``."""
-    from particlerobotsimulations_torch.engine import _step_gates
-
     fired = [0, 0, 0]
     for s in range(start, start + n):
-        for i, g in enumerate(_step_gates(p, s)):
+        for i, g in enumerate(t_chunk.step_gates(p, s)):
             fired[i] += bool(g)
     return dict(zip(("dead", "centroid", "phase"), fired))
 
@@ -3656,8 +3666,9 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
     row step's plain twin (:func:`twin_glue`): bit for bit, generators
     included, with equal launches (apart from ``cond_set`` and the row
     step, whose launches are the schedule's, :func:`row_step_launches`),
-    rebuilds and redos, and no eager step in any chunk; then the last chunk again on
-    the warm runner, sync-free (a segment holding the dead step included,
+    rebuilds and redos, and each chunk's eager steps (warm-ups); then the last chunk
+    again on the warm runner, sync-free and with no eager step (a segment holding the
+    dead step included,
     where the last chunk holds it).  With ``flags`` (one bool per
     one-segment chunk) both runs AND the span rebuilds' ``ok`` with a
     device flag set to the chunk's before it (:func:`forced_glue`).
@@ -3691,8 +3702,9 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
                 flag.fill_(flags[i])
             start = got.step
             last_start = clone_state(got)
+            before = t_chunk.EAGER["card"]
             got = run(got, n, True)
-            eager_steps.append((start, n, run.eager_steps))
+            eager_steps.append((start, n, t_chunk.EAGER["card"] - before))
         torch.cuda.synchronize()
         held = torch.cuda.memory_reserved() - reserved
     g_wall, g_launch, g_reb = time.perf_counter() - t0, dict(kernels.LAUNCHES), dict(REBUILDS)
@@ -3725,7 +3737,6 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
     if {k: g_launch[k] for k in ROW_STEP_KEYS} != {k: rows.get(k, 0) for k in ROW_STEP_KEYS} \
             or any(r_launch[k] for k in ROW_STEP_KEYS):
         fail(f"{name}: row-step launches {g_launch}, want {rows}; the twin's {r_launch}")
-    eager_text = check_eager(name, eager_steps)
     node_record(name, blocks, g_launch)
     segs = [b for b in blocks if b.counted]
     if not segs:
@@ -3736,8 +3747,10 @@ def span_vs_reference(name, p, state, chunks, total, flags=None):
         f"{b.replays} replays" for b in segs)
     for k, v in g_launch.items():
         total[k] = total.get(k, 0) + v
+    warm = None
     if flags is None:
-        sync_free_chunk(name, run, last_start, chunks[-1], True)
+        warm = sync_free_chunk(name, run, last_start, chunks[-1], True)
+    eager_text = check_eager(name, eager_steps, warm)
     steps = sum(chunks)
     return (f"{name}: {steps} seg-aligned steps in chunks {list(chunks)}, the in-graph "
             f"decision == reference bit for bit, launches "
@@ -3840,7 +3853,7 @@ def small_scene_phase(smi) -> dict:
         gates = gate_counts(p, 0, sum(chunks))
         if not gates["phase"] or (p.n_dead > 0 and not gates["dead"]):
             fail(f"{name}: the run passes no phase gate ({gates})")
-        if dead and (p.dead_step != SMALL_DEAD_STEP or any(_gates(p, p.dead_step)[1:])
+        if dead and (p.dead_step != SMALL_DEAD_STEP or any(t_chunk.gates(p, p.dead_step)[1:])
                      or chunks[-1] % engine.BLOCK_STEPS == 0):
             fail(f"{name}: dead step {p.dead_step} on a gate, or no short last block")
         label = f" killed at step {p.dead_step}, short last block" if dead else ""
@@ -3939,9 +3952,10 @@ def sharded_chunks(make_runner, state, chunks, eager):
         for n in chunks:
             start = state.step
             last_start = clone_state(state)
+            before = t_chunk.EAGER["card"]
             state, st = run(state, n)
             stats.append(st)
-            eager_steps.append((start, n, run.eager_steps))
+            eager_steps.append((start, n, t_chunk.EAGER["card"] - before))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         held = torch.cuda.memory_reserved() - reserved
@@ -3953,10 +3967,10 @@ def sharded_chunks(make_runner, state, chunks, eager):
 def sharded_graph_vs_eager(name, make_runner, state, chunks, total):
     """``chunks`` through an eager and a graph run of one sharded runner
     kind from one state: bit for bit, with equal launches and equal
-    ``fallbacks`` and ``spill_rows_max`` per chunk, no eager step in any
-    chunk; then the last chunk again on the warm graph runner under
-    ``set_sync_debug_mode("error")``, its blocks drained there and its
-    stats read after.  Adds the graph run's launches to ``total``; returns
+    ``fallbacks`` and ``spill_rows_max`` per chunk, each chunk's eager
+    steps (warm-ups); then the last chunk again on the warm graph runner
+    under ``set_sync_debug_mode("error")``, its blocks drained there with
+    no eager step and its stats read after.  Adds the graph run's launches to ``total``; returns
     (text, the graph run's end state, its stats per chunk)."""
     e = sharded_chunks(make_runner, state, chunks, True)
     g = sharded_chunks(make_runner, state, chunks, False)
@@ -3968,18 +3982,19 @@ def sharded_graph_vs_eager(name, make_runner, state, chunks, total):
             or e.launches["cond_set"]:
         fail(f"{name}: eager launches {e.launches} stats {e.stats}, graph {g.launches} "
              f"{g.stats}")
-    eager_text = check_eager(name, g.eager_steps)
     rec = node_record(name, g.blocks, g.launches)
     for k, v in g.launches.items():
         total[k] = total.get(k, 0) + v
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
+    before = t_chunk.EAGER["card"]
     try:
-        result = engine_table.drain(g.run.blocks(g.last_start, chunks[-1]))
+        result = t_chunk.drain(g.run.blocks(g.last_start, chunks[-1]))
     except RuntimeError as err:
         fail(f"{name}: a chunk waited for the card: {err}")
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    eager_text = check_eager(name, g.eager_steps, t_chunk.EAGER["card"] - before)
     out, free_stats = g.run.read_stats(result)
     if not bool(torch.isfinite(out.pos).all()):
         fail(f"{name}: non-finite state after the sync-free chunk")
@@ -4188,7 +4203,7 @@ def cond_set_check(p, state) -> tuple:
                     "r_ok": ok}
 
         eager = block(None, None)
-        graph = engine_table._CapturedBlock(block, {"x": torch.zeros(1, device="cuda")})
+        graph = t_chunk.CapturedBlock(block, {"x": torch.zeros(1, device="cuda")})
         out = graph(graph.carry, 0)
         torch.cuda.synchronize()
         if bool(out["r_ok"]) != want_ok or bool(eager["r_ok"]) != want_ok:

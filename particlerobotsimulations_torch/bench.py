@@ -12,7 +12,7 @@ measures the steady state, the third runs the certified cadence), else
 one; then the best of three timed chunks and a finite check on the bots'
 positions.  With several visible cards it runs one scene per card (seeds
 0, 1, ...) through the batched loop on its card, every card's chunk
-enqueued block by block in turn (``engine_table.interleave``), and counts
+enqueued block by block in turn (``chunk.interleave``), and counts
 every scene.
 
 Prints the card's name and power limit, a line on the warm-ups, and as its
@@ -37,7 +37,8 @@ import torch
 
 from .config import Config, ForceBackend, SimParams
 from .engine import make_run_chunk, make_run_chunk_batched
-from .engine_table import gate_seg, interleave
+from .chunk import interleave
+from .engine_table import gate_seg
 from .parallel.mesh import default_mesh
 from .parallel.sweep import make_batch_state, shard_batch
 from .sim import Simulation
@@ -101,7 +102,7 @@ def run_bench(device="cuda", n_bots: int = N_BOTS, steps: int = STEPS, mesh=None
             sync(s)
         return states
 
-    adaptive = batch == 1 and getattr(runs[0], "path_info", {}).get("adaptive", False)
+    adaptive = batch == 1 and runs[0].path_info.get("adaptive", False)
     warmups = 3 if adaptive else 1
     for _ in range(warmups):
         states = chunk(states)

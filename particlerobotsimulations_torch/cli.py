@@ -128,7 +128,7 @@ def cmd_simulate(args) -> int:
     # the steps run in this call (a resume starts mid-run)
     steps = max(0, params.n_steps() - start_steps)
     path = sim.backend.name
-    if getattr(sim._run_chunk, "path_info", {}).get("use_mega"):
+    if sim._run_chunk.path_info.get("use_mega"):
         path += " span path"
     print(
         f"simulated {steps * params.timestep:g} sim-s ({steps} steps, "

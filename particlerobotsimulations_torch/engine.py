@@ -45,29 +45,21 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import kernels, rng
+from . import chunk, kernels, rng
+from .chunk import NO_GATES, ChunkRunner
 from .config import ForceBackend, SimParams
+from .engine_table import (
+    make_adaptive_run_chunk,
+    make_run_chunk_table,
+    make_run_chunk_table_batched,
+)
 from .ops.dense_step import step_tail
 from .ops.forces import dense_collide
 from .ops.grid import cellgrid_collide
 from .ops.pallas_stencil import make_diff_pallas_collide, pallas_stencil_collide
 from .ops.phase import update_phase
 from .ops.stencil import stencil_collide
-from .engine_table import (
-    NO_GATES,
-    _draws,
-    _graphed,
-    _one_chunk_at_a_time,
-    _ring_write,
-    _step_gates,
-    drain,
-    make_adaptive_run_chunk,
-    make_run_chunk_table,
-    make_run_chunk_table_batched,
-    sim_time,
-    step_tensor,
-)
-from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
+from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask, sim_time, step_tensor
 from .utils import trace
 
 f32 = np.float32
@@ -78,6 +70,10 @@ f32 = np.float32
 # 8 beat 32 at 500 DENSE bots (chip_smoke.py phase 17, PERF.md): a
 # replay's host cost is small beside 8 steps
 BLOCK_STEPS = 8
+
+# the per-bot runner replays its blocks through this name, which the
+# benchmark's fault tests patch (perfbench/tests/test_perfbench_run.py)
+_graphed = chunk.graphed
 
 
 _COLLIDES = {
@@ -135,7 +131,7 @@ def _gated(arrays: dict, draws: dict, *, params: SimParams, step, gates: tuple,
         centroid = torch.sum(
             torch.where(mask[:, None], pos, zero), dim=0
         ) / f32(params.n_cells)
-        ring = _ring_write(params, ring, step_t, centroid)
+        ring = chunk.ring_write(params, ring, step_t, centroid)
 
     # 3. phase controller
     if phase_gate:
@@ -161,12 +157,12 @@ def _kernel_step(params: SimParams, arrays: dict, draws: dict, step, gates: tupl
 
 def _make_body(params: SimParams, backend: ForceBackend, differentiable: bool = False):
     """The step on one scene's arrays in PyTorch ops, with its draws taken
-    beforehand (``_draws``) and its gates decided on the host: pure, so the
+    beforehand (``chunk.draws``) and its gates decided on the host: pure, so the
     batched step can ``torch.func.vmap`` it over a scene axis, and
     ``torch.utils.checkpoint`` can run it again in a backward pass.
 
     ``body(arrays, draws, step, gates, slot=None, step_t=None, offset=0)``:
-    the sim time is ``engine_table.sim_time`` of ``step_t + offset``, the
+    the sim time is ``state.sim_time`` of ``step_t + offset``, the
     step as a 0-dim int64 tensor on the arrays' device (``step_t`` by
     default made from the host ``step``), so that a CUDA graph of ungated
     steps reads it from a tensor it refills; the host ``step`` serves the
@@ -237,9 +233,9 @@ def make_step(params: SimParams, device="cuda",
     fn = _make_step_fn(params, backend, batched=False, differentiable=differentiable)
 
     def step(state: SimState, slot: torch.Tensor | None = None) -> SimState:
-        gates = _step_gates(params, state.step)
-        draws = _draws(params, state.generator, state.step, gates,
-                       (state.n_pad,), state.device)
+        gates = chunk.step_gates(params, state.step)
+        draws = chunk.draws(params, state.generator, state.step, gates,
+                            (state.n_pad,), state.device)
         if backend != ForceBackend.PALLAS:
             slot = None
         out = fn({k: getattr(state, k) for k in ARRAY_FIELDS}, draws,
@@ -268,9 +264,9 @@ def make_step_batched(params: SimParams, device="cuda") -> Callable[[SimState], 
     fn = _make_step_fn(params, backend, batched=True)
 
     def step(state: SimState) -> SimState:
-        gates = _step_gates(params, state.step)
+        gates = chunk.step_gates(params, state.step)
         shape = (state.pos.shape[0], state.n_pad)
-        draws = _draws(params, state.generator, state.step, gates, shape, state.device)
+        draws = chunk.draws(params, state.generator, state.step, gates, shape, state.device)
         out = fn({k: getattr(state, k) for k in ARRAY_FIELDS}, draws, state.step, gates,
                  step_tensor(state.step, state.device))
         return state.replace(step=state.step + 1, **out)
@@ -282,9 +278,9 @@ def make_run_chunk(params: SimParams, device="cuda"):
     """``run_chunk(state, n_steps, seg_aligned=False) -> state`` for a run
     on ``device``.  PALLAS goes to the table-resident loop (the adaptive-K
     runner from 4096 bots up), DENSE, STENCIL and CELLGRID to the per-bot
-    block runner (:func:`_step_runner`).  Every runner has
-    ``run_chunk.blocks``, the chunk as a block iterator
-    (``engine_table.interleave`` runs several)."""
+    block runner (:func:`_step_runner`).  Every runner is a
+    ``chunk.ChunkRunner``: ``run_chunk.blocks`` is the chunk as a block
+    iterator (``chunk.interleave`` runs several)."""
     params = params.validate()
     backend = params.resolved_backend(device)
     if backend == ForceBackend.PALLAS:
@@ -307,9 +303,9 @@ def bot_pieces(params: SimParams, start: int, n: int, block_steps: int) -> list:
         s = start + j
         length = 1
         while (length < block_steps and j + length < n
-               and not any(_step_gates(params, s + length))):
+               and not any(chunk.step_gates(params, s + length))):
             length += 1
-        pieces.append((_step_gates(params, s), length))
+        pieces.append((chunk.step_gates(params, s), length))
         j += length
     return pieces
 
@@ -321,21 +317,18 @@ def _step_runner(params: SimParams, device, batched: bool):
     Like the JAX package's scanned chunk it reads nothing from the device.
     The chunk runs as :func:`bot_pieces`: a block starts at each gated
     step (the dead injection's too), its first step fires the gates with
-    the draws taken just before the block (``_draws``, fed in with the
-    carry: the dead step's scores, the phase noise) and its other steps
-    fire none, its sim times and centroid row come from a device step
-    tensor.  On the card each block, the chunk's last short one included,
-    replays a CUDA graph (``engine_table._CapturedBlock``, through
+    the draws taken just before the block (``chunk.draws``, fed in with
+    the carry: the dead step's scores, the phase noise) and its other
+    steps fire none, its sim times and centroid row come from a device
+    step tensor.  On the card each block, the chunk's last short one
+    included, replays a CUDA graph (``chunk.CapturedBlock``, through
     ``_graphed``) captured once per runner, carry layout, first-step gates
     and length; a failed capture raises.  The runner's first block of a
     layout runs eagerly before its capture, and on the CPU every block
     does, through the same code.  ``run_chunk.blocks(state, n_steps,
     seg_aligned=False)`` yields after each piece (``seg_aligned`` is taken
-    for the table runners' signature, and changes nothing here);
-    ``run_chunk.eager_steps`` is 0 (no step of a chunk runs eagerly by
-    design).  A runner advances one chunk at a time (its graphs hold that
-    chunk's carry).  A call is a ``chunk`` span where tracing is on
-    (``utils/trace``)."""
+    for the table runners' signature, and changes nothing here).  The
+    runner is a ``chunk.ChunkRunner`` whose path is the backend's name."""
     backend = params.resolved_backend(device)
     step = _make_step_fn(params, backend, batched)
     graphs: dict = {}
@@ -355,7 +348,6 @@ def _step_runner(params: SimParams, device, batched: bool):
             fns[gates, length] = block
         return fns[gates, length]
 
-    @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         dev = state.device
         shape = (state.pos.shape[0], state.n_pad) if batched else (state.n_pad,)
@@ -363,7 +355,7 @@ def _step_runner(params: SimParams, device, batched: bool):
             s = state.step
             carry = {k: getattr(state, k) for k in ARRAY_FIELDS}
             with trace.work(dev):
-                carry.update(_draws(params, state.generator, s, gates, shape, dev))
+                carry.update(chunk.draws(params, state.generator, s, gates, shape, dev))
             out = _graphed(graphs, ("bot", dev, tuple(state.pos.shape), gates, length),
                            piece(gates, length), carry, s)
             state = state.replace(step=s + length, **{k: out[k] for k in ARRAY_FIELDS})
@@ -375,16 +367,7 @@ def _step_runner(params: SimParams, device, batched: bool):
                 state = state.replace(**{k: getattr(state, k).clone() for k in ARRAY_FIELDS})
         return state
 
-    def run_chunk(state: SimState, n_steps: int, seg_aligned: bool = False):
-        if not trace.ON:
-            return drain(blocks(state, n_steps, seg_aligned))
-        with trace.span("chunk", steps=n_steps, scenes=state.pos.shape[0] if batched else 1,
-                        path=backend.name):
-            return drain(blocks(state, n_steps, seg_aligned))
-
-    run_chunk.blocks = blocks
-    run_chunk.eager_steps = 0
-    return run_chunk
+    return ChunkRunner(blocks, backend.name, {"backend": backend.name})
 
 
 def make_run_chunk_batched(params: SimParams, device="cuda"):

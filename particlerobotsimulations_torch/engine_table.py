@@ -56,99 +56,54 @@ rebuild takes the incremental result for every scene only when every
 scene's preconditions held, else the exact rebuild for every scene (the
 JAX package's ``_smart_rebuild_batched``).  The span path redoes a whole
 segment on the regular batched path when any scene's span rebuild failed.
+
+What every engine's runner shares lives below this module: the compiled
+chunk (the step schedule, block replay, the runner type
+``chunk.ChunkRunner``) in ``chunk.py``, the table format
+(``TABLE_FIELDS``, ``TableState``, ``table_geometry``) and the step clock
+in ``state.py``.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import gc
 import math
-import time
-from collections.abc import MutableMapping
 
 import numpy as np
 import torch
 from torch.func import vmap
 
-from . import kernels, rng
-from .config import Control, SimParams, padded_n
+from . import chunk, rng
+from .chunk import NO_GATES, ChunkRunner, DeviceCounts, HostValue, drain
+from .config import Control, SimParams
 from .ops.forces import attraction_scale
 from .ops.pallas_stencil import FIELDS as KERNEL_FIELDS
 from .ops.pallas_stencil import assign_slots_slotmajor, stencil_forces
 from .ops.phase import update_phase
 from .ops.row_step import row_step
-from .state import ARRAY_FIELDS, SimState, active_mask, payload_mask
+from .state import (
+    ARRAY_FIELDS,
+    MOVE_FIELDS,
+    N_TF,
+    TABLE_FIELDS,
+    SimState,
+    TableState,
+    active_mask,
+    payload_mask,
+    step_tensor,
+    table_geometry,
+)
 from .utils import trace
 
 f32 = np.float32
 
-# flat table field order; the first 7 are the kernel's input planes.
-# "bid" stores each row's bot index (exact in f32 up to 2^24) so the
-# bot->row map can be reconstructed after incremental rebuilds shuffle rows.
-TABLE_FIELDS = (
-    "px", "py", "vx", "vy", "rad", "val", "afac",   # kernel inputs
-    "phase", "dead", "aa", "ar", "pay", "bid",      # carried per-bot state
-)
 assert TABLE_FIELDS[: len(KERNEL_FIELDS)] == KERNEL_FIELDS
-N_TF = len(TABLE_FIELDS)
 
-# fields the incremental rebuild must physically move.  The rebuild runs
-# between integrate and collide, where aa/ar are dead values (collide
-# rewrites them right after), and afac/pay are pure functions of the bot
-# id, re-derived from the moved bid plane.
-MOVE_FIELDS = (
-    "px", "py", "vx", "vy", "rad", "val", "phase", "dead", "bid",
-)
+# every runner of this module replays its blocks through this name, which
+# the benchmark's fault tests patch (perfbench/tests/test_perfbench_run.py)
+_graphed = chunk.graphed
 
 
-class _DeviceCounts(MutableMapping):
-    """Counts with fixed keys kept on the device: one int64 counter tensor
-    per device, never reallocated, that the loops update in place (so a
-    CUDA graph that captured an update repeats it at every replay, and the
-    loop reads nothing).  Reading a count copies the counters to the host
-    (it waits for the card); setting one (to 0, say) zeroes the counters
-    in place.  A subclass names its ``KEYS`` and ``_combine``, which
-    merges a key's host base and its per-device values."""
-
-    KEYS: tuple = ()
-
-    def __init__(self):
-        self._base = dict.fromkeys(self.KEYS, 0)
-        self._counters = {}  # device -> (len(KEYS),) int64
-
-    def counter(self, device) -> torch.Tensor:
-        device = torch.device(device)
-        if device not in self._counters:
-            self._counters[device] = torch.zeros(len(self.KEYS), dtype=torch.int64,
-                                                 device=device)
-        return self._counters[device]
-
-    def _index(self, key) -> int:
-        if key not in self.KEYS:
-            raise KeyError(key)
-        return self.KEYS.index(key)
-
-    def __getitem__(self, key) -> int:
-        i = self._index(key)
-        return self._combine([self._base[key]] + [int(c[i]) for c in self._counters.values()])
-
-    def __setitem__(self, key, value) -> None:
-        i = self._index(key)
-        self._base[key] = int(value)
-        for c in self._counters.values():
-            c[i].zero_()
-
-    def __delitem__(self, key):
-        raise TypeError(f"{type(self).__name__} has fixed keys")
-
-    def __iter__(self):
-        return iter(self.KEYS)
-
-    def __len__(self) -> int:
-        return len(self.KEYS)
-
-
-class RebuildCounts(_DeviceCounts):
+class RebuildCounts(DeviceCounts):
     """What the loops' rebuild schedule took, for callers that check a run:
     one count per slot rebuild (a batched rebuild counts once for all its
     scenes), ``"incremental"`` for the compaction's result, ``"exact"``
@@ -166,7 +121,7 @@ class RebuildCounts(_DeviceCounts):
         self.counter(ok.device).add_(torch.stack([ok, ~ok]).to(torch.int64))
 
 
-class OccupancyCounts(_DeviceCounts):
+class OccupancyCounts(DeviceCounts):
     """What the table drops, for callers that check a run: the most real
     bots (``val > 0.5``) that one scene of the table runners held in spill
     rows (``"spill_max"``: ranks ``cell_capacity`` to ``storage_capacity
@@ -195,47 +150,9 @@ OCCUPANCY = OccupancyCounts()
 trace.register("occupancy", OCCUPANCY)
 
 
-def step_tensor(step: int, device) -> torch.Tensor:
-    """The step counter as a 0-dim int64 tensor on ``device`` (a fill: no
-    copy from the host)."""
-    return torch.full((), step, dtype=torch.int64, device=device)
-
-
-def sim_time(step: torch.Tensor, dt: float) -> torch.Tensor:
-    """The sim time ``f32(step) * f32(dt)`` of a 0-dim int64 step tensor,
-    as a 0-dim float32 tensor on its device: bitwise the host value
-    ``float(np.float32(step) * np.float32(dt))`` (both round the step to
-    float32 to nearest and multiply in float32)."""
-    return step.to(torch.float32) * f32(dt)
-
-
-@dataclasses.dataclass
-class TableState:
-    """Carry of the table-resident loop; the batched loop's carries a
-    leading scene axis on every tensor."""
-
-    fields: dict                 # str -> ([B,] total_ext) float32
-    origin: torch.Tensor         # ([B,] 2) float32 — grid anchor, fixed per chunk
-    step: int
-    generator: object            # draw source (rng.py)
-    centroid_ring: torch.Tensor
-
-    def replace(self, **kw) -> "TableState":
-        return dataclasses.replace(self, **kw)
-
-
-def _geometry(params: SimParams):
-    """(table rows, table+parking rows, n_pad) — the table uses the STORAGE
-    capacity (force-visible cell_capacity + overflow spill rows)."""
-    g = params.resolved_grid_dim()
-    total = g * g * params.storage_capacity()
-    n_pad = padded_n(params)
-    return total, total + n_pad, n_pad
-
-
 def _extend_slot(params: SimParams, slot: torch.Tensor) -> torch.Tensor:
     """Map dropped bots (slot == total) into their parking-strip rows."""
-    total, _, n_pad = _geometry(params)
+    total, _, n_pad = table_geometry(params)
     park = total + torch.arange(n_pad, dtype=torch.int32, device=slot.device)
     return torch.where(slot < total, slot, park)
 
@@ -276,7 +193,7 @@ def _anchored_origin(params: SimParams, pos, mask) -> torch.Tensor:
 
 def _scatter_rows(params: SimParams, pos, mask, rows):
     """(fields, origin): re-anchor, assign slots, scatter bot rows."""
-    _, total_ext, _ = _geometry(params)
+    _, total_ext, _ = table_geometry(params)
     origin = _anchored_origin(params, pos, mask)
     slot, _ = assign_slots_slotmajor(
         params, pos, mask, origin=origin, cap=params.storage_capacity()
@@ -316,7 +233,7 @@ def _slot_of_bot(params: SimParams, fields: dict) -> torch.Tensor:
     bots, padding) defaults to its parking-strip row.  Written without
     data-dependent shapes, so that the batched loop can vmap it: rows that
     map no bot write a spare entry."""
-    total, _, n_pad = _geometry(params)
+    total, _, n_pad = table_geometry(params)
     dev = fields["val"].device
     occupied = fields["val"][:total] > 0.5
     bid = fields["bid"][:total].long()
@@ -451,7 +368,7 @@ def _count_occupancy(params: SimParams, val: torch.Tensor, key: str, taken=None)
     there alone (the exact rebuild inside its conditional node on the
     card, :func:`_enter`), the spill rows also after every rebuild, and
     each maximum is the one a count after every rebuild would take."""
-    total, _, _ = _geometry(params)
+    total, _, _ = table_geometry(params)
     visible = params.resolved_grid_dim() ** 2 * params.cell_capacity
     if key == "spill_max" and visible == total:
         return
@@ -483,54 +400,6 @@ def _inject_dead_table(params: SimParams, f: dict, source, step: int) -> torch.T
     return f["dead"].scatter(-1, kill, 1.0)
 
 
-def _gates(params: SimParams, step: int):
-    """(dead, cog, phase) gate decisions for a step counter."""
-    return (
-        params.n_dead > 0 and step == params.dead_step,
-        step % params.centroid_steps_interval == 0,
-        step % params.phase_update_steps == 0,
-    )
-
-
-def _step_gates(params: SimParams, step: int) -> tuple:
-    """(dead, cog, phase) gate decisions for a step counter, the phase gate
-    only under the light-wave controller (FIXED_PHASE keeps scripted
-    offsets): the gates that change what a step does."""
-    dead_gate, cog_gate, phase_gate = _gates(params, step)
-    return dead_gate, cog_gate, phase_gate and params.control == Control.LIGHT_WAVE
-
-
-NO_GATES = (False, False, False)
-
-
-def _draws(params: SimParams, source, step: int, gates: tuple, shape: tuple,
-           device) -> dict:
-    """A step's random draws of ``shape`` (a per-bot layout, or the table
-    loops' ``([B,] total_ext)``), taken beforehand in the order the step
-    consumes them: dead scores where the dead gate fires, then phase noise
-    where the phase law draws it.  ``gates`` are :func:`_step_gates`'.  Fed
-    back in (``rng.Drawn``), they give the values and leave the source in
-    the state of the step drawing them itself."""
-    dead_gate, _, phase_gate = gates
-    out = {}
-    if dead_gate:
-        out["scores"] = rng.uniform(source, step, shape, device)
-    if phase_gate and params.phase_std:
-        out["noise"] = rng.normal(source, step, shape, device)
-    return out
-
-
-def _ring_write(params: SimParams, ring: torch.Tensor, step_t: torch.Tensor,
-                centroid: torch.Tensor) -> torch.Tensor:
-    """``ring`` with the centroid written out of place into the row of the
-    0-dim int64 step ``step_t`` (the reference's ``(int)(time /
-    centroid_int) % centroid_steps``): a select on the device, so that a
-    CUDA graph writes the row of whatever step it replays at."""
-    idx = (step_t // params.centroid_steps_interval) % params.centroid_steps
-    rows = torch.arange(ring.shape[-2], device=ring.device)
-    return torch.where((rows == idx)[:, None], centroid[..., None, :], ring)
-
-
 def gate_seg(params: SimParams) -> int:
     """The gcd of the interval-gate periods in steps, or 0.
 
@@ -555,7 +424,7 @@ def _make_mega_glue(params: SimParams):
     """(mega_pack, mega_unpack, incremental_packed) — the glue around the
     megakernel span (``ops/megakernel.py``) for one scene, or for a batch
     of scenes on a leading axis (the batched loop's fields and tables)."""
-    total, _, n_pad = _geometry(params)
+    total, _, n_pad = table_geometry(params)
     g = params.resolved_grid_dim()
     cs = params.storage_capacity()
     s_sub = n_pad // 128
@@ -666,7 +535,7 @@ def _make_step_glue(params: SimParams, phase_fn=None):
         if cog_gate:
             cx = torch.sum(f["px"] * f["val"], dim=-1) / f32(params.n_cells)
             cy = torch.sum(f["py"] * f["val"], dim=-1) / f32(params.n_cells)
-            ring = _ring_write(params, ring, step0 + j, torch.stack([cx, cy], dim=-1))
+            ring = chunk.ring_write(params, ring, step0 + j, torch.stack([cx, cy], dim=-1))
 
         # 3. phase controller
         if params.control == Control.LIGHT_WAVE and phase_gate:
@@ -779,10 +648,10 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
     collide + obstacles + friction and bumps the counter.  Gates are host
     bools; ``step_t`` is the step as a 0-dim int64 device tensor, by
     default made from ``ts.step`` (a CUDA graph's block passes its own,
-    which a replay refills): the sim time (:func:`sim_time`) and the
+    which a replay refills): the sim time (``state.sim_time``) and the
     centroid ring's row come from it.  ``source`` is the draw source, by
     default ``ts.generator``; a block passes ``rng.Drawn`` of the step's
-    draws taken beforehand (:func:`_draws`).  Both take a single
+    draws taken beforehand (``chunk.draws``).  Both take a single
     scene's carry or a batched one (a leading scene axis on every field,
     the batched loop's): every op is elementwise or reduces the last axis,
     and kernel 1 takes every scene in one launch.  On CUDA tensors the
@@ -873,218 +742,10 @@ def make_run_chunk_table_batched(params: SimParams):
     return _make_table_runner(params, None)
 
 
-def drain(blocks):
-    """Run a block iterator (a runner's ``blocks``) to its end; returns
-    its value, the chunk's final state."""
-    while True:
-        try:
-            next(blocks)
-        except StopIteration as stop:
-            return stop.value
-
-
-def interleaved(iterators):
-    """Advance block iterators (one per place, each a runner's ``blocks``)
-    one block at a time, in turn, until every one has ended, yielding
-    after each block: one block iterator of them all, whose value is their
-    final states in order.  Every place's chunk is enqueued block by block
-    beside the others', and nothing is read back from any place before all
-    are enqueued (the loops read nothing inside a chunk)."""
-    its = list(iterators)
-    out = [None] * len(its)
-    live = list(range(len(its)))
-    while live:
-        for i in list(live):
-            try:
-                next(its[i])
-            except StopIteration as stop:
-                out[i] = stop.value
-                live.remove(i)
-            else:
-                yield
-    return out
-
-
-def interleave(iterators) -> list:
-    """:func:`interleaved` run to its end: the places' final states."""
-    return drain(interleaved(iterators))
-
-
-class _CapturedBlock:
-    """A block of steps captured once as a CUDA graph, replayed by calling
-    it on a carry of the layout it was captured for.
-
-    ``block(carry, step) -> outputs`` takes a dict of named tensors and a
-    0-dim int64 step tensor (the block's sim times and centroid rows are
-    made from it) and returns a dict.  The carry lives in static buffers
-    beside the step tensor; a gated block's draws, taken before each call,
-    are carry entries too.  A call copies in the carry entries the caller
-    holds that are not the buffers already (after a replay they are, until
-    an eager step replaces some), fills the step, replays, and returns the
-    carry on the buffers together with the other outputs: an output named
-    as a carry entry is copied back into that entry's buffer at the end of
-    the captured block, any other output (a flag, say) stays in the memory
-    capture gave it, which every replay rewrites.  The kernel wrappers
-    count their launches while the block is captured; those that every
-    replay runs are taken back and added again at every replay, and those
-    of a conditional node's body are counted per run of the body
-    (``ops/cond``), so ``kernels.LAUNCHES`` counts what ran.  The caller
-    has run the block eagerly on the card first: that warm-up grants each
-    kernel its shared memory at these sizes, which capture may not do, and
-    creates the rebuild and occupancy counters on this device.  Python's
-    cyclic garbage collector is held off during the capture: a runner no
-    longer referenced (runners hold reference cycles) that it freed
-    mid-capture would destroy its graphs there, and that voids the
-    capture.  A failed capture raises.
-
-    The capture is registered for ``ops/cond``: each slot rebuild in the
-    block becomes the incremental rebuild, kernel ``cond_set`` and a
-    conditional IF node whose body holds the exact rebuild, and a span
-    segment's adopt-or-redo an IF node with an else branch, whose redo
-    body holds the rebuilds' nodes in turn.  ``nodes`` holds the captured
-    graph's node counts by type with its bodies' nodes
-    (``GraphCapture.node_counts``: ``kernels`` at the top level, counted
-    once here, is what a replay runs but the bodies); ``counted`` the
-    launches of its bodies per run, each beside the device counter the
-    body increments (one of ``counters``, made outside the graph's
-    pool)."""
-
-    def __init__(self, block, carry: dict):
-        from .ops.cond import GraphCapture, capturing
-
-        dev = next(iter(carry.values())).device
-        self.carry = {n: torch.empty_like(v) for n, v in carry.items()}
-        self.outputs = {}
-        self.step = torch.zeros((), dtype=torch.int64, device=dev)
-        REBUILDS.counter(dev)
-        OCCUPANCY.counter(dev)
-        before = kernels.LAUNCHES.host_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        capture = GraphCapture(dev)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-                pool = torch.cuda.graph_pool_handle()
-                self.graph.capture_begin(pool=pool)
-                try:
-                    with capturing(capture, pool):
-                        out = block(dict(self.carry), self.step)
-                    for n, v in out.items():
-                        if n not in self.carry:
-                            self.outputs[n] = v
-                        elif v is not self.carry[n]:
-                            self.carry[n].copy_(v)
-                    self.nodes = capture.node_counts(stream)
-                except BaseException:
-                    # the capture is void: end it, and raise what voided it
-                    try:
-                        self.graph.capture_end()
-                    except RuntimeError:
-                        pass
-                    raise
-                self.graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        after = kernels.LAUNCHES.host_counts()
-        kernels.LAUNCHES.restore(before)
-        self.launches = {n: c - before[n] for n, c in after.items() if c != before[n]}
-        capture.finish()
-        self.counted, self.counters = capture.counted, capture.counters
-        torch.cuda.current_stream(dev).wait_stream(stream)
-
-    def __call__(self, carry: dict, step: int) -> dict:
-        for n, v in carry.items():
-            if v is not self.carry[n]:
-                self.carry[n].copy_(v)
-        self.step.fill_(step)
-        self.graph.replay()
-        for n, c in self.launches.items():
-            kernels.LAUNCHES.count(n, c)
-        return {**self.carry, **self.outputs}
-
-
-def _graphed(graphs: dict, key: tuple, block, carry: dict, step: int) -> dict:
-    """``block(carry, step)`` (as :class:`_CapturedBlock` takes it; its
-    length in ``block.steps``) at the host step ``step``: eagerly off the
-    card; on the card replayed from the graph ``graphs[key]``, which the
-    first call of a ``key`` captures.  ``key`` is ``(kind, device, layout,
-    ...)``: the kind of block, the carry's device and layout, and what else
-    tells its graphs apart (a gate pattern, say).  The first block of a
-    kind, device and layout runs eagerly before its capture (the warm-up
-    :class:`_CapturedBlock` needs); a later key of the same three is
-    captured at once and replayed, so that a new gate pattern reads
-    nothing either.  Traced (``utils/trace``): spans ``graph.eager``,
-    ``graph.capture`` and ``graph.replay``; every capture counts in
-    ``trace.CAPTURES``."""
-    dev = next(iter(carry.values())).device
-    if dev.type != "cuda":
-        return _eager(key[0], block, carry, step)
-    if key not in graphs:
-        if any(k[:3] == key[:3] for k in graphs):
-            graphs[key] = _capture(key[0], block, carry)
-        else:
-            out = _eager(key[0], block, carry, step)
-            graphs[key] = _capture(key[0], block, carry)
-            return out
-    graph = graphs[key]
-    if not trace.ON:
-        return graph(carry, step)
-    with trace.span("graph.replay", dev, kind=key[0], steps=block.steps,
-                    nodes=graph.nodes["kernels"]):
-        return graph(carry, step)
-
-
-def _eager(kind: str, block, carry: dict, step: int) -> dict:
-    dev = next(iter(carry.values())).device
-    if not trace.ON:
-        return block(carry, step_tensor(step, dev))
-    with trace.span("graph.eager", dev, kind=kind, steps=block.steps):
-        return block(carry, step_tensor(step, dev))
-
-
-def _capture(kind: str, block, carry: dict) -> "_CapturedBlock":
-    """:class:`_CapturedBlock` ``(block, carry)``, counted in
-    ``trace.CAPTURES`` with the seconds its capture and instantiation
-    took."""
-    t0 = time.perf_counter()
-    if not trace.ON:
-        graph = _CapturedBlock(block, carry)
-    else:
-        dev = next(iter(carry.values())).device
-        with trace.span("graph.capture", kind=kind) as sp:
-            reserved = torch.cuda.memory_reserved(dev)
-            graph = _CapturedBlock(block, carry)
-            sp.attrs.update(nodes=graph.nodes["kernels"],
-                            pool_mib=(torch.cuda.memory_reserved(dev) - reserved) / 2**20)
-    trace.CAPTURES.add(time.perf_counter() - t0)
-    return graph
-
-
-def _one_chunk_at_a_time(blocks):
-    """``blocks`` that refuses to start a chunk while another of the same
-    runner is open: a runner's graphs hold one chunk's carry."""
-    busy = []
-
-    def guarded(*args, **kw):
-        if busy:
-            raise RuntimeError("a runner advances one chunk at a time")
-        busy.append(True)
-        try:
-            return (yield from blocks(*args, **kw))
-        finally:
-            busy.clear()
-
-    return guarded
-
-
 def table_pieces(params: SimParams, k: int, start: int, n: int) -> list:
     """The regular schedule of ``n`` steps from step ``start`` cut into
     blocks: ``[pattern]``, each pattern a tuple of ``(gates, rebuild)`` per
-    step (``gates`` as :func:`_step_gates` gives them, the dead injection
+    step (``gates`` as ``chunk.step_gates`` gives them, the dead injection
     among them).  A block ends with each rebuild step (chunk-relative ``j
     % k == k - 1`` for ``k <= 8``, else ``step % k == k - 1``), and the
     ragged tail (the steps after the last rebuild, fewer than ``k``) is a
@@ -1095,7 +756,7 @@ def table_pieces(params: SimParams, k: int, start: int, n: int) -> list:
     for j in range(n):
         s = start + j
         rebuild = s % k == k - 1 if k > 8 else j % k == k - 1
-        cur.append((_step_gates(params, s), rebuild))
+        cur.append((chunk.step_gates(params, s), rebuild))
         if rebuild:
             pieces.append(tuple(cur))
             cur = []
@@ -1113,19 +774,14 @@ def _with_carry(ts: TableState, out: dict, steps: int) -> TableState:
                       centroid_ring=out["centroid_ring"], step=ts.step + steps)
 
 
-def _drawn(carry: dict, j: int):
-    """The draws of a block's step ``j`` that its carry holds."""
-    return rng.Drawn(carry.get(f"scores{j}"), carry.get(f"noise{j}"))
-
-
-def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
+def _make_piece_runner(params: SimParams, phase_fn):
     """The regular schedule's pieces (:func:`table_pieces`) of a single or
     batched table carry: ``(piece, advance)``.
 
-    ``piece(pattern, probe)`` is the block function of a pattern
-    (``block(carry, step0) -> carry``, as :class:`_CapturedBlock` takes
+    ``piece(pattern, with_pm)`` is the block function of a pattern
+    (``block(carry, step0) -> carry``, as ``chunk.CapturedBlock`` takes
     it): its steps in turn, each gated step drawing from the carry's draws
-    (``scores{j}``, ``noise{j}``); with ``probe``, the carry's running
+    (``chunk.drawn``); with ``with_pm``, the carry's running
     maximum ``pm`` takes :func:`neighbor_rel_speed_bound` after each
     rebuild.  ``piece.host["step"]`` is the host step the next block
     starts at, for the carry's bookkeeping (the device step decides).
@@ -1156,7 +812,7 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
             def probe(ts: TableState) -> None:
                 pm[0] = torch.maximum(pm[0], neighbor_rel_speed_bound(params, ts.fields))
 
-            ts = steps(ts, pattern, step0, lambda j: _drawn(carry, j),
+            ts = steps(ts, pattern, step0, lambda j: chunk.drawn(carry, j),
                        on_rebuild=probe if with_pm else None)
             out = _carry_of(ts)
             if with_pm:
@@ -1175,8 +831,8 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
                 carry["pm"] = pm
             with trace.work(dev):
                 for j, (gates, _) in enumerate(pattern):
-                    for name, v in _draws(params, ts.generator, ts.step + j, gates,
-                                          ts.fields["dead"].shape, dev).items():
+                    for name, v in chunk.draws(params, ts.generator, ts.step + j, gates,
+                                               ts.fields["dead"].shape, dev).items():
                         carry[f"{name}{j}"] = v
             block = piece(pattern, pm is not None)
             host["step"] = ts.step
@@ -1190,22 +846,22 @@ def _make_piece_runner(params: SimParams, phase_fn, probe: bool = False):
     return piece, advance
 
 
-class _TableRunner:
-    """A table-loop chunk runner: ``runner(state, n_steps, seg_aligned=
-    False) -> state``; ``runner.blocks`` is the chunk as a block iterator,
-    ``runner.segments(n_steps, seg_aligned)`` how many gate segments of
-    such a chunk take the span path, ``runner.path_info`` its schedule,
-    ``runner.eager_steps`` how many steps of a chunk run eagerly by design
-    (0: every piece is a block a graph replays on the card), and
-    ``runner.redos`` how many span segments it redid (a device count, read
-    when asked).  A call is a ``chunk`` span where tracing is on."""
+class _TableRunner(ChunkRunner):
+    """The table loop's :class:`~.chunk.ChunkRunner`, which alone keeps a
+    device count: ``redos``, how many span segments it redid (read when
+    asked); ``segments(n_steps, seg_aligned)`` is how many gate segments
+    of such a chunk take the span path, and a chunk's span path is
+    ``span`` where any does, else ``batched`` or ``table``."""
 
-    def __init__(self, path_info: dict):
-        self.path_info = path_info
-        self.eager_steps = 0
-        self.blocks = None
-        self.segments = None
+    def __init__(self, blocks, path_info: dict, segments):
+        super().__init__(blocks, "table", path_info, k=path_info["slot_rebuild_steps"])
+        self.segments = segments
         self._redo_counts: dict = {}  # device -> 0-dim int64
+
+    def span_path(self, state: SimState, n_steps: int, seg_aligned: bool) -> str:
+        if self.segments(n_steps, seg_aligned):
+            return "span"
+        return "batched" if state.pos.dim() == 3 else "table"
 
     def redo_counter(self, device) -> torch.Tensor:
         device = torch.device(device)
@@ -1217,16 +873,6 @@ class _TableRunner:
     def redos(self) -> int:
         return sum(int(c) for c in self._redo_counts.values())
 
-    def __call__(self, state: SimState, n_steps: int, seg_aligned: bool = False):
-        if not trace.ON:
-            return drain(self.blocks(state, n_steps, seg_aligned))
-        batched = state.pos.dim() == 3
-        path = ("span" if self.segments(n_steps, seg_aligned)
-                else "batched" if batched else "table")
-        with trace.span("chunk", steps=n_steps, scenes=state.pos.shape[0] if batched else 1,
-                        path=path, k=self.path_info["slot_rebuild_steps"]):
-            return drain(self.blocks(state, n_steps, seg_aligned))
-
 
 def _make_table_runner(params: SimParams, phase_fn):
     """The chunk runner of a single-scene or a batched state: every piece
@@ -1237,10 +883,10 @@ def _make_table_runner(params: SimParams, phase_fn):
     block, gated or not, the dead-injection step among its gates, the
     ragged tail, a span segment), yields after each, and returns the final
     state; ``run_chunk`` drains it and the multi-place loops
-    :func:`interleave` several.  Each block (:func:`table_pieces`: the JAX
+    ``chunk.interleave`` several.  Each block (:func:`table_pieces`: the JAX
     package's gated first block, ``plain_u`` scans and remainder scan) on
-    a CUDA carry runs from a CUDA graph (:class:`_CapturedBlock`, through
-    :func:`_graphed`), captured once per carry layout and gate pattern and
+    a CUDA carry runs from a CUDA graph (``chunk.CapturedBlock``, through
+    ``_graphed``), captured once per carry layout and gate pattern and
     replayed after that, with the gated steps' draws (the dead step's
     scores too) taken just before and copied into the carry; so does each
     span segment, the one holding the dead step included, once per layout
@@ -1275,10 +921,9 @@ def _make_table_runner(params: SimParams, phase_fn):
     use_mega = mega_eligible(params)
     bps = seg // k if seg > 0 else 0
     if use_mega:
-        mega = make_mega_span(params, _geometry(params)[2])
+        mega = make_mega_span(params, table_geometry(params)[2])
         mega_pack, mega_unpack, incremental_packed = _make_mega_glue(params)
     piece, advance = _make_piece_runner(params, phase_fn)
-    runner = _TableRunner({"use_mega": use_mega, "gate_seg": seg, "slot_rebuild_steps": k})
     graphs: dict = {}
     seg_fns: dict = {}
     outputs = (*TABLE_FIELDS, "origin", "centroid_ring")
@@ -1293,7 +938,7 @@ def _make_table_runner(params: SimParams, phase_fn):
         plain_block = piece(tuple((NO_GATES, j == k - 1) for j in range(k)), False)
 
         def block(carry: dict, step0: torch.Tensor) -> dict:
-            src, s0 = _drawn(carry, 0), piece.host["step"]
+            src, s0 = chunk.drawn(carry, 0), piece.host["step"]
             ts = TableState({kf: carry[kf] for kf in TABLE_FIELDS}, carry["origin"], s0, None,
                             carry["centroid_ring"])
             ts = steps(ts, tuple((gates_at[j], False) for j in range(k)), step0,
@@ -1335,11 +980,11 @@ def _make_table_runner(params: SimParams, phase_fn):
         ``ts``."""
         dev = ts.origin.device
         for _ in range(n_segs):
-            gates = _step_gates(params, ts.step)
+            gates = chunk.step_gates(params, ts.step)
             carry = _carry_of(ts)
             with trace.work(dev):
-                for name, v in _draws(params, ts.generator, ts.step, gates,
-                                      ts.fields["dead"].shape, dev).items():
+                for name, v in chunk.draws(params, ts.generator, ts.step, gates,
+                                           ts.fields["dead"].shape, dev).items():
                     carry[f"{name}0"] = v
             runner.redo_counter(dev)
             block = span_segment(gates)
@@ -1353,7 +998,6 @@ def _make_table_runner(params: SimParams, phase_fn):
     def segments(n_steps: int, seg_aligned: bool) -> int:
         return n_steps // seg if use_mega and seg_aligned and bps > 1 else 0
 
-    @_one_chunk_at_a_time
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         with trace.work(state.device):
             ts = _enter(params, state)
@@ -1364,8 +1008,8 @@ def _make_table_runner(params: SimParams, phase_fn):
         with trace.work(state.device):
             return _exit(params, ts)
 
-    runner.blocks = blocks
-    runner.segments = segments
+    runner = _TableRunner(blocks, {"use_mega": use_mega, "gate_seg": seg,
+                                   "slot_rebuild_steps": k}, segments)
     return runner
 
 
@@ -1443,8 +1087,7 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
     loop's pieces (its gated first block, the dead step among its gates,
     then ungated K-step blocks, each from a CUDA graph on the card), the
     running maximum a carry entry that each block updates after its
-    rebuild; ``probe_chunk.eager_steps`` is 0 (no step of the segment runs
-    eagerly by design)."""
+    rebuild."""
     params = params.validate()
     k = max(1, params.resolved_slot_rebuild_steps())
     seg = gate_seg(params)
@@ -1463,34 +1106,7 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
         with trace.work(state.device):
             return _exit(params, ts), pm
 
-    probe_chunk.eager_steps = 0
     return probe_chunk
-
-
-class _HostValue:
-    """A 0-dim device value on its way to the host: the copy is enqueued
-    at once (on a card into pinned memory, behind an event), and
-    :meth:`read` waits for that copy alone, not for the work enqueued
-    after it."""
-
-    def __init__(self, t: torch.Tensor):
-        self._event = None
-        if t.device.type == "cuda":
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(t.device))
-            t = host
-        self._t = t
-
-    def read(self) -> float:
-        if self._event is not None:
-            if trace.ON:
-                with trace.span("chunk.probe_wait"):
-                    self._event.synchronize()
-            else:
-                self._event.synchronize()
-        return float(self._t)
 
 
 def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
@@ -1501,16 +1117,15 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     cadence; the cadence for the NEXT chunk is K=8 iff the measured bound
     stays within :func:`certified_closing_bound` for K=8, else K=4.  The
     probe value is copied to the host as soon as the probe is enqueued and
-    read at the next chunk boundary (waiting for that copy alone), so
-    detection latency is one chunk and the chunk reads nothing.  Chunks
-    that cannot take the segment schedule (unaligned entry, short or
-    ragged chunks) run the base K=4 path.  ``runner.blocks`` is the chunk
-    as a block iterator (the table runner's); ``runner.live["k"]`` /
-    ``runner.last_probe`` expose the live cadence and the last bound
-    read, ``runner.eager_steps`` the steps of a chunk that run eagerly by
-    design (0, as in the probe and the table runners).  A call is a
-    ``chunk`` span where tracing is on, the probe segment a
-    ``chunk.probe`` span inside it."""
+    read at the next chunk boundary (waiting for that copy alone,
+    ``runner.pending``), so detection latency is one chunk and the chunk
+    reads nothing.  Chunks that cannot take the segment schedule
+    (unaligned entry, short or ragged chunks) run the base K=4 path.
+    ``runner.blocks`` is the chunk as a block iterator (the table
+    runner's); ``runner.live["k"]`` / ``runner.last_probe`` expose the
+    live cadence and the last bound read, ``runner.k`` the cadence the
+    last chunk ran at.  A call is a ``chunk`` span where tracing is on,
+    the probe segment a ``chunk.probe`` span inside it."""
     base = params.validate()
     p4 = base.replace(slot_rebuild_steps=4)
     p8 = base.replace(slot_rebuild_steps=8)
@@ -1519,8 +1134,6 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     seg_ok = seg > 0 and gate_seg(p8) == seg and bound8 > 0.0
     runners: dict = {}
     probes: dict = {}
-    live = {"k": 4}
-    ran = {"k": 4}  # the cadence the last chunk ran at
 
     def get_runner(k):
         if k not in runners:
@@ -1536,40 +1149,31 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
 
     def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         if not seg_ok or not seg_aligned or n_steps < seg or n_steps % seg:
-            ran["k"] = 4
+            runner.k = 4
             return (yield from get_runner(4).blocks(state, n_steps, seg_aligned))
-        if runner._pending is not None:
+        if runner.pending is not None:
             # the previous chunk's probe, computed long ago on the device
-            pm = runner._pending.read()
+            pm = runner.pending.read()
             runner.last_probe = pm
-            live["k"] = 8 if pm <= bound8 else 4
-        ran["k"] = live["k"]
-        probe = get_probe(live["k"])
+            runner.live["k"] = 8 if pm <= bound8 else 4
+        runner.k = runner.live["k"]
+        probe = get_probe(runner.k)
         if trace.ON:
-            with trace.span("chunk.probe", k=live["k"]):
+            with trace.span("chunk.probe", k=runner.k):
                 state, pm = probe(state)
         else:
             state, pm = probe(state)
         with trace.work(state.device):
-            runner._pending = _HostValue(pm)
+            runner.pending = HostValue(pm)
         yield
         rest = n_steps - seg
         if rest:
-            state = yield from get_runner(live["k"]).blocks(state, rest, True)
+            state = yield from get_runner(runner.k).blocks(state, rest, True)
         return state
 
-    def runner(state: SimState, n_steps: int, seg_aligned: bool = False):
-        if not trace.ON:
-            return drain(blocks(state, n_steps, seg_aligned))
-        with trace.span("chunk", steps=n_steps, scenes=1, path="adaptive") as sp:
-            out = drain(blocks(state, n_steps, seg_aligned))
-            sp.attrs["k"] = ran["k"]
-        return out
-
-    runner.blocks = blocks
-    runner.live = live
+    runner = ChunkRunner(blocks, "adaptive", {"adaptive": True, "gate_seg": seg,
+                                              "bound8": bound8}, k=4)
+    runner.live = {"k": 4}
     runner.last_probe = None
-    runner.eager_steps = 0
-    runner._pending = None
-    runner.path_info = {"adaptive": True, "gate_seg": seg, "bound8": bound8}
+    runner.pending = None
     return runner

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from .config import SimParams, padded_n
+from .state import N_TF, TABLE_FIELDS, table_geometry
 from .utils import trace
 
 class LaunchCounts(MutableMapping):
@@ -701,8 +702,6 @@ def mega_span_batched_cuda(params: SimParams, tbl: torch.Tensor, strip: torch.Te
 
 
 def _launch_mega(params, tbl, strip, step, scenes: int, what: str):
-    from .engine_table import N_TF
-
     g, cs = params.resolved_grid_dim(), params.storage_capacity()
     n_pad = padded_n(params)
     lead = tbl.shape[:-3]
@@ -890,11 +889,9 @@ def row_step_cuda(params: SimParams, fields: dict, mode: str, step=None,
     (``engine_table.make_table_step_parts`` on CPU tensors) bit for bit.
     One launch, counted as ``row_step``, or ``row_step_batched`` for B
     scenes."""
-    from .engine_table import N_TF, TABLE_FIELDS, _geometry
-
     if mode not in ROW_STEP_MODES:
         raise ValueError(f"row_step: mode {mode!r} not in {tuple(ROW_STEP_MODES)}")
-    _, rows, _ = _geometry(params)
+    _, rows, _ = table_geometry(params)
     g, cap = params.resolved_grid_dim(), params.cell_capacity
     px = fields["px"]
     if px.dim() not in (1, 2):

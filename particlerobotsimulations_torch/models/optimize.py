@@ -23,9 +23,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .. import rng
+from .. import chunk, rng
 from ..config import Control, SimParams
-from ..engine import _draws, _make_body, _step_gates
+from ..engine import _make_body
 from ..state import ARRAY_FIELDS, SimState, active_mask
 
 f32 = np.float32
@@ -93,8 +93,8 @@ def make_phase_rollout(params: SimParams, n_steps: int, ct_clip: float | None = 
         snap = rng.snapshot(source)
         try:
             for step in range(state0.step, state0.step + n_steps):
-                gates = _step_gates(frozen, step)
-                draws = _draws(frozen, source, step, gates, shape, dev)
+                gates = chunk.step_gates(frozen, step)
+                draws = chunk.draws(frozen, source, step, gates, shape, dev)
                 arrays = checkpoint(
                     body, arrays, draws, step, gates,
                     use_reentrant=False, preserve_rng_state=False,

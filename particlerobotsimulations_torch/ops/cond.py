@@ -8,7 +8,7 @@ one layout, and ``pred`` is never read on the host.  It has two forms.
 
 * **Inside a CUDA graph capture on the card**
   (``torch.cuda.is_current_stream_capturing()``), registered with
-  :func:`capturing` (``engine_table._CapturedBlock`` does so): take_inc's
+  :func:`capturing` (``chunk.CapturedBlock`` does so): take_inc's
   result becomes the output buffers (an entry that aliases an operand is
   cloned first, so the body never writes an operand), then kernel
   ``cond_set`` and a conditional IF node follow (``kernels.cond_node``).
@@ -189,7 +189,7 @@ def _registered(pred: torch.Tensor) -> GraphCapture:
     if capture is None or capture.device != pred.device:
         raise RuntimeError(
             "cond under a CUDA graph capture that no GraphCapture on "
-            f"{pred.device} registered (engine_table._CapturedBlock does)"
+            f"{pred.device} registered (chunk.CapturedBlock does)"
         )
     capture._route_to_pool()
     return capture

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SimParams
-from ..state import active_mask, payload_mask
+from ..state import active_mask, payload_mask, sim_time
 from .actuation import update_radius
 from .forces import dense_collide
 from .integrate import integrate
@@ -56,8 +56,6 @@ def dense_step_plain(params: SimParams, arrays: dict, step: torch.Tensor,
     """Plain PyTorch twin of the dense step: :func:`step_tail` on DENSE at
     the sim time of the step ``step + offset`` (``step`` a 0-dim int64
     tensor on the arrays' device), vmapped over a leading scene axis."""
-    from ..engine_table import sim_time
-
     at = step + offset if offset else step
 
     def one(a: dict) -> dict:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..config import ForceBackend, SimParams, padded_n
+from ..state import TABLE_FIELDS, sim_time
 from .forces import friction_velocity_update_xy, obstacle_forces_xy
 from .integrate import radius_integrate_planes
 from .pallas_stencil import stencil_forces_plain
@@ -61,11 +62,9 @@ def mega_span_plain(params: SimParams, tbl: torch.Tensor, strip: torch.Tensor,
     mid-step ``step - 1``.  ``tbl`` is (N_TF, C, G*G), ``strip`` (N_TF,
     n_pad//128, 128), both in TABLE_FIELDS order; ``step`` a 0-dim int64
     tensor on their device, as the kernel takes it (each step's time is
-    ``engine_table.sim_time`` of it).  Parking-strip rows get no pair
+    ``state.sim_time`` of it).  Parking-strip rows get no pair
     force: their aa and ar are zeroed, then obstacles and friction run
     with zero pair force."""
-    from ..engine_table import TABLE_FIELDS, sim_time
-
     p = params.validate()
     k = max(1, p.resolved_slot_rebuild_steps())
     dt = p.timestep

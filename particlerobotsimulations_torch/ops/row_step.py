@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SimParams
+from ..state import sim_time, table_geometry
 from .forces import friction_velocity_update_xy, obstacle_forces_xy
 from .integrate import radius_integrate_planes
 
@@ -27,9 +28,7 @@ def _post_plain(params: SimParams, f: dict, fx, fy, fa, fr) -> dict:
     """Post on the planes ``f`` (mutated and returned): kernel 1's sums of
     the first C*G*G rows padded with zeros over the spill rows and the
     parking strip, obstacles, friction, then vx = vy = 0 off valid rows."""
-    from ..engine_table import _geometry
-
-    _, total_ext, _ = _geometry(params)
+    _, total_ext, _ = table_geometry(params)
     force_total = params.resolved_grid_dim() ** 2 * params.cell_capacity
     lead = f["px"].shape[:-1]
     zpad = torch.zeros(
@@ -66,9 +65,7 @@ def row_step_plain(params: SimParams, fields: dict, mode: str, step=None,
     new dict (``fields`` is not changed).  ``forces``: kernel 1's (fx, fy,
     fa, fr), each ``([B,] C, G*G)``, for the modes that post; ``step``: a
     0-dim int64 tensor on the planes' device, the pre at the sim time of
-    ``step + offset`` (``engine_table.sim_time``)."""
-    from ..engine_table import sim_time
-
+    ``step + offset`` (``state.sim_time``)."""
     if mode not in MODES:
         raise ValueError(f"row_step: mode {mode!r} not in {MODES}")
     f = dict(fields)

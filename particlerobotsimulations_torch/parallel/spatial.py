@@ -41,9 +41,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import rng
+from .. import chunk, rng
 from ..config import SimParams, padded_n
-from ..engine import _draws, _step_gates
 from ..ops.actuation import update_radius
 from ..ops.forces import (
     _where,
@@ -137,10 +136,10 @@ def make_sharded_step(params: SimParams, ring=None, batch: bool = False, device=
         if state.device != dev:
             raise ValueError(f"state on {state.device}, ring on {dev}")
         t = state.step
-        gates = _step_gates(params, t)
+        gates = chunk.step_gates(params, t)
         dead_gate, cog_gate, phase_gate = gates
         scene = (state.pos.shape[1],) if batch else ()
-        draws = _draws(params, state.generator, t, gates, scene + (n_pad,), dev)
+        draws = chunk.draws(params, state.generator, t, gates, scene + (n_pad,), dev)
         pos, vel, rad, phase, dead = state.pos, state.vel, state.rad, state.phase, state.dead
         ring_buf = state.centroid_ring
         time = float(f32(t) * f32(dt))

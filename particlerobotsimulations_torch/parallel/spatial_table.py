@@ -46,20 +46,22 @@ run does not depend on the batch it runs in.
 Like the JAX package's jitted chunk, a chunk reads nothing from the
 device between its entry and its exit: the rebuild decision stays on the
 device, the sim time and the centroid ring's row come from a device step
-(``engine_table.sim_time``), and the ``with_stats`` counters are device
+(``state.sim_time``), and the ``with_stats`` counters are device
 counters read once, at the exit.  The gates stay host decisions on the
-host step.  The chunk is a block iterator (``run_chunk.blocks``, the
-table loop's shape, cut by ``engine_table.table_pieces``): each block (K
-steps ending with their rebuild, or the ragged tail; its gated steps'
-draws, the dead step's scores included, taken just before it and fed in
-with the carry) on a :class:`~.ring.LocalRing` on the card replays from a
-CUDA graph, captured once per carry layout and gate pattern
-(``engine_table._graphed``: the runner's first block of a layout runs
-eagerly before its capture).  The chunk's entry and exit run eagerly, and
-so does every block on the CPU, through the same code.  A
-:class:`~.ring.DistRing` runs every block eagerly: NCCL enqueues its
-collectives on the stream, so nothing is read there either, but capturing
-them into a graph can only be tested with a card per rank.
+host step.  The runner is a ``chunk.ChunkRunner`` and its chunk a block
+iterator (``run_chunk.blocks``, the table loop's shape, cut by
+``engine_table.table_pieces``): each block (K steps ending with their
+rebuild, or the ragged tail; its gated steps' draws, the dead step's
+scores included, taken just before it and fed in with the carry) on a
+:class:`~.ring.LocalRing` on the card replays from a CUDA graph, captured
+once per carry layout and gate pattern (``chunk.graphed``: the runner's
+first block of a layout runs eagerly before its capture).  The chunk's
+entry and exit run eagerly, and so does every block on the CPU, through
+the same code.  A :class:`~.ring.DistRing` runs every block eagerly, not
+through ``chunk.graphed`` (so its steps count in no ``chunk.EAGER`` key):
+NCCL enqueues its collectives on the stream, so nothing is read there
+either, but capturing them into a graph can only be tested with a card
+per rank.
 
 Random draws: phase noise and dead-injection scores are drawn for the
 whole ``(total_ext,)`` table layout from the run's draw source (``rng``),
@@ -77,26 +79,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import rng
+from .. import chunk, rng
+from ..chunk import NO_GATES, ChunkRunner, interleaved
 from ..config import SimParams
 from ..engine_table import (
-    MOVE_FIELDS,
-    NO_GATES,
-    TABLE_FIELDS,
     _derived_rows,
-    _draws,
-    _drawn,
     _exact_rebuild,
-    _geometry,
-    _graphed,
-    _one_chunk_at_a_time,
-    _ring_write,
-    drain,
     enter_table,
     exit_table,
-    interleaved,
-    sim_time,
-    step_tensor,
     table_pieces,
 )
 from ..ops.cond import cond
@@ -106,7 +96,14 @@ from ..ops.pallas_stencil import FIELDS as KERNEL_FIELDS
 from ..ops.pallas_stencil import stencil_forces_ext
 from ..ops.phase import light_distance, update_phase
 from ..ops.table_rebuild import compact_padded, rebuild_move_planes
-from ..state import SimState
+from ..state import (
+    MOVE_FIELDS,
+    TABLE_FIELDS,
+    SimState,
+    sim_time,
+    step_tensor,
+    table_geometry,
+)
 from .ring import LocalRing
 
 f32 = np.float32
@@ -158,9 +155,11 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
     rows).  Both are counted on the device and read once, at the chunk's
     exit.
 
+    ``run_chunk`` is a ``chunk.ChunkRunner`` (a call is a ``chunk``
+    span, path ``sharded``, where tracing is on).
     ``run_chunk.blocks(state, n_steps)`` is the chunk as a block iterator
     (see the module docstring): ``run_chunk`` drains it, and the dp x tp
-    mesh entry interleaves several (``engine_table.interleaved``).  It returns
+    mesh entry interleaves several (``chunk.interleaved``).  It returns
     what ``run_chunk`` returns, with the stats' counters still on the
     device; ``run_chunk.read_stats`` reads them.  A runner advances one
     chunk at a time (its graphs hold that chunk's carry)."""
@@ -172,7 +171,7 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
     L0 = g * g // D                  # lanes (cells) per shard
     H = HALO_ROWS * g                # halo lanes per side
     C = cs * L0                      # local table rows (flat)
-    total, _, n_pad = _geometry(params)
+    total, _, n_pad = table_geometry(params)
     nf = len(MOVE_FIELDS)
     k_rb = max(1, params.resolved_slot_rebuild_steps())
     dt = params.timestep
@@ -302,8 +301,8 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
                 + torch.sum(f[k][0, ..., C:] * f["val"][0, ..., C:], dim=-1)
                 for k in ("px", "py")
             ]
-            ring_t = _ring_write(params, ring_t, step_t,
-                                 torch.stack(cxy, dim=-1) / f32(params.n_cells))
+            ring_t = chunk.ring_write(params, ring_t, step_t,
+                                      torch.stack(cxy, dim=-1) / f32(params.n_cells))
 
         # 3. phase law: the ring-wide min light distance of the centres and
         #    the strip's own min
@@ -396,7 +395,7 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             def block(carry, step0):
                 for j, (gates, rebuild) in enumerate(pattern):
                     carry = {**carry, **carry_step(carry, step0 + j, rebuild, gates,
-                                                   _drawn(carry, j))}
+                                                   chunk.drawn(carry, j))}
                 return carry
 
             block.steps = len(pattern)
@@ -406,13 +405,14 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
     graphs: dict = {}
     capture = isinstance(ring, LocalRing)
 
-    @_one_chunk_at_a_time
-    def blocks(state: SimState, n_steps: int):
+    def blocks(state: SimState, n_steps: int, seg_aligned: bool = False):
         """The chunk as a block iterator: enqueues it a block at a time (K
         steps, gated or not, the dead step among them, or the ragged
         tail), yields after each, and returns the final state, with
         ``with_stats`` as ``(state, stats)`` whose counters are still
-        0-dim device tensors (:func:`run_chunk` reads them)."""
+        0-dim device tensors (``run_chunk.read_stats`` reads them).
+        ``seg_aligned`` is taken for the other runners' signature, and
+        changes nothing here."""
         if state.device != ring.device:
             raise ValueError(f"state on {state.device}, ring on {ring.device}")
         ts = enter_table(params, state)
@@ -429,13 +429,13 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             s = ts.step
             step_in = dict(carry)
             for j, (gates, _) in enumerate(pattern):
-                for name, v in _draws(params, ts.generator, s + j, gates,
+                for name, v in chunk.draws(params, ts.generator, s + j, gates,
                                            ts.fields["dead"].shape, ring.device).items():
                     step_in[f"{name}{j}"] = v
             block = piece(pattern)
             if capture:
                 key = ("piece", ring.device, tuple(carry["val"].shape), pattern)
-                out = _graphed(graphs, key, block, step_in, s)
+                out = chunk.graphed(graphs, key, block, step_in, s)
             else:
                 # a DistRing runs every block eagerly: NCCL enqueues its
                 # collectives, nothing is read
@@ -450,9 +450,6 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
             return out, {k: carry[k] for k in ("fallbacks", "spill_rows_max")}
         return out
 
-    def run_chunk(state: SimState, n_steps: int):
-        return read_stats(drain(blocks(state, n_steps)))
-
     def read_stats(result):
         """A chunk's result with its device counters read (the only read
         of the chunk, at its exit)."""
@@ -461,10 +458,9 @@ def make_sharded_table_run(params: SimParams, ring=None, with_stats: bool = Fals
         out, stats = result
         return out, {k: int(v) for k, v in stats.items()}
 
-    run_chunk.blocks = blocks
+    run_chunk = ChunkRunner(blocks, "sharded", {"shards": D, "slot_rebuild_steps": k_rb},
+                            finish=read_stats, k=k_rb)
     run_chunk.read_stats = read_stats
-    # no step of a chunk runs eagerly by design (engine_table.table_pieces)
-    run_chunk.eager_steps = 0
     # the pieces a measurement times alone: a whole table's fields to this
     # process's shards and back, the incremental rebuild, the rebuild with
     # its choice
@@ -491,7 +487,7 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
     in a graph's conditional node, only when some scene needs it).  So each
     scene runs bit for bit as it runs alone through
     :func:`make_sharded_table_run`, whatever batch it is in.  This is not
-    the unsharded batched table loop's rule (``engine_table._smart_rebuild``
+    the unsharded batched table loop's rule (``engine_table._choose_rebuild``
     takes the incremental result for all scenes or the exact rebuild for
     all, the JAX package's ``_smart_rebuild_batched``): dp x tp follows the
     JAX package's dp x tp.
@@ -502,7 +498,7 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
     that place's device, each scene deciding its rebuilds alone, so the
     mesh entry gives the ring entry's result bit for bit; the
     places' chunks advance block by block in turn
-    (``engine_table.interleaved``), so every place's chunk is enqueued
+    (``chunk.interleaved``), so every place's chunk is enqueued
     before any is read, and ``run_chunk`` returns the batch in scene order
     on the first place.  ``with_stats`` adds the stats of
     :func:`make_sharded_table_run`, summed (``fallbacks``) and maxed
@@ -513,17 +509,14 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
         ring = ring if ring is not None else LocalRing(DEFAULT_SHARDS, device)
         run, params = make_sharded_table_run(params, ring, with_stats)
 
-        def blocks(batch_state: SimState, n_steps: int):
+        def blocks(batch_state: SimState, n_steps: int, seg_aligned: bool = False):
             if batch_state.pos.dim() != 3:
                 raise ValueError("the dp x tp loop takes a batched state (B, n_pad, 2)")
             return run.blocks(batch_state, n_steps)
 
-        def run_chunk(batch_state: SimState, n_steps: int):
-            return run.read_stats(drain(blocks(batch_state, n_steps)))
-
-        run_chunk.blocks = blocks
+        run_chunk = ChunkRunner(blocks, "sharded", run.path_info, finish=run.read_stats,
+                                k=run.k)
         run_chunk.read_stats = run.read_stats
-        run_chunk.eager_steps = 0
         return run_chunk, params
 
     from .sweep import gather_batch, shard_batch
@@ -534,7 +527,7 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
     params = runs[0][1]
     runs = [run for run, _ in runs]
 
-    def blocks(batch_state: SimState, n_steps: int):
+    def blocks(batch_state: SimState, n_steps: int, seg_aligned: bool = False):
         """The places' chunks as one block iterator (``interleaved``): it
         returns what ``run_chunk`` returns, with the stats' counters still
         on the device."""
@@ -549,11 +542,8 @@ def make_sharded_table_run_batched(params: SimParams, ring=None, mesh=None,
         }
         return gather_batch([o for o, _ in outs]), stats
 
-    def run_mesh(batch_state: SimState, n_steps: int):
-        return runs[0].read_stats(drain(blocks(batch_state, n_steps)))
-
-    run_mesh.blocks = blocks
+    run_mesh = ChunkRunner(blocks, "sharded", dict(runs[0].path_info, places=len(places)),
+                           finish=runs[0].read_stats, k=runs[0].k)
     run_mesh.read_stats = runs[0].read_stats
-    run_mesh.eager_steps = 0
     return run_mesh, params
 

@@ -182,11 +182,12 @@ def run_sweep(
     the seeds are cut into one group per place of its ``"data"`` axis,
     as :func:`shard_batch` cuts a batch, each group is placed and run by
     the batched loop on its place's device, every group's chunk enqueued
-    block by block in turn (``engine_table.interleave``) before any result
+    block by block in turn (``chunk.interleave``) before any result
     is read, and the final state and the centroids come
     back in seed order on the first place.  Any strategy but ``batched``
     raises ValueError there, as in the JAX package."""
-    from ..engine_table import gate_seg, interleave
+    from ..chunk import interleave
+    from ..engine_table import gate_seg
 
     # Nx == 0 -> config_size_x, exactly as Simulation resolves it — the
     # actuation wave period must match single-scene runs

@@ -26,6 +26,13 @@ run in lockstep) and a ``rng.SceneDraws`` holding each scene's source:
 One-step-lag force feedback: ``abs_force_a`` / ``abs_force_r`` are the
 attraction / repulsion magnitudes of the previous step's collide pass; the
 radius controller reads them before collide overwrites them.
+
+The table-resident loop's format lives here too, below every module that
+reads it (the kernels' wrappers, ``ops/``, the table loops and the
+benchmark): :data:`TABLE_FIELDS`, :data:`MOVE_FIELDS`, the carry
+:class:`TableState` and the rows :func:`table_geometry` gives; and the
+step clock every loop reads on the device, :func:`step_tensor` and
+:func:`sim_time`.
 """
 
 from __future__ import annotations
@@ -41,6 +48,26 @@ from .rng import SceneDraws
 ARRAY_FIELDS = (
     "pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r",
     "centroid_ring",
+)
+
+f32 = np.float32
+
+# flat table field order; the first 7 are kernel 1's input planes
+# (ops/pallas_stencil.FIELDS).  "bid" stores each row's bot index (exact
+# in f32 up to 2^24) so the bot->row map can be reconstructed after
+# incremental rebuilds shuffle rows.
+TABLE_FIELDS = (
+    "px", "py", "vx", "vy", "rad", "val", "afac",   # kernel inputs
+    "phase", "dead", "aa", "ar", "pay", "bid",      # carried per-bot state
+)
+N_TF = len(TABLE_FIELDS)
+
+# fields the incremental rebuild must physically move.  The rebuild runs
+# between integrate and collide, where aa/ar are dead values (collide
+# rewrites them right after), and afac/pay are pure functions of the bot
+# id, re-derived from the moved bid plane.
+MOVE_FIELDS = (
+    "px", "py", "vx", "vy", "rad", "val", "phase", "dead", "bid",
 )
 
 
@@ -72,6 +99,44 @@ class SimState:
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
+class TableState:
+    """Carry of the table-resident loop; the batched loop's carries a
+    leading scene axis on every tensor."""
+
+    fields: dict                 # str -> ([B,] total_ext) float32
+    origin: torch.Tensor         # ([B,] 2) float32 — grid anchor, fixed per chunk
+    step: int
+    generator: object            # draw source (rng.py)
+    centroid_ring: torch.Tensor
+
+    def replace(self, **kw) -> "TableState":
+        return dataclasses.replace(self, **kw)
+
+
+def table_geometry(params: SimParams):
+    """(table rows, table+parking rows, n_pad) — the table uses the STORAGE
+    capacity (force-visible cell_capacity + overflow spill rows)."""
+    g = params.resolved_grid_dim()
+    total = g * g * params.storage_capacity()
+    n_pad = padded_n(params)
+    return total, total + n_pad, n_pad
+
+
+def step_tensor(step: int, device) -> torch.Tensor:
+    """The step counter as a 0-dim int64 tensor on ``device`` (a fill: no
+    copy from the host)."""
+    return torch.full((), step, dtype=torch.int64, device=device)
+
+
+def sim_time(step: torch.Tensor, dt: float) -> torch.Tensor:
+    """The sim time ``f32(step) * f32(dt)`` of a 0-dim int64 step tensor,
+    as a 0-dim float32 tensor on its device: bitwise the host value
+    ``float(np.float32(step) * np.float32(dt))`` (both round the step to
+    float32 to nearest and multiply in float32)."""
+    return step.to(torch.float32) * f32(dt)
 
 
 def make_generator(seed: int, device) -> torch.Generator:

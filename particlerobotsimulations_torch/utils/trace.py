@@ -13,10 +13,11 @@ it, a few attributes), stamped with ``time.time_ns()``, the clock
 ``torch.profiler``'s records carry, so a profiler trace of a traced run
 lines up with the spans by timestamp.  The spans, from the entry down:
 
-* ``chunk``: a chunk runner's call (``engine.make_run_chunk``'s runners,
-  the adaptive runner and the batched ones; attributes ``steps``,
-  ``scenes``, ``path``: ``table``, ``span``, ``batched``, ``adaptive`` or
-  the per-bot backend, and ``k``, the rebuild cadence it ran at);
+* ``chunk``: a chunk runner's call (``chunk.ChunkRunner``: every
+  runner of ``engine``, ``engine_table`` and ``parallel/spatial_table``;
+  attributes ``steps``, ``scenes``, ``path``: ``table``, ``span``,
+  ``batched``, ``adaptive``, ``sharded`` or the per-bot backend, and
+  ``k``, the rebuild cadence it ran at, where the runner keeps a table);
 * ``chunk.probe``: the adaptive runner's probe segment (``k``, the cadence
   probed); ``chunk.probe_wait``: the wait for the previous probe's host
   copy;

@@ -5,11 +5,11 @@ The table loop's chunk runs without a host read between entry and exit:
 rebuild's incremental-or-exact choice is a select on the device
 (``engine_table._smart_rebuild``), the rebuild counts are device counters
 (``engine_table.REBUILDS``), and the sim time is a 0-dim float32 device
-scalar (``engine_table.sim_time``).  Each is held here bit for bit against
+scalar (``state.sim_time``).  Each is held here bit for bit against
 what it replaces.  The ungated K-step blocks (the blocks a CUDA graph
 replays on the card) run eagerly on the CPU through the same step; the
 place loops advance every place's chunk block by block
-(``engine_table.interleave``), each scene bit for bit its solo run; and
+(``chunk.interleave``), each scene bit for bit its solo run; and
 the table loop over 40 steps, gated and ungated blocks both, is held
 against the JAX package's ``make_run_chunk_table`` at the slice tests'
 tolerances (``tests/test_torch_slice.py``: positions 1e-5, velocities
@@ -17,7 +17,9 @@ tolerances (``tests/test_torch_slice.py``: positions 1e-5, velocities
 300 bots, at most 40 steps.
 """
 
+import ast
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +30,9 @@ import torch
 import particlerobotsimulations_torch as pt
 import particlerobotsimulations_tpu as pj
 from particlerobotsimulations_torch import bench as t_bench
+from particlerobotsimulations_torch import chunk as t_chunk
 from particlerobotsimulations_torch import engine_table as t_et
+from particlerobotsimulations_torch import state as t_state
 from particlerobotsimulations_torch.engine import make_run_chunk_batched
 from particlerobotsimulations_torch.ops import forces as t_forces
 from particlerobotsimulations_torch.ops.actuation import update_radius
@@ -44,7 +48,10 @@ from particlerobotsimulations_torch.state import (
     state_from_arrays,
     state_to_arrays,
 )
+from particlerobotsimulations_torch.utils import trace
 from particlerobotsimulations_tpu import engine_table as j_et
+
+from test_torch_gated_blocks import eager_counts
 
 # The port's CPU tests run small tables: one intra-op thread is faster than
 # a pool, and pools oversubscribe the cores when test workers share them.
@@ -141,13 +148,13 @@ def test_sim_time_scalar_equals_host_float(dt):
              2**24 + 1, 2**24 + 3]
     steps += np.random.default_rng(5).integers(0, 2**24, 64).tolist()
     for s in steps:
-        t = t_et.sim_time(t_et.step_tensor(s, "cpu"), dt)
+        t = t_state.sim_time(t_state.step_tensor(s, "cpu"), dt)
         assert t.dtype == torch.float32 and t.dim() == 0
         assert t.item() == float(f32(s) * f32(dt)), s
     # a block's times are made from its first step plus the step's index
-    s0 = t_et.step_tensor(2**23 + 5, "cpu")
+    s0 = t_state.step_tensor(2**23 + 5, "cpu")
     for j in range(8):
-        assert t_et.sim_time(s0 + j, dt).item() == float(f32(2**23 + 5 + j) * f32(dt))
+        assert t_state.sim_time(s0 + j, dt).item() == float(f32(2**23 + 5 + j) * f32(dt))
 
 
 def test_radius_and_integrate_take_the_time_tensor():
@@ -164,7 +171,7 @@ def test_radius_and_integrate_take_the_time_tensor():
     f["val"] = torch.from_numpy((rng.uniform(size=n) < 0.9).astype(f32))
     for step in (0, 37, 1_234, 99_999):
         host = float(f32(step) * f32(p.timestep))
-        dev = t_et.sim_time(t_et.step_tensor(step, "cpu"), p.timestep)
+        dev = t_state.sim_time(t_state.step_tensor(step, "cpu"), p.timestep)
         args = (f["rad"], f["phase"], f["aa"], f["ar"], f["dead"] > 0.5, f["val"] > 0.5)
         assert torch.equal(update_radius(p, *args, dev, p.timestep),
                            update_radius(p, *args, host, p.timestep))
@@ -222,23 +229,23 @@ def why(p, ts):
     """(moved far, cell over capacity, edge) of the carry's rebuild."""
     g, cs = p.resolved_grid_dim(), p.storage_capacity()
     total = g * g * cs
-    planes = torch.stack([ts.fields[k][:total] for k in t_et.MOVE_FIELDS]).reshape(
-        len(t_et.MOVE_FIELDS), cs, g * g)
-    _, _, far, edge = rebuild_move_planes(p, planes, t_et.MOVE_FIELDS, ts.origin)
-    moved, ok = incremental_rebuild(p, ts.fields, t_et.MOVE_FIELDS, ts.origin)
+    planes = torch.stack([ts.fields[k][:total] for k in t_state.MOVE_FIELDS]).reshape(
+        len(t_state.MOVE_FIELDS), cs, g * g)
+    _, _, far, edge = rebuild_move_planes(p, planes, t_state.MOVE_FIELDS, ts.origin)
+    moved, ok = incremental_rebuild(p, ts.fields, t_state.MOVE_FIELDS, ts.origin)
     return bool(far), bool(~ok & ~far & ~edge), bool(edge)
 
 
 def batched(tss):
-    return t_et.TableState(
-        {k: torch.stack([ts.fields[k] for ts in tss]) for k in t_et.TABLE_FIELDS},
+    return t_state.TableState(
+        {k: torch.stack([ts.fields[k] for ts in tss]) for k in t_state.TABLE_FIELDS},
         torch.stack([ts.origin for ts in tss]), tss[0].step, None,
         torch.stack([ts.centroid_ring for ts in tss]),
     )
 
 
 def assert_carry_equal(got_fields, got_origin, want_fields, want_origin):
-    for k in t_et.TABLE_FIELDS:
+    for k in t_state.TABLE_FIELDS:
         assert torch.equal(got_fields[k], want_fields[k]), k
     assert torch.equal(got_origin, want_origin)
 
@@ -261,7 +268,7 @@ def test_rebuild_choice_on_device(case, carry):
         t_et.REBUILDS[k] = 0
     got = t_et._smart_rebuild(p, ts)
     if case == "clean":
-        moved, ok = incremental_rebuild(p, ts.fields, t_et.MOVE_FIELDS, ts.origin)
+        moved, ok = incremental_rebuild(p, ts.fields, t_state.MOVE_FIELDS, ts.origin)
         assert bool(ok.all())
         want = t_et._derived_rows(p, {**ts.fields, **moved})
         assert_carry_equal(got.fields, got.origin, want, ts.origin)
@@ -302,20 +309,24 @@ def test_blocks_equal_the_step_loop():
         t_et.REBUILDS[k] = 0
     run = t_et.make_run_chunk_table(sim.params)
     seen = []
-    gen = run.blocks(start, n)
-    while True:
-        try:
-            next(gen)
-            seen.append(None)
-        except StopIteration as stop:
-            got = stop.value
-            break
+
+    def drained():
+        gen = run.blocks(start, n)
+        while True:
+            try:
+                next(gen)
+                seen.append(None)
+            except StopIteration as stop:
+                return stop.value
+
+    got, eager = eager_counts(drained)
     counts = dict(t_et.REBUILDS)
     # 30 steps: blocks at j = 0, 4, ..., 24 (7 blocks of 4, gated ones
-    # among them) and the 2-step ragged tail, a block too: none eager
+    # among them) and the 2-step ragged tail, a block too: every step
+    # through chunk.graphed
     gated = [j for j in range(0, 28, 4)
              if any(s % 8 == 0 or s % 12 == 0 for s in range(2 + j, 6 + j))]
-    assert len(gated) >= 4 and len(seen) == 7 + 1 and run.eager_steps == 0
+    assert len(gated) >= 4 and len(seen) == 7 + 1 and eager == {"card": 0, "off_card": n}
 
     for k in t_et.REBUILDS:
         t_et.REBUILDS[k] = 0
@@ -323,7 +334,7 @@ def test_blocks_equal_the_step_loop():
     ref = pt.Simulation(p, device="cpu").state.replace(step=2)
     ts = t_et.enter_table(sim.params, ref)
     for j in range(n):
-        ts = step(ts, *t_et._gates(sim.params, ts.step), j % 4 == 3)
+        ts = step(ts, *t_chunk.gates(sim.params, ts.step), j % 4 == 3)
     want = t_et.exit_table(sim.params, ts)
     assert dict(t_et.REBUILDS) == counts and sum(counts.values()) == 7
     for k in ("pos", "vel", "rad", "phase", "dead", "abs_force_a", "abs_force_r",
@@ -388,9 +399,9 @@ def test_table_loop_40_steps_matches_jax():
 
 
 def logged_interleave(log):
-    """``engine_table.interleave`` that records which place each advance
+    """``chunk.interleave`` that records which place each advance
     went to, and the final states."""
-    real = t_et.interleave
+    real = t_chunk.interleave
 
     def wrap(i, it):
         while True:
@@ -449,7 +460,7 @@ def test_run_sweep_mesh_places_interleave_bit_for_bit_their_solo_runs(monkeypatc
     seeds, two per place, 24 steps recorded every 12): the places' blocks
     alternate, and each group equals its seeds run alone, bit for bit."""
     log = {"order": []}
-    monkeypatch.setattr(t_et, "interleave", logged_interleave(log))
+    monkeypatch.setattr(t_chunk, "interleave", logged_interleave(log))
     p = params(n_cells=200, phase_std=0.5, phase_update_interval=0.08,
                slot_rebuild_steps=4)
     fin, cents = t_sw.run_sweep(p, [0, 1, 2, 3], 24, mesh=Mesh(["cpu"] * 2),
@@ -474,8 +485,8 @@ def test_adaptive_runner_reads_its_probe_through_the_host_copy():
     runner = t_et.make_adaptive_run_chunk(p)
     sim = pt.Simulation(p, device="cpu")
     st = runner(sim.state, 16, True)
-    pending = runner._pending
-    assert pending is not None and isinstance(pending, t_et._HostValue)
+    pending = runner.pending
+    assert pending is not None and isinstance(pending, t_chunk.HostValue)
     value = pending.read()
     runner(st, 16, True)
     assert runner.last_probe == value
@@ -492,4 +503,150 @@ def test_blocks_refuse_a_second_chunk_at_once():
     with pytest.raises(RuntimeError, match="one chunk at a time"):
         next(run.blocks(st, 8))
     first.close()
-    assert t_et.drain(run.blocks(st, 8)).step == 8
+    assert t_chunk.drain(run.blocks(st, 8)).step == 8
+
+
+# ------------------------------------------------------ the chunk module
+
+def imported_modules(path, package: str) -> set:
+    """Every module that ``path``'s code imports, at its top or inside a
+    function, as absolute names (``package`` is the file's own)."""
+    tree = ast.parse(open(path).read())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")
+            if node.level:
+                base = base[: len(base) - node.level + 1]
+            mod = ".".join(base + ([node.module] if node.module else []))
+            if not node.level:
+                mod = node.module
+            out.add(mod)
+            out.update(f"{mod}.{a.name}" for a in node.names)
+    return out
+
+
+def test_kernels_and_ops_import_nothing_above_them():
+    """``kernels.py`` and ``ops/*.py`` import nothing of the table loop,
+    the engine, the simulation or the parallel loops, function-local
+    imports included: the table format and the step clock they read live
+    in ``state.py``, below them."""
+    root = pathlib.Path(t_chunk.__file__).parent
+    files = [(root / "kernels.py", "particlerobotsimulations_torch")] + [
+        (f, "particlerobotsimulations_torch.ops") for f in sorted((root / "ops").glob("*.py"))]
+    above = [f"particlerobotsimulations_torch.{m}" for m in
+             ("engine_table", "engine", "sim", "parallel")]
+    assert len(files) > 10
+    for path, package in files:
+        bad = sorted(m for m in imported_modules(path, package)
+                     if any(m == a or m.startswith(a + ".") for a in above))
+        assert not bad, (path.name, bad)
+
+
+def runner_of(shape):
+    """(runner, a fresh state, steps, seg_aligned, the path its chunk span
+    names) of one runner shape on a small CPU scene."""
+    from particlerobotsimulations_torch.engine import make_run_chunk
+    from particlerobotsimulations_torch.parallel import spatial_table as t_st
+    from particlerobotsimulations_torch.parallel.mesh import Mesh as TorchMesh
+    from particlerobotsimulations_torch.parallel.ring import LocalRing
+    from particlerobotsimulations_torch.parallel.sweep import make_batch_state
+
+    p = params(n_cells=64, centroid_int=0.08, phase_update_interval=0.08)
+    if shape in ("table", "batched"):
+        run = (t_et.make_run_chunk_table_batched if shape == "batched"
+               else t_et.make_run_chunk_table)(p)
+        state = make_batch_state(p, [0, 1], "cpu") if shape == "batched" else pt.Simulation(
+            p, device="cpu").state
+        return run, state, 8, False, shape
+    if shape == "adaptive":
+        return t_et.make_adaptive_run_chunk(p), pt.Simulation(p, device="cpu").state, 16, \
+            True, "adaptive"
+    if shape in ("dense", "dense_batched"):
+        q = p.replace(force_backend=pt.ForceBackend.DENSE)
+        if shape == "dense":
+            return make_run_chunk(q, "cpu"), pt.Simulation(q, device="cpu").state, 16, False, \
+                "DENSE"
+        return make_run_chunk_batched(q, "cpu"), make_batch_state(q, [0, 1], "cpu"), 16, \
+            False, "DENSE"
+    q = t_st.resolve_tp_params(p, 2)
+    if shape == "sharded":
+        run, _ = t_st.make_sharded_table_run(q, LocalRing(2, "cpu"), with_stats=True)
+        return run, pt.Simulation(q, device="cpu").state, 8, False, "sharded"
+    if shape == "dp_tp":
+        run, _ = t_st.make_sharded_table_run_batched(q, LocalRing(2, "cpu"))
+    else:
+        mesh = TorchMesh(np.array(["cpu"] * 4).reshape(2, 2), ("data", "bots"))
+        run, _ = t_st.make_sharded_table_run_batched(q, mesh=mesh, with_stats=True)
+    return run, make_batch_state(q, [0, 1], "cpu"), 8, False, "sharded"
+
+
+RUNNER_SHAPES = ("table", "batched", "adaptive", "dense", "dense_batched", "sharded",
+                 "dp_tp", "mesh")
+# the attributes a runner shape keeps of its own; no other shape has them
+OWN = {"table": ("segments", "redos"), "batched": ("segments", "redos"),
+       "adaptive": ("live", "last_probe", "pending")}
+
+
+@pytest.mark.parametrize("shape", RUNNER_SHAPES)
+def test_every_runner_is_one_chunk_runner(shape):
+    """Every runner shape on the CPU is a ``chunk.ChunkRunner`` with its
+    ``path_info``: a call is one ``chunk`` span (no other opened under
+    it), with the steps, the scenes and the path; a second chunk started
+    while one is open raises; and each shape keeps its own attributes
+    (the table runners' ``segments`` and ``redos``, the adaptive runner's
+    ``live``, ``last_probe`` and pending probe) and no other shape's."""
+    run, state, n, aligned, path = runner_of(shape)
+    assert isinstance(run, t_chunk.ChunkRunner) and isinstance(run.path_info, dict)
+    for name in ("segments", "redos", "live", "last_probe", "pending"):
+        assert hasattr(run, name) == (name in OWN.get(shape, ())), (shape, name)
+    trace.enable()
+    try:
+        run(state, n, aligned)
+    finally:
+        trace.disable()
+    chunks = [s for s in trace.snapshot()["spans"] if s["name"] == "chunk"]
+    assert len(chunks) == 1 and chunks[0]["parent"] is None
+    scenes = state.pos.shape[0] if state.pos.dim() == 3 else 1
+    assert {k: chunks[0]["attrs"][k] for k in ("steps", "scenes", "path")} == {
+        "steps": n, "scenes": scenes, "path": path}
+    first = run.blocks(state, n, aligned)
+    next(first)
+    with pytest.raises(RuntimeError, match="one chunk at a time"):
+        next(run.blocks(state, n, aligned))
+    first.close()
+    t_chunk.drain(run.blocks(state, n, aligned))
+
+
+@pytest.mark.parametrize("shape", ["table", "dense"])
+def test_a_step_outside_graphed_fails_the_eager_count(shape, monkeypatch):
+    """The count the runner tests hold (``chunk.EAGER``: every step of a
+    CPU chunk through ``chunk.graphed``) can fail: with the runner's first
+    block run outside ``graphed`` (planted through its module's
+    ``_graphed``), the chunk counts that block's steps short, and the
+    check that the unplanted chunk meets fails."""
+    from particlerobotsimulations_torch import engine as t_engine
+
+    run, state, n, aligned, _ = runner_of(shape)
+    _, eager = eager_counts(lambda: run(state, n, aligned))
+    assert eager == {"card": 0, "off_card": n}
+
+    module = t_et if shape == "table" else t_engine
+    real = module._graphed
+    planted = []
+
+    def outside(graphs, key, block, carry, step):
+        if planted:
+            return real(graphs, key, block, carry, step)
+        planted.append(block.steps)
+        return block(carry, t_state.step_tensor(step, "cpu"))
+
+    monkeypatch.setattr(module, "_graphed", outside)
+    run, state, n, aligned, _ = runner_of(shape)
+    got, eager = eager_counts(lambda: run(state, n, aligned))
+    assert planted and 0 < planted[0] < n and got.step == n
+    assert eager == {"card": 0, "off_card": n - planted[0]}
+    with pytest.raises(AssertionError):
+        assert eager == {"card": 0, "off_card": n}

@@ -34,6 +34,7 @@ import particlerobotsimulations_torch as pt
 import particlerobotsimulations_tpu as pj
 from particlerobotsimulations_torch import engine_table as t_et
 from particlerobotsimulations_torch import kernels
+from particlerobotsimulations_torch import state as t_state
 from particlerobotsimulations_torch.ops.cond import cond
 from particlerobotsimulations_torch.parallel import spatial_table as t_st
 from particlerobotsimulations_torch.parallel.ring import LocalRing
@@ -135,7 +136,7 @@ def jax_params(p):
 
 
 def assert_fields_equal(got: dict, got_origin, want: dict, want_origin):
-    for k in t_et.TABLE_FIELDS:
+    for k in t_state.TABLE_FIELDS:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
     np.testing.assert_array_equal(got_origin.numpy(), np.asarray(want_origin))
 
@@ -154,8 +155,8 @@ def test_choose_rebuild_matches_jax_smart_rebuild(branch, carry):
         ts = ts.replace(fields=moved_far(p, ts.fields))
     if carry == "batched":
         other = entered(p, seed=1)
-        ts = t_et.TableState(
-            {k: torch.stack([other.fields[k], ts.fields[k]]) for k in t_et.TABLE_FIELDS},
+        ts = t_state.TableState(
+            {k: torch.stack([other.fields[k], ts.fields[k]]) for k in t_state.TABLE_FIELDS},
             torch.stack([other.origin, ts.origin]), ts.step, None,
             torch.stack([other.centroid_ring, ts.centroid_ring]))
     got, ok = t_et._choose_rebuild(p, ts)
@@ -174,7 +175,7 @@ def joined(p, n_shards, f):
     g, cs = p.resolved_grid_dim(), p.storage_capacity()
     l0 = g * g // n_shards
     out = {}
-    for k in t_et.TABLE_FIELDS:
+    for k in t_state.TABLE_FIELDS:
         centre = f[k][:, : cs * l0].reshape(n_shards, cs, l0).permute(1, 0, 2).reshape(-1)
         out[k] = torch.cat([centre, f[k][0, cs * l0:]])
     return out

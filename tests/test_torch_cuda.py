@@ -12,17 +12,12 @@ import pytest
 import torch
 
 import particlerobotsimulations_torch as pt
+from particlerobotsimulations_torch import chunk as t_chunk
 from particlerobotsimulations_torch import engine_table, kernels
 from particlerobotsimulations_torch.engine_table import (
-    MOVE_FIELDS,
-    N_TF,
     OCCUPANCY,
     REBUILDS,
-    TABLE_FIELDS,
-    _gates,
-    _geometry,
     _make_mega_glue,
-    drain,
     enter_table,
     exit_table,
     gate_seg,
@@ -31,7 +26,6 @@ from particlerobotsimulations_torch.engine_table import (
     make_run_chunk_table_batched,
     make_table_step,
     make_table_step_parts,
-    step_tensor,
 )
 from particlerobotsimulations_torch.models.placement import resolve_params
 from particlerobotsimulations_torch.ops.megakernel import make_mega_span, mega_span_plain
@@ -49,7 +43,15 @@ from particlerobotsimulations_torch.parallel.spatial_table import (
     make_sharded_table_run,
 )
 from particlerobotsimulations_torch.parallel.sweep import make_batch_state
-from particlerobotsimulations_torch.state import state_from_arrays, state_to_arrays
+from particlerobotsimulations_torch.state import (
+    MOVE_FIELDS,
+    N_TF,
+    TABLE_FIELDS,
+    state_from_arrays,
+    state_to_arrays,
+    step_tensor,
+    table_geometry,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -152,11 +154,11 @@ def check_span_against_twin(p, card):
     assert sim._run_chunk.path_info["use_mega"]
     sim.step_chunk(200, start_step=0)
     ts = enter_table(p, sim.state)
-    ts = make_table_step_parts(p)[0](ts, *_gates(p, ts.step))
+    ts = make_table_step_parts(p)[0](ts, *t_chunk.gates(p, ts.step))
     tbl, strip = _make_mega_glue(p)[0](ts.fields)
     first = step_tensor(ts.step + 1, card)
     n0 = kernels.LAUNCHES["mega_span"]
-    got = make_mega_span(p, _geometry(p)[2])(tbl, strip, first)
+    got = make_mega_span(p, table_geometry(p)[2])(tbl, strip, first)
     assert kernels.LAUNCHES["mega_span"] == n0 + 1
     want = mega_span_plain(p, tbl, strip, first)
     assert_span_close(p, got, want)
@@ -218,7 +220,7 @@ def test_mega_span_kernel_other_shapes(card, shape):
             rect_obstacles=((-0.5, 0.5, -2.5, -1.5),),
         ).validate()
     g, cap = p.resolved_grid_dim(), p.storage_capacity()
-    plan = kernels.mega_plan(cap, g, _geometry(p)[2], p.has_payload)
+    plan = kernels.mega_plan(cap, g, table_geometry(p)[2], p.has_payload)
     assert plan["cluster"] == 16 and plan["grid_rows"] == g // 16
     check_span_against_twin(p, card)
 
@@ -233,7 +235,7 @@ def test_wrappers_refuse_shapes_the_plans_refuse(card):
     with pytest.raises(ValueError, match="SMEM_PER_BLOCK"):
         kernels.stencil_forces_cuda(p, tables)
     p = pt.SimParams(n_cells=300, n_dead=0, grid_dim=32, cell_capacity=8).validate()
-    n_pad = _geometry(p)[2]
+    n_pad = table_geometry(p)[2]
     tbl = torch.zeros((N_TF, 8, 32 * 32), device=card)
     strip = torch.zeros((N_TF, n_pad // 128, 128), device=card)
     with pytest.raises(ValueError, match="4096"):
@@ -284,7 +286,7 @@ def test_forced_redo_on_card_equals_regular_run(card):
 def test_mega_span_wrapper_refuses_cpu_tensors():
     p = pt.SimParams(n_cells=300, n_dead=0, grid_dim=16).validate()
     g, cs = p.resolved_grid_dim(), p.storage_capacity()
-    n_pad = _geometry(p)[2]
+    n_pad = table_geometry(p)[2]
     tbl = torch.zeros((N_TF, cs, g * g))
     strip = torch.zeros((N_TF, n_pad // 128, 128))
     with pytest.raises(ValueError, match="CUDA"):
@@ -619,7 +621,7 @@ def band_span_inputs(p, card, seed):
     sim = pt.Simulation(p.replace(seed=seed), device=card)
     sim.step_chunk(200, start_step=0)
     ts = enter_table(p, sim.state)
-    ts = make_table_step_parts(p)[0](ts, *_gates(p, ts.step))
+    ts = make_table_step_parts(p)[0](ts, *t_chunk.gates(p, ts.step))
     tbl, strip = _make_mega_glue(p)[0](ts.fields)
     return tbl, strip, ts.step + 1
 
@@ -637,7 +639,7 @@ def test_batched_mega_span_equals_single_launches(card):
     tbl = torch.stack([t for t, _, _ in ins])
     strip = torch.stack([s for _, s, _ in ins])
     first = step_tensor(ins[0][2], card)
-    g, cs, n_pad = p.resolved_grid_dim(), p.storage_capacity(), _geometry(p)[2]
+    g, cs, n_pad = p.resolved_grid_dim(), p.storage_capacity(), table_geometry(p)[2]
     plan = kernels.mega_plan(cs, g, n_pad, p.has_payload, scenes=3)
     lib = kernels.library_mega_plan(cs, g, n_pad, p.has_payload, scenes=3)
     assert plan["ctas"] == lib["ctas"] == 48 and lib["max_active_clusters"] >= 1
@@ -709,7 +711,7 @@ def test_batched_wrappers_refuse_cpu_tensors_and_bad_strides():
     refuses planes whose scene blocks are not contiguous."""
     p = pt.SimParams(n_cells=300, n_dead=0, grid_dim=16).validate()
     g, cs = p.resolved_grid_dim(), p.storage_capacity()
-    n_pad = _geometry(p)[2]
+    n_pad = table_geometry(p)[2]
     tables = {k: torch.zeros((2, cs, g * g)) for k in ("px", "py", "vx", "vy", "rad")}
     with pytest.raises(ValueError, match="CUDA"):
         kernels.stencil_forces_batched_cuda(p, tables)
@@ -933,8 +935,8 @@ def reset_counts():
         OCCUPANCY[k] = 0
 
 
-class CountedBlock(engine_table._CapturedBlock):
-    """``engine_table._CapturedBlock`` that keeps its replays and counts
+class CountedBlock(t_chunk.CapturedBlock):
+    """``chunk.CapturedBlock`` that keeps its replays and counts
     the selects (``torch.where`` on a 0-dim condition) its capture made."""
 
     made: list = []
@@ -965,7 +967,7 @@ def counted_blocks(monkeypatch) -> list:
     """Make the runners take :class:`CountedBlock`; returns the list of
     the blocks they capture."""
     CountedBlock.made = []
-    monkeypatch.setattr(engine_table, "_CapturedBlock", CountedBlock)
+    monkeypatch.setattr(t_chunk, "CapturedBlock", CountedBlock)
     return CountedBlock.made
 
 
@@ -1021,7 +1023,7 @@ def eager_table_loop(p, state, n_steps):
     step = make_table_step(p)
     ts = enter_table(p, state)
     for j in range(n_steps):
-        ts = step(ts, *_gates(p, ts.step), j % k == k - 1)
+        ts = step(ts, *t_chunk.gates(p, ts.step), j % k == k - 1)
     return exit_table(p, ts)
 
 
@@ -1128,7 +1130,7 @@ def test_table_chunk_reads_nothing_from_the_card(card, kind):
 # ------------------------------------------ the compiled small-scene paths
 
 class EagerBlock:
-    """Stands in for ``engine_table._CapturedBlock``: the same runner, its
+    """Stands in for ``chunk.CapturedBlock``: the same runner, its
     captured blocks run eagerly."""
 
     def __init__(self, block, carry):
@@ -1141,13 +1143,11 @@ class EagerBlock:
 def eager_runner(make, monkeypatch):
     """A runner built and first run with its blocks eager: returns
     ``make()``'s runner and a callable that runs it under the swap."""
-    from particlerobotsimulations_torch import engine_table
-
     run = make()
 
     def call(*args):
         with monkeypatch.context() as m:
-            m.setattr(engine_table, "_CapturedBlock", EagerBlock)
+            m.setattr(t_chunk, "CapturedBlock", EagerBlock)
             return run(*args)
 
     return call
@@ -1207,13 +1207,13 @@ def reference_span_chunk(p, state, n_steps, glue=None):
     step_pre, step_post = make_table_step_parts(p)
     k, seg = max(1, p.resolved_slot_rebuild_steps()), gate_seg(p)
     bps = seg // k
-    mega = make_mega_span(p, _geometry(p)[2])
+    mega = make_mega_span(p, table_geometry(p)[2])
     mega_pack, mega_unpack, incremental_packed = (glue or _make_mega_glue)(p)
     redos = 0
 
     def regular(ts, n):
         for j in range(n):
-            ts = step(ts, *_gates(p, ts.step), j % k == k - 1)
+            ts = step(ts, *t_chunk.gates(p, ts.step), j % k == k - 1)
         return ts
 
     ts = enter_table(p, state)
@@ -1221,8 +1221,8 @@ def reference_span_chunk(p, state, n_steps, glue=None):
         entry = (dict(ts.fields), ts.origin, ts.step, ts.centroid_ring,
                  rng.snapshot(ts.generator))
         for _ in range(k - 1):
-            ts = step(ts, *_gates(p, ts.step), False)
-        ts = _smart_rebuild(p, step_pre(ts, *_gates(p, ts.step)))
+            ts = step(ts, *t_chunk.gates(p, ts.step), False)
+        ts = _smart_rebuild(p, step_pre(ts, *t_chunk.gates(p, ts.step)))
         tbl, strip = mega_pack(ts.fields)
         ok_all = torch.ones((), dtype=torch.bool, device=tbl.device)
         first = ts.step + 1
@@ -1376,14 +1376,18 @@ def test_gated_block_graph_equals_eager(card, source, monkeypatch):
         call = eager_runner(lambda run=run: run, monkeypatch) if eager else run
         reset_counts()
         state = fresh()
+        eager_card = []
         for _ in range(2):
+            before = t_chunk.EAGER["card"]
             state = call(state, 46)
+            eager_card.append(t_chunk.EAGER["card"] - before)
         torch.cuda.synchronize()
-        results.append((state, dict(kernels.LAUNCHES), dict(REBUILDS), blocks, run))
-    (e_state, e_launch, e_reb, _, _), (g_state, g_launch, g_reb, blocks, run) = results
+        results.append((state, dict(kernels.LAUNCHES), dict(REBUILDS), blocks, eager_card))
+    (e_state, e_launch, e_reb, _, _), (g_state, g_launch, g_reb, blocks, eager_card) = results
     assert (without_cond_set(e_launch), e_reb) == (without_cond_set(g_launch), g_reb)
     assert g_launch["cond_set"] == replayed_conds(blocks) > 0
-    assert len(blocks) >= 3 and run.eager_steps == 0
+    # the runner's first block ran eagerly before its capture; after it, none
+    assert len(blocks) >= 3 and 0 < eager_card[0] < 46 and eager_card[1] == 0
     for k in CHUNK_FIELDS:
         assert torch.equal(getattr(g_state, k), getattr(e_state, k)), k
     gens = (lambda s: s.generator.sources) if batched else (lambda s: [s.generator])
@@ -1528,7 +1532,7 @@ def test_sharded_chunk_reads_nothing_from_the_card(card, kind):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        result = drain(run.blocks(state, 46))
+        result = t_chunk.drain(run.blocks(state, 46))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     state, stats = run.read_stats(result)
@@ -1552,8 +1556,8 @@ def test_dead_step_and_tail_graph_equals_eager(card, kind, monkeypatch):
     DENSE runner and the sharded loop on ``LocalRing(2)``, every block
     replayed from a CUDA graph (the dead step's, its scores fed in, and
     the tail's), equal the same runner with eager blocks bit for bit, with
-    equal launches apart from ``cond_set``; no step ran eagerly by
-    design."""
+    equal launches apart from ``cond_set``; no step ran eagerly after the
+    runner's warm-up (its first block, before its capture)."""
     from particlerobotsimulations_torch.engine import make_run_chunk
 
     backend = pt.ForceBackend.DENSE if kind == "dense" else pt.ForceBackend.PALLAS
@@ -1577,9 +1581,12 @@ def test_dead_step_and_tail_graph_equals_eager(card, kind, monkeypatch):
         call = eager_runner(lambda run=run: run, monkeypatch) if eager else run
         reset_counts()
         state = pt.Simulation(p, device=card).state
+        eager_card = []
         for n in DEAD_CHUNKS:
+            before = t_chunk.EAGER["card"]
             state = call(state, n)
-            assert run.eager_steps == 0
+            eager_card.append(t_chunk.EAGER["card"] - before)
+        assert 0 < eager_card[0] < DEAD_CHUNKS[0] and eager_card[1:] == [0]
         torch.cuda.synchronize()
         results.append((state, dict(kernels.LAUNCHES)))
     (e_state, e_launch), (g_state, g_launch) = results
@@ -1694,7 +1701,7 @@ def test_conditional_node_fires_on_alternate_replays(card):
     carry = {**rebuild_carry(p, card, far=True), "ok": torch.ones((), dtype=torch.bool,
                                                                    device=card)}
     block(carry, step_tensor(0, card))  # the eager warm-up
-    graph = engine_table._CapturedBlock(block, carry)
+    graph = t_chunk.CapturedBlock(block, carry)
     assert graph.nodes["conditional"] == 1 and graph.nodes["body_nodes"] > 0
     assert graph.launches == {"compact": 1, "cond_set": 1}
     for i in range(6):
@@ -1739,7 +1746,7 @@ def test_cond_set_counted_once_per_replayed_rebuild(card, kind, monkeypatch):
         with monkeypatch.context() as m:
             blocks = [] if eager else counted_blocks(m)
             if eager:
-                m.setattr(engine_table, "_CapturedBlock", EagerBlock)
+                m.setattr(t_chunk, "CapturedBlock", EagerBlock)
             run, fresh, advance = runner()
             reset_counts()
             state = fresh()
@@ -1770,7 +1777,7 @@ def test_conditional_body_allocates_only_from_the_graph_pool(card):
     torch.cuda.synchronize()
     torch.cuda.memory._record_memory_history(max_entries=200_000)
     try:
-        graph = engine_table._CapturedBlock(block, carry)
+        graph = t_chunk.CapturedBlock(block, carry)
         snap = torch.cuda.memory._snapshot()
     finally:
         torch.cuda.memory._record_memory_history(enabled=None)
@@ -1797,8 +1804,8 @@ def test_conditional_body_allocates_only_from_the_graph_pool(card):
     assert {k: torch.cuda.memory_stats()[k] for k in keys} == before
 
 
-class PoolCheckedBlock(engine_table._CapturedBlock):
-    """``engine_table._CapturedBlock`` whose capture records the allocator's
+class PoolCheckedBlock(t_chunk.CapturedBlock):
+    """``chunk.CapturedBlock`` whose capture records the allocator's
     trace: ``allocs`` lists (address, stream, the address's pool) of every
     allocation it made but the block's own buffers."""
 
@@ -1834,7 +1841,7 @@ def test_nested_bodies_allocate_only_from_the_graph_pool(card, monkeypatch):
     stream): every allocation their captures made lies in the graph's
     private pool, on at least three streams."""
     PoolCheckedBlock.made = []
-    monkeypatch.setattr(engine_table, "_CapturedBlock", PoolCheckedBlock)
+    monkeypatch.setattr(t_chunk, "CapturedBlock", PoolCheckedBlock)
     p = pt.SimParams(**SPAN_SCENE).validate()
     run = make_run_chunk_table(p)
     state = run(pt.Simulation(p, device=card).state, 3 * gate_seg(p), True)

@@ -9,7 +9,9 @@ in the block it falls in (table loops: a K-step block keyed by its gate
 pattern; the per-bot runner: the block it starts), its scores drawn
 before the block and fed in, and the ragged tail is a block of its own
 length.  On the card each replays a CUDA graph; on the CPU every block
-runs eagerly through the code a graph captures.
+runs eagerly through the code a graph captures (``chunk.graphed``, whose
+count of eager steps, ``chunk.EAGER``, each runner test holds to the
+chunk's steps).
 
 Held here, for chunks that hold the dead step at step 0, mid-block in a
 later chunk, and a ragged tail: the schedules (``table_pieces``,
@@ -35,6 +37,7 @@ import pytest
 import torch
 
 import particlerobotsimulations_torch as pt
+from particlerobotsimulations_torch import chunk as t_chunk
 from particlerobotsimulations_torch import engine as t_engine
 from particlerobotsimulations_torch import engine_table as t_et
 from particlerobotsimulations_torch.parallel import spatial_table as t_st
@@ -46,6 +49,7 @@ from particlerobotsimulations_tpu import engine_table as j_et
 from test_torch_gated_blocks import (
     assert_close,
     assert_states_equal,
+    eager_counts,
     fresh,
     gated_params,
     jax_pair,
@@ -101,7 +105,7 @@ def test_table_pieces_hold_no_eager_piece(case):
         steps = [(start + j, st) for j, st in enumerate(st for pat in pieces for st in pat)]
         assert [s for s, (gates, _) in steps if gates[0]] == (
             [p.dead_step] if start <= p.dead_step < start + n else [])
-        assert all(gates == t_et._step_gates(p, s) for s, (gates, _) in steps)
+        assert all(gates == t_chunk.step_gates(p, s) for s, (gates, _) in steps)
         start += n
 
 
@@ -118,7 +122,7 @@ def test_bot_pieces_hold_no_eager_piece(case):
         assert sum(length for _, length in pieces) == n
         assert all(1 <= length <= 4 for _, length in pieces) and pieces[-1][1] < 4
         firsts = np.cumsum([0] + [length for _, length in pieces])[:-1] + start
-        gated = [s for s in range(start, start + n) if any(t_et._step_gates(p, s))]
+        gated = [s for s in range(start, start + n) if any(t_chunk.step_gates(p, s))]
         assert set(gated) <= set(firsts.tolist())
         if start <= p.dead_step < start + n:
             i = firsts.tolist().index(p.dead_step)
@@ -129,9 +133,11 @@ def test_bot_pieces_hold_no_eager_piece(case):
 # --------------------------------------- against the one-step reference
 
 def run_chunks(run, state, chunks):
+    """``chunks`` through ``run``, each chunk's every step through
+    ``chunk.graphed``."""
     for n in chunks:
-        state = run(state, n)
-        assert run.eager_steps == 0
+        state, eager = eager_counts(lambda: run(state, n))
+        assert eager == {"card": 0, "off_card": n}
     return state
 
 
@@ -139,8 +145,8 @@ def run_chunks(run, state, chunks):
 @pytest.mark.parametrize("case", list(CASES))
 def test_table_runner_with_dead_block_equals_step_loop(case, batched):
     """The table runner's chunks equal ``make_table_step`` one step at a
-    time over the same chunks, bit for bit, rebuild counts included; no
-    step ran eagerly by design."""
+    time over the same chunks, bit for bit, rebuild counts included;
+    every step of each chunk went through ``chunk.graphed``."""
     p = dead_params(case)
     chunks = CASES[case][1]
     assert holds_dead(p, chunks)
@@ -192,9 +198,9 @@ def test_sharded_runner_with_dead_block_equals_step_pieces(case, batched, monkey
     def chunked(run, state):
         stats = []
         for n in chunks:
-            state, s = run(state, n)
+            (state, s), eager = eager_counts(lambda: run(state, n))
             stats.append(s)
-            assert run.eager_steps == 0
+            assert eager == {"card": 0, "off_card": n}
         return state, stats
 
     got, stats = chunked(make(p, LocalRing(2, "cpu"), with_stats=True)[0], fresh(p, batched))
@@ -234,14 +240,15 @@ def test_span_dead_segment_equals_one_read_per_segment(batched, fail, forced_spa
     n_steps = 3 * seg + 5
     run = (t_et.make_run_chunk_table_batched if batched else t_et.make_run_chunk_table)(p)
     assert run.path_info["use_mega"]
-    got, launches, rebuilds = counted_run(lambda: run(fresh(p, batched, (2, 3)), n_steps, True))
+    (got, launches, rebuilds), eager = eager_counts(
+        lambda: counted_run(lambda: run(fresh(p, batched, (2, 3)), n_steps, True)))
     counts = {"redos": 0}
     want, w_launches, w_rebuilds = counted_run(
         lambda: reference_span_chunk(p, fresh(p, batched, (2, 3)), n_steps, counts))
     assert_states_equal(got, want)
     assert run.redos == counts["redos"] == len(fail)
     assert (launches, rebuilds) == (w_launches, w_rebuilds)
-    assert run.eager_steps == 0
+    assert eager == {"card": 0, "off_card": n_steps}
     assert int(got.dead[..., : p.n_cells].sum()) == 10 * (2 if batched else 1)
 
 

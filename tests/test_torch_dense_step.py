@@ -32,9 +32,10 @@ import pytest
 import torch
 
 import particlerobotsimulations_torch as pt
+from particlerobotsimulations_torch import chunk as t_chunk
 from particlerobotsimulations_torch import engine as t_engine
-from particlerobotsimulations_torch import engine_table as t_et
 from particlerobotsimulations_torch import kernels, rng
+from particlerobotsimulations_torch import state as t_state
 from particlerobotsimulations_torch.ops.actuation import update_radius
 from particlerobotsimulations_torch.ops.dense_step import (
     TAIL_FIELDS,
@@ -49,7 +50,7 @@ torch.set_num_threads(1)
 
 f32 = np.float32
 ROOT = Path(__file__).resolve().parents[1]
-UNGATED = t_et.NO_GATES
+UNGATED = t_chunk.NO_GATES
 DENSE = pt.ForceBackend.DENSE
 KEYS = ("dense_step", "dense_step_batched")
 
@@ -124,8 +125,8 @@ def pre_split_body(params):
         mask = active_mask(params, n_pad, dev)
         payload = payload_mask(params, n_pad, dev)
         if step_t is None:
-            step_t = t_et.step_tensor(step, dev)
-        time = t_et.sim_time(step_t, dt)
+            step_t = t_state.step_tensor(step, dev)
+        time = t_state.sim_time(step_t, dt)
         dead_gate, cog_gate, phase_gate = gates
         if dead_gate:
             dead = t_engine._inject_dead(params, dead, mask, draws["scores"])
@@ -133,7 +134,7 @@ def pre_split_body(params):
             zero = torch.zeros((), dtype=torch.float32, device=dev)
             centroid = torch.sum(torch.where(mask[:, None], pos, zero), dim=0) / f32(
                 params.n_cells)
-            ring = t_et._ring_write(params, ring, step_t, centroid)
+            ring = t_chunk.ring_write(params, ring, step_t, centroid)
         if phase_gate:
             phase = update_phase(params, pos, phase, mask,
                                  rng.Drawn(normal=draws.get("noise")), step=step)
@@ -173,11 +174,11 @@ def test_split_body_equals_the_body_before_the_split(scene, batched):
     old = pre_split_body(p)
     fired = set()
     for s in range(state.step, state.step + 12):
-        gates = t_engine._step_gates(p, s)
+        gates = t_chunk.step_gates(p, s)
         fired.update(i for i, g in enumerate(gates) if g)
-        draws = t_engine._draws(p, state.generator, s, gates, shape, "cpu")
+        draws = t_chunk.draws(p, state.generator, s, gates, shape, "cpu")
         arrays = {k: getattr(state, k) for k in ARRAY_FIELDS}
-        step_t = t_et.step_tensor(s, "cpu")
+        step_t = t_state.step_tensor(s, "cpu")
         got = fn(arrays, draws, s, gates, step_t)
         if batched:
             want = torch.func.vmap(lambda a, d: old(a, d, s, gates, step_t))(arrays, draws)
@@ -200,7 +201,7 @@ def test_twin_takes_the_step_offset():
     for batched in (False, True):
         state = stepped(p, batched)
         arrays = {k: getattr(state, k) for k in ARRAY_FIELDS}
-        s = t_et.step_tensor(state.step, "cpu")
+        s = t_state.step_tensor(state.step, "cpu")
         want = dense_step_plain(p, arrays, s + 3)
         assert not torch.equal(want["rad"], dense_step_plain(p, arrays, s)["rad"])
         assert_arrays_equal(dense_step_plain(p, arrays, s, 3), want, TAIL_FIELDS)
@@ -244,7 +245,7 @@ def test_dense_step_wrapper_refuses_what_the_kernel_does_not_take():
     p = small_params("payload-obstacles")
     state = pt.Simulation(p, device="cpu").state
     arrays = {k: getattr(state, k) for k in ARRAY_FIELDS}
-    s = t_et.step_tensor(0, "cpu")
+    s = t_state.step_tensor(0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.dense_step_cuda(p, arrays, s)
     with pytest.raises(ValueError, match="pos"):
@@ -347,7 +348,7 @@ def test_dense_step_kernel_equals_twin_bitwise_on_sparse_layouts(card, scene, sc
     arrays = sparse_arrays(p, lead, 11, card)
     key = "dense_step_batched" if lead else "dense_step"
     for step, offset in ((0, 0), (4_321, 1), (1_000_003, 7)):
-        s = t_et.step_tensor(step, card)
+        s = t_state.step_tensor(step, card)
         n0 = kernels.LAUNCHES[key]
         got = kernels.dense_step_cuda(p, arrays, s, offset)
         assert kernels.LAUNCHES[key] == n0 + 1
@@ -386,7 +387,7 @@ def test_dense_step_kernel_equals_twin_on_the_obstacle_layout(card, obstacle_sta
     p = obstacle_params()
     state = obstacle_states[scenes]
     arrays = {k: getattr(state, k) for k in ARRAY_FIELDS}
-    s = t_et.step_tensor(state.step, card)
+    s = t_state.step_tensor(state.step, card)
     got = kernels.dense_step_cuda(p, arrays, s)
     want = dense_step_plain(p, arrays, s)
     torch.cuda.synchronize()
@@ -408,7 +409,7 @@ def test_dense_step_kernel_takes_scenes_past_one_staged_chunk(card):
                      force_backend=DENSE).validate()
     state = t_engine.make_run_chunk(p, card)(pt.Simulation(p, device=card).state, 40)
     arrays = {k: getattr(state, k) for k in ARRAY_FIELDS}
-    s = t_et.step_tensor(state.step, card)
+    s = t_state.step_tensor(state.step, card)
     got = kernels.dense_step_cuda(p, arrays, s)
     want = dense_step_plain(p, arrays, s)
     torch.cuda.synchronize()
@@ -462,9 +463,9 @@ def test_differentiable_step_on_the_card_launches_no_dense_step(card):
 def test_dense_step_wrapper_refuses_shapes_on_the_card(card):
     p = sparse_params("plain")
     arrays = sparse_arrays(p, (), 1, card)
-    s = t_et.step_tensor(0, card)
+    s = t_state.step_tensor(0, card)
     with pytest.raises(ValueError, match="step"):
-        kernels.dense_step_cuda(p, arrays, t_et.step_tensor(0, "cpu"))
+        kernels.dense_step_cuda(p, arrays, t_state.step_tensor(0, "cpu"))
     with pytest.raises(ValueError, match="dead"):
         kernels.dense_step_cuda(p, dict(arrays, dead=arrays["dead"].float()), s)
     with pytest.raises(ValueError, match="vel"):

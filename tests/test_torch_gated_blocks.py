@@ -2,7 +2,7 @@
 the CPU.
 
 The port's loops take a gated step's random draws before the block that
-holds it (``engine_table._draws``) and feed them
+holds it (``chunk.draws``) and feed them
 in with the block's carry (``rng.Drawn``), so that a CUDA graph replays
 gated blocks as it replays ungated ones: the table loop's K-step blocks
 (single and batched), the per-bot runner's blocks from each gate (DENSE,
@@ -15,8 +15,9 @@ step as it was (the draws made in place, the centroid ring written by
 index; kept in this file), the generator's state included; each runner
 against a one-step-at-a-time loop over a chunk that crosses at least
 three gate steps and the dead injection; the probe against the
-step-by-step probe (state and maximum); and no tensor converted to a
-Python value inside a chunk.  Against the JAX package on its own draws
+step-by-step probe (state and maximum); that every step of each went
+through ``chunk.graphed`` (its count of eager steps, ``chunk.EAGER``);
+and no tensor converted to a Python value inside a chunk.  Against the JAX package on its own draws
 (``JaxDraws``, ``tests/test_torch_rng.py``) at 24 bots: the table loop's
 and DENSE's chunks over 24 steps at the slice tests' tolerances
 (positions 1e-5, velocities 1e-4, radii and ring 1e-6, phases 1e-4; dead
@@ -33,9 +34,11 @@ import torch
 
 import particlerobotsimulations_torch as pt
 import particlerobotsimulations_tpu as pj
+from particlerobotsimulations_torch import chunk as t_chunk
 from particlerobotsimulations_torch import engine as t_engine
 from particlerobotsimulations_torch import engine_table as t_et
 from particlerobotsimulations_torch import kernels, rng
+from particlerobotsimulations_torch import state as t_state
 from particlerobotsimulations_torch.config import Control
 from particlerobotsimulations_torch.ops.integrate import radius_integrate_planes
 from particlerobotsimulations_torch.ops.phase import update_phase
@@ -87,9 +90,21 @@ def assert_states_equal(got, want):
         assert torch.equal(a.get_state(), b.get_state())
 
 
+def eager_counts(fn):
+    """``(fn(), counts)``: ``chunk.EAGER``, the steps blocks ran eagerly
+    on the card and off it, counted from 0 while ``fn`` runs.  Off the
+    card every block runs eagerly through ``chunk.graphed``, so a chunk
+    whose every step went through it counts all of its steps
+    ``off_card``."""
+    for key in t_chunk.EAGER:
+        t_chunk.EAGER[key] = 0
+    out = fn()
+    return out, dict(t_chunk.EAGER)
+
+
 def gate_steps(p, start, n):
     """The steps of ``start`` .. ``start + n - 1`` that fire a gate."""
-    return [s for s in range(start, start + n) if any(t_et._step_gates(p, s))]
+    return [s for s in range(start, start + n) if any(t_chunk.step_gates(p, s))]
 
 
 # ------------------------------------------------------------- the draws
@@ -99,7 +114,7 @@ def old_step_pre(params):
     source, the centroid ring written by index at the host step."""
     def step_pre(ts, dead_gate, cog_gate, phase_gate):
         f = dict(ts.fields)
-        time = t_et.sim_time(t_et.step_tensor(ts.step, "cpu"), params.timestep)
+        time = t_state.sim_time(t_state.step_tensor(ts.step, "cpu"), params.timestep)
         val = f["val"] > 0.5
         if params.n_dead > 0 and dead_gate:
             f["dead"] = t_et._inject_dead_table(params, f, ts.generator, ts.step)
@@ -141,11 +156,11 @@ def test_fed_draws_equal_draws_in_place(pattern, batched):
     pre, _ = t_et.make_table_step_parts(p)
     a, b = (t_et.enter_table(p, fresh(p, batched).replace(step=12)) for _ in range(2))
     want = old_step_pre(p)(a, *gates)
-    draws = t_et._draws(p, b.generator, 12, gates, b.fields["dead"].shape, "cpu")
+    draws = t_chunk.draws(p, b.generator, 12, gates, b.fields["dead"].shape, "cpu")
     assert set(draws) == ({"scores"} if gates[0] else set()) | (
         {"noise"} if gates[2] else set())
     got = pre(b, *gates, source=rng.Drawn(draws.get("scores"), draws.get("noise")))
-    for k in t_et.TABLE_FIELDS:
+    for k in t_state.TABLE_FIELDS:
         assert torch.equal(got.fields[k], want.fields[k]), k
     assert torch.equal(got.centroid_ring, want.centroid_ring)
     for ga, gb in zip(sources(a.generator), sources(b.generator)):
@@ -169,7 +184,7 @@ def table_step_loop(p, state, n):
     k = p.resolved_slot_rebuild_steps()
     ts = t_et.enter_table(p, state)
     for j in range(n):
-        ts = step(ts, *t_et._gates(p, ts.step), j % k == k - 1)
+        ts = step(ts, *t_chunk.gates(p, ts.step), j % k == k - 1)
     return t_et.exit_table(p, ts)
 
 
@@ -178,21 +193,22 @@ def test_table_runner_equals_step_loop(batched):
     """22 steps from step 1 (the centroid at 4, 8, 12, 16, 20, the phase
     law at 6, 12, 18, the dead injection at 5) through the table runner's
     blocks equal ``make_table_step`` one step at a time, bit for bit, with
-    the same rebuild counts; no step ran eagerly by design (the dead step
-    rides in its block, the 2-step ragged tail is a block)."""
+    the same rebuild counts; every step went through ``chunk.graphed``
+    (the dead step rides in its block, the 2-step ragged tail is a
+    block)."""
     p = gated_params()
     assert len(gate_steps(p, START, N_STEPS)) >= 7 and START <= p.dead_step < START + N_STEPS
     run = (t_et.make_run_chunk_table_batched if batched else t_et.make_run_chunk_table)(p)
     for k in t_et.REBUILDS:
         t_et.REBUILDS[k] = 0
-    got = run(fresh(p, batched).replace(step=START), N_STEPS)
+    got, eager = eager_counts(lambda: run(fresh(p, batched).replace(step=START), N_STEPS))
     counts = dict(t_et.REBUILDS)
     for k in t_et.REBUILDS:
         t_et.REBUILDS[k] = 0
     want = table_step_loop(p, fresh(p, batched).replace(step=START), N_STEPS)
     assert_states_equal(got, want)
     assert counts == dict(t_et.REBUILDS) and sum(counts.values()) == 5
-    assert run.eager_steps == 0
+    assert eager == {"card": 0, "off_card": N_STEPS}
     assert int(got.dead[..., : p.n_cells].sum()) == 3 * (2 if batched else 1)
 
 
@@ -202,21 +218,21 @@ def test_per_bot_runner_equals_step_loop(backend, batched, monkeypatch):
     """The per-bot runner at 4-step blocks over the same 22 steps (a block
     from each gate, short blocks before the next gate) equals
     ``make_step`` (``make_step_batched``) one step at a time, bit for bit;
-    no step ran eagerly by design (the dead step starts a block, the
-    3-step ragged tail is a short block)."""
+    every step went through ``chunk.graphed`` (the dead step starts a
+    block, the 3-step ragged tail is a short block)."""
     monkeypatch.setattr(t_engine, "BLOCK_STEPS", 4)
     p = gated_params(force_backend=pt.ForceBackend[backend])
     pieces = t_engine.bot_pieces(p, START, N_STEPS, 4)
     assert [n for _, n in pieces] == [3, 1, 1, 2, 4, 4, 2, 2, 3]
     assert [g[0] for g, _ in pieces] == [False, False, True] + [False] * 6
     run = (t_engine.make_run_chunk_batched if batched else t_engine.make_run_chunk)(p, "cpu")
-    got = run(fresh(p, batched).replace(step=START), N_STEPS)
+    got, eager = eager_counts(lambda: run(fresh(p, batched).replace(step=START), N_STEPS))
     step = (t_engine.make_step_batched if batched else t_engine.make_step)(p, "cpu")
     want = fresh(p, batched).replace(step=START)
     for _ in range(N_STEPS):
         want = step(want)
     assert_states_equal(got, want)
-    assert run.eager_steps == 0
+    assert eager == {"card": 0, "off_card": N_STEPS}
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -228,8 +244,9 @@ def test_sharded_runner_equals_step_loop(batched, monkeypatch):
     p = t_st.resolve_tp_params(gated_params(n_cells=40), 2)
     make = t_st.make_sharded_table_run_batched if batched else t_st.make_sharded_table_run
     run, _ = make(p, LocalRing(2, "cpu"), with_stats=True)
-    got, stats = run(fresh(p, batched).replace(step=START), N_STEPS)
-    assert run.eager_steps == 0
+    (got, stats), eager = eager_counts(lambda: run(fresh(p, batched).replace(step=START),
+                                                   N_STEPS))
+    assert eager == {"card": 0, "off_card": N_STEPS}
 
     real = t_st.table_pieces
 
@@ -238,9 +255,10 @@ def test_sharded_runner_equals_step_loop(batched, monkeypatch):
 
     monkeypatch.setattr(t_st, "table_pieces", one_step_pieces)
     run, _ = make(p, LocalRing(2, "cpu"), with_stats=True)
-    want, w_stats = run(fresh(p, batched).replace(step=START), N_STEPS)
+    (want, w_stats), eager = eager_counts(lambda: run(fresh(p, batched).replace(step=START),
+                                                      N_STEPS))
     assert_states_equal(got, want)
-    assert stats == w_stats and run.eager_steps == 0
+    assert stats == w_stats and eager == {"card": 0, "off_card": N_STEPS}
     assert int(got.dead[..., : p.n_cells].sum()) == 3 * (2 if batched else 1)
 
 
@@ -299,7 +317,7 @@ def step_probe(p, state):
     ts = t_et.enter_table(p, state)
     pm = t_et.neighbor_rel_speed_bound(p, ts.fields)
     for j in range(t_et.gate_seg(p)):
-        ts = step(ts, *t_et._gates(p, ts.step), j % k == k - 1)
+        ts = step(ts, *t_chunk.gates(p, ts.step), j % k == k - 1)
         if j % k == k - 1:
             pm = torch.maximum(pm, t_et.neighbor_rel_speed_bound(p, ts.fields))
     return t_et.exit_table(p, ts), pm
@@ -310,15 +328,15 @@ def test_probe_blocks_equal_step_probe(start):
     """The probe as blocks (the gated first block, then an ungated one, the
     maximum in the carry) equals the step-by-step probe bit for bit in
     state and maximum, from step 0 and from the dead step 8 (the first
-    step of the gated block, not run eagerly)."""
+    step of the gated block); every step went through ``chunk.graphed``."""
     p = gated_params(**probe_params())
     assert t_et.gate_seg(p) == 8 and p.dead_step == 8
     probe = t_et.make_probe_chunk(p)
-    got, pm = probe(fresh(p, False).replace(step=start))
+    (got, pm), eager = eager_counts(lambda: probe(fresh(p, False).replace(step=start)))
     want, wpm = step_probe(p, fresh(p, False).replace(step=start))
     assert_states_equal(got, want)
     assert torch.equal(pm, wpm) and float(pm) > 0
-    assert probe.eager_steps == 0
+    assert eager == {"card": 0, "off_card": 8}
 
 
 def test_probe_matches_jax_probe():
@@ -363,7 +381,7 @@ def test_gated_chunk_reads_nothing(case, monkeypatch):
     with monkeypatch.context() as m:
         for name in HOST_READS:
             m.setattr(torch.Tensor, name, refuse(name))
-        out = t_et.drain(gen)
+        out = t_chunk.drain(gen)
     assert out.step == START + N_STEPS and bool(torch.isfinite(out.pos).all())
 
 

@@ -23,6 +23,7 @@ import particlerobotsimulations_torch as pt
 import particlerobotsimulations_tpu as pj
 from particlerobotsimulations_torch import kernels
 from particlerobotsimulations_torch import engine_table as t_et
+from particlerobotsimulations_torch import state as t_state
 from particlerobotsimulations_torch.ops import megakernel as t_mk
 from particlerobotsimulations_torch.ops import pallas_stencil as t_ps
 from particlerobotsimulations_torch.ops import table_rebuild as t_tr
@@ -107,7 +108,7 @@ def test_enter_table_matches_jax(scene):
     jp, tp, st, jts = scene
     tts = t_et.enter_table(tp, state_from_arrays(tp, arrays_of(st), "cpu"))
     np.testing.assert_array_equal(tts.origin.numpy(), np.asarray(jts.origin))
-    for k in t_et.TABLE_FIELDS:
+    for k in t_state.TABLE_FIELDS:
         np.testing.assert_array_equal(
             tts.fields[k].numpy(), np.asarray(jts.fields[k]), err_msg=k
         )
@@ -208,11 +209,11 @@ def test_incremental_rebuild_ok_and_fields(scene, far):
     want, ok_j = j_tr.incremental_rebuild(jp, f, j_et.MOVE_FIELDS, jts.origin)
     ft = {k: torch.tensor(np.asarray(v)) for k, v in f.items()}
     got, ok_t = t_tr.incremental_rebuild(
-        tp, ft, t_et.MOVE_FIELDS, torch.tensor(np.asarray(jts.origin))
+        tp, ft, t_state.MOVE_FIELDS, torch.tensor(np.asarray(jts.origin))
     )
     assert bool(ok_t) == bool(ok_j) == (not far)
     if not far:
-        for k in t_et.MOVE_FIELDS:
+        for k in t_state.MOVE_FIELDS:
             assert (got[k].numpy() == np.asarray(want[k])).all(), k
 
 
@@ -228,9 +229,9 @@ def test_wrappers_refuse_cpu_tensors():
         kernels.compact_cuda(tp, torch.zeros((11, cap, g * g)))
     with pytest.raises(ValueError, match="unsupported device"):
         t_ps.stencil_forces(tp, {k: v.to("meta") for k, v in tables.items()})
-    n_pad = t_et._geometry(tp)[2]
-    tbl = torch.zeros((t_et.N_TF, cap, g * g))
-    strip = torch.zeros((t_et.N_TF, n_pad // 128, 128))
+    n_pad = t_state.table_geometry(tp)[2]
+    tbl = torch.zeros((t_state.N_TF, cap, g * g))
+    strip = torch.zeros((t_state.N_TF, n_pad // 128, 128))
     with pytest.raises(ValueError, match="unsupported device"):
         t_mk.make_mega_span(tp, n_pad)(tbl.to("meta"), strip.to("meta"), 1)
 
@@ -286,7 +287,7 @@ def _eligible_shapes():
                     cell_capacity=cap, force_backend=pt.ForceBackend.PALLAS,
                 ).validate()
                 if t_mk.mega_eligible(p):
-                    shapes.append((g, cap, payload, t_et._geometry(p)[2]))
+                    shapes.append((g, cap, payload, t_state.table_geometry(p)[2]))
     return shapes
 
 

@@ -27,6 +27,7 @@ import torch
 import particlerobotsimulations_torch as pt
 import particlerobotsimulations_tpu as pj
 from particlerobotsimulations_torch import engine_table as t_et
+from particlerobotsimulations_torch import state as t_state
 from particlerobotsimulations_torch.ops import megakernel as t_mk
 from particlerobotsimulations_torch.state import state_from_arrays, state_to_arrays
 from particlerobotsimulations_tpu import engine_table as j_et
@@ -153,7 +154,7 @@ def test_glue_round_trip_and_incremental_equals_jax():
     pack, unpack, inc = t_et._make_mega_glue(tp)
     tbl, strip = pack(ts.fields)
     back = unpack(tbl, strip)
-    for kf in t_et.TABLE_FIELDS:
+    for kf in t_state.TABLE_FIELDS:
         assert torch.equal(back[kf], ts.fields[kf]), kf
 
     got, ok_t = inc(tbl, ts.origin)
@@ -199,7 +200,7 @@ def test_span_twin_matches_jax(scene, no_mega_switch):
     got_t, got_s = t_mk.make_mega_span(tp, n_pad)(
         torch.tensor(np.asarray(tbl)), torch.tensor(np.asarray(strip)), first
     )
-    for j, kf in enumerate(t_et.TABLE_FIELDS):
+    for j, kf in enumerate(t_state.TABLE_FIELDS):
         for got, want in ((got_t, want_t), (got_s, want_s)):
             np.testing.assert_allclose(
                 got[j].numpy(), np.asarray(want[j]), atol=1e-4, rtol=1e-4,

@@ -20,7 +20,7 @@ import torch
 
 import particlerobotsimulations_torch as pt
 from particlerobotsimulations_torch import engine_table as t_et
-from particlerobotsimulations_torch.engine_table import drain
+from particlerobotsimulations_torch.chunk import drain
 from particlerobotsimulations_torch.models.placement import place
 from particlerobotsimulations_torch.state import make_state, stack_states
 from particlerobotsimulations_torch.utils import trace

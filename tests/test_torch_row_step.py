@@ -26,8 +26,10 @@ import pytest
 import torch
 
 import particlerobotsimulations_torch as pt
+from particlerobotsimulations_torch import chunk as t_chunk
 from particlerobotsimulations_torch import engine_table as t_et
 from particlerobotsimulations_torch import kernels, rng
+from particlerobotsimulations_torch import state as t_state
 from particlerobotsimulations_torch.models.placement import resolve_params
 from particlerobotsimulations_torch.ops.row_step import row_step, row_step_plain
 from particlerobotsimulations_torch.parallel.sweep import make_batch_state
@@ -35,7 +37,7 @@ from particlerobotsimulations_torch.state import ARRAY_FIELDS
 
 torch.set_num_threads(1)
 
-UNGATED = t_et.NO_GATES
+UNGATED = t_chunk.NO_GATES
 GATED = (False, True, False)
 ROW_PARTS = ("pre", "post_pre", "post")
 
@@ -122,7 +124,7 @@ def test_step_parts_are_one_step_calls_of_the_steps():
 
 
 def assert_fields_equal(got, want):
-    for k in t_et.TABLE_FIELDS:
+    for k in t_state.TABLE_FIELDS:
         assert torch.equal(got.fields[k], want.fields[k]), k
     assert torch.equal(got.centroid_ring, want.centroid_ring)
     assert got.step == want.step
@@ -144,10 +146,10 @@ def test_fused_steps_equal_one_step_at_a_time(batched, start):
     steps, step = t_et.make_table_steps(p), t_et.make_table_step(p)
     got, want = ts0, ts0
     for pattern in pieces:
-        draws = [t_et._draws(p, got.generator, got.step + j, g, got.fields["dead"].shape, "cpu")
+        draws = [t_chunk.draws(p, got.generator, got.step + j, g, got.fields["dead"].shape, "cpu")
                  for j, (g, _) in enumerate(pattern)]
         srcs = [rng.Drawn(d.get("scores"), d.get("noise")) for d in draws]
-        s0 = t_et.step_tensor(got.step, "cpu")
+        s0 = t_state.step_tensor(got.step, "cpu")
         got = steps(got, pattern, s0, lambda j: srcs[j])
         for j, (gates, rebuild) in enumerate(pattern):
             want = step(want, *gates, rebuild, step_t=s0 + j, source=srcs[j])
@@ -161,13 +163,13 @@ def test_row_step_wrapper_refuses_what_the_kernel_does_not_take():
     p = small_params()
     ts = t_et.enter_table(p, pt.Simulation(p, device="cpu").state)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.row_step_cuda(p, ts.fields, "pre", t_et.step_tensor(0, "cpu"))
+        kernels.row_step_cuda(p, ts.fields, "pre", t_state.step_tensor(0, "cpu"))
     with pytest.raises(ValueError, match="mode"):
         kernels.row_step_cuda(p, ts.fields, "both")
-    step = t_et.step_tensor(0, "cpu")
+    step = t_state.step_tensor(0, "cpu")
     got = row_step(p, ts.fields, "pre", step, 2)
     want = row_step_plain(p, ts.fields, "pre", step, 2)
-    for k in t_et.TABLE_FIELDS:
+    for k in t_state.TABLE_FIELDS:
         assert torch.equal(got[k], want[k]), k
 
 
@@ -205,7 +207,7 @@ def random_fields(p, lead, seed, device):
     velocities (the static hold), positions past the box (the clamp),
     negative, large and frozen phases, dead rows, payload rows, bots
     inside the obstacles."""
-    rows = t_et._geometry(p)[1]
+    rows = t_state.table_geometry(p)[1]
     rng = np.random.default_rng(seed)
     shape = lead + (rows,)
     val = (rng.random(shape) < 0.6).astype(np.float32)
@@ -225,7 +227,7 @@ def random_fields(p, lead, seed, device):
         "bid": np.broadcast_to(np.arange(rows), shape),
     }
     return {k: torch.tensor(np.ascontiguousarray(f[k]), dtype=torch.float32, device=device)
-            for k in t_et.TABLE_FIELDS}
+            for k in t_state.TABLE_FIELDS}
 
 
 def random_forces(p, lead, seed, device):
@@ -251,13 +253,13 @@ def test_row_step_kernel_equals_twin(card, mode, scene, scenes):
     forces = random_forces(p, lead, 12, card) if mode != "pre" else None
     key = "row_step_batched" if lead else "row_step"
     for step, offset in ((0, 0), (4_321, 1), (1_000_003, 7)):
-        s = t_et.step_tensor(step, card)
+        s = t_state.step_tensor(step, card)
         n0 = kernels.LAUNCHES[key]
         got = kernels.row_step_cuda(p, fields, mode, s, offset, forces)
         assert kernels.LAUNCHES[key] == n0 + 1
         want = row_step_plain(p, fields, mode, s, offset, forces)
         torch.cuda.synchronize()
-        for k in t_et.TABLE_FIELDS:
+        for k in t_state.TABLE_FIELDS:
             assert torch.equal(got[k], want[k]), (k, step, int((got[k] != want[k]).sum()))
             if k not in kernels.ROW_STEP_WRITES[mode]:
                 assert got[k] is fields[k], k
@@ -292,10 +294,10 @@ def test_mega_span_rows_equal_twin_ops(card, scene):
     assert sim._run_chunk.path_info["use_mega"]
     sim.step_chunk(200, start_step=0)
     ts = t_et.enter_table(p, sim.state)
-    ts = t_et.make_table_step_parts(p)[0](ts, *t_et._gates(p, ts.step))
+    ts = t_et.make_table_step_parts(p)[0](ts, *t_chunk.gates(p, ts.step))
     pack, unpack, _ = t_et._make_mega_glue(p)
     tbl, strip = pack(ts.fields)
-    first = t_et.step_tensor(ts.step + 1, card)
+    first = t_state.step_tensor(ts.step + 1, card)
     got = kernels.mega_span_cuda(p, tbl.contiguous(), strip.contiguous(), first)
     g, cap = p.resolved_grid_dim(), p.cell_capacity
     names = ("px", "py", "vx", "vy", "rad") + (("afac",) if p.has_payload else ())
@@ -306,7 +308,7 @@ def test_mega_span_rows_equal_twin_ops(card, scene):
     want = pack(f)
     torch.cuda.synchronize()
     for part, a, b in zip(("table", "strip"), got, want):
-        for i, k in enumerate(t_et.TABLE_FIELDS):
+        for i, k in enumerate(t_state.TABLE_FIELDS):
             assert torch.equal(a[i], b[i]), (part, k, int((a[i] != b[i]).sum()))
 
 
@@ -315,11 +317,11 @@ def test_row_step_wrapper_refuses_shapes(card):
     p = kernel_params("plain")
     fields = random_fields(p, (), 1, card)
     forces = random_forces(p, (), 2, card)
-    s = t_et.step_tensor(0, card)
+    s = t_state.step_tensor(0, card)
     with pytest.raises(ValueError, match="forces"):
         kernels.row_step_cuda(p, fields, "post")
     with pytest.raises(ValueError, match="step"):
-        kernels.row_step_cuda(p, fields, "pre", t_et.step_tensor(0, "cpu"))
+        kernels.row_step_cuda(p, fields, "pre", t_state.step_tensor(0, "cpu"))
     with pytest.raises(ValueError, match="forces"):
         kernels.row_step_cuda(p, fields, "post", forces=tuple(f[:8] for f in forces))
     bad = dict(fields, vx=fields["vx"][:-1])

@@ -33,7 +33,7 @@ from jax.sharding import Mesh
 
 import particlerobotsimulations_torch as pt
 import particlerobotsimulations_tpu as pj
-from particlerobotsimulations_torch.engine_table import drain
+from particlerobotsimulations_torch.chunk import drain
 from particlerobotsimulations_torch.parallel import spatial_table as t_st
 from particlerobotsimulations_torch.parallel.mesh import Mesh as TorchMesh
 from particlerobotsimulations_torch.parallel.ring import LocalRing

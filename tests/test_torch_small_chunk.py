@@ -3,7 +3,7 @@
 The per-bot chunk runner (DENSE, STENCIL, CELLGRID; ``engine.
 make_run_chunk`` and ``make_run_chunk_batched``) runs a block from each
 gated step, of at most ``engine.BLOCK_STEPS`` steps, its sim times made on
-the device from a step tensor (``engine_table.sim_time``); on the card a
+the device from a step tensor (``state.sim_time``); on the card a
 block replays a CUDA graph, on the CPU it runs eagerly through the same
 code.  The span path (``engine_table.make_run_chunk_table`` on a
 mega-eligible table with ``seg_aligned``) decides each segment's
@@ -33,9 +33,11 @@ import torch
 
 import particlerobotsimulations_torch as pt
 import particlerobotsimulations_tpu as pj
+from particlerobotsimulations_torch import chunk as t_chunk
 from particlerobotsimulations_torch import engine as t_engine
 from particlerobotsimulations_torch import engine_table as t_et
 from particlerobotsimulations_torch import kernels, rng
+from particlerobotsimulations_torch import state as t_state
 from particlerobotsimulations_torch.ops import megakernel as t_mk
 from particlerobotsimulations_torch.ops.actuation import update_radius
 from particlerobotsimulations_torch.ops.forces import (
@@ -53,6 +55,8 @@ from particlerobotsimulations_torch.state import (
     state_from_arrays,
     state_to_arrays,
 )
+
+from test_torch_gated_blocks import eager_counts
 
 # The port's CPU tests run small tables: one intra-op thread is faster than
 # a pool, and pools oversubscribe the cores when test workers share them.
@@ -121,9 +125,9 @@ def old_step(params, batched):
     body = old_body(params, backend)
 
     def step(state):
-        gates = t_engine._step_gates(params, state.step)
+        gates = t_chunk.step_gates(params, state.step)
         shape = (state.pos.shape[0], state.n_pad) if batched else (state.n_pad,)
-        draws = t_engine._draws(params, state.generator, state.step, gates, shape, state.device)
+        draws = t_chunk.draws(params, state.generator, state.step, gates, shape, state.device)
         arrays = {k: getattr(state, k) for k in ARRAY_FIELDS}
         if batched:
             out = torch.func.vmap(functools.partial(body, step=state.step, gates=gates))(
@@ -163,7 +167,7 @@ def test_device_time_body_equals_host_float_body(backend, batched):
     a, b = fresh(p, batched), fresh(p, batched)
     fired = set()
     for _ in range(12):
-        fired.update(i for i, g in enumerate(t_engine._step_gates(p, a.step)) if g)
+        fired.update(i for i, g in enumerate(t_chunk.step_gates(p, a.step)) if g)
         a, b = new(a), old(b)
         assert_states_equal(a, b)
     assert fired == {0, 1, 2}
@@ -180,7 +184,7 @@ def schedule(p, start, n, block):
         s = start + j
         length = 1
         while length < block and j + length < n and not any(
-                t_engine._step_gates(p, s + length)):
+                t_chunk.step_gates(p, s + length)):
             length += 1
         out.append(length)
         j += length
@@ -203,8 +207,8 @@ def test_block_runner_equals_make_step_loop(case, batched, monkeypatch):
     equals a plain loop of ``make_step`` (``make_step_batched``), bit for
     bit, yielding once per piece (whole blocks, the short blocks before a
     gate, the block the dead step starts, the ragged tail's short block),
-    none run eagerly by design; at ``BLOCK_STEPS`` 4 and at the module's
-    own."""
+    every step through ``chunk.graphed``; at ``BLOCK_STEPS`` 4 and at the
+    module's own."""
     block, kw, start, n = RUNNER_CASES[case]
     monkeypatch.setattr(t_engine, "BLOCK_STEPS", block)
     p = gated_params("DENSE", **kw)
@@ -213,16 +217,19 @@ def test_block_runner_equals_make_step_loop(case, batched, monkeypatch):
     assert any(1 < b < block for b in want_blocks[:-1])
     run = (t_engine.make_run_chunk_batched if batched else t_engine.make_run_chunk)(p, "cpu")
     state = fresh(p, batched).replace(step=start)
-    gen, yields = run.blocks(state, n), 0
-    while True:
-        try:
-            next(gen)
-            yields += 1
-        except StopIteration as stop:
-            got = stop.value
-            break
+
+    def drained():
+        gen, yields = run.blocks(state, n), 0
+        while True:
+            try:
+                next(gen)
+                yields += 1
+            except StopIteration as stop:
+                return stop.value, yields
+
+    (got, yields), eager = eager_counts(drained)
     assert yields == len(want_blocks)
-    assert start <= p.dead_step < start + n and run.eager_steps == 0
+    assert start <= p.dead_step < start + n and eager == {"card": 0, "off_card": n}
     step = (t_engine.make_step_batched if batched else t_engine.make_step)(p, "cpu")
     want = fresh(p, batched).replace(step=start)
     for _ in range(n):
@@ -240,7 +247,7 @@ def test_block_runner_refuses_a_second_chunk_at_once():
     with pytest.raises(RuntimeError, match="one chunk at a time"):
         next(run.blocks(st, 8))
     first.close()
-    assert t_et.drain(run.blocks(st, 8)).step == 8
+    assert t_chunk.drain(run.blocks(st, 8)).step == 8
 
 
 def params_pair(**kw):
@@ -305,20 +312,20 @@ def reference_span_chunk(p, state, n_steps, counts):
     k = max(1, p.resolved_slot_rebuild_steps())
     seg = t_et.gate_seg(p)
     bps = seg // k
-    mega = t_mk.make_mega_span(p, t_et._geometry(p)[2])
+    mega = t_mk.make_mega_span(p, t_state.table_geometry(p)[2])
     mega_pack, mega_unpack, incremental_packed = t_et._make_mega_glue(p)
 
     def regular(ts, n):
         for j in range(n):
-            ts = step(ts, *t_et._gates(p, ts.step), j % k == k - 1)
+            ts = step(ts, *t_chunk.gates(p, ts.step), j % k == k - 1)
         return ts
 
     def mega_seg(ts):
         entry = (dict(ts.fields), ts.origin, ts.step, ts.centroid_ring,
                  rng.snapshot(ts.generator))
         for _ in range(k - 1):
-            ts = step(ts, *t_et._gates(p, ts.step), False)
-        ts = t_et._smart_rebuild(p, step_pre(ts, *t_et._gates(p, ts.step)))
+            ts = step(ts, *t_chunk.gates(p, ts.step), False)
+        ts = t_et._smart_rebuild(p, step_pre(ts, *t_chunk.gates(p, ts.step)))
         tbl, strip = mega_pack(ts.fields)
         ok_all = torch.ones((), dtype=torch.bool, device=tbl.device)
         first = ts.step + 1
@@ -415,7 +422,8 @@ def test_lagged_span_decision_equals_one_read_per_segment(batched, fail, forced_
     run = (t_et.make_run_chunk_table_batched if batched else t_et.make_run_chunk_table)(p)
     assert run.path_info["use_mega"]
     a_in, b_in = fresh(p, batched, (2, 3)), fresh(p, batched, (2, 3))
-    got, launches, rebuilds = counted_run(lambda: run(a_in, n_steps, True))
+    (got, launches, rebuilds), eager = eager_counts(
+        lambda: counted_run(lambda: run(a_in, n_steps, True)))
     counts = {"redos": 0}
     want, w_launches, w_rebuilds = counted_run(
         lambda: reference_span_chunk(p, b_in, n_steps, counts))
@@ -425,7 +433,7 @@ def test_lagged_span_decision_equals_one_read_per_segment(batched, fail, forced_
         assert torch.equal(ga.get_state(), gb.get_state())
     assert run.redos == counts["redos"] == len(fail)
     assert (launches, rebuilds) == (w_launches, w_rebuilds)
-    assert run.eager_steps == 0
+    assert eager == {"card": 0, "off_card": n_steps}
     assert not np.array_equal(got.phase.numpy(), a_in.phase.numpy())
 
 
@@ -456,8 +464,8 @@ def old_mega_span_plain(params, tbl, strip, step: int):
     dt = p.timestep
     has_obstacles = bool(p.circle_obstacles or p.rect_obstacles)
     names = ("px", "py", "vx", "vy", "rad") + (("afac",) if p.has_payload else ())
-    d = {kf: tbl[j] for j, kf in enumerate(t_et.TABLE_FIELDS)}
-    s = {kf: strip[j] for j, kf in enumerate(t_et.TABLE_FIELDS)}
+    d = {kf: tbl[j] for j, kf in enumerate(t_state.TABLE_FIELDS)}
+    s = {kf: strip[j] for j, kf in enumerate(t_state.TABLE_FIELDS)}
     zero = torch.zeros((), dtype=torch.float32, device=tbl.device)
     for j in range(k):
         fx, fy, d["aa"], d["ar"] = stencil_forces_plain(p, {n: d[n] for n in names})
@@ -482,8 +490,8 @@ def old_mega_span_plain(params, tbl, strip, step: int):
         time = float(f32(step + j) * f32(dt))
         d = radius_integrate_planes(p, d, time)
         s = radius_integrate_planes(p, s, time)
-    return (torch.stack([d[kf] for kf in t_et.TABLE_FIELDS]),
-            torch.stack([s[kf] for kf in t_et.TABLE_FIELDS]))
+    return (torch.stack([d[kf] for kf in t_state.TABLE_FIELDS]),
+            torch.stack([s[kf] for kf in t_state.TABLE_FIELDS]))
 
 
 @pytest.mark.parametrize("obstacles", [False, True])
@@ -496,11 +504,11 @@ def test_twin_with_device_step_equals_host_int_twin(obstacles):
     p = span_params(**kw)
     sim = pt.Simulation(p, device="cpu")
     ts = t_et.enter_table(p, sim.state)
-    ts = t_et.make_table_step_parts(p)[0](ts, *t_et._gates(p, ts.step))
+    ts = t_et.make_table_step_parts(p)[0](ts, *t_chunk.gates(p, ts.step))
     tbl, strip = t_et._make_mega_glue(p)[0](ts.fields)
-    span = t_mk.make_mega_span(p, t_et._geometry(p)[2])
+    span = t_mk.make_mega_span(p, t_state.table_geometry(p)[2])
     for first in (1, 12_345, 2**24 + 3):
-        step = t_et.step_tensor(first, "cpu")
+        step = t_state.step_tensor(first, "cpu")
         want = old_mega_span_plain(p, tbl, strip, first)
         for got in (t_mk.mega_span_plain(p, tbl, strip, step), span(tbl, strip, first),
                     span(tbl, strip, step)):

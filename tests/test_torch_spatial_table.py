@@ -37,6 +37,7 @@ import particlerobotsimulations_torch as pt
 import particlerobotsimulations_tpu as pj
 from particlerobotsimulations_torch import engine_table as t_et
 from particlerobotsimulations_torch import kernels
+from particlerobotsimulations_torch import state as t_state
 from particlerobotsimulations_torch.ops import pallas_stencil as t_ps
 from particlerobotsimulations_torch.ops import table_rebuild as t_tr
 from particlerobotsimulations_torch.parallel import spatial_table as t_st
@@ -188,10 +189,10 @@ def moved_planes(tp, fields, origin, kick_rows=60, seed=0):
     f["px"][pick] += rng.uniform(-0.9, 0.9, kick_rows).astype(np.float32) * h
     f["py"][pick] += rng.uniform(-0.9, 0.9, kick_rows).astype(np.float32) * h
     planes = torch.tensor(
-        np.stack([f[k][:total] for k in t_et.MOVE_FIELDS]).reshape(-1, cs, g * g)
+        np.stack([f[k][:total] for k in t_state.MOVE_FIELDS]).reshape(-1, cs, g * g)
     )
     dxf, dyf, far, edge = t_tr.rebuild_move_planes(
-        tp, planes, t_et.MOVE_FIELDS, torch.tensor(origin)
+        tp, planes, t_state.MOVE_FIELDS, torch.tensor(origin)
     )
     assert not bool(far) and not bool(edge)
     return torch.cat([planes, dxf[None], dyf[None]]).numpy()
@@ -263,7 +264,7 @@ def test_rebuild_move_planes_lane_offset_equals_jax(scene):
     stack = torch.tensor(planes).permute(0, 2, 1, 3)     # (nf, D, Cs, L0)
     offs = (torch.arange(D, dtype=torch.int32) * l0).view(D, 1, 1)
     got = t_tr.rebuild_move_planes(
-        tp, stack, t_et.MOVE_FIELDS, torch.tensor(origin), lane_offset=offs
+        tp, stack, t_state.MOVE_FIELDS, torch.tensor(origin), lane_offset=offs
     )
     for d in range(D):
         want = j_tr.rebuild_move_planes(
@@ -271,7 +272,7 @@ def test_rebuild_move_planes_lane_offset_equals_jax(scene):
             lane_offset=d * l0,
         )
         one = t_tr.rebuild_move_planes(
-            tp, torch.tensor(planes[:, :, d]), t_et.MOVE_FIELDS, torch.tensor(origin),
+            tp, torch.tensor(planes[:, :, d]), t_state.MOVE_FIELDS, torch.tensor(origin),
             lane_offset=d * l0,
         )
         for a, b, c in zip(got[:2], want[:2], one[:2]):

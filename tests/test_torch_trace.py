@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import particlerobotsimulations_torch as pt
+from particlerobotsimulations_torch import chunk as t_chunk
 from particlerobotsimulations_torch import engine, engine_table, kernels
 from particlerobotsimulations_torch.engine_table import REBUILDS
 from particlerobotsimulations_torch.parallel.sweep import make_batch_state
@@ -114,7 +115,7 @@ def test_spans_nest_and_self_time_is_duration_less_children(path, want):
 
 
 class StandIn:
-    """Stands in for ``engine_table._CapturedBlock`` off the card: the
+    """Stands in for ``chunk.CapturedBlock`` off the card: the
     block runs eagerly, with the graph's node counts it would report."""
 
     def __init__(self, block, carry):
@@ -133,8 +134,8 @@ class OnCard:
 
 @pytest.mark.parametrize("traced", [False, True])
 def test_a_capture_counts_once_per_key(monkeypatch, traced):
-    monkeypatch.setattr(engine_table, "_CapturedBlock", StandIn)
-    monkeypatch.setattr(engine_table, "step_tensor",
+    monkeypatch.setattr(t_chunk, "CapturedBlock", StandIn)
+    monkeypatch.setattr(t_chunk, "step_tensor",
                         lambda step, device: torch.full((), step, dtype=torch.int64))
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: 0)
 
@@ -151,7 +152,7 @@ def test_a_capture_counts_once_per_key(monkeypatch, traced):
 
     def run():
         for key in keys:
-            engine_table._graphed(graphs, key, block, carry, 0)
+            t_chunk.graphed(graphs, key, block, carry, 0)
 
     if traced:
         _, snap = recorded(run)
@@ -260,12 +261,12 @@ def test_tracing_changes_no_captured_graph(card, monkeypatch):
 
     made = []
 
-    class Kept(engine_table._CapturedBlock):
+    class Kept(t_chunk.CapturedBlock):
         def __init__(self, block, carry):
             super().__init__(block, carry)
             made.append((self.nodes, self.launches))
 
-    monkeypatch.setattr(engine_table, "_CapturedBlock", Kept)
+    monkeypatch.setattr(t_chunk, "CapturedBlock", Kept)
     p = resolve_params(pt.SimParams(**GRAPH_SCENE).validate())
     runs = []
     for traced in (False, True):
